@@ -1,0 +1,19 @@
+"""PyTorch/CUDA port of ``bayesianinference_tpu``: nested sampling of
+Gaussian-process hyperparameters, with the GP covariance assembly and
+Cholesky factorization as hand-written CUDA kernels for the H100.
+
+The JAX package stays the reference; this package imports ``torch`` and
+never ``jax``.  Devices are explicit: work runs on the device of the tensors
+and ``torch.Generator`` the caller passes in.
+"""
+
+import torch
+
+# float32 matrix products must not run in TF32 (about three decimal
+# digits): the GP covariance and its factorization need full precision to
+# stay positive definite, which is why the JAX package pins
+# Precision.HIGHEST for its Gram products.  False is PyTorch's default;
+# it is set here so that nothing the port runs depends on that default.
+torch.backends.cuda.matmul.allow_tf32 = False
+
+__version__ = "0.1.0"

@@ -1,0 +1,60 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on the
+card.  Marked ``cuda``: without a CUDA device every test here skips (the
+check happens inside the fixture, never at import).  On a machine with a
+card run them with
+``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest`` (the
+suite's conftest imports JAX);
+``chip_smoke.py`` is the authoritative check there.
+
+Tolerances are chip_smoke.py's: se_covariance max abs error <= 1e-12 * var
+(float64) and 1e-5 * var (float32); cholesky <= 1e-10 * max|L| (float64)
+and 5e-4 * max|L| (float32, the bound of tests/test_gp.py).
+"""
+
+import pytest
+import torch
+
+from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_se_covariance_kernel_matches_plain(cuda, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((10, 512, 3), generator=g, device=cuda, dtype=dtype)
+    var = 0.5 + torch.rand((10,), generator=g, device=cuda, dtype=dtype)
+    before = gk.se_covariance_cuda.launches
+    got = gk.se_covariance(x, x, var)
+    assert gk.se_covariance_cuda.launches == before + 1
+    want = gk.se_covariance_plain(x, x, var)
+    assert ((got - want).abs() / var[:, None, None]).max().item() <= tol
+    assert torch.equal(got, got.mT)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 5e-4)])
+@pytest.mark.parametrize("n", [50, 513])
+def test_cholesky_kernel_matches_plain(cuda, dtype, tol, n):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn((4, n, n), generator=g, device=cuda, dtype=dtype)
+    k = a @ a.mT + n * torch.eye(n, device=cuda, dtype=dtype)
+    before = gk.cholesky_cuda.launches
+    got = gk.cholesky(k)
+    assert gk.cholesky_cuda.launches == before + 1
+    want = gk.cholesky_plain(k)
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+    assert torch.count_nonzero(torch.triu(got, 1)).item() == 0
+
+
+def test_cholesky_kernel_non_pd_propagates_nan(cuda):
+    x = torch.zeros((1, 40, 2), device=cuda, dtype=torch.float64)
+    k = gk.se_covariance(x, x, torch.ones(1, device=cuda, dtype=torch.float64))
+    diag = torch.diagonal(gk.cholesky(k), dim1=-2, dim2=-1)
+    assert not bool(torch.isfinite(diag).all())
