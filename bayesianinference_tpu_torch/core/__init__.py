@@ -1,6 +1,7 @@
 """Core numerics and containers."""
 
 from .containers import WeightedSamples, take_posterior_fraction
+from .linalg import inverse_matrix_block_inverse, matrix_block_inverse
 from .numerics import (
     LOG2PI,
     exp_neg_precise,
@@ -13,3 +14,4 @@ from .numerics import (
     logsumexp,
     xlogy,
 )
+from .standardize import NormalizedData, Standardizer, data_normal_form, normalize_data, standardize

@@ -1,7 +1,8 @@
-"""Distributions of the nested-sampling and GP path."""
+"""Distributions of the nested-sampling, GP and Laplace paths."""
 
 from .base import Distribution
 from .combinators import ImproperUniform, Product, Truncated
-from .empirical import Empirical
+from .empirical import Empirical, ParameterMixture
+from .multivariate import MultivariateNormal, MultivariateNormalPrecision, MultivariateT, mvgammaln
 from .pointwise import PointwiseMixture
-from .scalar import Cauchy, LogUniform, Normal, Uniform
+from .scalar import Bernoulli, BernoulliLogits, Cauchy, LogNormal, LogUniform, Normal, Uniform

@@ -1,6 +1,7 @@
 """Scalar distribution families (port of the part of
-``bayesianinference_tpu.dists.scalar`` that the nested-sampling and GP
-path imports: ``Normal``, ``Uniform``, ``LogUniform`` and ``Cauchy``)."""
+``bayesianinference_tpu.dists.scalar`` that the nested-sampling, GP and
+Laplace paths use: ``Normal``, ``Uniform``, ``LogUniform``, ``Cauchy``,
+``LogNormal``, ``Bernoulli`` and ``BernoulliLogits``)."""
 
 from __future__ import annotations
 
@@ -8,10 +9,10 @@ import math
 
 import torch
 
-from ..core.numerics import LOG2PI, as_float
+from ..core.numerics import LOG2PI, as_float, log_zero, xlogy
 from .base import Distribution, as_param, dist_dataclass, param_dtype, param_shape
 
-__all__ = ["Normal", "Uniform", "LogUniform", "Cauchy"]
+__all__ = ["Normal", "Uniform", "LogUniform", "Cauchy", "LogNormal", "Bernoulli", "BernoulliLogits"]
 
 _LOGPI = 1.1447298858494002
 
@@ -160,3 +161,99 @@ class Cauchy(Distribution):
     def icdf(self, q):
         q = as_float(q)
         return as_param(self.loc, q) + as_param(self.scale, q) * torch.tan(math.pi * (q - 0.5))
+
+
+@dist_dataclass
+class LogNormal(Distribution):
+    loc: object = 0.0
+    scale: object = 1.0
+
+    def support(self):
+        return (0.0, math.inf)
+
+    def log_prob(self, x):
+        x = as_float(x)
+        mu, s = as_param(self.loc, x), as_param(self.scale, x)
+        safe_x = torch.where(x > 0, x, torch.ones_like(x))
+        z = (torch.log(safe_x) - mu) / s
+        logp = -0.5 * (z * z + LOG2PI) - torch.log(s) - torch.log(safe_x)
+        # open support: the density at x = 0 is 0
+        logp = self._mask_support(x, logp)
+        return torch.where(x > 0, logp, torch.full_like(logp, log_zero(logp.dtype)))
+
+    def sample(self, generator, shape=()):
+        z = _draw(torch.randn, generator, shape, self.loc, self.scale)
+        return torch.exp(as_param(self.loc, z) + as_param(self.scale, z) * z)
+
+    def cdf(self, x):
+        x = as_float(x)
+        safe_x = torch.where(x > 0, x, torch.ones_like(x))
+        c = torch.special.ndtr((torch.log(safe_x) - as_param(self.loc, x)) / as_param(self.scale, x))
+        return torch.where(x > 0, c, torch.zeros_like(c))
+
+    def icdf(self, q):
+        q = as_float(q)
+        return torch.exp(as_param(self.loc, q) + as_param(self.scale, q) * torch.special.ndtri(q))
+
+    def mean(self):
+        dt = param_dtype(self.loc, self.scale)
+        loc, s = torch.as_tensor(self.loc, dtype=dt), torch.as_tensor(self.scale, dtype=dt)
+        return torch.exp(loc + 0.5 * s**2)
+
+    def variance(self):
+        dt = param_dtype(self.loc, self.scale)
+        loc, s2 = torch.as_tensor(self.loc, dtype=dt), torch.as_tensor(self.scale, dtype=dt) ** 2
+        return torch.expm1(s2) * torch.exp(2.0 * loc + s2)
+
+
+@dist_dataclass
+class Bernoulli(Distribution):
+    """Bernoulli over {0, 1} with probability ``p``."""
+
+    p: object = 0.5
+
+    def support(self):
+        return (0.0, 1.0)
+
+    def log_prob(self, x):
+        x = as_float(x)
+        p = as_param(self.p, x)
+        logp = xlogy(x, p) + xlogy(1.0 - x, 1.0 - p)
+        valid = (x == 0) | (x == 1)
+        return torch.where(valid & torch.isfinite(logp), logp, torch.full_like(logp, log_zero(logp.dtype)))
+
+    def sample(self, generator, shape=()):
+        u = _draw(torch.rand, generator, shape, self.p)
+        return (u < as_param(self.p, u)).to(u.dtype)
+
+    def mean(self):
+        return torch.as_tensor(self.p, dtype=param_dtype(self.p))
+
+    def variance(self):
+        p = torch.as_tensor(self.p, dtype=param_dtype(self.p))
+        return p * (1.0 - p)
+
+
+@dist_dataclass
+class BernoulliLogits(Distribution):
+    """Bernoulli parameterized by logits, through the stable log-sigmoid
+    forms log sigma(l) = -softplus(-l), log(1 - sigma(l)) = -softplus(l)."""
+
+    logits: object = 0.0
+
+    def support(self):
+        return (0.0, 1.0)
+
+    def log_prob(self, x):
+        x = as_float(x)
+        lg = as_param(self.logits, x)
+        logp = -x * torch.nn.functional.softplus(-lg) - (1.0 - x) * torch.nn.functional.softplus(lg)
+        valid = (x == 0) | (x == 1)
+        return torch.where(valid, logp, torch.full_like(logp, log_zero(logp.dtype)))
+
+    def sample(self, generator, shape=()):
+        u = _draw(torch.rand, generator, shape, self.logits)
+        return (u < torch.sigmoid(as_param(self.logits, u))).to(u.dtype)
+
+    def mean(self):
+        return torch.sigmoid(torch.as_tensor(self.logits, dtype=param_dtype(self.logits)))

@@ -12,13 +12,16 @@ moments over the posterior samples the same way.
 from __future__ import annotations
 
 import dataclasses
+import numbers
 import warnings
 from typing import Callable, Optional
 
 import torch
 
 from ..core.numerics import as_float
+from ..core.standardize import NormalizedData, normalize_data
 from ..dists.base import as_param
+from ..dists.multivariate import MultivariateNormal
 from ..dists.pointwise import PointwiseMixture
 from ..dists.scalar import Normal
 from ..models.problem import InferenceProblem, define_inference_problem
@@ -55,6 +58,9 @@ class GPModel:
     * ``kernel_builder(theta) -> Kernel`` (None: pure-nugget model);
     * ``nugget_builder(theta) -> scalar | [n] | callable`` (optional);
     * ``mean_builder(theta) -> callable x -> [n]`` (optional).
+
+    ``logml_method``: "direct" (the Cholesky logML) or "automatic" (the
+    multivariate-normal log-density of y).
     """
 
     x: torch.Tensor  # [n, d]
@@ -62,6 +68,7 @@ class GPModel:
     kernel_builder: Optional[Callable]
     nugget_builder: Optional[Callable] = None
     mean_builder: Optional[Callable] = None
+    logml_method: str = "direct"
 
     def _pieces(self, theta):
         kernel = self.kernel_builder(theta) if self.kernel_builder else None
@@ -83,6 +90,8 @@ class GPModel:
         # the factorization reads one triangle; built-in kernels are
         # exactly symmetric and skip the symmetrization pass
         k = covariance_matrix(kernel, self.x, nugget, symmetrize=not kernel.exactly_symmetric)
+        if self.logml_method == "automatic":
+            return torch.sum(MultivariateNormal(mean_=torch.zeros_like(y), cov=k).log_prob(y))
         return gp_log_marginal_likelihood(k, y)
 
     def posterior_moments(self, theta, x_query, query_nugget: bool = True):
@@ -117,14 +126,14 @@ def define_gaussian_process(
     log_likelihood_method: str = "direct",
 ) -> InferenceProblem:
     """The inference problem of GP hyperparameters given data ``x`` [n, d]
-    and ``y`` [n] (or [n, 1]); it lives on ``x``'s device, in its dtype."""
-    if normalize:
-        raise NotImplementedError("normalize=True waits for the port of core/standardize.py (ROADMAP port queue)")
-    if log_likelihood_method != "direct":
-        raise NotImplementedError(
-            f"log_likelihood_method={log_likelihood_method!r}: only the Cholesky "
-            "('direct') path is ported; the MVN path waits for dists/multivariate.py"
-        )
+    and ``y`` [n] (or [n, 1]); it lives on ``x``'s device, in its dtype.
+
+    ``normalize=True`` standardizes x and y and keeps the transforms as
+    the problem's ``data_preprocessors`` metadata.
+    ``log_likelihood_method``: "direct" (Cholesky logML) or "automatic"
+    (multivariate-normal log-density); both agree to numerical precision."""
+    if log_likelihood_method not in ("direct", "automatic"):
+        raise ValueError(f"bad log_likelihood_method {log_likelihood_method!r}")
     x = torch.atleast_2d(as_float(x))
     y = as_float(y).to(device=x.device, dtype=x.dtype)
     if y.dim() == 2:
@@ -133,8 +142,12 @@ def define_gaussian_process(
         y = y[:, 0]
     if x.shape[0] != y.shape[0]:
         raise ValueError("input and output data are not of the same length")
-    model = GPModel(x=x, y=y, kernel_builder=kernel_builder,
-                    nugget_builder=nugget_builder, mean_builder=mean_builder)
+    norm: Optional[NormalizedData] = None
+    if normalize:
+        norm = normalize_data(x, y[:, None])
+        x, y = norm.x, norm.y[:, 0]
+    model = GPModel(x=x, y=y, kernel_builder=kernel_builder, nugget_builder=nugget_builder,
+                    mean_builder=mean_builder, logml_method=log_likelihood_method)
     return define_inference_problem(
         parameters=parameters,
         log_likelihood=model.log_marginal_likelihood,
@@ -145,7 +158,7 @@ def define_gaussian_process(
         device=x.device,
         dtype=x.dtype,
         gaussian_process=model,
-        data_preprocessors=None,
+        data_preprocessors=norm,
     )
 
 
@@ -160,14 +173,16 @@ def predict_from_gaussian_process(
 ) -> PointwiseMixture:
     """Posterior predictive at query points: for each posterior sample a
     Gaussian N(m*, s*), mixed with the crude posterior weights.  ``points``
-    is [m, d], or an int for a grid over the training inputs' bounds.
+    is [m, d], or an integer (a Python or numpy integer, not a bool) for a
+    grid with that many points per dimension over the training inputs'
+    bounds.
     Samples are mapped with ``torch.func.vmap`` in chunks of
     ``sample_chunk`` (default: keep the covariance stack under ~4 GB)."""
     model: GPModel = (problem.metadata or {}).get("gaussian_process")
     if model is None:
         raise ValueError("problem has no attached GPModel metadata")
-    if isinstance(points, int) and not isinstance(points, bool):
-        points = coordinate_bounds_grid(model.x, points)
+    if isinstance(points, numbers.Integral) and not isinstance(points, bool):
+        points = coordinate_bounds_grid(model.x, int(points))
     points = torch.atleast_2d(torch.as_tensor(points, dtype=model.x.dtype, device=model.x.device))
 
     if isinstance(result, NestedSamplingResult):

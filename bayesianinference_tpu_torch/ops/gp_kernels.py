@@ -1,5 +1,5 @@
-"""Gaussian-process covariance kernels and log-marginal likelihood (port of
-the nested-sampling GP path of ``bayesianinference_tpu.ops.gp_kernels``).
+"""Gaussian-process covariance kernels and log-marginal likelihood, with
+gradients (port of ``bayesianinference_tpu.ops.gp_kernels``).
 
 Two operations run as hand-written CUDA kernels on the card (sources in
 ``../csrc``), each registered as a ``torch.library`` custom op:
@@ -15,17 +15,28 @@ On a CPU tensor each op runs its plain PyTorch version
 launches the kernel or raises.  Both ops have a fake (meta) rule and a
 ``torch.func.vmap`` rule that folds the vmapped dimension into the
 kernel's batch dimension, so per-point GP likelihoods batched by
-``InferenceProblem`` reach the kernels as one batched launch.  No backward
-is registered: asking for a gradient through them raises.
+``InferenceProblem`` reach the kernels as one batched launch.
 
-``solve_triangular`` and the log-determinant stay ``torch.linalg`` and
-plain tensor ops, as the JAX package computes them outside any Pallas
-kernel.
+The wrappers :func:`se_covariance` and :func:`cholesky` carry each op's
+reverse rule (``_SECovariance``, ``_Cholesky``), written in differentiable
+torch ops, so second derivatives (the Laplace Hessian, taken reverse over
+reverse) run through the kernels too; the bare ops have no autograd
+formula.  ``torch.func.jacfwd`` does not reach a custom op: take Hessians
+with ``torch.func.jacrev(torch.func.jacrev(f))``.
+
+:func:`gp_log_marginal_likelihood` has the JAX package's closed-form
+reverse rule d logML/dK = (alpha alpha^T - K^-1)/2, d logML/dy = -alpha
+(zero where the factorization failed).  It reads the factor from the
+``cholesky`` op as an input, so a second derivative sees how the factor
+moves with K.  ``solve_triangular``, ``cholesky_inverse`` and the
+log-determinant stay ``torch.linalg`` and plain tensor ops, as the JAX
+package computes them outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -37,6 +48,13 @@ from ..dists.base import as_param
 __all__ = [
     "Kernel",
     "se_kernel",
+    "matern12_kernel",
+    "matern32_kernel",
+    "matern52_kernel",
+    "rational_quadratic_kernel",
+    "periodic_kernel",
+    "linear_kernel",
+    "constant_kernel",
     "white_kernel",
     "squared_distances",
     "covariance_matrix",
@@ -152,6 +170,39 @@ def _se_covariance_vmap(info, in_dims, x1, x2, variance):
 _se_covariance_op.register_vmap(_se_covariance_vmap)
 
 
+class _SECovariance(torch.autograd.Function):
+    """The ``se_covariance`` op with its reverse rule.  With P = grad * K:
+    d/dvariance = sum(P) / variance, and in Gram form
+    d/dx1 = P x2 - rowsum(P) x1, d/dx2 = P^T x1 - colsum(P) x2, which never
+    builds the [B, n1, n2, d] difference.  The backward is plain
+    differentiable ops on the saved K, so a second derivative runs through
+    the op again.
+
+    An ``autograd.Function`` with ``setup_context`` rather than
+    ``torch.library.register_autograd``: the Function that the latter
+    generates has no ``setup_context``, and ``torch.func`` transforms
+    (``grad``, ``vmap(grad)``, ``jacrev``) refuse it."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x1, x2, variance):
+        return torch.ops.bayesianinference_tpu_torch.se_covariance(x1, x2, variance)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x1, x2, variance, k = ctx.saved_tensors
+        p = grad * k
+        gx1 = p @ x2 - p.sum(dim=-1, keepdim=True) * x1
+        gx2 = p.mT @ x1 - p.sum(dim=-2).unsqueeze(-1) * x2
+        gvar = p.sum(dim=(-2, -1)) / variance
+        return gx1, gx2, gvar
+
+
 def se_covariance(x1, x2, variance) -> torch.Tensor:
     """``variance * exp(-|x1_i - x2_j|^2 / 2)`` for x1 [..., n1, d] and
     x2 [..., n2, d] (already divided by the lengthscale) with a scalar or
@@ -161,7 +212,7 @@ def se_covariance(x1, x2, variance) -> torch.Tensor:
     batch = torch.broadcast_shapes(x1.shape[:-2], x2.shape[:-2], variance.shape)
     n1, d = x1.shape[-2:]
     n2 = x2.shape[-2]
-    out = torch.ops.bayesianinference_tpu_torch.se_covariance(
+    out = _SECovariance.apply(
         x1.expand(*batch, n1, d).reshape(-1, n1, d).contiguous(),
         x2.expand(*batch, n2, d).reshape(-1, n2, d).contiguous(),
         variance.expand(batch).reshape(-1).contiguous(),
@@ -229,10 +280,48 @@ def _cholesky_vmap(info, in_dims, k):
 _cholesky_op.register_vmap(_cholesky_vmap)
 
 
+class _Cholesky(torch.autograd.Function):
+    """The ``cholesky`` op with the reverse rule of a Cholesky factor,
+    symmetrized as JAX's ``cholesky`` JVP symmetrizes its tangent:
+    dK = sym(L^-T Phi(L^T dL) L^-1), Phi = lower triangle with the
+    diagonal halved.  Differentiable ops on the saved factor (see
+    :class:`_SECovariance` for why this is a Function).  A matrix that
+    failed to factor (NaN factor) gets a zero gradient, not NaN: the
+    ``torch.func`` transforms hand a zero cotangent even to a factor that
+    the logML masked out, and NaN * 0 would poison the whole gradient."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(k):
+        return torch.ops.bayesianinference_tpu_torch.cholesky(k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+        # the logML's first derivative sends the factor no gradient; left
+        # unmaterialized, that skips this rule's two n x n solves
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if grad is None:
+            return None
+        (factor,) = ctx.saved_tensors
+        ok = torch.isfinite(torch.diagonal(factor, dim1=-2, dim2=-1)).all(dim=-1)[..., None, None]
+        eye = torch.eye(factor.shape[-1], dtype=factor.dtype, device=factor.device)
+        factor = torch.where(ok, factor, eye)
+        p = factor.mT @ grad.tril()
+        p = p.tril() - 0.5 * torch.diag_embed(torch.diagonal(p, dim1=-2, dim2=-1))
+        p = torch.linalg.solve_triangular(factor.mT, p, upper=True)
+        p = torch.linalg.solve_triangular(factor, p, upper=False, left=False)
+        return torch.where(ok, 0.5 * (p + p.mT), 0.0)
+
+
 def cholesky(k: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of [..., n, n] through the custom op."""
     n = k.shape[-1]
-    out = torch.ops.bayesianinference_tpu_torch.cholesky(k.reshape(-1, n, n).contiguous())
+    out = _Cholesky.apply(k.reshape(-1, n, n).contiguous())
     return out.reshape(k.shape)
 
 
@@ -286,6 +375,104 @@ def se_kernel(variance=1.0, lengthscale=1.0) -> Kernel:
     return Kernel(matrix=matrix, diag=diag, exactly_symmetric=True)
 
 
+def _stationary(f_of_sqdist: Callable, variance, lengthscale=1.0) -> Kernel:
+    """Stationary kernel v * f(|x - x'|^2) in lengthscale-rescaled inputs
+    (``lengthscale`` scalar or [d], ARD), plain torch through
+    :func:`squared_distances`."""
+
+    def matrix(a, b):
+        a, b = as_float(a), as_float(b)
+        inv = 1.0 / as_param(lengthscale, a)
+        return as_param(variance, a) * f_of_sqdist(squared_distances(a * inv, b * inv))
+
+    def diag(a):
+        a = as_float(a)
+        return as_param(variance, a) * torch.ones(a.shape[0], dtype=a.dtype, device=a.device)
+
+    return Kernel(matrix=matrix, diag=diag, exactly_symmetric=True)
+
+
+def matern12_kernel(variance=1.0, lengthscale=1.0) -> Kernel:
+    """Matern-1/2 (Ornstein-Uhlenbeck): v * exp(-r / l)."""
+    return _stationary(lambda sq: exp_neg_precise(-torch.sqrt(sq + 1e-36)), variance, lengthscale)
+
+
+def matern32_kernel(variance=1.0, lengthscale=1.0) -> Kernel:
+    """Matern-3/2: v * (1 + sqrt(3) r / l) exp(-sqrt(3) r / l)."""
+
+    def f(sq):
+        r = torch.sqrt(3.0 * sq + 1e-36)
+        return (1.0 + r) * exp_neg_precise(-r)
+
+    return _stationary(f, variance, lengthscale)
+
+
+def matern52_kernel(variance=1.0, lengthscale=1.0) -> Kernel:
+    """Matern-5/2: v * (1 + u + u^2/3) exp(-u), u = sqrt(5) r / l."""
+
+    def f(sq):
+        r = torch.sqrt(5.0 * sq + 1e-36)
+        return (1.0 + r + r * r / 3.0) * exp_neg_precise(-r)
+
+    return _stationary(f, variance, lengthscale)
+
+
+def rational_quadratic_kernel(variance=1.0, lengthscale=1.0, alpha=1.0) -> Kernel:
+    """Rational quadratic: v * (1 + r^2 / (2 a l^2))^-a."""
+
+    def f(sq):
+        a = as_param(alpha, sq)
+        return exp_neg_precise(-a * log_precise(1.0 + sq / (2.0 * a)))
+
+    return _stationary(f, variance, lengthscale)
+
+
+def periodic_kernel(variance=1.0, lengthscale=1.0, period=1.0) -> Kernel:
+    """Periodic (exp-sine-squared) kernel on the L1 distance."""
+
+    def matrix(a, b):
+        a, b = as_float(a), as_float(b)
+        v, l, p = (as_param(t, a) for t in (variance, lengthscale, period))
+        r = torch.abs(a[:, None, :] - b[None, :, :]).sum(dim=-1)
+        return v * exp_neg_precise(-2.0 * torch.sin(math.pi * r / p) ** 2 / l**2)
+
+    def diag(a):
+        a = as_float(a)
+        return as_param(variance, a) * torch.ones(a.shape[0], dtype=a.dtype, device=a.device)
+
+    return Kernel(matrix=matrix, diag=diag, exactly_symmetric=True)
+
+
+def linear_kernel(variance=1.0, offset=0.0) -> Kernel:
+    """Dot-product kernel v * (x - c).(x' - c); ``variance`` scalar or [d]
+    (ARD weight variances, folded into the left factor)."""
+
+    def matrix(a, b):
+        a, b = as_float(a), as_float(b)
+        sqv, c = torch.sqrt(as_param(variance, a)), as_param(offset, a)
+        return ((a - c) * sqv) @ ((b - c) * sqv).mT
+
+    def diag(a):
+        a = as_float(a)
+        return torch.sum(as_param(variance, a) * (a - as_param(offset, a)) ** 2, dim=-1)
+
+    return Kernel(matrix=matrix, diag=diag, exactly_symmetric=True)
+
+
+def constant_kernel(variance=1.0) -> Kernel:
+    """Constant covariance v (a shared random level across all inputs)."""
+
+    def matrix(a, b):
+        a = as_float(a)
+        return as_param(variance, a) * torch.ones((a.shape[0], b.shape[0]), dtype=a.dtype, device=a.device)
+
+    def diag(a):
+        a = as_float(a)
+        return as_param(variance, a) * torch.ones(a.shape[0], dtype=a.dtype, device=a.device)
+
+    return Kernel(matrix=matrix, diag=diag, exactly_symmetric=True)
+
+
 def white_kernel(variance=1.0) -> Kernel:
     """Nugget as a kernel: contributes only to the diagonal."""
 
@@ -319,11 +506,61 @@ def covariance_matrix(kernel: Kernel, x, nugget=None, symmetrize: bool = True) -
     return k + torch.diag_embed(_nugget_vector(nugget, x))
 
 
+def _inv_from_chol(factor: torch.Tensor) -> torch.Tensor:
+    """K^-1 from its lower factor, symmetrized.  ``torch.cholesky_inverse``
+    stands in for the JAX package's blocked divide-and-conquer inverse
+    (``_tri_inv_lower``), which exists to keep the TPU's matrix unit busy:
+    on the H100 ``cholesky_inverse`` is the faster of the two (PERF.md)."""
+    k_inv = torch.cholesky_inverse(factor)
+    return 0.5 * (k_inv + k_inv.mT)
+
+
+class _LogML(torch.autograd.Function):
+    """logML from a factor the caller took with the ``cholesky`` op.
+
+    Inputs (k, y, factor, ok): ``factor`` is the (failure-masked) factor of
+    ``k`` and ``ok`` marks the matrices that factored.  The forward reads
+    only ``factor`` and ``y``; the backward gives the closed form
+    d/dk = (alpha alpha^T - K^-1)/2, d/dy = -alpha (both zero where
+    ``ok`` is false) and nothing for ``factor``.  Because ``factor`` is a
+    graph node that depends on ``k`` through the op's own autograd rule,
+    differentiating this backward again gives the exact second
+    derivative."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(k, y, factor, ok):
+        n = y.shape[-1]
+        w = torch.linalg.solve_triangular(factor, y.unsqueeze(-1), upper=False)[..., 0]
+        logdet = 2.0 * torch.sum(log_precise(torch.diagonal(factor, dim1=-2, dim2=-1)), dim=-1)
+        out = -0.5 * (n * LOG2PI + logdet + torch.sum(w * w, dim=-1))
+        lz = log_zero(out.dtype)
+        return torch.where(ok, torch.clamp(out, lz, -lz), torch.full_like(out, lz))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, y, factor, ok = inputs
+        ctx.save_for_backward(y, factor, ok)
+
+    @staticmethod
+    def backward(ctx, grad):
+        y, factor, ok = ctx.saved_tensors
+        w = torch.linalg.solve_triangular(factor, y.unsqueeze(-1), upper=False)
+        alpha = torch.linalg.solve_triangular(factor.mT, w, upper=True)[..., 0]  # K^-1 y
+        dk = 0.5 * (alpha.unsqueeze(-1) * alpha.unsqueeze(-2) - _inv_from_chol(factor))
+        dk = torch.where(ok[..., None, None], dk, 0.0)
+        dy = torch.where(ok[..., None], -alpha, 0.0)
+        return grad[..., None, None] * dk, grad[..., None] * dy, None, None
+
+
 def gp_log_marginal_likelihood(k_matrix: torch.Tensor, y, mean=None) -> torch.Tensor:
     """Clipped GP log marginal likelihood -(n log 2pi + log|K| + y^T K^-1 y)/2
     through one factorization by the ``cholesky`` op.  A failed
     factorization (any non-finite diagonal entry) gives the log-zero
-    sentinel.  Batched over leading dims of ``k_matrix`` [..., n, n]."""
+    sentinel and a zero gradient.  Batched over leading dims of
+    ``k_matrix`` [..., n, n]; the gradient is the closed form of
+    :class:`_LogML`."""
     y = as_float(y)
     if mean is not None:
         y = y - mean
@@ -332,12 +569,8 @@ def gp_log_marginal_likelihood(k_matrix: torch.Tensor, y, mean=None) -> torch.Te
     ok = torch.isfinite(torch.diagonal(factor, dim1=-2, dim2=-1)).all(dim=-1)
     eye = torch.eye(n, dtype=factor.dtype, device=factor.device)
     safe = torch.where(ok[..., None, None], factor, eye)
-    w = torch.linalg.solve_triangular(safe, y.unsqueeze(-1).expand(*safe.shape[:-1], 1), upper=False)[..., 0]
-    logdet = 2.0 * torch.sum(log_precise(torch.diagonal(safe, dim1=-2, dim2=-1)), dim=-1)
-    out = -0.5 * (n * LOG2PI + logdet + torch.sum(w * w, dim=-1))
-    lz = log_zero(out.dtype)
-    out = torch.clamp(out, lz, -lz)
-    return torch.where(ok, out, torch.full_like(out, lz))
+    y = y.expand(*safe.shape[:-1])
+    return _LogML.apply(k_matrix, y, safe, ok)
 
 
 def gp_posterior_moments(

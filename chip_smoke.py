@@ -13,7 +13,20 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
 4. the slice: GP hyperparameter posterior by nested sampling at n = 512,
    d = 3 (float64), then prediction at 64 query points; the kernels'
    launch counters prove the run went through them;
-5. kernel times with CUDA events at the slice's shapes.
+5. kernel times with CUDA events at the slice's shapes;
+6. GP logML and its hyperparameter gradient at bench.py's full width
+   (n = 16384, d = 3, float32): through the kernels and the closed-form
+   backward, and through the plain versions, each against the plain
+   float64 value; wall times of both, and of the K^-1 the backward uses;
+7. the Laplace fit of phase 4's GP problem from 8 fixed starts through the
+   kernels, twice, held against the same fit through the plain versions on
+   CPU tensors, and its Gaussian posterior's density at 1000 of its draws
+   against the same on the CPU; its logZ beside the nested-sampling logZ
+   of phase 4.
+
+Each of phases 4, 6 and 7 zeroes the kernels' launch counters before it
+drives its path and fails if a kernel was not launched; the ``launches``
+of the JSON line are their sum.
 
 The line before the last is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -31,6 +44,7 @@ import numpy as np
 import torch
 
 SLICE_N, SLICE_D, SLICE_B = 512, 3, 10
+GRAD_N = 16384  # bench.py::bench_gp
 SE_SOURCE = "bayesianinference_tpu_torch/csrc/se_covariance.cu"
 CHOL_SOURCE = "bayesianinference_tpu_torch/csrc/cholesky.cu"
 SE_REPLACES = "bayesianinference_tpu/ops/gp_kernels.py:436"
@@ -84,7 +98,7 @@ def phase_kernel_parity():
             if x2 is x1 and not torch.equal(got, got.mT):
                 raise AssertionError(f"se_covariance {dtype} {(b, n1, d)}: not bitwise symmetric")
             worst["se_covariance"] = max(worst["se_covariance"], (got - want).abs().max().item())
-        for n in (50, 128, 512, 1000):
+        for n in (3, 50, 128, 512, 1000):  # 3: a Laplace posterior's factor
             for b in (1, 10):
                 a = torch.randn((b, n, n), generator=g, device=dev, dtype=dtype)
                 k = a @ a.mT + n * torch.eye(n, device=dev, dtype=dtype)
@@ -287,15 +301,185 @@ def phase_gp_slice(smi: str):
         f"grid quadrature logZ {z_fine:.4f} (40^3 vs 30^3 differ by {grid_err:.1e}); launches {launches}; logML kernel vs plain max rel diff {max_rel:.3e} on {int(ok.sum())} points "
         f"({int(sentinel_got.sum())} sentinels); predictive mean range [{mean.min().item():.3f}, "
         f"{mean.max().item():.3f}] | {smi}")
-    return launches
+    return launches, problem, (logz, err)
+
+
+def _gp_logml(th, x, y):
+    """bench.py's GP objective through the port's API: SE kernel with
+    log-variance th[0], log-lengthscale th[1], log-nugget th[2],
+    ``symmetrize=False``; on CUDA tensors both kernels and the closed-form
+    backward."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    k = gk.covariance_matrix(gk.se_kernel(torch.exp(th[0]), torch.exp(th[1])), x, nugget=torch.exp(th[2]),
+                             symmetrize=False)
+    return gk.gp_log_marginal_likelihood(k, y)
+
+
+def _gp_logml_plain(th, x, y):
+    """The same objective through the plain versions only:
+    ``se_covariance_plain``, ``torch.linalg.cholesky``, autograd."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    xs = x * torch.exp(-th[1])
+    k = gk.se_covariance_plain(xs[None], xs[None], torch.exp(th[0])[None])[0]
+    k = k + torch.exp(th[2]) * torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
+    factor = torch.linalg.cholesky(k)
+    w = torch.linalg.solve_triangular(factor, y[:, None], upper=False)[:, 0]
+    logdet = 2.0 * torch.log(torch.diagonal(factor)).sum()
+    return -0.5 * (x.shape[0] * math.log(2 * math.pi) + logdet + (w * w).sum())
+
+
+def _value_and_grad(fn, th, x, y):
+    th = th.detach().requires_grad_(True)
+    value = fn(th, x, y)
+    (grad,) = torch.autograd.grad(value, th)
+    return value.detach(), grad
+
+
+def _wall_ms(fn, reps: int = 5) -> float:
+    """Median host wall ms of ``fn`` ending in a synchronize, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def phase_gp_grad(smi: str):
+    """bench.py::bench_gp at full width: logML and its theta-gradient at
+    n = 16384, d = 3, f32, through the kernels and through the plain
+    versions, each held against the plain f64 value."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    x_np = rng.normal(size=(GRAD_N, SLICE_D)).astype(np.float32)
+    y_np = (np.sin(x_np[:, 0]) + 0.1 * rng.normal(size=GRAD_N)).astype(np.float32)
+    th_np = np.array([0.0, 0.0, -2.0])
+    data = {dt: (torch.as_tensor(x_np, device=dev, dtype=dt), torch.as_tensor(y_np, device=dev, dtype=dt),
+                 torch.as_tensor(th_np, device=dev, dtype=dt)) for dt in (torch.float32, torch.float64)}
+    x, y, th = data[torch.float32]
+
+    gk.se_covariance_cuda.launches = 0
+    gk.cholesky_cuda.launches = 0
+    got = _value_and_grad(_gp_logml, th, x, y)
+    torch.cuda.synchronize()
+    launches = {"se_covariance": gk.se_covariance_cuda.launches, "cholesky": gk.cholesky_cuda.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"GP grad: kernel launches {launches}")
+    plain = _value_and_grad(_gp_logml_plain, th, x, y)
+    x64, y64, th64 = data[torch.float64]
+    ref = _value_and_grad(_gp_logml_plain, th64, x64, y64)
+    torch.cuda.synchronize()
+    # the f64 reference reads the same f32-rounded data, so each error is the
+    # arithmetic's alone
+    flat = lambda vg: torch.cat([vg[0].reshape(1), vg[1]]).double().cpu()  # noqa: E731
+    got, plain, ref = flat(got), flat(plain), flat(ref)
+    err_k, err_p = (got - ref).abs(), (plain - ref).abs()
+    # no worse than twice the plain f32 path, and within 5e-5 relative: a
+    # few times the kernel path's own error (6.3e-6 relative on the logML,
+    # 2.2e-7 to 2.9e-6 on the gradient), since the plain path's alone sits
+    # 100x above it at this width
+    bound = torch.minimum(2.0 * err_p + 1e-6 * ref.abs(), 5e-5 * ref.abs())
+    names = ("logML", "d/dlogvar", "d/dloglen", "d/dlognug")
+    if not (bool(torch.isfinite(got).all()) and bool((err_k <= bound).all())):
+        raise AssertionError("GP grad: " + "; ".join(
+            f"{nm} kernel {g:.9g} plain {p:.9g} f64 {r:.9g}" for nm, g, p, r in zip(names, got, plain, ref)))
+
+    k_f32 = gk.covariance_matrix(gk.se_kernel(1.0, 1.0), x, nugget=math.exp(-2.0), symmetrize=False)
+    factor = gk.cholesky(k_f32)
+    del k_f32
+    ms = {
+        "kernel fwd": _wall_ms(lambda: _gp_logml(th, x, y)),
+        "kernel fwd+grad": _wall_ms(lambda: _value_and_grad(_gp_logml, th, x, y)),
+        "plain fwd": _wall_ms(lambda: _gp_logml_plain(th, x, y)),
+        "plain fwd+grad": _wall_ms(lambda: _value_and_grad(_gp_logml_plain, th, x, y)),
+        "K^-1 cholesky_inverse": _wall_ms(lambda: gk._inv_from_chol(factor)),
+    }
+    del factor
+    torch.cuda.empty_cache()
+    log(f"[6 GP grad] n={GRAD_N} d={SLICE_D} f32 theta={th_np.tolist()}: "
+        + "; ".join(f"{nm} kernel {g:.9g} (err {ek:.3g}) plain {p:.9g} (err {ep:.3g}) f64 {r:.9g}"
+                    for nm, g, p, r, ek, ep in zip(names, got, plain, ref, err_k, err_p))
+        + f"; launches {launches}; wall ms (median of 5): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()) + f" | {smi}")
+    return launches, ms
+
+
+def phase_laplace(smi: str, problem, ns_logz):
+    """The slice's Laplace path: ``laplace_posterior_fit`` on phase 4's GP
+    problem (n = 512, d = 3, f64) from 8 fixed starts, through the kernels,
+    then its Gaussian posterior; held against the same on CPU tensors (the
+    plain versions).  The fit runs twice on the card: the second run
+    reports whether the first repeats bit for bit."""
+    from bayesianinference_tpu_torch.engines.laplace import laplace_posterior_fit
+    from bayesianinference_tpu_torch.models.problem import random_domain_points
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    model = problem.metadata["gaussian_process"]
+    cpu_problem = _gp_problem(model.x.cpu(), model.y.cpu())
+    starts = random_domain_points(torch.Generator().manual_seed(0), cpu_problem.lower, cpu_problem.upper, 8, scale=5.0)
+    torch.cuda.synchronize()
+    gk.se_covariance_cuda.launches = 0
+    gk.cholesky_cuda.launches = 0
+    t0 = time.perf_counter()
+    fit = laplace_posterior_fit(problem=problem, initial_guess=starts.cuda())
+    logz_gpu = float(fit.log_evidence)
+    wall = time.perf_counter() - t0
+    post = fit.posterior_distribution
+    draws = post.sample(torch.Generator(device="cuda").manual_seed(0), (1000,))
+    lp = post.log_prob(draws).cpu()
+    launches = {"se_covariance": gk.se_covariance_cuda.launches, "cholesky": gk.cholesky_cuda.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"Laplace: kernel launches {launches}")
+    again = laplace_posterior_fit(problem=problem, initial_guess=starts.cuda())
+    repeats = bool(torch.equal(again.mean, fit.mean) and torch.equal(again.precision_matrix, fit.precision_matrix))
+    repeat_launches = gk.cholesky_cuda.launches - launches["cholesky"]
+    t0 = time.perf_counter()
+    ref = laplace_posterior_fit(problem=cpu_problem, initial_guess=starts)
+    wall_cpu = time.perf_counter() - t0
+    lp_ref = ref.posterior_distribution.log_prob(draws.cpu())
+    mode, prec = fit.mean.cpu(), fit.precision_matrix.cpu()
+    if not bool(torch.isfinite(torch.linalg.cholesky_ex(prec)[0]).all()) or int(torch.linalg.cholesky_ex(prec)[1]):
+        raise AssertionError(f"Laplace: precision matrix not PD: {prec.tolist()}")
+    if not bool(((mode > cpu_problem.lower) & (mode < cpu_problem.upper)).all()):
+        raise AssertionError(f"Laplace: mode {mode.tolist()} outside the box")
+    errs = {
+        "mode": ((mode - ref.mean).abs() / ref.mean.abs()).max().item(),
+        "logZ": abs(logz_gpu - float(ref.log_evidence)) / abs(float(ref.log_evidence)),
+        "Hessian": ((prec - ref.precision_matrix).abs().max() / ref.precision_matrix.abs().max()).item(),
+        "posterior log density": ((lp - lp_ref).abs() / lp_ref.abs().clamp(min=1.0)).max().item(),
+    }
+    tol = {"mode": 1e-6, "logZ": 1e-6, "Hessian": 1e-5, "posterior log density": 1e-5}
+    if not (draws.shape == (1000, SLICE_D) and bool(torch.isfinite(lp).all())):
+        raise AssertionError(f"Laplace: posterior draws {tuple(draws.shape)}, finite densities {bool(torch.isfinite(lp).all())}")
+    if not all(errs[k] <= tol[k] for k in tol):
+        raise AssertionError(f"Laplace: kernel fit vs plain CPU fit relative errors {errs} (bounds {tol})")
+    ns, ns_err = ns_logz
+    log(f"[7 Laplace] n={SLICE_N} d={SLICE_D} f64, 8 starts: mode {[round(v, 6) for v in mode.tolist()]}, "
+        f"logZ {logz_gpu:.6f} (NS {ns:.4f} +- {ns_err:.4f}: {(logz_gpu - ns) / ns_err:+.2f} NS sigmas); "
+        f"vs the plain CPU fit: rel err {', '.join(f'{k} {v:.2e}' for k, v in errs.items())}; "
+        f"wall {wall:.3f} s through the kernels ({wall_cpu:.3f} s plain on the host CPU); launches {launches}; "
+        f"second fit on the card: {repeat_launches} cholesky launches, "
+        f"{'bitwise the same' if repeats else 'NOT bitwise the same'} mode and Hessian | {smi}")
+    return launches, wall
 
 
 def main():
     smi = phase_device()
     worst = phase_kernel_parity()
     phase_ns_spine(smi)
-    launches = phase_gp_slice(smi)
+    launches, problem, ns_logz = phase_gp_slice(smi)
     times = phase_kernel_times(smi)
+    grad_launches, _ = phase_gp_grad(smi)
+    laplace_launches, _ = phase_laplace(smi, problem, ns_logz)
+    launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] for k in launches}
     print(json.dumps({"kernels": [
         {"name": "se_covariance", "route": "cuda", "source": SE_SOURCE, "replaces": SE_REPLACES,
          "launches": launches["se_covariance"], "max_abs_err": worst["se_covariance"],

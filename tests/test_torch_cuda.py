@@ -8,7 +8,9 @@ suite's conftest imports JAX);
 
 Tolerances are chip_smoke.py's: se_covariance max abs error <= 1e-12 * var
 (float64) and 1e-5 * var (float32); cholesky <= 1e-10 * max|L| (float64)
-and 5e-4 * max|L| (float32, the bound of tests/test_gp.py).
+and 5e-4 * max|L| (float32, the bound of tests/test_gp.py).  The GP logML
+gradient and Hessian through the kernels: 1e-8 of the largest entry
+against the same on CPU tensors (float64).
 """
 
 import pytest
@@ -40,7 +42,7 @@ def test_se_covariance_kernel_matches_plain(cuda, dtype, tol):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 5e-4)])
-@pytest.mark.parametrize("n", [50, 513])
+@pytest.mark.parametrize("n", [3, 50, 513])
 def test_cholesky_kernel_matches_plain(cuda, dtype, tol, n):
     g = torch.Generator(device=cuda).manual_seed(1)
     a = torch.randn((4, n, n), generator=g, device=cuda, dtype=dtype)
@@ -58,3 +60,41 @@ def test_cholesky_kernel_non_pd_propagates_nan(cuda):
     k = gk.se_covariance(x, x, torch.ones(1, device=cuda, dtype=torch.float64))
     diag = torch.diagonal(gk.cholesky(k), dim1=-2, dim2=-1)
     assert not bool(torch.isfinite(diag).all())
+
+
+def _logml(th, x, y):
+    k = gk.covariance_matrix(gk.se_kernel(torch.exp(th[0]), torch.exp(th[1])), x, nugget=torch.exp(th[2]),
+                             symmetrize=False)
+    return gk.gp_log_marginal_likelihood(k, y)
+
+
+def test_logml_grad_and_hessian_through_kernels_match_plain(cuda):
+    """n = 512, float64: the gradient and the reverse-over-reverse Hessian
+    through both kernels and their reverse rules equal the same on CPU
+    tensors (the plain versions), rtol 1e-8 of the largest entry."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((512, 3), generator=g, dtype=torch.float64)
+    y = torch.sin(x[:, 0]) + 0.1 * torch.randn(512, generator=g, dtype=torch.float64)
+    th = torch.tensor([0.2, 0.3, -2.0], dtype=torch.float64)
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+    grad = torch.func.grad(_logml)(th.to(cuda), x.to(cuda), y.to(cuda)).cpu()
+    hess = torch.func.jacrev(torch.func.jacrev(_logml))(th.to(cuda), x.to(cuda), y.to(cuda)).cpu()
+    assert gk.se_covariance_cuda.launches > before[0] and gk.cholesky_cuda.launches > before[1]
+    want_grad = torch.func.grad(_logml)(th, x, y)
+    want_hess = torch.func.jacrev(torch.func.jacrev(_logml))(th, x, y)
+    assert (grad - want_grad).abs().max().item() <= 1e-8 * want_grad.abs().max().item()
+    assert (hess - want_hess).abs().max().item() <= 1e-8 * want_hess.abs().max().item()
+
+
+def test_failed_factorization_gives_zero_gradient_on_the_card(cuda):
+    """All-identical inputs, no nugget: all-ones K, NaN factor from the
+    kernel, the sentinel value and a zero (not NaN) gradient."""
+    x = torch.zeros((40, 2), device=cuda, dtype=torch.float64)
+    y = torch.linspace(-1, 1, 40, device=cuda, dtype=torch.float64)
+
+    def f(th):
+        return gk.gp_log_marginal_likelihood(gk.covariance_matrix(gk.se_kernel(torch.exp(th[0]), 1.0), x), y)
+
+    th = torch.zeros(1, device=cuda, dtype=torch.float64)
+    assert f(th).item() == -1e300
+    assert torch.equal(torch.func.grad(f)(th), torch.zeros_like(th))
