@@ -3,8 +3,10 @@ Gaussian-process hyperparameters, with the GP covariance assembly and
 Cholesky factorization as hand-written CUDA kernels for the H100.
 
 The JAX package stays the reference; this package imports ``torch`` and
-never ``jax``.  Devices are explicit: work runs on the device of the tensors
-and ``torch.Generator`` the caller passes in.
+never ``jax``.  Work runs on the device of the tensors and
+``torch.Generator`` the caller passes in; entry points that make new state
+without tensor data put it on the CUDA card unless given ``device="cpu"``,
+and raise where there is no card.
 """
 
 import torch

@@ -1,6 +1,7 @@
 """Core numerics and containers."""
 
 from .containers import WeightedSamples, take_posterior_fraction
+from .device import resolve_device
 from .linalg import inverse_matrix_block_inverse, matrix_block_inverse
 from .numerics import (
     LOG2PI,

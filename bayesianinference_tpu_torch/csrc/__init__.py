@@ -39,9 +39,12 @@ _SIGNATURES = {
     # x1, x2, variance, out, batch, n1, n2, d, stream
     "bi_se_covariance_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "bi_se_covariance_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # k, l, batch, n, stream
-    "bi_cholesky_f32": (_P, _P, _I, _I, _P),
-    "bi_cholesky_f64": (_P, _P, _I, _I, _P),
+    # k, l, batch, n, stream: the whole factorization in one launch
+    "bi_cholesky_fused_f32": (_P, _P, _I, _I, _P),
+    "bi_cholesky_fused_f64": (_P, _P, _I, _I, _P),
+    # k, l, batch, n, nb, stream: six launches per nb-wide panel
+    "bi_cholesky_blocked_f32": (_P, _P, _I, _I, _I, _P),
+    "bi_cholesky_blocked_f64": (_P, _P, _I, _I, _I, _P),
 }
 
 

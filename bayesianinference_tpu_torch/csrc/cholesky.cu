@@ -1,196 +1,694 @@
-// Batched blocked Cholesky factorization for Hopper (sm_90a).
+// Batched Cholesky factorization for Hopper (sm_90a), two paths.
 //
 // Replaces: bayesianinference_tpu/ops/gp_kernels.py, `_chol_pallas_kernel`
-// (launched by `cholesky_pallas`).
+// (:500, launched by `cholesky_pallas`).
 //
 //   L[b] = chol(K[b]), lower, with an exactly zero upper triangle.
 //
-// Only the lower triangle of K is read.  Any n is accepted (the ragged last
-// panel is masked; the Pallas kernel needed n % 128 == 0).  A non-positive
-// pivot gives sqrt(negative) = NaN (or a zero pivot gives 0/0), and that
-// NaN propagates into every later diagonal entry: there is no clamping, no
-// early exit and no info flag read back by the host.  The caller turns a
-// non-finite diagonal into the log-zero sentinel, as XLA's Cholesky is
-// treated in the JAX package.
+// Only the lower triangle of K is read.  Any n is accepted (ragged tiles
+// are masked; the Pallas kernel needed n % 128 == 0).  A non-positive pivot
+// gives sqrt(negative) = NaN (or a zero pivot gives 0/0), and that NaN
+// propagates into every later diagonal entry: there is no clamping, no
+// early exit and no info flag read back by the host.  No atomics: every
+// sum runs in a fixed order, so a factorization repeats bit for bit.
 //
-// What bounds it on this card: at the slice's shape (B = 10, n = 512,
-// float64) the factorization is n^3 / 3 = 45 Mflop per matrix, 0.45 Gflop
-// per call, over 16 panels of width 32 with three dependent launches each,
-// so the chain of 48 small launches (launch latency and one wave of tiny
-// blocks per stage) bounds it rather than FP64 throughput or bandwidth.
-// The Pallas kernel kept the whole matrix resident in VMEM (n up to ~1.4k);
-// a block here has at most 227 KB of shared memory, so the matrix lives in
-// device memory (in L2 at this size: 21 MB) and each stage stages 32 x 32
-// tiles in shared memory.
+// What bounds it on this card (H100 SXM: 3.35 TB/s; 67 TFLOP/s for FP32
+// outside the tensor cores and for FP64 through them):
+//   * B = 10, n = 512, float64 (the GP slice, every chain step; the
+//     Laplace fit at B = 1): the lower triangle read once and the factor
+//     written once are 31.5 MB, 9.4 us; the n^3 / 3 = 0.447 Gflop take
+//     6.7 us.  Bytes bound it on paper; in practice the chain of 16
+//     dependent panels does, so the design removes launches and barriers.
+//   * B = 1, n = 16384, float32 (bench.py's GP logML+grad): n^3 / 3 =
+//     1.466 Tflop at 67 TFLOP/s (FFMA; TF32 would lose the accuracy the GP
+//     gradient is checked to) is 21.9 ms; the bytes take 0.48 ms.
+//     Operations bound it, so the trailing update must run near the FFMA
+//     peak and move few bytes per flop.
 //
-// What the design does about it: right-looking, panel width 32, three
-// kernels per panel, each gridded over the batch:
-//   1. potrf: one block per matrix factors the 32 x 32 diagonal tile in
-//      shared memory by an unblocked column loop;
-//   2. trsm: one block per 32-row tile below the diagonal solves
-//      X L_jj^T = A_panel by forward substitution against L_jj in shared
-//      memory (the Pallas kernel built inv(L_jj)^T and multiplied instead);
-//   3. syrk/gemm: one block per lower 32 x 32 tile pair of the trailing
-//      matrix subtracts L_i L_k^T, from two shared-memory tiles, with FMA in
-//      the working type.  No tensor cores and no TF32.
-// All launches go to the caller's stream from one host call; nothing
-// synchronizes.  Making it fast (one CTA per matrix for small n, DMMA
-// tiles, CUDA graphs for the launch chain) is later work.
+// Fused path (n <= 1024; the wrapper picks the path, see `_cholesky_route`
+// in ops/gp_kernels.py): ONE launch for the whole batch.  A thread-block
+// cluster of 8 CTAs factors one matrix, right-looking with 32-wide panels;
+// the working matrix is the output L in device memory (21 MB at the
+// slice's shape, so it stays in the 50 MB L2).  Per panel:
+//   1. every CTA factors the 32 x 32 diagonal tile itself (one warp, rows
+//      in registers, multipliers by shuffles).  Redoing it costs each CTA
+//      the microseconds that one CTA would take, and spares the barrier
+//      that handing it over through distributed shared memory would need;
+//   2. the CTAs solve the panel's row blocks below it, round robin, and
+//      write the zeros of each block's mirror in the upper triangle;
+//   3. cluster barrier; the CTAs update the trailing lower triangle in
+//      64 x 64 tiles, round robin, 4 x 4 outputs per thread in registers
+//      from two 64-row panel blocks staged in shared memory, the next
+//      tile's loads in flight while one computes;
+//   4. cluster barrier.
+// Two barriers per panel in place of three launches, and no copy pass:
+// the first panel reads K and every stage writes L.  Reads of the working
+// matrix bypass L1 (`__ldcg`), which is not coherent across SMs, and each
+// barrier follows a `__threadfence`.  Columns are scaled by
+// rsqrt(pivot), computed beside sqrt(pivot), so the 32-step chains of the
+// tile factor and the solve hold no division.
+//
+// Blocked path (n > 1024): right-looking with 256-wide panels, each
+// factored as two 128-wide halves, six launches per panel (3 n / 128 in
+// all):
+//   1. diag: one CTA per matrix factors a half's 128 x 128 diagonal block
+//      in shared memory by 32-wide inner panels (warp factor in
+//      registers, rows solved in registers, inner update from 4 x 4
+//      register tiles);
+//   2. trsm: one CTA per 64 rows below solves them against the factored
+//      block, 32 columns at a time, and writes the zeros of their mirror;
+//   3. syrk, narrow: the first half updates the second half's columns;
+//   4-5. diag and trsm of the second half;
+//   6. syrk: one CTA per lower tile pair right of the panel subtracts
+//      L_i L_k^T over all 256 panel columns, register-tiled (float32:
+//      128 x 128 tiles, 4 x 16 outputs per thread; float64: 64 x 64,
+//      4 x 4), both operand panels streamed through a 3-deep cp.async
+//      ring in shared memory and read as 16-byte vectors, the C tile
+//      prefetched into L2.  FFMA / DFMA in the working type: no tensor
+//      cores, so no TF32.
+// The diag and trsm stages stage their blocks by cp.async too, so their
+// loads are in flight together.
+// Why 256: a rank-nb update moves each trailing element once in and once
+// out (8 B in float32, 16 B in float64) for 2 nb flops, nb / 4 flop/B in
+// float32 and nb / 8 in float64.  The FFMA ridge is 67e12 / 3.35e12 = 20
+// flop/B, cleared at nb = 128 (32 flop/B) and twice over at 256 (the
+// trailing matrix crosses HBM 64 times at n = 16384, 46 GB); the DFMA
+// ridge (33.5 TFLOP/s, no DMMA here) is 10 flop/B, cleared at 256 (32
+// flop/B).  The 32-wide panels of the earlier kernel moved 8 flop/B, under
+// the ridge by construction.  The diagonal block stays 128 wide: 256 x 256
+// would not fit one CTA's shared memory.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kNb = 32;  // panel width and tile edge
+constexpr int kThreads = 256;   // every kernel: 8 warps
+constexpr int kTile = 32;       // fused panel width and tile edge; inner panel width
+constexpr int kCluster = 8;     // CTAs per matrix on the fused path (portable maximum)
+constexpr int kWide = 64;       // trailing-update tile edge on the fused path
+constexpr int kNb = 128;        // half-panel width of the blocked path: its diagonal block
+constexpr int kWidePanel = 2 * kNb;  // panel width of the blocked path's trailing update
+constexpr int kTrsmRows = 64;   // panel rows per CTA of the blocked trsm
+constexpr int kLd = kNb + 1;    // row stride of the blocked diag / trsm staging
 
 __device__ __forceinline__ float sqrt_full(float v) { return sqrtf(v); }
 __device__ __forceinline__ double sqrt_full(double v) { return sqrt(v); }
+// 1 / sqrt(v) to about an ulp (float: the hardware estimate and one Newton
+// step), computed beside sqrt(v) so that no division sits on the chain.
+__device__ __forceinline__ float rsqrt_full(float v) {
+  const float r = rsqrtf(v);
+  return r * (1.5f - 0.5f * v * r * r);
+}
+__device__ __forceinline__ double rsqrt_full(double v) { return rsqrt(v); }
 
-// L = lower(K) with zero upper triangle.
+// Lower tile pair number t (row by row: (0,0), (1,0), (1,1), ...) -> (i, k).
+__device__ __forceinline__ void decode_pair(int t, int& i, int& k) {
+  i = static_cast<int>((sqrt(8.0 * t + 1.0) - 1.0) * 0.5);
+  while ((i + 1) * (i + 2) / 2 <= t) ++i;
+  while (i * (i + 1) / 2 > t) --i;
+  k = t - i * (i + 1) / 2;
+}
+
+// One warp factors the 32 x 32 tile s (row stride ld) in place.  Lane r
+// keeps row r in registers.  Column j is scaled by 1 / sqrt(pivot), which
+// is also stored in dinv[j] for the solves that follow, and its entries
+// reach the other lanes by shuffles (a broadcast through shared memory was
+// tried: it slowed the blocked path's diag stage and made the float64
+// fused kernel spill).  The square roots of the pivots, off the dependent
+// chain, are taken once at the end.
+// Reads the lower triangle, writes the factor with an exactly zero upper
+// triangle.
 template <typename T>
-__global__ void copy_lower_kernel(const T* __restrict__ k, T* __restrict__ l,
-                                  int batch, int n) {
-  const size_t total = static_cast<size_t>(batch) * n * n;
-  for (size_t idx = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       idx < total; idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t rc = idx % (static_cast<size_t>(n) * n);
-    const int r = static_cast<int>(rc / n);
-    const int c = static_cast<int>(rc % n);
-    l[idx] = (c <= r) ? k[idx] : T(0);
+__device__ void factor_tile_warp(T* s, int ld, T* dinv) {
+  const int lane = threadIdx.x & 31;
+  T a[kTile];
+  T piv_mine = T(0), inv_mine = T(0);
+#pragma unroll
+  for (int c = 0; c < kTile; ++c) a[c] = (c <= lane) ? s[lane * ld + c] : T(0);
+#pragma unroll
+  for (int j = 0; j < kTile; ++j) {
+    const T piv = __shfl_sync(0xffffffffu, a[j], j);
+    const T inv = rsqrt_full(piv);
+    if (lane == j) {
+      piv_mine = piv;
+      inv_mine = inv;
+    }
+    a[j] = lane > j ? a[j] * inv : T(0);
+#pragma unroll
+    for (int k = j + 1; k < kTile; ++k) {
+      const T lkj = __shfl_sync(0xffffffffu, a[j], k);
+      if (lane >= k) a[k] -= a[j] * lkj;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kTile; ++c) s[lane * ld + c] = a[c];
+  s[lane * ld + lane] = sqrt_full(piv_mine);
+  dinv[lane] = inv_mine;
+}
+
+// One thread solves x L^T = p for the 32 entries at p (in place), L the
+// factored 32 x 32 tile at d (row stride ldd) with reciprocal diagonal
+// dinv: forward substitution with x in registers.
+template <typename T>
+__device__ void solve_row(T* p, const T* d, int ldd, const T* dinv) {
+  T x[kTile];
+#pragma unroll
+  for (int k = 0; k < kTile; ++k) {
+    T v = p[k];
+#pragma unroll
+    for (int j = 0; j < k; ++j) v -= x[j] * d[k * ldd + j];
+    x[k] = v * dinv[k];
+  }
+#pragma unroll
+  for (int k = 0; k < kTile; ++k) p[k] = x[k];
+}
+
+// out[r][c] -= sum_{k < 32} a[r][k] b[c][k] for r < rows, c < cols (both
+// multiples of 4), 4 x 4 outputs per thread summed in registers.  With
+// kLower only c <= r is written (and all-upper 4 x 4 blocks are skipped).
+template <typename T, bool kLower>
+__device__ void update_slab(T* out, int ldo, const T* a, int lda, const T* b, int ldb, int rows, int cols) {
+  const int tc = cols / 4;
+  for (int t = threadIdx.x; t < (rows / 4) * tc; t += blockDim.x) {
+    const int r0 = (t / tc) * 4, c0 = (t % tc) * 4;
+    if (kLower && c0 > r0 + 3) continue;
+    T acc[4][4] = {};
+    for (int k = 0; k < kTile; ++k) {
+      T av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = a[(r0 + i) * lda + k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = b[(c0 + j) * ldb + k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (!kLower || c0 + j <= r0 + i) out[(r0 + i) * ldo + c0 + j] -= acc[i][j];
   }
 }
 
-// Factor the w x w diagonal tile at (c0, c0) of every matrix in place.
+// ---------------------------------------------------------------------------
+// Fused path: one cluster of kCluster CTAs per matrix, one launch per call.
+// ---------------------------------------------------------------------------
+
 template <typename T>
-__global__ void __launch_bounds__(kNb * kNb)
-potrf_tile_kernel(T* __restrict__ l, int batch, int n, int c0, int w) {
-  __shared__ T s[kNb][kNb + 1];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
+__global__ void __launch_bounds__(kThreads)
+fused_kernel(const T* k, T* l, int batch, int n) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  constexpr int ld = kTile + 1;
+  __shared__ T d[kTile * ld];   // the factored diagonal tile
+  __shared__ T dinv[kTile];     // its reciprocal diagonal
+  __shared__ T pa[kWide * ld];  // panel rows of the output tile's rows (stage 2: the block solved)
+  __shared__ T pb[kWide * ld];  // panel rows of its columns
+  const int nt = (n + kTile - 1) / kTile;
+  const int px = threadIdx.x % kTile, py = threadIdx.x / kTile;  // moves panel rows py + 8 q, column px
+  const int ux = threadIdx.x % 16, uy = threadIdx.x / 16;        // owns tile rows uy + 16 i, columns ux + 16 j
+  for (int b = blockIdx.y; b < batch; b += gridDim.y) {
+    const T* km = k + static_cast<size_t>(b) * n * n;
+    T* lm = l + static_cast<size_t>(b) * n * n;
+    for (int p = 0; p < nt; ++p) {
+      const int c0 = p * kTile;
+      const int w = min(kTile, n - c0);
+      const T* src = p == 0 ? km : lm;
+      // 1. the diagonal tile (identity past w), factored in every CTA
+      for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
+        const int r = e / kTile, c = e % kTile;
+        d[r * ld + c] = (r < w && c < w)
+                            ? (c <= r ? __ldcg(src + static_cast<size_t>(c0 + r) * n + c0 + c) : T(0))
+                            : (r == c ? T(1) : T(0));
+      }
+      __syncthreads();
+      if (threadIdx.x < kTile) factor_tile_warp(d, ld, dinv);
+      __syncthreads();
+      // 2. the panel's row blocks below the tile, round robin over the CTAs
+      for (int i = p + 1 + rank; i < nt; i += kCluster) {
+        const int r0 = i * kTile;
+        const int h = min(kTile, n - r0);
+        for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
+          const int r = e / kTile, c = e % kTile;
+          pa[r * ld + c] = r < h ? __ldcg(src + static_cast<size_t>(r0 + r) * n + c0 + c) : T(0);
+        }
+        __syncthreads();
+        if (threadIdx.x < kTile) solve_row(pa + threadIdx.x * ld, d, ld, dinv);
+        __syncthreads();
+        for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
+          const int r = e / kTile, c = e % kTile;
+          if (r < h) lm[static_cast<size_t>(r0 + r) * n + c0 + c] = pa[r * ld + c];
+          if (c < h) lm[static_cast<size_t>(c0 + r) * n + r0 + c] = T(0);  // the mirrored upper block
+        }
+        __syncthreads();
+      }
+      __threadfence();
+      cluster.sync();
+      // 3. rank 0 stores the diagonal tile (nothing reads it in this
+      // stage); the trailing lower triangle in 64 x 64 tiles, round robin,
+      // software-pipelined: the next tile's panel rows and C entries are
+      // in flight (in registers) while this tile computes.
+      if (rank == 0) {
+        for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
+          const int r = e / kTile, c = e % kTile;
+          if (r < w && c < w) lm[static_cast<size_t>(c0 + r) * n + c0 + c] = d[r * ld + c];
+        }
+      }
+      const int t0 = c0 + kTile;                   // first trailing row
+      const int m = (n - t0 + kWide - 1) / kWide;  // tiles per side
+      const int ntiles = m > 0 ? m * (m + 1) / 2 : 0;
+      T va[kWide / 8], vb[kWide / 8], vc[4][4];
+      auto fetch = [&](int t) {
+        int ti, tk;
+        decode_pair(t, ti, tk);
+        const int r0 = t0 + ti * kWide, q0 = t0 + tk * kWide;
+#pragma unroll
+        for (int q = 0; q < kWide / 8; ++q) {
+          const int r = py + 8 * q;
+          va[q] = r0 + r < n ? __ldcg(lm + static_cast<size_t>(r0 + r) * n + c0 + px) : T(0);
+          vb[q] = q0 + r < n ? __ldcg(lm + static_cast<size_t>(q0 + r) * n + c0 + px) : T(0);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int r = uy + 16 * i, c = ux + 16 * j;
+            const bool keep = r0 + r < n && q0 + c < n && (ti != tk || c <= r);
+            vc[i][j] = keep ? __ldcg(src + static_cast<size_t>(r0 + r) * n + q0 + c) : T(0);
+          }
+      };
+      if (rank < ntiles) fetch(rank);
+      for (int t = rank; t < ntiles; t += kCluster) {
+        int ti, tk;
+        decode_pair(t, ti, tk);
+        const int r0 = t0 + ti * kWide, q0 = t0 + tk * kWide;
+        T cv[4][4];
+#pragma unroll
+        for (int q = 0; q < kWide / 8; ++q) {
+          pa[(py + 8 * q) * ld + px] = va[q];
+          pb[(py + 8 * q) * ld + px] = vb[q];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) cv[i][j] = vc[i][j];
+        __syncthreads();
+        if (t + kCluster < ntiles) fetch(t + kCluster);
+        T acc[4][4] = {};
+        for (int kk = 0; kk < kTile; ++kk) {
+          T av[4], bv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) av[i] = pa[(uy + 16 * i) * ld + kk];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) bv[j] = pb[(ux + 16 * j) * ld + kk];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int r = uy + 16 * i, c = ux + 16 * j;
+            if (r0 + r < n && q0 + c < n && (ti != tk || c <= r))
+              lm[static_cast<size_t>(r0 + r) * n + q0 + c] = cv[i][j] - acc[i][j];
+          }
+        __syncthreads();
+      }
+      __threadfence();
+      cluster.sync();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Blocked path: diag, trsm, syrk per 128-wide panel.
+// ---------------------------------------------------------------------------
+
+// Copy kBytes from global to shared memory asynchronously; zero-fill
+// where !valid (gmem must still be a mapped address).
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int size = valid ? kBytes : 0;
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(size));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(gmem), "n"(kBytes), "r"(size));
+  }
+}
+
+// Start staging the rows x kNb block at g (row stride n) into s (row
+// stride kLd) by element-wise cp.async, zero-filling at or past row
+// `valid_rows` and column `valid_cols`.  Only the block's lower triangle is
+// read afterwards, so its upper part may hold anything.
+template <typename T>
+__device__ void stage_block(T* s, const T* g, int n, int rows, int valid_rows, int valid_cols) {
+  for (int e = threadIdx.x; e < rows * kNb; e += kThreads) {
+    const int r = e / kNb, c = e % kNb;
+    const bool ok = r < valid_rows && c < valid_cols;
+    cp_async<sizeof(T)>(s + r * kLd + c, ok ? g + static_cast<size_t>(r) * n + c : g, ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait for this thread's copies, then for the whole block's.
+__device__ __forceinline__ void staged() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+}
+
+// Factor the diagonal block at (c0, c0), width w = min(kNb, n - c0), of
+// every matrix: read from src (K for the first panel, else L), written to
+// L with its upper triangle zero.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+diag_block_kernel(const T* src, T* l, int batch, int n, int c0) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s = reinterpret_cast<T*>(smem_raw);  // kNb x kLd: the block
+  T* dinv = s + kNb * kLd;                 // kNb: its reciprocal diagonal
+  const int w = min(kNb, n - c0);
   for (int b = blockIdx.x; b < batch; b += gridDim.x) {
-    T* m = l + static_cast<size_t>(b) * n * n;
-    s[ty][tx] = (ty < w && tx <= ty)
-                    ? m[static_cast<size_t>(c0 + ty) * n + c0 + tx]
-                    : T(0);
-    __syncthreads();
-    for (int j = 0; j < w; ++j) {
-      if (ty == j && tx == j) s[j][j] = sqrt_full(s[j][j]);
-      __syncthreads();
-      if (tx == j && ty > j && ty < w) s[ty][j] = s[ty][j] / s[j][j];
-      __syncthreads();
-      if (tx > j && tx <= ty && ty < w) s[ty][tx] -= s[ty][j] * s[tx][j];
+    const T* sm = src + static_cast<size_t>(b) * n * n;
+    T* lm = l + static_cast<size_t>(b) * n * n;
+    stage_block(s, sm + static_cast<size_t>(c0) * n + c0, n, kNb, w, w);
+    staged();
+    if (w < kNb) {  // the ragged last block: identity past w
+      for (int e = threadIdx.x; e < kNb * kNb; e += kThreads) {
+        const int r = e / kNb, c = e % kNb;
+        if (r >= w || c >= w) s[r * kLd + c] = r == c ? T(1) : T(0);
+      }
       __syncthreads();
     }
-    if (ty < w && tx <= ty) {
-      m[static_cast<size_t>(c0 + ty) * n + c0 + tx] = s[ty][tx];
+    for (int q0 = 0; q0 < kNb; q0 += kTile) {
+      if (threadIdx.x < kTile) factor_tile_warp(s + q0 * kLd + q0, kLd, dinv + q0);
+      __syncthreads();
+      const int below = kNb - q0 - kTile;
+      if (below > 0) {
+        T* rows = s + (q0 + kTile) * kLd;
+        if (threadIdx.x < below) solve_row(rows + threadIdx.x * kLd + q0, s + q0 * kLd + q0, kLd, dinv + q0);
+        __syncthreads();
+        update_slab<T, true>(rows + q0 + kTile, kLd, rows + q0, kLd, rows + q0, kLd, below, below);
+        __syncthreads();
+      }
+    }
+    for (int e = threadIdx.x; e < w * w; e += kThreads) {
+      const int r = e / w, c = e % w;
+      lm[static_cast<size_t>(c0 + r) * n + c0 + c] = c <= r ? s[r * kLd + c] : T(0);
     }
     __syncthreads();
   }
 }
 
-// Rows r >= c0 + w of the panel: L[r, c0:c0+w] = A[r, c0:c0+w] L_jj^-T.
+// Rows c0 + kNb + kTrsmRows * blockIdx.x ... of the panel:
+// L[r, c0:c0+kNb] = A[r, c0:c0+kNb] L_jj^-T, A read from src, L_jj from L;
+// also the zeros of the mirrored upper block L[c0:c0+kNb, r].
 template <typename T>
-__global__ void __launch_bounds__(kNb * kNb)
-trsm_panel_kernel(T* __restrict__ l, int batch, int n, int c0, int w) {
-  __shared__ T d[kNb][kNb + 1];
-  __shared__ T p[kNb][kNb + 1];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int row = c0 + w + blockIdx.x * kNb + ty;
+__global__ void __launch_bounds__(kThreads)
+panel_trsm_kernel(const T* src, T* l, int batch, int n, int c0) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* d = reinterpret_cast<T*>(smem_raw);  // kNb x kLd: the factored block
+  T* p = d + kNb * kLd;                   // kTrsmRows x kLd: this CTA's rows
+  T* dinv = p + kTrsmRows * kLd;          // kNb: the block's reciprocal diagonal
+  const int r0 = c0 + kNb + blockIdx.x * kTrsmRows;
+  const int h = min(kTrsmRows, n - r0);
   for (int b = blockIdx.y; b < batch; b += gridDim.y) {
-    T* m = l + static_cast<size_t>(b) * n * n;
-    d[ty][tx] = (ty < w && tx <= ty)
-                    ? m[static_cast<size_t>(c0 + ty) * n + c0 + tx]
-                    : T(0);
-    p[ty][tx] = (row < n && tx < w) ? m[static_cast<size_t>(row) * n + c0 + tx]
-                                    : T(0);
+    const T* sm = src + static_cast<size_t>(b) * n * n;
+    T* lm = l + static_cast<size_t>(b) * n * n;
+    stage_block(d, lm + static_cast<size_t>(c0) * n + c0, n, kNb, kNb, kNb);
+    stage_block(p, sm + static_cast<size_t>(r0) * n + c0, n, kTrsmRows, h, kNb);
+    staged();
+    if (threadIdx.x < kNb) dinv[threadIdx.x] = T(1) / d[threadIdx.x * (kLd + 1)];
     __syncthreads();
-    for (int j = 0; j < w; ++j) {
-      if (tx == j) p[ty][j] = p[ty][j] / d[j][j];
+    for (int q0 = 0; q0 < kNb; q0 += kTile) {
+      if (threadIdx.x < kTrsmRows) solve_row(p + threadIdx.x * kLd + q0, d + q0 * kLd + q0, kLd, dinv + q0);
       __syncthreads();
-      if (tx > j && tx < w) p[ty][tx] -= p[ty][j] * d[tx][j];
-      __syncthreads();
+      if (q0 + kTile < kNb) {
+        update_slab<T, false>(p + q0 + kTile, kLd, p + q0, kLd, d + (q0 + kTile) * kLd + q0, kLd, kTrsmRows,
+                              kNb - q0 - kTile);
+        __syncthreads();
+      }
     }
-    if (row < n && tx < w) m[static_cast<size_t>(row) * n + c0 + tx] = p[ty][tx];
+    for (int e = threadIdx.x; e < kTrsmRows * kNb; e += kThreads) {
+      const int r = e / kNb, c = e % kNb;
+      if (r < h) lm[static_cast<size_t>(r0 + r) * n + c0 + c] = p[r * kLd + c];
+    }
+    for (int e = threadIdx.x; e < kTrsmRows * kNb; e += kThreads) {  // the mirrored upper block
+      const int r = e % kTrsmRows, c = e / kTrsmRows;
+      if (r < h) lm[static_cast<size_t>(c0 + c) * n + r0 + r] = T(0);
+    }
     __syncthreads();
   }
 }
 
-// Trailing update of the lower triangle below and right of the panel:
-// A[i, k] -= sum_j L[i, c0 + j] L[k, c0 + j] for t0 <= k <= i < n.
+// Register tiling of the syrk CTA: a kBm x kBm output tile over a
+// kTy x (256 / kTy) thread grid; thread (ty, tx) owns rows ty + kTy i and
+// columns tx + kTx j.  Both operands are read from shared memory as
+// 16-byte vectors along k.
+template <typename T> struct Syrk;
+template <> struct Syrk<float> {
+  static constexpr int kBm = 128;  // output tile edge
+  static constexpr int kTy = 32;   // -> 4 rows x 16 columns per thread
+  static constexpr int kBk = 32;   // panel columns per stage
+  static constexpr int kStages = 3;  // cp.async ring depth
+  using Vec = float4;
+  __device__ static void unpack(const Vec& v, float* o) { o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w; }
+};
+template <> struct Syrk<double> {
+  static constexpr int kBm = 64;
+  static constexpr int kTy = 16;   // -> 4 x 4 per thread
+  static constexpr int kBk = 16;
+  static constexpr int kStages = 3;
+  using Vec = double2;
+  __device__ static void unpack(const Vec& v, double* o) { o[0] = v.x; o[1] = v.y; }
+};
+
 template <typename T>
-__global__ void __launch_bounds__(kNb * kNb)
-syrk_trailing_kernel(T* __restrict__ l, int batch, int n, int c0, int w) {
-  __shared__ T a[kNb][kNb + 1];
-  __shared__ T c[kNb][kNb + 1];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int t0 = c0 + w;
-  // blockIdx.x enumerates the lower tile pairs (ti >= tk) row by row
-  const int pair = blockIdx.x;
-  int ti = static_cast<int>((sqrtf(8.0f * pair + 1.0f) - 1.0f) * 0.5f);
-  while ((ti + 1) * (ti + 2) / 2 <= pair) ++ti;
-  while (ti * (ti + 1) / 2 > pair) --ti;
-  const int tk = pair - ti * (ti + 1) / 2;
-  const int i = t0 + ti * kNb + ty;
-  const int k = t0 + tk * kNb + tx;
-  const int ra = t0 + ti * kNb + ty;  // row staged into a[ty][*]
-  const int rc = t0 + tk * kNb + ty;  // row staged into c[ty][*]
+constexpr int syrk_smem_bytes() {
+  return 2 * Syrk<T>::kStages * Syrk<T>::kBm * (Syrk<T>::kBk + 16 / static_cast<int>(sizeof(T))) *
+         static_cast<int>(sizeof(T));
+}
+
+// Update of the lower triangle from row and column t0 on by the kw panel
+// columns at c0: C -= A B^T for the tile pair (ti >= tk) that blockIdx.x
+// numbers, A and B the panel rows of the two tiles read from L, C read
+// from csrc (K where nothing has written L yet) and written to L.  With
+// cols > 0 only the tiles of the first `cols` tile columns, blockIdx.x =
+// ti * cols + tk.  The C tile is prefetched into L2 while the panels
+// stream through shared memory.  kVec elements per cp.async: 16 / sizeof(T)
+// where rows are 16-byte aligned, else 1.
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+syrk_kernel(const T* csrc, T* l, int batch, int n, int c0, int kw, int t0, int cols) {
+  using S = Syrk<T>;
+  constexpr int kBm = S::kBm, kBk = S::kBk, kTy = S::kTy, kTx = kThreads / kTy;
+  constexpr int kRm = kBm / kTy, kCm = kBm / kTx;          // outputs per thread: rows, columns
+  constexpr int kV = 16 / static_cast<int>(sizeof(T));     // elements per shared-memory vector load
+  constexpr int kLds = kBk + kV;                           // 16-byte rows, 4-bank skew
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kStages = S::kStages;
+  T* as = reinterpret_cast<T*>(smem_raw);  // [kStages][kBm][kLds]
+  T* bs = as + kStages * kBm * kLds;
+  int ti, tk;
+  if (cols > 0) {
+    ti = blockIdx.x / cols;
+    tk = blockIdx.x % cols;
+    if (tk > ti) return;
+  } else {
+    decode_pair(blockIdx.x, ti, tk);
+  }
+  const int steps = kw / kBk;
+  const int ra = t0 + ti * kBm;  // first row of the output tile
+  const int rb = t0 + tk * kBm;  // first column
+  const int tx = threadIdx.x % kTx, ty = threadIdx.x / kTx;
   for (int b = blockIdx.y; b < batch; b += gridDim.y) {
-    T* m = l + static_cast<size_t>(b) * n * n;
-    a[ty][tx] = (ra < n && tx < w) ? m[static_cast<size_t>(ra) * n + c0 + tx] : T(0);
-    c[ty][tx] = (rc < n && tx < w) ? m[static_cast<size_t>(rc) * n + c0 + tx] : T(0);
-    __syncthreads();
-    if (i < n && k <= i) {
-      T acc = T(0);
-      for (int j = 0; j < w; ++j) acc += a[ty][j] * c[tx][j];
-      m[static_cast<size_t>(i) * n + k] -= acc;
+    const T* cm = csrc + static_cast<size_t>(b) * n * n;
+    T* lm = l + static_cast<size_t>(b) * n * n;
+    constexpr int kLines = kBm * static_cast<int>(sizeof(T)) / 128;  // 128-byte lines per tile row
+    for (int e = threadIdx.x; e < kBm * kLines; e += kThreads) {
+      const int r = ra + e / kLines, c = rb + (e % kLines) * (128 / static_cast<int>(sizeof(T)));
+      if (r < n && c < n) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(cm + static_cast<size_t>(r) * n + c));
     }
-    __syncthreads();
+    auto load_stage = [&](int stage, int k0) {
+      constexpr int kPerRow = kBk / kVec;
+      for (int e = threadIdx.x; e < kBm * kPerRow; e += kThreads) {
+        const int r = e / kPerRow, kk = (e % kPerRow) * kVec;
+        const int ga = ra + r, gb = rb + r;
+        cp_async<kVec * sizeof(T)>(as + (stage * kBm + r) * kLds + kk,
+                                   lm + static_cast<size_t>(min(ga, n - 1)) * n + c0 + k0 + kk, ga < n);
+        cp_async<kVec * sizeof(T)>(bs + (stage * kBm + r) * kLds + kk,
+                                   lm + static_cast<size_t>(min(gb, n - 1)) * n + c0 + k0 + kk, gb < n);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    };
+    T acc[kRm][kCm];
+#pragma unroll
+    for (int i = 0; i < kRm; ++i)
+#pragma unroll
+      for (int j = 0; j < kCm; ++j) acc[i][j] = T(0);
+    // a ring of kStages buffers, kStages - 1 stages in flight; empty groups
+    // past the last stage keep the wait count uniform
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < steps) load_stage(st, st * kBk);
+      else asm volatile("cp.async.commit_group;\n" ::);
+    }
+    for (int step = 0; step < steps; ++step) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+      __syncthreads();  // stage `step` has landed; stage step - 1 is consumed
+      const int next = step + kStages - 1;
+      if (next < steps) load_stage(next % kStages, next * kBk);
+      else asm volatile("cp.async.commit_group;\n" ::);
+      const T* a = as + (step % kStages) * kBm * kLds;
+      const T* bm = bs + (step % kStages) * kBm * kLds;
+#pragma unroll
+      for (int kk = 0; kk < kBk; kk += kV) {
+        T av[kRm][kV];
+#pragma unroll
+        for (int i = 0; i < kRm; ++i)
+          S::unpack(*reinterpret_cast<const typename S::Vec*>(a + (ty + kTy * i) * kLds + kk), av[i]);
+#pragma unroll
+        for (int j = 0; j < kCm; ++j) {
+          T bv[kV];
+          S::unpack(*reinterpret_cast<const typename S::Vec*>(bm + (tx + kTx * j) * kLds + kk), bv);
+#pragma unroll
+          for (int v = 0; v < kV; ++v)
+#pragma unroll
+            for (int i = 0; i < kRm; ++i) acc[i][j] += av[i][v] * bv[v];
+        }
+      }
+    }
+    __syncthreads();  // the ring is refilled for the next matrix of the batch
+#pragma unroll
+    for (int i = 0; i < kRm; ++i) {
+      const int r = ra + ty + kTy * i;
+#pragma unroll
+      for (int j = 0; j < kCm; ++j) {
+        const int c = rb + tx + kTx * j;
+        if (r < n && c < n && (ti != tk || c <= r)) {
+          const size_t at = static_cast<size_t>(r) * n + c;
+          lm[at] = cm[at] - acc[i][j];
+        }
+      }
+    }
   }
 }
 
 template <typename T>
-int launch(const T* k, T* l, int batch, int n, cudaStream_t stream) {
+constexpr size_t diag_smem_bytes() { return (kNb * kLd + kNb) * sizeof(T); }
+template <typename T>
+constexpr size_t trsm_smem_bytes() { return ((kNb + kTrsmRows) * kLd + kNb) * sizeof(T); }
+
+template <typename T>
+int set_smem_limits() {
+  const int diag = static_cast<int>(diag_smem_bytes<T>());
+  const int trsm = static_cast<int>(trsm_smem_bytes<T>());
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  cudaFuncSetAttribute(diag_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, diag);
+  cudaFuncSetAttribute(panel_trsm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, trsm);
+  cudaFuncSetAttribute(syrk_kernel<T, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, syrk_smem_bytes<T>());
+  cudaFuncSetAttribute(syrk_kernel<T, 1>, cudaFuncAttributeMaxDynamicSharedMemorySize, syrk_smem_bytes<T>());
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One 128-wide half panel at c0: factor its diagonal block, then solve its
+// rows below, to n.
+template <typename T>
+cudaError_t half_panel(const T* src, T* l, int batch, int gb, int n, int c0, cudaStream_t stream) {
+  diag_block_kernel<T><<<gb, kThreads, diag_smem_bytes<T>(), stream>>>(src, l, batch, n, c0);
+  cudaError_t e = cudaGetLastError();
+  const int rest = n - c0 - kNb;
+  if (e != cudaSuccess || rest <= 0) return e;
+  panel_trsm_kernel<T><<<dim3((rest + kTrsmRows - 1) / kTrsmRows, gb), kThreads, trsm_smem_bytes<T>(), stream>>>(
+      src, l, batch, n, c0);
+  return cudaGetLastError();
+}
+
+// Update rows and columns from t0 on by the kw panel columns at c0 (see
+// syrk_kernel; cols > 0 limits it to the first cols tile columns).
+template <typename T>
+cudaError_t trailing(const T* csrc, T* l, int batch, int gb, int n, int c0, int kw, int t0, int cols,
+                     cudaStream_t stream) {
+  constexpr int kBm = Syrk<T>::kBm;
+  const int tiles = (n - t0 + kBm - 1) / kBm;
+  const dim3 grid(cols > 0 ? tiles * cols : tiles * (tiles + 1) / 2, gb);
+  if ((static_cast<size_t>(n) * sizeof(T)) % 16 == 0) {
+    syrk_kernel<T, 16 / sizeof(T)><<<grid, kThreads, syrk_smem_bytes<T>(), stream>>>(csrc, l, batch, n, c0, kw, t0,
+                                                                                      cols);
+  } else {
+    syrk_kernel<T, 1><<<grid, kThreads, syrk_smem_bytes<T>(), stream>>>(csrc, l, batch, n, c0, kw, t0, cols);
+  }
+  return cudaGetLastError();
+}
+
+// Panels of kWidePanel = 2 kNb columns, each factored as two kNb halves:
+// half 1; the update of half 2's columns by half 1; half 2; then one
+// rank-kWidePanel update of everything right of the panel.  Six launches
+// per panel; each trailing element is read and written once per panel.
+template <typename T>
+int launch_blocked(const T* k, T* l, int batch, int n, cudaStream_t stream) {
+  static const int configured = set_smem_limits<T>();
+  if (configured != cudaSuccess) return configured;
   if (batch <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
   const int gb = batch < 65535 ? batch : 65535;
-  {
-    const size_t total = static_cast<size_t>(batch) * n * n;
-    size_t blocks = (total + 255) / 256;
-    if (blocks > 65535 * 8) blocks = 65535 * 8;
-    copy_lower_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(k, l, batch, n);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 block(kNb, kNb);
-  for (int c0 = 0; c0 < n; c0 += kNb) {
-    const int w = (n - c0) < kNb ? (n - c0) : kNb;
-    potrf_tile_kernel<T><<<gb, block, 0, stream>>>(l, batch, n, c0, w);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int rest = n - c0 - w;
-    if (rest <= 0) break;
-    const int tiles = (rest + kNb - 1) / kNb;
-    trsm_panel_kernel<T><<<dim3(tiles, gb), block, 0, stream>>>(l, batch, n, c0, w);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int pairs = tiles * (tiles + 1) / 2;
-    syrk_trailing_kernel<T><<<dim3(pairs, gb), block, 0, stream>>>(l, batch, n, c0, w);
-    e = cudaGetLastError();
+  constexpr int kHalfCols = kNb / Syrk<T>::kBm;  // tile columns of a half panel
+  for (int c0 = 0; c0 < n; c0 += kWidePanel) {
+    const T* src = c0 == 0 ? k : l;  // nothing has written L right of c0 before the first panel
+    cudaError_t e = half_panel(src, l, batch, gb, n, c0, stream);
+    if (e == cudaSuccess && n > c0 + kNb) e = trailing(src, l, batch, gb, n, c0, kNb, c0 + kNb, kHalfCols, stream);
+    if (e == cudaSuccess && n > c0 + kNb) e = half_panel<T>(l, l, batch, gb, n, c0 + kNb, stream);
+    if (e == cudaSuccess && n > c0 + kWidePanel) {
+      e = trailing(src, l, batch, gb, n, c0, kWidePanel, c0 + kWidePanel, 0, stream);
+    }
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaSuccess);
 }
 
-}  // namespace
-
-extern "C" int bi_cholesky_f32(const float* k, float* l, int batch, int n,
-                               cudaStream_t stream) {
-  return launch<float>(k, l, batch, n, stream);
+template <typename T>
+int launch_fused(const T* k, T* l, int batch, int n, cudaStream_t stream) {
+  if (batch <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster, batch < 65535 ? batch : 65535, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, fused_kernel<T>, k, l, batch, n);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bi_cholesky_f64(const double* k, double* l, int batch, int n,
-                               cudaStream_t stream) {
-  return launch<double>(k, l, batch, n, stream);
+}  // namespace
+
+extern "C" int bi_cholesky_fused_f32(const float* k, float* l, int batch, int n, cudaStream_t stream) {
+  return launch_fused<float>(k, l, batch, n, stream);
+}
+
+extern "C" int bi_cholesky_fused_f64(const double* k, double* l, int batch, int n, cudaStream_t stream) {
+  return launch_fused<double>(k, l, batch, n, stream);
+}
+
+// nb must be the compiled panel width (kWidePanel): the wrapper's route names it.
+extern "C" int bi_cholesky_blocked_f32(const float* k, float* l, int batch, int n, int nb, cudaStream_t stream) {
+  if (nb != kWidePanel) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_blocked<float>(k, l, batch, n, stream);
+}
+
+extern "C" int bi_cholesky_blocked_f64(const double* k, double* l, int batch, int n, int nb,
+                                       cudaStream_t stream) {
+  if (nb != kWidePanel) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_blocked<double>(k, l, batch, n, stream);
 }

@@ -3,7 +3,9 @@
 The JAX package's ``NSState`` and ``AMState`` are pytrees of arrays; taken
 field by field as ``np.asarray``, they become dicts of numpy arrays, which
 the functions here turn into the port's states on a given device and
-dtype (and back).  Nothing here imports JAX.
+dtype (and back).  Without ``device=`` the tensors go to the CUDA card,
+and the call raises where there is none: ``device="cpu"`` asks for the
+host.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .core.device import resolve_device
 from .engines.nested_sampling import NSState
 from .ops.metropolis import AMState
 
@@ -38,7 +41,8 @@ def _float(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 
 def problem_data_from_numpy(x, y, *, device=None, dtype: Optional[torch.dtype] = None):
-    """(x [n, d], y [n]) as float tensors on ``device``."""
+    """(x [n, d], y [n]) as float tensors on ``device`` (default: the card)."""
+    device = resolve_device(device)
     return _float(x, device, dtype), _float(y, device, dtype)
 
 
@@ -51,7 +55,9 @@ def _decode_evals(counter) -> int:
 
 def ns_state_from_numpy(arrays: dict, *, device=None, dtype: Optional[torch.dtype] = None) -> NSState:
     """An :class:`NSState` from the fields of the JAX package's ``NSState``
-    (``key`` is ignored; the (hi, lo) eval counter becomes one int64)."""
+    (``key`` is ignored; the (hi, lo) eval counter becomes one int64), on
+    ``device`` (default: the card)."""
+    device = resolve_device(device)
     fields = {name: _float(arrays[name], device, dtype) for name in _NS_TENSORS}
     return NSState(
         **fields,
@@ -79,7 +85,9 @@ def ns_state_to_numpy(state: NSState) -> dict:
 def am_state_from_numpy(arrays: dict, *, device=None, dtype: Optional[torch.dtype] = None) -> AMState:
     """An :class:`AMState` of C chains from the fields of the JAX package's
     ``AMState`` vmapped over chains ([C, d], [C], [C, d, d], ...); a single
-    chain's fields ([d], scalars, [d, d]) become a batch of one."""
+    chain's fields ([d], scalars, [d, d]) become a batch of one.  On
+    ``device`` (default: the card)."""
+    device = resolve_device(device)
     x = np.asarray(arrays["x"])
     single = x.ndim == 1
     fix = (lambda a: np.asarray(a)[None]) if single else np.asarray

@@ -22,6 +22,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from ..core.device import resolve_device
 from ..core.numerics import guard_log_density, log_zero
 from ..dists.base import Distribution
 from ..dists.combinators import ImproperUniform, Product, Truncated
@@ -292,8 +293,9 @@ def define_inference_problem(
     parameter: "location", "scale" or a Distribution).
 
     The problem lives on the device and in the float dtype of ``data`` when
-    data is given, else on ``device`` in ``dtype`` (PyTorch's defaults
-    when they are None).
+    data is given, else on ``device`` in ``dtype``.  Without either,
+    ``device`` is the CUDA card (raising where there is none; pass
+    ``device="cpu"`` for the host) and ``dtype`` PyTorch's default.
     """
     params = _as_param_specs(parameters)
     names = tuple(p.name for p in params)
@@ -304,7 +306,7 @@ def define_inference_problem(
         device = ref.device if device is None else device
         if dtype is None and ref.is_floating_point():
             dtype = ref.dtype
-    device = torch.device(device) if device is not None else torch.get_default_device()
+    device = resolve_device(device)
     dtype = dtype or torch.get_default_dtype()
     as_t = lambda t: torch.as_tensor(t, device=device)  # noqa: E731
     lower = torch.tensor([p.low for p in params], dtype=dtype, device=device)

@@ -8,7 +8,8 @@ Two operations run as hand-written CUDA kernels on the card (sources in
   ``_se_cov_kernel``): ``K[b] = variance[b] * exp(-|x1[b, i] - x2[b, j]|^2 / 2)``.
 * ``bayesianinference_tpu_torch::cholesky`` (replaces the Pallas
   ``_chol_pallas_kernel``): the lower factor of every matrix of a batch,
-  NaN-propagating on a non-PD input.
+  NaN-propagating on a non-PD input; one launch up to n = 1024, 256-wide
+  panels above (:func:`_cholesky_route`).
 
 On a CPU tensor each op runs its plain PyTorch version
 (:func:`se_covariance_plain`, :func:`cholesky_plain`); on a CUDA tensor it
@@ -233,25 +234,54 @@ def cholesky_plain(k: torch.Tensor) -> torch.Tensor:
     return torch.where((info == 0)[..., None, None], factor, torch.full_like(factor, float("nan")))
 
 
-def cholesky_cuda(k: torch.Tensor) -> torch.Tensor:
-    """CUDA implementation of the ``cholesky`` op: launches the blocked
-    factorization of ``csrc/cholesky.cu`` on the current stream.  Counts
-    its launches in ``cholesky_cuda.launches``."""
-    _check_cuda("cholesky", (k,), (3,))
-    b, n, n2 = k.shape
-    if n != n2:
-        raise ValueError(f"cholesky: matrices must be square, got {tuple(k.shape)}")
+# Largest n that the Cholesky factors in one launch (a thread-block
+# cluster per matrix, 32-wide panels); above it, six launches per 256-wide
+# panel.  1024 so that the slice's n = 512 and chip_smoke.py's n = 1000
+# take one launch.  Measured by chip_smoke.py phase 5 (PERF.md): the fused
+# path is the faster one at n = 512 and the slower one at n = 1024, where
+# its one cluster per matrix (8 SMs) is too few; the crossover lies
+# between the two.
+_FUSED_MAX_N = 1024
+_FUSED_NB = 32
+_BLOCKED_NB = 256
+
+
+def _cholesky_route(n: int) -> tuple[str, int]:
+    """("fused" | "blocked", panel width) of the CUDA Cholesky at size n."""
+    return ("fused", _FUSED_NB) if n <= _FUSED_MAX_N else ("blocked", _BLOCKED_NB)
+
+
+def _cholesky_launch(k: torch.Tensor, route: str, nb: int) -> torch.Tensor:
+    """Factor the contiguous CUDA batch ``k`` [B, n, n] by one path of
+    ``csrc/cholesky.cu`` on the current stream; one count per call."""
+    b, n, _ = k.shape
     out = torch.empty_like(k)
     if out.numel() == 0:
         return out
     lib = csrc.load_library()
-    fn = lib.bi_cholesky_f64 if k.dtype == torch.float64 else lib.bi_cholesky_f32
+    f64 = k.dtype == torch.float64
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
         cholesky_cuda.launches += 1
-        code = fn(k.data_ptr(), out.data_ptr(), b, n, stream)
-    csrc.check(code, "cholesky")
+        if route == "fused":
+            fn = lib.bi_cholesky_fused_f64 if f64 else lib.bi_cholesky_fused_f32
+            code = fn(k.data_ptr(), out.data_ptr(), b, n, stream)
+        else:
+            fn = lib.bi_cholesky_blocked_f64 if f64 else lib.bi_cholesky_blocked_f32
+            code = fn(k.data_ptr(), out.data_ptr(), b, n, nb, stream)
+    csrc.check(code, f"cholesky ({route})")
     return out
+
+
+def cholesky_cuda(k: torch.Tensor) -> torch.Tensor:
+    """CUDA implementation of the ``cholesky`` op: launches the path of
+    ``csrc/cholesky.cu`` that :func:`_cholesky_route` picks for n, on the
+    current stream.  Counts its calls in ``cholesky_cuda.launches``."""
+    _check_cuda("cholesky", (k,), (3,))
+    n, n2 = k.shape[1:]
+    if n != n2:
+        raise ValueError(f"cholesky: matrices must be square, got {tuple(k.shape)}")
+    return _cholesky_launch(k, *_cholesky_route(n))
 
 
 cholesky_cuda.launches = 0

@@ -1,0 +1,140 @@
+"""Where the device time goes on the port's two n = 512 paths, on one NVIDIA GPU.
+
+    python3 chip_profile.py [--repo PATH]
+
+``--repo`` imports ``bayesianinference_tpu_torch`` from another checkout
+(default: this one), so that two trees can be profiled in one run on one
+card, in turns.  Two workloads, those of ``chip_smoke.py`` phases 4 and 7:
+
+* the GP slice: nested sampling of the SE-kernel GP's hyperparameters at
+  n = 512, d = 3, float64 (pool 100, ``num_delete=10``, 100 MC steps), for
+  6 iterations; a chain step is one batched likelihood call
+  (one ``cholesky`` op call at B = 10);
+* the Laplace fit of that problem from 8 fixed starts.
+
+For each: the unprofiled wall time (host clock around work ending in a
+synchronize; the fit's median of 3), then one run under torch.profiler:
+device time (the sum of CUDA kernel durations), CUDA kernels per chain step
+or per factorization, the Cholesky kernels' and the SE covariance kernel's
+share of device time, and the busy share (device time over unprofiled
+wall).  Prints one line per workload and a JSON line last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+NS_ITERATIONS = 6
+CHOL_KERNELS = ("fused_kernel", "diag_block", "panel_trsm", "syrk", "potrf_tile", "trsm_panel", "copy_lower")
+
+
+def _gp_problem(x, y):
+    from bayesianinference_tpu_torch.engines.gp import define_gaussian_process
+    from bayesianinference_tpu_torch.ops.gp_kernels import se_kernel
+
+    return define_gaussian_process(
+        x, y,
+        kernel_builder=lambda th: se_kernel(th[0] ** 2, th[1]),
+        nugget_builder=lambda th: th[2] ** 2,
+        parameters=[("amp", 0.05, 5.0), ("length", 0.05, 5.0), ("noise", 0.01, 1.0)],
+        prior_distribution=["scale", "scale", "scale"],
+    )
+
+
+def _profile(fn):
+    """(device ms, CUDA kernels and copies, Cholesky ms, SE covariance ms)
+    of one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # device-side events other than the ranges of user annotations (such as
+    # torch.optim's "Optimizer.step#LBFGS.step", which spans the whole step)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    ms = lambda es: sum(e.time_range.elapsed_us() for e in es) / 1e3  # noqa: E731
+    return (ms(kernels), len(kernels), ms([e for e in kernels if any(c in e.name for c in CHOL_KERNELS)]),
+            ms([e for e in kernels if "se_cov" in e.name]))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--repo", default=os.path.dirname(os.path.abspath(__file__)))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_profile: torch.cuda.is_available() is false; this script needs a CUDA card")
+    sys.path.insert(0, os.path.abspath(args.repo))
+    from bayesianinference_tpu_torch.engines.laplace import laplace_posterior_fit
+    from bayesianinference_tpu_torch.engines.nested_sampling import nested_sampling
+    from bayesianinference_tpu_torch.interop import problem_data_from_numpy
+    from bayesianinference_tpu_torch.models.problem import random_domain_points
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    x_np = rng.normal(size=(512, 3))
+    y_np = np.sin(x_np[:, 0]) + 0.1 * rng.normal(size=512)
+    x, y = problem_data_from_numpy(x_np, y_np, device=dev, dtype=torch.float64)
+    problem = _gp_problem(x, y)
+    out = {"repo": os.path.abspath(args.repo), "device": smi}
+
+    def run_ns():
+        nested_sampling(problem, torch.Generator(device=dev).manual_seed(0), sample_pool_size=100, num_delete=10,
+                        monte_carlo_steps=100, max_iterations=NS_ITERATIONS, min_iterations=NS_ITERATIONS,
+                        post_process_sampling_runs=0)
+
+    run_ns()  # builds the kernels, warms the allocator
+    torch.cuda.synchronize()
+    gk.cholesky_cuda.launches = 0
+    t0 = time.perf_counter()
+    run_ns()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    steps = gk.cholesky_cuda.launches
+    dev_ms, kernels, chol_ms, se_ms = _profile(run_ns)
+    out["gp_slice"] = {"steps": steps, "wall_ms_per_step": wall / steps, "device_ms_per_step": dev_ms / steps,
+                       "kernels_per_step": kernels / steps, "cholesky_share": chol_ms / dev_ms,
+                       "se_covariance_share": se_ms / dev_ms, "busy_share": dev_ms / wall}
+    print(f"GP slice n=512 B=10 f64, {steps} chain steps: wall {wall / steps:.3f} ms/step, device "
+          f"{dev_ms / steps:.3f} ms/step (busy share {dev_ms / wall:.3f}), {kernels / steps:.1f} CUDA kernels/step, "
+          f"Cholesky {100 * chol_ms / dev_ms:.1f} % and SE covariance {100 * se_ms / dev_ms:.1f} % of device time "
+          f"| {smi}", flush=True)
+
+    starts = random_domain_points(torch.Generator().manual_seed(0), problem.lower.cpu(), problem.upper.cpu(), 8,
+                                  scale=5.0).to(dev)
+    walls = []
+    for _ in range(3):
+        gk.cholesky_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        laplace_posterior_fit(problem=problem, initial_guess=starts)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    factorizations = gk.cholesky_cuda.launches
+    wall = statistics.median(walls)
+    dev_ms, kernels, chol_ms, se_ms = _profile(lambda: laplace_posterior_fit(problem=problem, initial_guess=starts))
+    out["laplace"] = {"factorizations": factorizations, "wall_ms": walls, "device_ms": dev_ms,
+                      "kernels_per_factorization": kernels / factorizations, "cholesky_share": chol_ms / dev_ms,
+                      "busy_share": dev_ms / wall}
+    print(f"Laplace fit n=512 f64, 8 starts, {factorizations} factorizations: wall ms "
+          f"{', '.join(f'{w:.1f}' for w in walls)}, device {dev_ms:.1f} ms (busy share {dev_ms / wall:.3f}), "
+          f"{kernels / factorizations:.1f} CUDA kernels per factorization, Cholesky {100 * chol_ms / dev_ms:.1f} % "
+          f"of device time | {smi}", flush=True)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -7,13 +7,19 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
 1. device: requires CUDA, prints the card's name and power limit, builds
    the hand-written kernels from ``bayesianinference_tpu_torch/csrc``;
 2. kernel parity: each kernel against its plain PyTorch version on the
-   card, float32 and float64, at the slice's shapes and around them;
+   card, float32 and float64, at the slice's shapes and around them, and
+   the Cholesky on both of its paths (one launch up to n = 1024, 128-wide
+   panels above) and on both sides of the panel edges;
 3. NS spine: nested sampling of a 2-D standard Gaussian under the uniform
    box [-5, 5]^2 (analytic logZ = -log 100) to termination;
 4. the slice: GP hyperparameter posterior by nested sampling at n = 512,
    d = 3 (float64), then prediction at 64 query points; the kernels'
    launch counters prove the run went through them;
-5. kernel times with CUDA events at the slice's shapes;
+5. kernel times with CUDA events at the slice's shapes, and the Cholesky
+   at bench.py's n = 16384 (float32), each beside its bound and its
+   library call; the Cholesky's two paths against each other around the
+   route threshold; CUDA kernel launches per call counted by
+   torch.profiler;
 6. GP logML and its hyperparameter gradient at bench.py's full width
    (n = 16384, d = 3, float32): through the kernels and the closed-form
    backward, and through the plain versions, each against the plain
@@ -26,7 +32,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
 
 Each of phases 4, 6 and 7 zeroes the kernels' launch counters before it
 drives its path and fails if a kernel was not launched; the ``launches``
-of the JSON line are their sum.
+of the JSON line are their sum.  Phase 5 fails unless each kernel is one
+CUDA kernel launch per call at the slice's shape.
 
 The line before the last is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -98,8 +105,9 @@ def phase_kernel_parity():
             if x2 is x1 and not torch.equal(got, got.mT):
                 raise AssertionError(f"se_covariance {dtype} {(b, n1, d)}: not bitwise symmetric")
             worst["se_covariance"] = max(worst["se_covariance"], (got - want).abs().max().item())
-        for n in (3, 50, 128, 512, 1000):  # 3: a Laplace posterior's factor
-            for b in (1, 10):
+        # 3: a Laplace posterior's factor; 512: the slice; above 1024: blocked
+        for n in (3, 50, 128, 512, 1000, 2047, 2048, 2049, 4096):
+            for b in ((1, 10) if n <= 1024 else (1, 2)):
                 a = torch.randn((b, n, n), generator=g, device=dev, dtype=dtype)
                 k = a @ a.mT + n * torch.eye(n, device=dev, dtype=dtype)
                 got = gk.cholesky(k)
@@ -112,27 +120,56 @@ def phase_kernel_parity():
                 if torch.count_nonzero(torch.triu(got, 1)).item() != 0:
                     raise AssertionError(f"cholesky {dtype} B={b} n={n}: upper triangle not zero")
                 worst["cholesky"] = max(worst["cholesky"], err)
-        # non-PD: all-identical points, unit variance, no nugget -> all-ones K
-        x = torch.zeros((2, 50, 3), device=dev, dtype=dtype)
-        k = gk.se_covariance(x, x, torch.ones(2, device=dev, dtype=dtype))
-        for name, fac in (("kernel", gk.cholesky(k)), ("plain", gk.cholesky_plain(k))):
-            diag_ok = torch.isfinite(torch.diagonal(fac, dim1=-2, dim2=-1)).all(dim=-1)
-            if bool(diag_ok.any()):
-                raise AssertionError(f"cholesky {name} {dtype}: non-PD input gave a finite diagonal")
+        # non-PD: all-identical points, unit variance, no nugget -> all-ones
+        # K; n = 50 takes the fused path, n = 1500 the blocked one
+        for n in (50, 1500):
+            x = torch.zeros((2, n, 3), device=dev, dtype=dtype)
+            k = gk.se_covariance(x, x, torch.ones(2, device=dev, dtype=dtype))
+            for name, fac in (("kernel", gk.cholesky(k)), ("plain", gk.cholesky_plain(k))):
+                diag_ok = torch.isfinite(torch.diagonal(fac, dim1=-2, dim2=-1)).all(dim=-1)
+                if bool(diag_ok.any()):
+                    raise AssertionError(f"cholesky {name} {dtype} n={n}: non-PD input gave a finite diagonal")
     torch.cuda.synchronize()
     log(f"[2 kernel parity] se_covariance max abs err {worst['se_covariance']:.3e}, "
-        f"cholesky max abs err {worst['cholesky']:.3e}; symmetric, upper zero, non-PD -> NaN (f32, f64)")
+        f"cholesky max abs err {worst['cholesky']:.3e} (n up to 4096, both paths); symmetric, upper zero, "
+        f"non-PD -> NaN on both paths (f32, f64)")
     return worst
 
 
-def _time_ms(fn, reps: int = 20):
-    """(device ms per call, wall ms per call) of ``fn``, each the median of
-    ``reps`` samples after a warm-up, timed with CUDA events.
+# H100 SXM peaks at the full 700 W (NVIDIA's data sheet, the table of the
+# on-chip-measurement guide): HBM3, and 67 TFLOP/s for float32 outside the
+# tensor cores and for float64 through them (DMMA)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = 67e12
 
-    Device time: 20 calls enqueued back to back behind a ~50 ms
+
+def _bound(nbytes: float, flops: float):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _se_bound(b, n1, n2, d, itemsize):
+    """x1, x2, variance read once and K written once; per entry d
+    differences, squares and adds, the scale, exp and variance."""
+    return _bound(b * (n1 * d + n2 * d + 1 + n1 * n2) * itemsize, b * n1 * n2 * (3 * d + 3))
+
+
+def _chol_bound(b, n, itemsize):
+    """The lower triangle read once and the factor written once; n^3 / 3
+    multiply-adds counted as flops, as the Cholesky is usually counted."""
+    return _bound(b * (n * (n + 1) // 2 + n * n) * itemsize, b * n**3 / 3)
+
+
+def _time_ms(fn, reps: int = 20, groups: int = 5, per_group: int = 20):
+    """(device ms per call, wall ms per call) of ``fn``, each a median after
+    a warm-up, timed with CUDA events.
+
+    Device time: ``per_group`` calls enqueued back to back behind a ~50 ms
     ``torch.cuda._sleep``, so the host's dispatch overlaps the sleep and
-    the events see only device work.  Wall time: one call between the
-    events with an idle device, host dispatch included."""
+    the events see only device work; median of ``groups``.  Wall time: one
+    call between the events with an idle device, host dispatch included;
+    median of ``reps``."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -145,17 +182,38 @@ def _time_ms(fn, reps: int = 20):
         end.record()
         end.synchronize()
         wall.append(start.elapsed_time(end))
-    for _ in range(5):
+    for _ in range(groups):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(100_000_000)
         start.record()
-        for _ in range(20):
+        for _ in range(per_group):
             fn()
         end.record()
         end.synchronize()
-        device.append(start.elapsed_time(end) / 20)
+        device.append(start.elapsed_time(end) / per_group)
     return statistics.median(device), statistics.median(wall)
+
+
+def _in_turns(kern, plain, **kw):
+    """plain, kernel, kernel, plain; each pair's median of
+    (device ms, wall ms): (kernel device, plain device, kernel wall, plain wall)."""
+    p1, k1, k2, p2 = _time_ms(plain, **kw), _time_ms(kern, **kw), _time_ms(kern, **kw), _time_ms(plain, **kw)
+    return tuple(statistics.median(pair) for pair in ((k1[0], k2[0]), (p1[0], p2[0]), (k1[1], k2[1]), (p1[1], p2[1])))
+
+
+def _launches_per_call(fn, calls: int = 5) -> float:
+    """CUDA kernels per call of ``fn``, counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+               for e in prof.events()) / calls
 
 
 def phase_kernel_times(smi: str):
@@ -163,26 +221,63 @@ def phase_kernel_times(smi: str):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    times = {}
+    times = {}  # (op, dtype name) -> dict of ms at the slice's shape
     for dtype in (torch.float64, torch.float32):
         x = torch.randn((SLICE_B, SLICE_N, SLICE_D), generator=g, device=dev, dtype=dtype)
         var = 0.5 + torch.rand((SLICE_B,), generator=g, device=dev, dtype=dtype)
         k = gk.se_covariance_plain(x, x, var) + 1e-2 * torch.eye(SLICE_N, device=dev, dtype=dtype)
         name = "f64" if dtype == torch.float64 else "f32"
-        # in turns plain, kernel, kernel, plain; each pair's median
-        for op, kern, plain in (
-            ("se_covariance", lambda: gk.se_covariance(x, x, var), lambda: gk.se_covariance_plain(x, x, var)),
-            ("cholesky", lambda: gk.cholesky(k), lambda: gk.cholesky_plain(k)),
+        size = torch.finfo(dtype).bits // 8
+        for op, kern, plain, bound, library in (
+            # no PyTorch call computes the SE covariance; cuSOLVER's
+            # cholesky_ex is the Cholesky's (its plain twin adds a torch.where)
+            ("se_covariance", lambda: gk.se_covariance(x, x, var), lambda: gk.se_covariance_plain(x, x, var),
+             _se_bound(SLICE_B, SLICE_N, SLICE_N, SLICE_D, size), None),
+            ("cholesky", lambda: gk.cholesky(k), lambda: gk.cholesky_plain(k), _chol_bound(SLICE_B, SLICE_N, size),
+             lambda: torch.linalg.cholesky_ex(k)),
         ):
-            p1, k1, k2, p2 = _time_ms(plain), _time_ms(kern), _time_ms(kern), _time_ms(plain)
-            times[(op, name)] = tuple(
-                statistics.median(pair) for pair in ((k1[0], k2[0]), (p1[0], p2[0]), (k1[1], k2[1]), (p1[1], p2[1]))
-            )
-    for (op, name), (kd, pd, kw, pw) in times.items():
+            kd, pd, kw, pw = _in_turns(kern, plain)
+            times[(op, name)] = {"ms": kd, "plain_ms": pd, "wall_ms": kw, "plain_wall_ms": pw,
+                                 "bound_ms": bound[0], "bound_by": bound[1],
+                                 "library_ms": _time_ms(library)[0] if library else None,
+                                 "launches_per_call": _launches_per_call(kern)}
+    for (op, name), t in times.items():
+        library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         log(f"[5 kernel times] {op} {name} B={SLICE_B} n={SLICE_N}"
-            f"{f' d={SLICE_D}' if op == 'se_covariance' else ''}: device ms per call kernel {kd:.4f}, "
-            f"plain {pd:.4f}; one call with host dispatch kernel {kw:.4f}, plain {pw:.4f} | {smi}")
-    return times
+            f"{f' d={SLICE_D}' if op == 'se_covariance' else ''}: device ms per call kernel {t['ms']:.4f}, "
+            f"plain {t['plain_ms']:.4f}, library {library}, bound {t['bound_ms']:.4f} ({t['bound_by']}; kernel at "
+            f"{100 * t['bound_ms'] / t['ms']:.2f} % of it); one call with host dispatch kernel {t['wall_ms']:.4f}, "
+            f"plain {t['plain_wall_ms']:.4f}; CUDA kernels per call {t['launches_per_call']:g} | {smi}")
+        if t["launches_per_call"] != 1:
+            raise AssertionError(f"{op} {name} at B={SLICE_B} n={SLICE_N}: {t['launches_per_call']} CUDA kernels "
+                                 f"per call, expected 1")
+
+    # the Cholesky at bench.py's width (B = 1, f32; few reps: ~70 ms a call)
+    x = torch.randn((1, GRAD_N, SLICE_D), generator=g, device=dev, dtype=torch.float32)
+    k = gk.se_covariance(x, x, torch.ones(1, device=dev)) + math.exp(-2.0) * torch.eye(GRAD_N, device=dev)
+    del x
+    kd, pd, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), reps=1, groups=3,
+                             per_group=2)
+    bound_ms, bound_by = _chol_bound(1, GRAD_N, 4)
+    big = {"ms": kd, "library_ms": pd, "bound_ms": bound_ms,
+           "launches_per_call": _launches_per_call(lambda: gk.cholesky(k), 1)}
+    del k
+    torch.cuda.empty_cache()
+    log(f"[5 kernel times] cholesky f32 B=1 n={GRAD_N}: device ms per call kernel {kd:.2f}, library "
+        f"(cholesky_ex) {pd:.2f} ({kd / pd:.2f} x), bound {bound_ms:.2f} ({bound_by}; kernel at "
+        f"{100 * bound_ms / kd:.1f} %, library at {100 * bound_ms / pd:.1f} %); CUDA kernels per call "
+        f"{big['launches_per_call']:g} | {smi}")
+
+    # the two paths around the route threshold (device ms, float64)
+    routes = []
+    for b, n in ((1, 512), (10, 512), (1, 1024), (10, 1024)):
+        a = torch.randn((b, n, n), generator=g, device=dev, dtype=torch.float64)
+        k = a @ a.mT + n * torch.eye(n, device=dev, dtype=torch.float64)
+        fused = _time_ms(lambda: gk._cholesky_launch(k, "fused", 32), reps=1)[0]
+        blocked = _time_ms(lambda: gk._cholesky_launch(k, "blocked", 256), reps=1)[0]
+        routes.append(f"B={b} n={n} fused {fused:.4f} blocked {blocked:.4f}")
+    log(f"[5 kernel times] cholesky f64 paths, device ms per call: {'; '.join(routes)} | {smi}")
+    return times, big
 
 
 def phase_ns_spine(smi: str):
@@ -476,17 +571,20 @@ def main():
     worst = phase_kernel_parity()
     phase_ns_spine(smi)
     launches, problem, ns_logz = phase_gp_slice(smi)
-    times = phase_kernel_times(smi)
+    times, big = phase_kernel_times(smi)
     grad_launches, _ = phase_gp_grad(smi)
     laplace_launches, _ = phase_laplace(smi, problem, ns_logz)
     launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] for k in launches}
+    # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
+    # at bench.py's width (B = 1, n = 16384, f32)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")
     print(json.dumps({"kernels": [
         {"name": "se_covariance", "route": "cuda", "source": SE_SOURCE, "replaces": SE_REPLACES,
          "launches": launches["se_covariance"], "max_abs_err": worst["se_covariance"],
-         "ms": times[("se_covariance", "f64")][0], "plain_ms": times[("se_covariance", "f64")][1]},
+         **{k: times[("se_covariance", "f64")][k] for k in keys}},
         {"name": "cholesky", "route": "cuda", "source": CHOL_SOURCE, "replaces": CHOL_REPLACES,
          "launches": launches["cholesky"], "max_abs_err": worst["cholesky"],
-         "ms": times[("cholesky", "f64")][0], "plain_ms": times[("cholesky", "f64")][1]},
+         **{k: times[("cholesky", "f64")][k] for k in keys}, "at_n16384_f32": big},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))

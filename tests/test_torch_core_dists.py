@@ -233,7 +233,7 @@ def test_problem_densities_match_jax(form):
     else:
         t = tproblem.define_inference_problem(
             log_likelihood=lambda th: -0.5 * torch.sum((th - 1.0) ** 2), constraint=lambda th: th[0] < th[1],
-            dtype=torch.float64, **common)
+            device="cpu", dtype=torch.float64, **common)
         j = jproblem.define_inference_problem(
             log_likelihood=lambda th: -0.5 * jnp.sum((th - 1.0) ** 2), constraint=lambda th: th[0] < th[1],
             **common)
@@ -253,10 +253,13 @@ def test_validate_problem_rejects_nan_and_all_log_zero():
     params = [("a", -1.0, 1.0)]
     with pytest.raises(ValueError, match="NaN"):
         tproblem.define_inference_problem(parameters=params, log_likelihood=lambda th: th[0] * float("nan"),
-                                          prior_distribution=["location"], dtype=torch.float64)
+                                          prior_distribution=["location"], device="cpu",
+                                          dtype=torch.float64)
     with pytest.raises(ValueError, match="log-zero on ALL"):
         tproblem.define_inference_problem(parameters=params, log_likelihood=lambda th: th[0] * 0.0 - 1e300,
-                                          prior_distribution=["location"], dtype=torch.float64)
+                                          prior_distribution=["location"], device="cpu",
+                                          dtype=torch.float64)
     with pytest.raises(ValueError, match="with_data"):
         tproblem.define_inference_problem(parameters=params, log_likelihood=lambda th: th[0],
-                                          prior_distribution=["location"], dtype=torch.float64).with_data(T([1.0]))
+                                          prior_distribution=["location"], device="cpu",
+                                          dtype=torch.float64).with_data(T([1.0]))

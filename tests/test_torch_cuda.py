@@ -6,7 +6,8 @@ card run them with
 suite's conftest imports JAX);
 ``chip_smoke.py`` is the authoritative check there.
 
-Tolerances are chip_smoke.py's: se_covariance max abs error <= 1e-12 * var
+The Cholesky runs at sizes on each side of the route threshold and of the
+panel edges, at B = 1 and 10.  Tolerances are chip_smoke.py's: se_covariance max abs error <= 1e-12 * var
 (float64) and 1e-5 * var (float32); cholesky <= 1e-10 * max|L| (float64)
 and 5e-4 * max|L| (float32, the bound of tests/test_gp.py).  The GP logML
 gradient and Hessian through the kernels: 1e-8 of the largest entry
@@ -41,11 +42,19 @@ def test_se_covariance_kernel_matches_plain(cuda, dtype, tol):
     assert torch.equal(got, got.mT)
 
 
+# both sides of the route threshold (1024) and of the 32- and 128-wide
+# panel edges
+CHOL_SIZES = [1, 3, 31, 32, 33, 127, 128, 129, 255, 257, 512, 1000, 1023, 1024, 1025, 2048, 4096]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 5e-4)])
-@pytest.mark.parametrize("n", [3, 50, 513])
-def test_cholesky_kernel_matches_plain(cuda, dtype, tol, n):
+@pytest.mark.parametrize("n", CHOL_SIZES)
+@pytest.mark.parametrize("batch", [1, 10])
+def test_cholesky_kernel_matches_plain(cuda, dtype, tol, n, batch):
+    """Either path against cholesky_ex: error, an exactly zero upper
+    triangle, one count per call."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    a = torch.randn((4, n, n), generator=g, device=cuda, dtype=dtype)
+    a = torch.randn((batch, n, n), generator=g, device=cuda, dtype=dtype)
     k = a @ a.mT + n * torch.eye(n, device=cuda, dtype=dtype)
     before = gk.cholesky_cuda.launches
     got = gk.cholesky(k)
@@ -55,11 +64,15 @@ def test_cholesky_kernel_matches_plain(cuda, dtype, tol, n):
     assert torch.count_nonzero(torch.triu(got, 1)).item() == 0
 
 
-def test_cholesky_kernel_non_pd_propagates_nan(cuda):
-    x = torch.zeros((1, 40, 2), device=cuda, dtype=torch.float64)
-    k = gk.se_covariance(x, x, torch.ones(1, device=cuda, dtype=torch.float64))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [40, 1500])  # the fused and the blocked path
+def test_cholesky_kernel_non_pd_propagates_nan(cuda, dtype, n):
+    """All-identical points, no nugget: every diagonal entry after the
+    first failed pivot is NaN, in each matrix of the batch."""
+    x = torch.zeros((2, n, 2), device=cuda, dtype=dtype)
+    k = gk.se_covariance(x, x, torch.ones(2, device=cuda, dtype=dtype))
     diag = torch.diagonal(gk.cholesky(k), dim1=-2, dim2=-1)
-    assert not bool(torch.isfinite(diag).all())
+    assert torch.isnan(diag[:, 2:]).all().item()
 
 
 def _logml(th, x, y):

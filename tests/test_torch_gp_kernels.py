@@ -177,6 +177,29 @@ def test_cuda_implementations_refuse_cpu_tensors():
     assert tgk.se_covariance_cuda.launches == 0 and tgk.cholesky_cuda.launches == 0
 
 
+@pytest.mark.parametrize("n,route", [
+    (1, ("fused", 32)), (512, ("fused", 32)), (1000, ("fused", 32)), (1024, ("fused", 32)),
+    (1025, ("blocked", 256)), (2048, ("blocked", 256)), (16384, ("blocked", 256)),
+])
+def test_cholesky_route(n, route):
+    """One launch per call up to n = 1024 (the slice's n = 512 included),
+    256-wide panels above."""
+    assert tgk._cholesky_route(n) == route
+
+
+def test_ctypes_table_matches_the_sources():
+    """Every ``extern "C"`` entry point of ``csrc/*.cu`` is declared in the
+    ctypes table with its number of arguments, and nothing else is."""
+    import re
+
+    found = {}
+    for name in csrc.SOURCES:
+        text = (PKG / "csrc" / name).read_text()
+        for fn, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            found[fn] = len(args.split(","))
+    assert found == {fn: len(sig) for fn, sig in csrc._SIGNATURES.items()}
+
+
 def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))

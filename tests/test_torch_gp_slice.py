@@ -63,7 +63,7 @@ def _grid_log_z(x, y, num):
 @pytest.fixture(scope="module")
 def slice_run():
     x, y = _data()
-    xt, yt = problem_data_from_numpy(x, y, dtype=torch.float64)
+    xt, yt = problem_data_from_numpy(x, y, device="cpu", dtype=torch.float64)
     problem = define_gaussian_process(
         xt, yt,
         kernel_builder=lambda th: se_kernel(th[0] ** 2, th[1]),

@@ -130,7 +130,8 @@ def test_iris_logistic_matches_jax():
     tp = define_inference_problem(
         parameters=params,
         log_likelihood=lambda th: torch.sum(td.BernoulliLogits(logits=th[0] + xt @ th[1:]).log_prob(yt)),
-        log_prior=lambda th: torch.sum(td.Normal(0.0, 10.0).log_prob(th)), dtype=torch.float64)
+        log_prior=lambda th: torch.sum(td.Normal(0.0, 10.0).log_prob(th)), device="cpu",
+        dtype=torch.float64)
     starts = np.array([[0.0] * 5, [1.0, -1.0, 2.0, -3.0, -2.0], [-2.0, 0.5, 0.5, 0.5, 0.5]])
     want = jl.laplace_posterior_fit(problem=jp, initial_guess=jnp.asarray(starts))
     got = tl.laplace_posterior_fit(problem=tp, initial_guess=T(starts))
@@ -257,7 +258,8 @@ def test_random_starts_from_generator():
     the caller's generator: the same seed gives the same fit."""
     tp = define_inference_problem(parameters=[("a", -3.0, 3.0), ("b", 0.1, 4.0)],
                                   log_likelihood=lambda th: -((th[0] - 1.0) ** 2) - (th[1] - 2.0) ** 2,
-                                  prior_distribution=["location", "location"], dtype=torch.float64)
+                                  prior_distribution=["location", "location"], device="cpu",
+                                  dtype=torch.float64)
     fits = [tl.laplace_posterior_fit(problem=tp, generator=torch.Generator().manual_seed(7), num_starts=4)
             for _ in range(2)]
     assert torch.equal(fits[0].mean, fits[1].mean)

@@ -62,7 +62,7 @@ def test_am_block_matches_jax_on_jax_draws(t0, learn_delay):
         lus.append(np.log(np.asarray(
             jax.random.uniform(kacc, (j,), jnp.float64, minval=1e-38, maxval=1.0))))
     tstate = am_state_from_numpy({f: np.asarray(getattr(jstate, f)) for f in jstate._fields},
-                                 dtype=torch.float64)
+                                 device="cpu", dtype=torch.float64)
     np.testing.assert_allclose(tstate.chol.numpy(), np.asarray(jstate.chol), atol=1e-12)
     tout = tmet.am_block(tstate, t_density, torch.as_tensor(np.stack(zs)),
                          torch.as_tensor(np.stack(lus)), learn_delay)

@@ -151,7 +151,7 @@ def test_interop_round_trips_ns_state():
         interrupted=jnp.asarray(False),
     )
     arrays = {f: np.asarray(getattr(j_state, f)) for f in j_state._fields if f != "key"}
-    state = ns_state_from_numpy(arrays, dtype=torch.float64)
+    state = ns_state_from_numpy(arrays, device="cpu", dtype=torch.float64)
     assert int(state.num_likelihood_evals) == jns.evals_to_int(j_state.num_likelihood_evals)
     assert state.n_dead == 16 and state.iteration == 5 and state.interrupted is False
     back = ns_state_to_numpy(state)
@@ -164,7 +164,7 @@ def _headline_problem():
         parameters=[("x", -5.0, 5.0), ("y", -5.0, 5.0)],
         log_likelihood=lambda th: torch.sum(Normal(0.0, 1.0).log_prob(th)),
         prior_distribution=["location", "location"],
-        dtype=torch.float64,
+        device="cpu", dtype=torch.float64,
     )
 
 
@@ -226,7 +226,7 @@ def test_starting_points_without_sampleable_prior():
     problem = define_inference_problem(
         parameters=[("a", -2.0, 2.0)],
         log_likelihood=lambda th: -0.5 * torch.sum(th**2),
-        dtype=torch.float64,
+        device="cpu", dtype=torch.float64,
     )
     pts = tns.generate_starting_points(problem, torch.Generator().manual_seed(0), 20, burn_in=50, thinning=20)
     assert pts.shape == (20, 1)
