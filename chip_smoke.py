@@ -136,9 +136,9 @@ def phase_kernel_parity():
     return worst
 
 
-# H100 SXM peaks at the full 700 W (NVIDIA's data sheet, the table of the
-# on-chip-measurement guide): HBM3, and 67 TFLOP/s for float32 outside the
-# tensor cores and for float64 through them (DMMA)
+# H100 SXM peaks at the full 700 W (NVIDIA's data sheet): HBM3, and
+# 67 TFLOP/s for float32 outside the tensor cores and for float64 through
+# them (DMMA)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 67e12
 
