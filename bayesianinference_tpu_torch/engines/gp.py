@@ -18,6 +18,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..core.device import as_float_on
 from ..core.numerics import as_float
 from ..core.standardize import NormalizedData, normalize_data
 from ..dists.base import as_param
@@ -124,9 +125,12 @@ def define_gaussian_process(
     validate: bool = True,
     generator: Optional[torch.Generator] = None,
     log_likelihood_method: str = "direct",
+    device=None,
 ) -> InferenceProblem:
     """The inference problem of GP hyperparameters given data ``x`` [n, d]
     and ``y`` [n] (or [n, 1]); it lives on ``x``'s device, in its dtype.
+    Data that is not a tensor (numpy arrays, lists) goes to ``device``:
+    the CUDA card when that is ``None``, never the CPU unasked.
 
     ``normalize=True`` standardizes x and y and keeps the transforms as
     the problem's ``data_preprocessors`` metadata.
@@ -134,8 +138,8 @@ def define_gaussian_process(
     (multivariate-normal log-density); both agree to numerical precision."""
     if log_likelihood_method not in ("direct", "automatic"):
         raise ValueError(f"bad log_likelihood_method {log_likelihood_method!r}")
-    x = torch.atleast_2d(as_float(x))
-    y = as_float(y).to(device=x.device, dtype=x.dtype)
+    x = torch.atleast_2d(as_float_on(x, device))
+    y = torch.as_tensor(y).to(device=x.device, dtype=x.dtype)
     if y.dim() == 2:
         if y.shape[1] != 1:
             raise ValueError(f"only 1-D output supported for GP regression, got {tuple(y.shape)}")
@@ -188,10 +192,11 @@ def predict_from_gaussian_process(
     if isinstance(result, NestedSamplingResult):
         log_w, thetas = result.crude_log_posterior_weights, result.points
     else:
-        thetas = torch.as_tensor(getattr(result, "points", result))
-        lw = getattr(result, "log_weights", None)
-        log_w = torch.as_tensor(lw) if lw is not None else torch.zeros(
-            thetas.shape[0], dtype=thetas.dtype, device=thetas.device)
+        # samples from elsewhere (numpy, lists, CPU tensors) go where the model is
+        on_model = dict(dtype=model.x.dtype, device=model.x.device)
+        thetas, lw = getattr(result, "points", result), getattr(result, "log_weights", None)
+        thetas = torch.as_tensor(thetas, **on_model)
+        log_w = torch.as_tensor(lw, **on_model) if lw is not None else torch.zeros(thetas.shape[0], **on_model)
     if max_samples is not None and thetas.shape[0] > max_samples:
         warnings.warn(
             f"predict_from_gaussian_process: truncating to the {max_samples} "

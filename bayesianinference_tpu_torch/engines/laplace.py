@@ -27,6 +27,7 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..core.device import as_float_on
 from ..core.numerics import as_float
 from ..dists.base import Distribution
 from ..dists.empirical import ParameterMixture
@@ -140,13 +141,16 @@ def find_mode(
     tol: Optional[float] = None,
     lower=None,
     upper=None,
+    device=None,
 ):
     """Bounded L-BFGS maximization of a log density from each row of
     ``x0``; the best finite end point wins.  Returns (mode [d], max value).
+    Tensor starts keep their device; starts that are not tensors go to
+    ``device`` (``None``: the CUDA card), and the bounds follow the starts.
 
     Each start runs its own L-BFGS: summing the starts into one objective
     would couple their line searches."""
-    x0 = torch.atleast_2d(as_float(x0))
+    x0 = torch.atleast_2d(as_float_on(x0, device))
     lo, hi, tol = _bounds_and_tol(x0, lower, upper, tol)
     box = _Box(lo, hi)
 
@@ -253,11 +257,13 @@ def approximate_evidence(
     upper=None,
     param_names: Tuple[str, ...] = (),
     data=None,
+    device=None,
 ) -> LaplaceFit:
     """Laplace evidence for a fixed model.  ``log_density`` is the joint
     log posterior density or a (log_likelihood, log_prior) pair; with
-    ``data`` the likelihood is ``f(theta, data)``."""
-    starts = torch.atleast_2d(as_float(initial_guess if initial_guess is not None else x0))
+    ``data`` the likelihood is ``f(theta, data)``.  Starts that are not
+    tensors go to ``device`` (``None``: the CUDA card)."""
+    starts = torch.atleast_2d(as_float_on(initial_guess if initial_guess is not None else x0, device))
     if data is not None:
         if not isinstance(log_density, tuple):
             raise ValueError("data= needs the (log_likelihood, log_prior) pair form")
@@ -373,11 +379,13 @@ def approximate_evidence_hyper(
     upper=None,
     param_names: Tuple[str, ...] = (),
     finite_diff_eps: float = 1e-3,
+    device=None,
 ) -> LaplaceFit:
     """Hyperparameter-level evidence maximization.
 
     ``density_builder(eta)`` returns the inner model density for
-    hyperparameters ``eta`` (a tensor on the start points' device).  The
+    hyperparameters ``eta`` (a tensor on the start points' device; starts
+    that are not tensors go to ``device``, the CUDA card when ``None``).  The
     outer objective logZ(eta) + logprior(eta) is maximized by Nelder-Mead
     or by the MacKay fixed point (``method="fixed_point"`` with an
     ``update_function`` from :func:`mackay_update_1` /
@@ -389,7 +397,7 @@ def approximate_evidence_hyper(
         initial_hyper = np.full((n_hyper,), 0.1)
     eta0 = np.atleast_1d(np.asarray(initial_hyper, float))
     h = eta0.shape[0]
-    starts0 = torch.atleast_2d(as_float(x0))
+    starts0 = torch.atleast_2d(as_float_on(x0, device))
     as_eta = lambda e: torch.as_tensor(np.asarray(e, float), dtype=starts0.dtype, device=starts0.device)  # noqa: E731
     if hyper_prior is None:
         # Cauchy(0, 2) on each hyperparameter
@@ -546,6 +554,7 @@ def laplace_posterior_fit(
     param_names: Tuple[str, ...] = (),
     lower=None,
     upper=None,
+    device=None,
     **hyper_kwargs,
 ) -> LaplaceFit:
     """High-level Laplace fit of one of:
@@ -557,7 +566,9 @@ def laplace_posterior_fit(
 
     Without ``initial_guess`` the ``num_starts`` starts are drawn from the
     truncated Cauchy domain distribution by ``generator`` (default: seed 0
-    on the bounds' device).  With ``hyper_density_builder`` (eta ->
+    on the bounds' device).  Bounds and starts that are not tensors (lists,
+    numpy arrays) go to ``device``: the CUDA card when that is ``None``,
+    never the CPU unasked.  With ``hyper_density_builder`` (eta ->
     (loglike, logprior)) the MacKay / search hyperparameter machinery is
     engaged.  The ``model=`` generative front end is not ported yet."""
     if model is not None or data is not None or parameters is not None or model_inputs is not None:
@@ -580,7 +591,7 @@ def laplace_posterior_fit(
     if initial_guess is None:
         if lower is None:
             raise ValueError("need bounds or an initial guess")
-        lo = as_float(lower)
+        lo = as_float_on(lower, device)
         hi = torch.as_tensor(upper, dtype=lo.dtype, device=lo.device)
         if generator is None:
             generator = torch.Generator(device=lo.device).manual_seed(0)
@@ -588,7 +599,7 @@ def laplace_posterior_fit(
     elif isinstance(lower, torch.Tensor):  # a problem's box: its device and dtype
         starts = torch.atleast_2d(torch.as_tensor(initial_guess, dtype=lower.dtype, device=lower.device))
     else:
-        starts = torch.atleast_2d(as_float(initial_guess))
+        starts = torch.atleast_2d(as_float_on(initial_guess, device))
 
     if hyper_density_builder is not None:
         fit = approximate_evidence_hyper(hyper_density_builder, starts, hyper_prior, n_hyper=n_hyper, lower=lower,

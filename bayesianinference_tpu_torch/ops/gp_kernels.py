@@ -5,10 +5,17 @@ Two operations run as hand-written CUDA kernels on the card (sources in
 ``../csrc``), each registered as a ``torch.library`` custom op:
 
 * ``bayesianinference_tpu_torch::se_covariance`` (replaces the Pallas
-  ``_se_cov_kernel``): ``K[b] = variance[b] * exp(-|x1[b, i] - x2[b, j]|^2 / 2)``.
+  ``se_covariance_pallas`` and its ``_se_cov_kernel``): the whole SE
+  covariance assembly in one launch and one pass over K,
+  ``K[b] = variance[b] * exp(-|(x1[b, i] - x2[b, j]) / l[b]|^2 / 2) + diag(nugget[b])``.
+  The lengthscale (scalar or ARD) and the nugget are operands, the data
+  goes in unscaled and, where the batch shares it, once; ``x2=None`` is
+  the symmetric call (bitwise symmetric K, half the exponentials).
+  :func:`se_kernel` fills :class:`Kernel`'s ``matrix_with_nugget`` with it,
+  so :func:`covariance_matrix` of an SE kernel is exactly this one kernel.
 * ``bayesianinference_tpu_torch::cholesky`` (replaces the Pallas
   ``_chol_pallas_kernel``): the lower factor of every matrix of a batch,
-  NaN-propagating on a non-PD input; one launch up to n = 1024, 256-wide
+  NaN-propagating on a non-PD input; one launch up to n = 640, 256-wide
   panels above (:func:`_cholesky_route`).
 
 On a CPU tensor each op runs its plain PyTorch version
@@ -16,7 +23,9 @@ On a CPU tensor each op runs its plain PyTorch version
 launches the kernel or raises.  Both ops have a fake (meta) rule and a
 ``torch.func.vmap`` rule that folds the vmapped dimension into the
 kernel's batch dimension, so per-point GP likelihoods batched by
-``InferenceProblem`` reach the kernels as one batched launch.
+``InferenceProblem`` reach the kernels as one batched launch; an operand
+that is not vmapped (the data, under a vmap over hyperparameters) stays
+one shared tensor, read through a batch stride of 0.
 
 The wrappers :func:`se_covariance` and :func:`cholesky` carry each op's
 reverse rule (``_SECovariance``, ``_Cholesky``), written in differentiable
@@ -97,12 +106,26 @@ def squared_distances(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # se_covariance: plain version, CUDA kernel, custom op
 # ---------------------------------------------------------------------------
+#
+# Shapes at the op: x1 [B | 1, n1, d]; x2 None ("x2 is x1") or [B | 1, n2, d];
+# variance [B | 1]; lengthscale None or [B | 1, d]; nugget None or
+# [B | 1, n1] (only with x2 None).  A leading 1 is shared by every matrix of
+# the batch and is never expanded into a copy.
 
 
-def se_covariance_plain(x1: torch.Tensor, x2: torch.Tensor, variance: torch.Tensor) -> torch.Tensor:
-    """``variance[b] * exp(-squared_distances(x1[b], x2[b]) / 2)`` for
-    x1 [B, n1, d], x2 [B, n2, d], variance [B]."""
-    return variance[:, None, None] * exp_neg_precise(-0.5 * squared_distances(x1, x2))
+def se_covariance_plain(x1, x2, variance, lengthscale=None, nugget=None) -> torch.Tensor:
+    """``variance[b] * exp(-squared_distances(x1[b] / l[b], x2[b] / l[b]) / 2)
+    + diag(nugget[b])`` in plain tensor ops, at the op's shapes (above);
+    ``x2=None`` means x2 is x1."""
+    if x2 is None:
+        x2 = x1
+    elif nugget is not None:
+        raise ValueError("se_covariance: a nugget needs x2=None (the symmetric call)")
+    if lengthscale is not None:
+        inv = (1.0 / lengthscale)[:, None, :]
+        x1, x2 = x1 * inv, x2 * inv
+    k = variance[:, None, None] * exp_neg_precise(-0.5 * squared_distances(x1, x2))
+    return k if nugget is None else k + torch.diag_embed(nugget)
 
 
 def _check_cuda(name: str, tensors, dims) -> None:
@@ -111,30 +134,72 @@ def _check_cuda(name: str, tensors, dims) -> None:
             raise ValueError(f"{name}: the CUDA implementation takes CUDA tensors, got {t.device}")
         if t.dtype not in (torch.float32, torch.float64) or t.dtype != tensors[0].dtype:
             raise TypeError(f"{name}: tensors must share float32 or float64, got {[x.dtype for x in tensors]}")
-        if t.dim() != nd or not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous {nd}-D tensors, got shape {tuple(t.shape)}")
+        if t.dim() != nd:
+            raise ValueError(f"{name}: expected {nd}-D tensors, got shape {tuple(t.shape)}")
         if t.device != tensors[0].device:
             raise ValueError(f"{name}: tensors on different devices")
 
 
-def se_covariance_cuda(x1: torch.Tensor, x2: torch.Tensor, variance: torch.Tensor) -> torch.Tensor:
-    """CUDA implementation of the ``se_covariance`` op: launches the kernel
-    of ``csrc/se_covariance.cu`` on the current stream.  Counts its
-    launches in ``se_covariance_cuda.launches``."""
-    _check_cuda("se_covariance", (x1, x2, variance), (3, 3, 1))
-    b, n1, d = x1.shape
-    if x2.shape[0] != b or x2.shape[2] != d or variance.shape[0] != b:
-        raise ValueError(f"se_covariance: shapes {tuple(x1.shape)}, {tuple(x2.shape)}, {tuple(variance.shape)} disagree")
-    n2 = x2.shape[1]
-    out = torch.empty((b, n1, n2), dtype=x1.dtype, device=x1.device)
+def _se_batch(*tensors) -> int:
+    """The op's batch size: the leading sizes must all be 1 or one B."""
+    sizes = {t.shape[0] for t in tensors if t is not None} - {1}
+    if len(sizes) > 1:
+        raise ValueError(f"se_covariance: leading sizes {sorted(sizes)} disagree")
+    return sizes.pop() if sizes else 1
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [b, n, d] with each matrix's rows contiguous (any batch stride,
+    0 for shared data); a copy only where they are not."""
+    _, n, d = x.shape
+    ok = (d == 1 or x.stride(2) == 1) and (n == 1 or x.stride(1) == d)
+    return x if ok else x.contiguous()
+
+
+def _lead(t: torch.Tensor) -> int:
+    """Stride of the leading dim in elements; 0 for one shared by the batch."""
+    return 0 if t.shape[0] == 1 else t.stride(0)
+
+
+def se_covariance_cuda(x1, x2, variance, lengthscale=None, nugget=None, tile: int = 0) -> torch.Tensor:
+    """CUDA implementation of the ``se_covariance`` op: one launch of the
+    kernel of ``csrc/se_covariance.cu`` on the current stream, reading the
+    operands through their strides (nothing is expanded or scaled into a
+    copy).  ``tile`` forces the 32- or 64-wide output tile (0: the kernel's
+    launcher picks it from the call's shape).  Counts its launches in
+    ``se_covariance_cuda.launches``."""
+    given = [t for t in (x1, x2, variance, lengthscale, nugget) if t is not None]
+    dims = [3] + ([3] if x2 is not None else []) + [1] + ([2] if lengthscale is not None else []) + (
+        [2] if nugget is not None else [])
+    _check_cuda("se_covariance", given, dims)
+    if nugget is not None and x2 is not None:
+        raise ValueError("se_covariance: a nugget needs x2=None (the symmetric call)")
+    batch = _se_batch(*given)
+    n1, d = x1.shape[1:]
+    n2 = n1 if x2 is None else x2.shape[1]
+    if ((x2 is not None and x2.shape[2] != d) or (lengthscale is not None and lengthscale.shape[1] != d)
+            or (nugget is not None and nugget.shape[1] != n1)):
+        raise ValueError(f"se_covariance: shapes {[tuple(t.shape) for t in given]} disagree")
+    out = torch.empty((batch, n1, n2), dtype=x1.dtype, device=x1.device)
     if out.numel() == 0:
         return out
+    x1 = _rows(x1)
+    x2 = None if x2 is None else _rows(x2)
     lib = csrc.load_library()
     fn = lib.bi_se_covariance_f64 if x1.dtype == torch.float64 else lib.bi_se_covariance_f32
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream
         se_covariance_cuda.launches += 1
-        code = fn(x1.data_ptr(), x2.data_ptr(), variance.data_ptr(), out.data_ptr(), b, n1, n2, d, stream)
+        code = fn(
+            ptr(x1), ptr(x2), ptr(variance), ptr(lengthscale), ptr(nugget), out.data_ptr(),
+            batch, n1, n2, d,
+            _lead(x1), 0 if x2 is None else _lead(x2), _lead(variance),
+            0 if lengthscale is None else _lead(lengthscale),
+            0 if lengthscale is None else lengthscale.stride(1),
+            0 if nugget is None else _lead(nugget), 0 if nugget is None else nugget.stride(1),
+            tile, stream,
+        )
     csrc.check(code, "se_covariance")
     return out
 
@@ -143,41 +208,77 @@ se_covariance_cuda.launches = 0
 
 
 @torch.library.custom_op(f"{_NS}::se_covariance", mutates_args=(), device_types="cpu")
-def _se_covariance_op(x1: torch.Tensor, x2: torch.Tensor, variance: torch.Tensor) -> torch.Tensor:
-    return se_covariance_plain(x1, x2, variance)
+def _se_covariance_op(
+    x1: torch.Tensor,
+    x2: Optional[torch.Tensor],
+    variance: torch.Tensor,
+    lengthscale: Optional[torch.Tensor] = None,
+    nugget: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    return se_covariance_plain(x1, x2, variance, lengthscale, nugget).contiguous()
 
 
-_se_covariance_op.register_kernel("cuda")(se_covariance_cuda)
+@_se_covariance_op.register_kernel("cuda")
+def _(x1, x2, variance, lengthscale=None, nugget=None):
+    return se_covariance_cuda(x1, x2, variance, lengthscale, nugget)
 
 
 @_se_covariance_op.register_fake
-def _(x1, x2, variance):
-    return x1.new_empty((x1.shape[0], x1.shape[1], x2.shape[1]))
+def _(x1, x2, variance, lengthscale=None, nugget=None):
+    batch = _se_batch(x1, x2, variance, lengthscale, nugget)
+    return x1.new_empty((batch, x1.shape[1], (x1 if x2 is None else x2).shape[1]))
 
 
-def _fold(t: torch.Tensor, dim, size: int) -> torch.Tensor:
-    """Move the vmapped dim to the front (or expand an unbatched input) and
-    merge it into the op's batch dim 0."""
-    t = t.movedim(dim, 0) if dim is not None else t.expand(size, *t.shape)
-    return t.reshape(size * t.shape[1], *t.shape[2:]).contiguous()
+def _fold(t: Optional[torch.Tensor], dim, size: int, batch: int) -> Optional[torch.Tensor]:
+    """Merge the vmapped dim (``dim``, of ``size``) into an op's batch dim 0
+    (of ``batch``).  An operand that is not vmapped and whose batch dim is 1
+    stays as it is, shared by every matrix; any other is a view where its
+    strides allow."""
+    if t is None:
+        return None
+    if dim is None:
+        if t.shape[0] == 1:
+            return t
+        t = t.expand(size, *t.shape)
+    else:
+        t = t.movedim(dim, 0)
+        t = t.expand(size, batch, *t.shape[2:])
+    return t.reshape(size * batch, *t.shape[2:])
 
 
-def _se_covariance_vmap(info, in_dims, x1, x2, variance):
+def _se_covariance_vmap(info, in_dims, x1, x2, variance, lengthscale=None, nugget=None):
     v = info.batch_size
-    out = _se_covariance_op(*(_fold(t, dim, v) for t, dim in zip((x1, x2, variance), in_dims)))
-    return out.reshape(v, -1, *out.shape[1:]), 0
+    args = (x1, x2, variance, lengthscale, nugget)
+    batch = _se_batch(*(t if t is None or dim is None else t.movedim(dim, 0)[0] for t, dim in zip(args, in_dims)))
+    out = _se_covariance_op(*(_fold(t, dim, v, batch) for t, dim in zip(args, in_dims)))
+    return out.reshape(v, batch, *out.shape[1:]), 0
 
 
 _se_covariance_op.register_vmap(_se_covariance_vmap)
 
 
+def _sum_lead(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The cotangent of an operand whose leading dim of 1 was shared by the batch."""
+    return g.sum(dim=0, keepdim=True) if like.shape[0] == 1 and g.shape[0] != 1 else g
+
+
 class _SECovariance(torch.autograd.Function):
-    """The ``se_covariance`` op with its reverse rule.  With P = grad * K:
-    d/dvariance = sum(P) / variance, and in Gram form
-    d/dx1 = P x2 - rowsum(P) x1, d/dx2 = P^T x1 - colsum(P) x2, which never
-    builds the [B, n1, n2, d] difference.  The backward is plain
-    differentiable ops on the saved K, so a second derivative runs through
-    the op again.
+    """The ``se_covariance`` op with its reverse rule.  With E the matrix
+    without the nugget, P = grad * E, r and c the row and column sums of P
+    and l the lengthscale:
+
+      d/dvariance = sum(P) / variance,      d/dnugget = diag(grad),
+      d/dl_k = -(2 x1_k^T P x2_k - sum_i r_i x1_ik^2 - sum_j c_j x2_jk^2) / l_k^3,
+      d/dx1 = (P x2 - r x1) / l^2,          d/dx2 = (P^T x1 - c x2) / l^2
+
+    (Gram form: the [B, n1, n2, d] difference is never built; with x2 None
+    the two data cotangents add).  The nugget sits on entries of zero
+    distance, which drop out of every sum but the variance's, so P is taken
+    from the saved K and only that one sum is corrected.  Cotangents that
+    ``ctx.needs_input_grad`` does not ask for are skipped: the data's costs
+    an [n, n] x [n, d] product that the hyperparameter paths never want.
+    The backward is plain differentiable ops on the saved K, so a second
+    derivative runs through the op again.
 
     An ``autograd.Function`` with ``setup_context`` rather than
     ``torch.library.register_autograd``: the Function that the latter
@@ -187,8 +288,8 @@ class _SECovariance(torch.autograd.Function):
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(x1, x2, variance):
-        return torch.ops.bayesianinference_tpu_torch.se_covariance(x1, x2, variance)
+    def forward(x1, x2, variance, lengthscale, nugget):
+        return torch.ops.bayesianinference_tpu_torch.se_covariance(x1, x2, variance, lengthscale, nugget)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -196,28 +297,74 @@ class _SECovariance(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        x1, x2, variance, k = ctx.saved_tensors
+        x1, x2, variance, scale, nugget, k = ctx.saved_tensors
+        inv_l = None if scale is None else 1.0 / scale
+        need_x1, need_x2, need_var, need_l, need_nug = ctx.needs_input_grad
+        same = x2 is None
+        xb = x1 if same else x2
         p = grad * k
-        gx1 = p @ x2 - p.sum(dim=-1, keepdim=True) * x1
-        gx2 = p.mT @ x1 - p.sum(dim=-2).unsqueeze(-1) * x2
-        gvar = p.sum(dim=(-2, -1)) / variance
-        return gx1, gx2, gvar
+        gx1 = gx2 = gvar = gl = gnug = None
+        if need_nug:
+            gnug = _sum_lead(torch.diagonal(grad, dim1=-2, dim2=-1), nugget)
+        if need_var:
+            total = p.sum(dim=(-2, -1))
+            if nugget is not None:
+                total = total - (torch.diagonal(grad, dim1=-2, dim2=-1) * nugget).sum(dim=-1)
+            gvar = _sum_lead(total / variance, variance)
+        if need_x1 or need_x2 or need_l:
+            rows = p.sum(dim=-1, keepdim=True)
+            cols = p.sum(dim=-2).unsqueeze(-1)
+            px = p @ xb
+            if need_l:
+                if same:
+                    squares = ((rows + cols) * x1 * x1).sum(dim=-2)
+                else:
+                    squares = (rows * x1 * x1).sum(dim=-2) + (cols * x2 * x2).sum(dim=-2)
+                gl = _sum_lead((inv_l * inv_l * inv_l) * (squares - 2.0 * (x1 * px).sum(dim=-2)), scale)
+            l2 = 1.0 if inv_l is None else (inv_l * inv_l)[:, None, :]
+            if need_x1:
+                gx1 = (px - rows * x1) * l2
+                if same:
+                    gx1 = gx1 + (p.mT @ x1 - cols * x1) * l2
+                gx1 = _sum_lead(gx1, x1)
+            if need_x2 and not same:
+                gx2 = _sum_lead((p.mT @ x1 - cols * x2) * l2, x2)
+        return gx1, gx2, gvar, gl, gnug
 
 
-def se_covariance(x1, x2, variance) -> torch.Tensor:
-    """``variance * exp(-|x1_i - x2_j|^2 / 2)`` for x1 [..., n1, d] and
-    x2 [..., n2, d] (already divided by the lengthscale) with a scalar or
-    [...] variance: [..., n1, n2] through the custom op."""
-    x1, x2 = as_float(x1), as_float(x2)
-    variance = as_param(variance, x1).to(x1.dtype)
-    batch = torch.broadcast_shapes(x1.shape[:-2], x2.shape[:-2], variance.shape)
+def _op_operand(t: torch.Tensor, batch, inner) -> torch.Tensor:
+    """``t`` [..., *inner] (its trailing dims broadcastable to ``inner``) at
+    the op's shape: [1, *inner] when it has no batch dims of its own (shared
+    by every matrix, never copied), else broadcast to ``batch`` and
+    flattened to [B, *inner], a view where strides allow."""
+    k = len(inner)
+    own = t.shape[: max(t.dim() - k, 0)]
+    if math.prod(own) == 1:
+        return t.expand((*own, *inner)).reshape(1, *inner)
+    return t.expand((*batch, *inner)).reshape(-1, *inner)
+
+
+def se_covariance(x1, x2, variance, lengthscale=None, nugget=None) -> torch.Tensor:
+    """``variance * exp(-sum_k ((x1_ik - x2_jk) / lengthscale_k)^2 / 2)
+    + [i == j] * nugget_i`` through the custom op: [..., n1, n2].
+
+    x1 [..., n1, d]; x2 [..., n2, d], or ``None`` for "x2 is x1" (the
+    symmetric call: K is bitwise symmetric, and only it takes a nugget);
+    ``variance`` a scalar or [...]; ``lengthscale`` ``None`` (1), a
+    scalar, [d] (ARD) or [..., d]; ``nugget`` ``None``, a scalar, [n1] or
+    [..., n1].  Batch dims broadcast; an operand without batch dims of its
+    own is passed once, not once per matrix."""
+    x1 = as_float(x1)
+    x2 = None if x2 is None else as_float(x2).to(x1.dtype)
+    if nugget is not None and x2 is not None:
+        raise ValueError("se_covariance: a nugget needs x2=None (the symmetric call)")
     n1, d = x1.shape[-2:]
-    n2 = x2.shape[-2]
-    out = _SECovariance.apply(
-        x1.expand(*batch, n1, d).reshape(-1, n1, d).contiguous(),
-        x2.expand(*batch, n2, d).reshape(-1, n2, d).contiguous(),
-        variance.expand(batch).reshape(-1).contiguous(),
-    )
+    n2 = n1 if x2 is None else x2.shape[-2]
+    small = [None if t is None else as_param(t, x1).to(x1.dtype) for t in (variance, lengthscale, nugget)]
+    inner = [(n1, d), (n2, d), (), (d,), (n1,)]
+    args = [x1, x2, *small]
+    batch = torch.broadcast_shapes(*(t.shape[: max(t.dim() - len(k), 0)] for t, k in zip(args, inner) if t is not None))
+    out = _SECovariance.apply(*(None if t is None else _op_operand(t, batch, k) for t, k in zip(args, inner)))
     return out.reshape(*batch, n1, n2)
 
 
@@ -236,12 +383,14 @@ def cholesky_plain(k: torch.Tensor) -> torch.Tensor:
 
 # Largest n that the Cholesky factors in one launch (a thread-block
 # cluster per matrix, 32-wide panels); above it, six launches per 256-wide
-# panel.  1024 so that the slice's n = 512 and chip_smoke.py's n = 1000
-# take one launch.  Measured by chip_smoke.py phase 5 (PERF.md): the fused
-# path is the faster one at n = 512 and the slower one at n = 1024, where
-# its one cluster per matrix (8 SMs) is too few; the crossover lies
-# between the two.
-_FUSED_MAX_N = 1024
+# panel.  640 is the measured crossover (chip_smoke.py phase 5, float64,
+# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): the fused path is the faster
+# one at n = 512 and 640 at both B = 1 and B = 10 (0.398 against 0.412 ms
+# and 0.406 against 0.456 ms at 640), level or slower at 768 (0.563
+# against 0.501 ms at B = 1, 0.576 against 0.574 at B = 10) and slower
+# above, where its one cluster per matrix (8 SMs) is too few.  The
+# slice's n = 512 takes one launch.
+_FUSED_MAX_N = 640
 _FUSED_NB = 32
 _BLOCKED_NB = 256
 
@@ -279,6 +428,8 @@ def cholesky_cuda(k: torch.Tensor) -> torch.Tensor:
     current stream.  Counts its calls in ``cholesky_cuda.launches``."""
     _check_cuda("cholesky", (k,), (3,))
     n, n2 = k.shape[1:]
+    if not k.is_contiguous():
+        raise ValueError(f"cholesky: expected a contiguous batch, got strides {k.stride()}")
     if n != n2:
         raise ValueError(f"cholesky: matrices must be square, got {tuple(k.shape)}")
     return _cholesky_launch(k, *_cholesky_route(n))
@@ -303,7 +454,7 @@ def _(k):
 
 def _cholesky_vmap(info, in_dims, k):
     v = info.batch_size
-    out = _cholesky_op(_fold(k, in_dims[0], v))
+    out = _cholesky_op(_fold(k, in_dims[0], v, k.movedim(in_dims[0], 0).shape[1]).contiguous())
     return out.reshape(v, -1, *out.shape[1:]), 0
 
 
@@ -367,11 +518,17 @@ class Kernel:
 
     ``exactly_symmetric`` declares that ``matrix(x, x)`` is symmetric to
     the last bit by construction; only then do the logML paths skip the
-    0.5 (K + K^T) pass."""
+    0.5 (K + K^T) pass.
+
+    ``matrix_with_nugget(x, nugget_vector) -> [n, n]``, where a family has
+    it, gives ``matrix(x, x) + diag(nugget_vector)`` in one pass over K;
+    :func:`covariance_matrix` uses it.  Sums and products leave it empty
+    and take the general path."""
 
     matrix: Callable
     diag: Callable
     exactly_symmetric: bool = False
+    matrix_with_nugget: Optional[Callable] = None
 
     def __add__(self, other: "Kernel") -> "Kernel":
         return Kernel(
@@ -390,19 +547,24 @@ class Kernel:
 
 def se_kernel(variance=1.0, lengthscale=1.0) -> Kernel:
     """Squared-exponential kernel v * exp(-r^2 / (2 l^2)); ``lengthscale``
-    scalar or [d] (ARD).  Its matrix is the ``se_covariance`` op on the
-    inputs divided by the lengthscale."""
+    scalar or [d] (ARD).  Its matrix is one call of the ``se_covariance``
+    op on the unscaled inputs; ``matrix(x, x)`` (the same object twice) and
+    ``matrix_with_nugget`` make the symmetric call."""
 
     def matrix(a, b):
-        a, b = as_float(a), as_float(b)
-        inv = 1.0 / as_param(lengthscale, a)
-        return se_covariance(a * inv, b * inv, variance)
+        same = a is b
+        a = as_float(a)
+        return se_covariance(a, None if same else as_float(b), variance, lengthscale)
+
+    def matrix_with_nugget(a, nugget):
+        a = as_float(a)
+        return se_covariance(a, None, variance, lengthscale, nugget)
 
     def diag(a):
         a = as_float(a)
         return as_param(variance, a) * torch.ones(a.shape[0], dtype=a.dtype, device=a.device)
 
-    return Kernel(matrix=matrix, diag=diag, exactly_symmetric=True)
+    return Kernel(matrix=matrix, diag=diag, exactly_symmetric=True, matrix_with_nugget=matrix_with_nugget)
 
 
 def _stationary(f_of_sqdist: Callable, variance, lengthscale=1.0) -> Kernel:
@@ -526,8 +688,12 @@ def _nugget_vector(nugget, x: torch.Tensor) -> torch.Tensor:
 def covariance_matrix(kernel: Kernel, x, nugget=None, symmetrize: bool = True) -> torch.Tensor:
     """K = k(x_i, x_j) + diag(nugget(x_i)); ``nugget`` is a scalar, an [n]
     vector or a callable x -> [n].  ``symmetrize=False`` skips the
-    0.5 (K + K^T) pass."""
+    0.5 (K + K^T) pass.  A kernel with ``matrix_with_nugget`` (the SE
+    kernel) assembles K and its nugget in one call, unless a kernel that
+    is not exactly symmetric asks to be symmetrized."""
     x = as_float(x)
+    if kernel.matrix_with_nugget is not None and (kernel.exactly_symmetric or not symmetrize):
+        return kernel.matrix_with_nugget(x, None if nugget is None else _nugget_vector(nugget, x))
     k = kernel.matrix(x, x)
     if symmetrize:
         k = 0.5 * (k + k.mT)

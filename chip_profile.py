@@ -4,13 +4,18 @@
 
 ``--repo`` imports ``bayesianinference_tpu_torch`` from another checkout
 (default: this one), so that two trees can be profiled in one run on one
-card, in turns.  Two workloads, those of ``chip_smoke.py`` phases 4 and 7:
+card, in turns.  Three workloads, those of ``chip_smoke.py`` phases 4, 7
+and 6:
 
 * the GP slice: nested sampling of the SE-kernel GP's hyperparameters at
   n = 512, d = 3, float64 (pool 100, ``num_delete=10``, 100 MC steps), for
   6 iterations; a chain step is one batched likelihood call
   (one ``cholesky`` op call at B = 10);
-* the Laplace fit of that problem from 8 fixed starts.
+* the Laplace fit of that problem from 8 fixed starts;
+* the GP logML and its hyperparameter gradient at n = 16384, d = 3,
+  float32 (``bench.py::bench_gp``): wall ms (median of 3), device ms and
+  CUDA kernels of one call, and the peak device memory of the call above
+  what was held before it.
 
 For each: the unprofiled wall time (host clock around work ending in a
 synchronize; the fit's median of 3), then one run under torch.profiler:
@@ -53,10 +58,16 @@ def _gp_problem(x, y):
 def _profile(fn):
     """(device ms, CUDA kernels and copies, Cholesky ms, SE covariance ms)
     of one call."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # a trace can lose the records of its first kernels: open it with a warm-up step that is traced and dropped
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(10):
+            torch.zeros(8, device="cuda").add_(1.0)
+        torch.cuda.synchronize()
+        prof.step()
         fn()
         torch.cuda.synchronize()
     # device-side events other than the ranges of user annotations (such as
@@ -133,6 +144,36 @@ def main():
           f"{', '.join(f'{w:.1f}' for w in walls)}, device {dev_ms:.1f} ms (busy share {dev_ms / wall:.3f}), "
           f"{kernels / factorizations:.1f} CUDA kernels per factorization, Cholesky {100 * chol_ms / dev_ms:.1f} % "
           f"of device time | {smi}", flush=True)
+    n = 16384
+    xg = torch.as_tensor(rng.normal(size=(n, 3)), device=dev, dtype=torch.float32)
+    yg = torch.sin(xg[:, 0])
+    th0 = torch.tensor([0.0, 0.0, -2.0], device=dev)
+
+    def value_and_grad():
+        th = th0.clone().requires_grad_(True)
+        k = gk.covariance_matrix(gk.se_kernel(torch.exp(th[0]), torch.exp(th[1])), xg, nugget=torch.exp(th[2]),
+                                 symmetrize=False)
+        value = gk.gp_log_marginal_likelihood(k, yg)
+        return value.detach(), torch.autograd.grad(value, th)[0]
+
+    value_and_grad()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        value_and_grad()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
+    dev_ms, kernels, chol_ms, se_ms = _profile(value_and_grad)
+    out["gp_grad"] = {"n": n, "wall_ms": walls, "device_ms": dev_ms, "kernels": kernels, "peak_mib": peak_mib,
+                      "se_covariance_ms": se_ms, "cholesky_ms": chol_ms}
+    print(f"GP logML+grad n={n} f32: wall ms {', '.join(f'{w:.1f}' for w in walls)}, device {dev_ms:.1f} ms in "
+          f"{kernels} CUDA kernels (SE covariance {se_ms:.3f} ms, Cholesky {chol_ms:.1f} ms), peak device memory "
+          f"{peak_mib:.0f} MiB above what was held | {smi}", flush=True)
     print(json.dumps(out))
 
 

@@ -7,23 +7,30 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
 1. device: requires CUDA, prints the card's name and power limit, builds
    the hand-written kernels from ``bayesianinference_tpu_torch/csrc``;
 2. kernel parity: each kernel against its plain PyTorch version on the
-   card, float32 and float64, at the slice's shapes and around them, and
-   the Cholesky on both of its paths (one launch up to n = 1024, 128-wide
-   panels above) and on both sides of the panel edges;
+   card, float32 and float64, at the slice's shapes and around them: the
+   SE covariance at d = 1 to 40 (both feature paths), n = 1 to 1000
+   (ragged, odd row length), B = 1 to 10, the cross shape, with and without
+   nugget, scalar and ARD lengthscale, shared and per-matrix data, both
+   tile edges, bitwise symmetric and bit-equal to the two-input call, NaN
+   propagating; the Cholesky on both of its paths (one launch up to
+   n = 640, 256-wide panels above) and on both sides of the panel edges;
 3. NS spine: nested sampling of a 2-D standard Gaussian under the uniform
    box [-5, 5]^2 (analytic logZ = -log 100) to termination;
 4. the slice: GP hyperparameter posterior by nested sampling at n = 512,
    d = 3 (float64), then prediction at 64 query points; the kernels'
    launch counters prove the run went through them;
-5. kernel times with CUDA events at the slice's shapes, and the Cholesky
-   at bench.py's n = 16384 (float32), each beside its bound and its
-   library call; the Cholesky's two paths against each other around the
-   route threshold; CUDA kernel launches per call counted by
-   torch.profiler;
+5. kernel times with CUDA events at the slice's shapes, and at bench.py's
+   n = 16384 (float32), each beside its bound and its library call; the
+   SE assembly in one call (lengthscale and nugget fused) against the
+   unfused assembly it replaced, and its bulk-asynchronous-store build
+   against the default; the Cholesky's two paths against each
+   other around the route threshold; CUDA kernel launches per call counted
+   by torch.profiler;
 6. GP logML and its hyperparameter gradient at bench.py's full width
    (n = 16384, d = 3, float32): through the kernels and the closed-form
    backward, and through the plain versions, each against the plain
    float64 value; wall times of both, and of the K^-1 the backward uses;
+   the peak device memory of the forward-and-gradient call;
 7. the Laplace fit of phase 4's GP problem from 8 fixed starts through the
    kernels, twice, held against the same fit through the plain versions on
    CPU tensors, and its Gaussian posterior's density at 1000 of its draws
@@ -33,7 +40,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
 Each of phases 4, 6 and 7 zeroes the kernels' launch counters before it
 drives its path and fails if a kernel was not launched; the ``launches``
 of the JSON line are their sum.  Phase 5 fails unless each kernel is one
-CUDA kernel launch per call at the slice's shape.
+CUDA kernel launch per call at the slice's shape, and unless
+``covariance_matrix(se_kernel(...), x, nugget)`` is one CUDA kernel in all.
 
 The line before the last is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -46,12 +54,14 @@ import math
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 SLICE_N, SLICE_D, SLICE_B = 512, 3, 10
 GRAD_N = 16384  # bench.py::bench_gp
+PARENT_GRAD_PEAK_MIB = 8193  # chip_profile.py --repo <the parent commit>, NVIDIA H100 80GB HBM3, 700.00 W (PERF.md)
 SE_SOURCE = "bayesianinference_tpu_torch/csrc/se_covariance.cu"
 CHOL_SOURCE = "bayesianinference_tpu_torch/csrc/cholesky.cu"
 SE_REPLACES = "bayesianinference_tpu/ops/gp_kernels.py:436"
@@ -85,28 +95,86 @@ def phase_device():
     return smi
 
 
+def _se_plain_in_row_blocks(gk, x1, x2, var, scale, nugget):
+    """``se_covariance_plain`` on row blocks small enough for its accurate
+    direct-difference form (at most 2^24 elements of [rows, n2, d])."""
+    other = x1 if x2 is None else x2
+    step = max(1, gk._DIRECT_SQDIST_MAX_ELEMS // (other.shape[1] * other.shape[2]))
+    k = torch.cat([gk.se_covariance_plain(x1[:, i:i + step], other, var, scale)
+                   for i in range(0, x1.shape[1], step)], dim=1)
+    return k if nugget is None else k + torch.diag_embed(nugget)
+
+
+def _se_parity_cases():
+    """(B, n1, n2 or None for the symmetric call, d, ARD, nugget, shared data,
+    tile): every d of both feature paths against every n (ragged, odd row
+    length), the flags in rotation; every flag combination and both tile
+    edges at the slice's shape; the cross shape."""
+    cases, turn = [], 0
+    for d in (1, 3, 8, 9, 40):
+        for n in (1, 50, 512, 513, 1000):
+            b = (1, 3, 10)[turn % 3]
+            cases.append((b, n, None, d, bool(turn & 1), bool(turn & 2), bool(turn & 4), (0, 32, 64)[turn % 3]))
+            cases.append((b, n, n, d, bool(turn & 2), False, bool(turn & 1), 0))
+            turn += 1
+    for ard in (False, True):
+        for nugget in (False, True):
+            for shared in (False, True):
+                cases += [(SLICE_B, SLICE_N, None, SLICE_D, ard, nugget, shared, tile) for tile in (0, 32, 64)]
+    cases += [(10, 512, 64, 3, True, False, False, 0), (3, 512, 64, 3, False, False, True, 32),
+              (1, 64, 512, 9, True, False, False, 64)]
+    return cases
+
+
 def phase_kernel_parity():
     from bayesianinference_tpu_torch.ops import gp_kernels as gk
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     worst = {"se_covariance": 0.0, "cholesky": 0.0}
+    rand = lambda *shape, dtype: torch.randn(shape, generator=g, device=dev, dtype=dtype)  # noqa: E731
+    cases = _se_parity_cases()
     for dtype in (torch.float64, torch.float32):
-        for b, n1, n2, d in ((1, 50, 50, 1), (10, 512, 512, 3), (3, 1000, 1000, 3), (10, 512, 64, 3)):
-            x1 = torch.randn((b, n1, d), generator=g, device=dev, dtype=dtype)
-            x2 = x1 if n1 == n2 else torch.randn((b, n2, d), generator=g, device=dev, dtype=dtype)
+        for b, n1, n2, d, ard, with_nugget, shared, tile in cases:
+            what = f"se_covariance {dtype} B={b} n1={n1} n2={n2} d={d} ard={ard} nugget={with_nugget} shared={shared} tile={tile}"
+            x1 = rand(1 if shared else b, n1, d, dtype=dtype)
+            x2 = None if n2 is None else rand(1 if shared else b, n2, d, dtype=dtype)
             var = 0.5 + torch.rand((b,), generator=g, device=dev, dtype=dtype)
-            got = gk.se_covariance(x1, x2, var)
-            want = gk.se_covariance_plain(x1, x2, var)
+            # ARD: one lengthscale per matrix and feature; else a scalar one per matrix, as a stride-0 view
+            scale = 0.5 + torch.rand((b, d if ard else 1), generator=g, device=dev, dtype=dtype)
+            scale = scale if ard else scale.expand(b, d)
+            nugget = (0.01 + torch.rand((b, 1), generator=g, device=dev, dtype=dtype)).expand(b, n1) if with_nugget else None
+            got = gk.se_covariance_cuda(x1, x2, var, scale, nugget, tile=tile)
+            want = _se_plain_in_row_blocks(gk, x1, x2, var, scale, nugget)
             torch.cuda.synchronize()
             err = ((got - want).abs() / var[:, None, None]).max().item()
             if not err <= TOL["se"][dtype]:
-                raise AssertionError(f"se_covariance {dtype} {(b, n1, n2, d)}: rel err {err:.3e}")
-            if x2 is x1 and not torch.equal(got, got.mT):
-                raise AssertionError(f"se_covariance {dtype} {(b, n1, d)}: not bitwise symmetric")
+                raise AssertionError(f"{what}: rel err {err:.3e}")
+            if x2 is None:
+                if not torch.equal(got, got.mT):
+                    raise AssertionError(f"{what}: not bitwise symmetric")
+                two = gk.se_covariance_cuda(x1, x1.clone(), var, scale, None, tile=tile)
+                if not torch.equal(got, two if nugget is None else two + torch.diag_embed(nugget)):
+                    raise AssertionError(f"{what}: the symmetric call differs from the two-input call on a copy")
             worst["se_covariance"] = max(worst["se_covariance"], (got - want).abs().max().item())
-        # 3: a Laplace posterior's factor; 512: the slice; above 1024: blocked
-        for n in (3, 50, 128, 512, 1000, 2047, 2048, 2049, 4096):
+        # the wrapper (op, broadcasting, no lengthscale) equals the direct launch; NaN in gives NaN out
+        x = rand(3, 130, 3, dtype=dtype)
+        if not torch.equal(gk.se_covariance(x, None, 1.5, 0.7, 0.1),
+                           gk.se_covariance_cuda(x, None, torch.full((1,), 1.5, device=dev, dtype=dtype),
+                                                 torch.full((1, 3), 0.7, device=dev, dtype=dtype),
+                                                 torch.full((1, 130), 0.1, device=dev, dtype=dtype))):
+            raise AssertionError(f"se_covariance {dtype}: the wrapper and the direct launch differ")
+        x[0, 3, 1] = float("nan")
+        for x2 in (None, x.clone()):
+            k = gk.se_covariance(x, x2, 1.5)
+            bad = torch.isnan(k)
+            expect = torch.zeros_like(bad)
+            expect[0, 3, :] = True
+            expect[0, :, 3] = True
+            if not torch.equal(bad, expect):
+                raise AssertionError(f"se_covariance {dtype}: NaN in x did not give exactly row and column 3 NaN")
+        # 3: a Laplace posterior's factor; 512: the slice; above 640: blocked
+        for n in (3, 50, 128, 512, 640, 641, 1000, 2047, 2048, 2049, 4096):
             for b in ((1, 10) if n <= 1024 else (1, 2)):
                 a = torch.randn((b, n, n), generator=g, device=dev, dtype=dtype)
                 k = a @ a.mT + n * torch.eye(n, device=dev, dtype=dtype)
@@ -124,13 +192,15 @@ def phase_kernel_parity():
         # K; n = 50 takes the fused path, n = 1500 the blocked one
         for n in (50, 1500):
             x = torch.zeros((2, n, 3), device=dev, dtype=dtype)
-            k = gk.se_covariance(x, x, torch.ones(2, device=dev, dtype=dtype))
+            k = gk.se_covariance(x, None, torch.ones(2, device=dev, dtype=dtype))
             for name, fac in (("kernel", gk.cholesky(k)), ("plain", gk.cholesky_plain(k))):
                 diag_ok = torch.isfinite(torch.diagonal(fac, dim1=-2, dim2=-1)).all(dim=-1)
                 if bool(diag_ok.any()):
                     raise AssertionError(f"cholesky {name} {dtype} n={n}: non-PD input gave a finite diagonal")
     torch.cuda.synchronize()
-    log(f"[2 kernel parity] se_covariance max abs err {worst['se_covariance']:.3e}, "
+    log(f"[2 kernel parity] se_covariance max abs err {worst['se_covariance']:.3e} over {len(cases)} cases "
+        f"(d 1-40, n 1-1000, B 1-10, cross, nugget, ARD, shared data, both tile edges; bitwise symmetric and "
+        f"equal to the two-input call; NaN propagates), "
         f"cholesky max abs err {worst['cholesky']:.3e} (n up to 4096, both paths); symmetric, upper zero, "
         f"non-PD -> NaN on both paths (f32, f64)")
     return worst
@@ -149,10 +219,21 @@ def _bound(nbytes: float, flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _se_bound(b, n1, n2, d, itemsize):
-    """x1, x2, variance read once and K written once; per entry d
-    differences, squares and adds, the scale, exp and variance."""
-    return _bound(b * (n1 * d + n2 * d + 1 + n1 * n2) * itemsize, b * n1 * n2 * (3 * d + 3))
+def _stored(t) -> int:
+    """Elements of ``t`` that memory holds: a broadcast (stride-0) dim counts once."""
+    return math.prod(size for size, stride in zip(t.shape, t.stride()) if stride != 0 or size == 1) if t is not None else 0
+
+
+def _se_bound(x1, x2, variance, lengthscale, nugget):
+    """Every operand read once as memory holds it (shared data once for the
+    batch, x2 only where it is another tensor, a scalar lengthscale or
+    nugget once per matrix) and K written once, the whole of it in the
+    symmetric call too; per entry d differences, scalings and
+    squares-and-adds, the halving, exp and variance."""
+    b, n1, d = max(x1.shape[0], variance.shape[0]), x1.shape[1], x1.shape[2]
+    n2 = n1 if x2 is None else x2.shape[1]
+    read = sum(_stored(t) for t in (x1, x2, variance, lengthscale, nugget))
+    return _bound((read + b * n1 * n2) * x1.element_size(), b * n1 * n2 * (4 * d + 3))
 
 
 def _chol_bound(b, n, itemsize):
@@ -203,17 +284,80 @@ def _in_turns(kern, plain, **kw):
 
 
 def _launches_per_call(fn, calls: int = 5) -> float:
-    """CUDA kernels per call of ``fn``, counted by torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    """CUDA kernels per call of ``fn``, counted by torch.profiler.
+
+    A trace can lose the records of its first kernels, so the window opens
+    with a warm-up step that is traced and dropped, and a window that holds
+    fewer kernels than the hand-written kernels' own launch counters saw is
+    taken again."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
-               for e in prof.events()) / calls
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(10):
+                torch.zeros(8, device="cuda").add_(1.0)
+            torch.cuda.synchronize()
+            prof.step()
+            ours = gk.se_covariance_cuda.launches + gk.cholesky_cuda.launches
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            ours = gk.se_covariance_cuda.launches + gk.cholesky_cuda.launches - ours
+        seen = sum(e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+                   for e in prof.events())
+        if seen >= ours:
+            return seen / calls
+    raise AssertionError(f"torch.profiler kept losing kernel records ({seen} seen, {ours} launched by the wrappers)")
+
+
+def _se_operands(b, n, dtype, g):
+    """The SE call's operands as the main path hands them over: data shared
+    by the batch, one variance, one scalar lengthscale and one scalar nugget
+    per matrix (the last two as stride-0 views)."""
+    dev = torch.device("cuda")
+    x = torch.randn((1, n, SLICE_D), generator=g, device=dev, dtype=dtype)
+    var = 0.5 + torch.rand((b,), generator=g, device=dev, dtype=dtype)
+    scale = (0.5 + torch.rand((b, 1), generator=g, device=dev, dtype=dtype)).expand(b, SLICE_D)
+    nug = (0.01 + torch.rand((b, 1), generator=g, device=dev, dtype=dtype)).expand(b, n)
+    return x, var, scale, nug
+
+
+def _se_unfused(gk, x, var, scale, nug):
+    """The assembly as it was before the op took the lengthscale and the
+    nugget: two scaled copies of the data, the two-input call, diag_embed,
+    add."""
+    inv = (1.0 / scale)[:, None, :]
+    return gk.se_covariance(x * inv, x * inv, var) + torch.diag_embed(nug)
+
+
+def _bulk_store_variant(gk, smi: str, g):
+    """The option the SE kernel's source keeps beside its vector stores:
+    built with -DSE_BULK_STORE, whole 32 x 32 tiles leave shared memory by
+    bulk asynchronous copies.  Same K, and its time beside the default's."""
+    from bayesianinference_tpu_torch import csrc
+
+    sources = [Path(csrc.__file__).resolve().parent / name for name in csrc.SOURCES]
+    variant = csrc._Library(csrc.build(sources, flags=(*csrc.NVCC_FLAGS, "-DSE_BULK_STORE")))
+    default = csrc.load_library
+    for dtype in (torch.float64, torch.float32):
+        x, var, scale, nug = _se_operands(SLICE_B, SLICE_N, dtype, g)
+        call = lambda: gk.se_covariance_cuda(x, None, var, scale, nug, tile=32)  # noqa: E731
+        want, plain_ms = call(), _time_ms(call, reps=1)[0]
+        csrc.load_library = lambda: variant
+        try:
+            got, bulk_ms = call(), _time_ms(call, reps=1)[0]
+        finally:
+            csrc.load_library = default
+        if not torch.equal(got, want):
+            raise AssertionError(f"se_covariance {dtype}: the bulk-store variant's K differs from the default's")
+        log(f"[5 kernel times] se_covariance {dtype} B={SLICE_B} n={SLICE_N} d={SLICE_D}, 32 x 32 tiles: device ms per "
+            f"call with bulk asynchronous stores (-DSE_BULK_STORE) {bulk_ms:.4f}, with the default vector stores "
+            f"{plain_ms:.4f}; the same K | {smi}")
 
 
 def phase_kernel_times(smi: str):
@@ -222,39 +366,65 @@ def phase_kernel_times(smi: str):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     times = {}  # (op, dtype name) -> dict of ms at the slice's shape
+
+    # the SE assembly: the fused call against its plain version, its bound and the unfused assembly
+    se_shapes = ((torch.float64, SLICE_B, SLICE_N, {}), (torch.float32, SLICE_B, SLICE_N, {}),
+                 (torch.float64, 1, SLICE_N, {}), (torch.float32, 1, GRAD_N, dict(reps=2, groups=3, per_group=3)))
+    for dtype, b, n, kw in se_shapes:
+        x, var, scale, nug = _se_operands(b, n, dtype, g)
+        name = "f64" if dtype == torch.float64 else "f32"
+        fused = lambda: gk.se_covariance(x, None, var, scale, nug)  # noqa: E731
+        kd, pd, kw_ms, pw_ms = _in_turns(fused, lambda: gk.se_covariance_plain(x, None, var, scale, nug), **kw)
+        ud, fd, _, _ = _in_turns(lambda: _se_unfused(gk, x, var, scale, nug), fused, **kw)
+        bound = _se_bound(x, None, var, scale, nug)
+        # through the entry point, hyperparameters on the card as the chains hold them
+        th = torch.stack([var, scale[:, 0], nug[:, 0]], dim=-1)
+        assemble = lambda t: gk.covariance_matrix(gk.se_kernel(t[0], t[1]), x[0], t[2], symmetrize=False)  # noqa: E731
+        entry = (lambda: assemble(th[0])) if b == 1 else (lambda: torch.func.vmap(assemble)(th))
+        t = {"ms": kd, "plain_ms": pd, "wall_ms": kw_ms, "plain_wall_ms": pw_ms, "bound_ms": bound[0],
+             "bound_by": bound[1], "library_ms": None, "unfused_ms": ud, "fused_again_ms": fd,
+             "launches_per_call": _launches_per_call(fused), "entry_launches_per_call": _launches_per_call(entry),
+             "unfused_launches_per_call": _launches_per_call(lambda: _se_unfused(gk, x, var, scale, nug))}
+        if (b, n) == (SLICE_B, SLICE_N):
+            times[("se_covariance", name)] = t
+        log(f"[5 kernel times] se_covariance {name} B={b} n={n} d={SLICE_D}, lengthscale and nugget fused: device ms "
+            f"per call kernel {kd:.4f}, plain {pd:.4f}, library none, bound {bound[0]:.4f} ({bound[1]}; kernel at "
+            f"{100 * bound[0] / kd:.2f} % of it); the unfused assembly (two scaled copies, the two-input call, "
+            f"diag_embed, add) {ud:.4f} against the fused call {fd:.4f} in turns; one call with host dispatch kernel "
+            f"{kw_ms:.4f}, plain {pw_ms:.4f}; CUDA kernels per call: the op {t['launches_per_call']:g}, "
+            f"covariance_matrix(se_kernel(...), x, nugget) {t['entry_launches_per_call']:g}, the unfused assembly "
+            f"{t['unfused_launches_per_call']:g} | {smi}")
+        if t["launches_per_call"] != 1 or t["entry_launches_per_call"] != 1:
+            raise AssertionError(f"se_covariance {name} B={b} n={n}: {t['launches_per_call']} CUDA kernels per op call, "
+                                 f"{t['entry_launches_per_call']} per covariance_matrix call, expected 1 and 1")
+        del x, var, scale, nug, th
+        torch.cuda.empty_cache()
+
+    _bulk_store_variant(gk, smi, g)
+
     for dtype in (torch.float64, torch.float32):
-        x = torch.randn((SLICE_B, SLICE_N, SLICE_D), generator=g, device=dev, dtype=dtype)
-        var = 0.5 + torch.rand((SLICE_B,), generator=g, device=dev, dtype=dtype)
-        k = gk.se_covariance_plain(x, x, var) + 1e-2 * torch.eye(SLICE_N, device=dev, dtype=dtype)
+        x, var, scale, nug = _se_operands(SLICE_B, SLICE_N, dtype, g)
+        k = gk.se_covariance_plain(x, None, var, scale, nug)
         name = "f64" if dtype == torch.float64 else "f32"
         size = torch.finfo(dtype).bits // 8
-        for op, kern, plain, bound, library in (
-            # no PyTorch call computes the SE covariance; cuSOLVER's
-            # cholesky_ex is the Cholesky's (its plain twin adds a torch.where)
-            ("se_covariance", lambda: gk.se_covariance(x, x, var), lambda: gk.se_covariance_plain(x, x, var),
-             _se_bound(SLICE_B, SLICE_N, SLICE_N, SLICE_D, size), None),
-            ("cholesky", lambda: gk.cholesky(k), lambda: gk.cholesky_plain(k), _chol_bound(SLICE_B, SLICE_N, size),
-             lambda: torch.linalg.cholesky_ex(k)),
-        ):
-            kd, pd, kw, pw = _in_turns(kern, plain)
-            times[(op, name)] = {"ms": kd, "plain_ms": pd, "wall_ms": kw, "plain_wall_ms": pw,
-                                 "bound_ms": bound[0], "bound_by": bound[1],
-                                 "library_ms": _time_ms(library)[0] if library else None,
-                                 "launches_per_call": _launches_per_call(kern)}
-    for (op, name), t in times.items():
-        library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-        log(f"[5 kernel times] {op} {name} B={SLICE_B} n={SLICE_N}"
-            f"{f' d={SLICE_D}' if op == 'se_covariance' else ''}: device ms per call kernel {t['ms']:.4f}, "
-            f"plain {t['plain_ms']:.4f}, library {library}, bound {t['bound_ms']:.4f} ({t['bound_by']}; kernel at "
-            f"{100 * t['bound_ms'] / t['ms']:.2f} % of it); one call with host dispatch kernel {t['wall_ms']:.4f}, "
-            f"plain {t['plain_wall_ms']:.4f}; CUDA kernels per call {t['launches_per_call']:g} | {smi}")
+        # cuSOLVER's cholesky_ex is the Cholesky's library call (its plain twin adds a torch.where)
+        kd, pd, kw_ms, pw_ms = _in_turns(lambda: gk.cholesky(k), lambda: gk.cholesky_plain(k))
+        bound = _chol_bound(SLICE_B, SLICE_N, size)
+        t = times[("cholesky", name)] = {
+            "ms": kd, "plain_ms": pd, "wall_ms": kw_ms, "plain_wall_ms": pw_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": _time_ms(lambda: torch.linalg.cholesky_ex(k))[0],
+            "launches_per_call": _launches_per_call(lambda: gk.cholesky(k))}
+        log(f"[5 kernel times] cholesky {name} B={SLICE_B} n={SLICE_N}: device ms per call kernel {t['ms']:.4f}, "
+            f"plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']}; "
+            f"kernel at {100 * t['bound_ms'] / t['ms']:.2f} % of it); one call with host dispatch kernel "
+            f"{t['wall_ms']:.4f}, plain {t['plain_wall_ms']:.4f}; CUDA kernels per call {t['launches_per_call']:g} | {smi}")
         if t["launches_per_call"] != 1:
-            raise AssertionError(f"{op} {name} at B={SLICE_B} n={SLICE_N}: {t['launches_per_call']} CUDA kernels "
+            raise AssertionError(f"cholesky {name} at B={SLICE_B} n={SLICE_N}: {t['launches_per_call']} CUDA kernels "
                                  f"per call, expected 1")
 
     # the Cholesky at bench.py's width (B = 1, f32; few reps: ~70 ms a call)
     x = torch.randn((1, GRAD_N, SLICE_D), generator=g, device=dev, dtype=torch.float32)
-    k = gk.se_covariance(x, x, torch.ones(1, device=dev)) + math.exp(-2.0) * torch.eye(GRAD_N, device=dev)
+    k = gk.se_covariance(x, None, 1.0, None, math.exp(-2.0))
     del x
     kd, pd, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), reps=1, groups=3,
                              per_group=2)
@@ -270,7 +440,8 @@ def phase_kernel_times(smi: str):
 
     # the two paths around the route threshold (device ms, float64)
     routes = []
-    for b, n in ((1, 512), (10, 512), (1, 1024), (10, 1024)):
+    for b, n in ((1, 512), (10, 512), (1, 640), (10, 640), (1, 768), (10, 768), (1, 896), (10, 896), (1, 1024),
+                 (10, 1024)):
         a = torch.randn((b, n, n), generator=g, device=dev, dtype=torch.float64)
         k = a @ a.mT + n * torch.eye(n, device=dev, dtype=torch.float64)
         fused = _time_ms(lambda: gk._cholesky_launch(k, "fused", 32), reps=1)[0]
@@ -463,8 +634,12 @@ def phase_gp_grad(smi: str):
 
     gk.se_covariance_cuda.launches = 0
     gk.cholesky_cuda.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     got = _value_and_grad(_gp_logml, th, x, y)
     torch.cuda.synchronize()
+    peak_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
     launches = {"se_covariance": gk.se_covariance_cuda.launches, "cholesky": gk.cholesky_cuda.launches}
     if min(launches.values()) == 0:
         raise AssertionError(f"GP grad: kernel launches {launches}")
@@ -502,7 +677,9 @@ def phase_gp_grad(smi: str):
     log(f"[6 GP grad] n={GRAD_N} d={SLICE_D} f32 theta={th_np.tolist()}: "
         + "; ".join(f"{nm} kernel {g:.9g} (err {ek:.3g}) plain {p:.9g} (err {ep:.3g}) f64 {r:.9g}"
                     for nm, g, p, r, ek, ep in zip(names, got, plain, ref, err_k, err_p))
-        + f"; launches {launches}; wall ms (median of 5): "
+        + f"; launches {launches}; peak device memory of the forward-and-gradient call above what was held before "
+          f"it {peak_mib:.0f} MiB (the parent commit, before the lengthscale and the nugget were fused: "
+          f"{PARENT_GRAD_PEAK_MIB} MiB, chip_profile.py on the same card model); wall ms (median of 5): "
         + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()) + f" | {smi}")
     return launches, ms
 

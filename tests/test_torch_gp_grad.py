@@ -133,12 +133,24 @@ def test_failed_factorization_gives_sentinel_and_zero_gradient():
     assert not np.asarray(jgrad).any()
 
 
-@pytest.mark.parametrize("op", ["se_covariance", "cholesky"])
+@pytest.mark.parametrize("op", ["se_covariance", "se_covariance_fused", "se_covariance_shared", "cholesky"])
 def test_op_rules_against_finite_differences(op):
     rng = np.random.default_rng(5)
     if op == "se_covariance":
         args = (T(rng.normal(size=(2, 5, 3))), T(rng.normal(size=(2, 4, 3))), T(rng.uniform(0.5, 2.0, size=2)))
         fn = tgk.se_covariance
+    elif op == "se_covariance_fused":  # n = 7: data, variance, ARD lengthscale and nugget, all per matrix
+        args = (T(rng.normal(size=(2, 7, 3))), T(rng.uniform(0.5, 2.0, size=2)),
+                T(rng.uniform(0.5, 2.0, size=(2, 3))), T(rng.uniform(0.05, 0.5, size=(2, 7))))
+
+        def fn(x, v, l, g):
+            return tgk.se_covariance(x, None, v, l, g)
+    elif op == "se_covariance_shared":  # shared data and nugget, a scalar lengthscale per matrix, two inputs
+        args = (T(rng.normal(size=(7, 3))), T(rng.normal(size=(4, 3))), T(rng.uniform(0.5, 2.0, size=2)),
+                T(rng.uniform(0.5, 2.0, size=(2, 1))), T(rng.uniform(0.05, 0.5, size=())))
+
+        def fn(x1, x2, v, l, g):
+            return tgk.se_covariance(x1, x2, v, l).sum(dim=-1) + tgk.se_covariance(x1, None, v, l, g).sum(dim=-1)
     else:
         a = rng.normal(size=(2, 5, 5))
         args = (T(a @ np.swapaxes(a, -1, -2) + 5 * np.eye(5)),)
@@ -148,6 +160,51 @@ def test_op_rules_against_finite_differences(op):
     args = tuple(a.requires_grad_(True) for a in args)
     assert torch.autograd.gradcheck(fn, args)
     assert torch.autograd.gradgradcheck(fn, args)
+
+
+def test_se_covariance_backward_skips_unwanted_cotangents(monkeypatch):
+    """Only the cotangents that autograd asks for are computed: the
+    hyperparameter paths never pay the data's [n, n] x [n, d] products."""
+    rng = np.random.default_rng(9)
+    x = T(rng.normal(size=(7, 3)))
+    v, l, g = (T(a).requires_grad_(True) for a in (1.3, [0.7, 1.1, 0.9], 0.1))
+    products = []
+    matmul = torch.Tensor.__matmul__
+    monkeypatch.setattr(torch.Tensor, "__matmul__", lambda a, b: products.append(1) or matmul(a, b))
+    tgk.se_covariance(x, None, v, l, g).sum().backward()
+    assert len(products) == 1 and all(t.grad is not None for t in (v, l, g))
+    del products[:]
+    tgk.se_covariance(x, None, v.detach(), None, g).sum().backward()  # variance fixed, nugget wanted
+    assert products == []
+    xg = x.clone().requires_grad_(True)
+    tgk.se_covariance(xg, None, 1.3, l.detach()).sum().backward()
+    assert len(products) == 2 and xg.grad is not None
+
+
+@pytest.mark.parametrize("nugget", ["scalar", "vector"])
+def test_logml_hessian_through_the_fused_call_matches_jax_hessian(nugget):
+    """jacrev(jacrev(logML)) with the nugget fused into the covariance call
+    (default ``symmetrize``, ARD lengthscales) against ``jax.hessian``."""
+    x, y = _data(n=25, seed=10)
+    w = np.random.default_rng(11).uniform(0.5, 1.5, size=25) if nugget == "vector" else 1.0
+    xj, yj, xt, yt = jnp.asarray(x), jnp.asarray(y), T(x), T(y)
+
+    def jf(th):
+        return jgk.gp_log_marginal_likelihood(
+            jgk.covariance_matrix(jgk.se_kernel(jnp.exp(th[0]), jnp.exp(th[1:-1])), xj,
+                                  nugget=jnp.exp(th[-1]) * jnp.asarray(w)), yj)
+
+    def tf(th):
+        return tgk.gp_log_marginal_likelihood(
+            tgk.covariance_matrix(tgk.se_kernel(torch.exp(th[0]), torch.exp(th[1:-1])), xt,
+                                  nugget=torch.exp(th[-1]) * T(w)), yt)
+
+    th = THETA["ard"]
+    close(torch.func.grad(tf)(T(th)), jax.grad(jf)(jnp.asarray(th)), rtol=1e-10)
+    want = np.asarray(jax.hessian(jf)(jnp.asarray(th)))
+    close(torch.func.jacrev(torch.func.jacrev(tf))(T(th)), want, rtol=0, atol=1e-8 * np.abs(want).max())
+    thetas = th + 0.1 * np.random.default_rng(12).normal(size=(4, 5))
+    close(torch.func.vmap(torch.func.grad(tf))(T(thetas)), jax.vmap(jax.grad(jf))(jnp.asarray(thetas)), rtol=1e-10)
 
 
 def test_op_rules_under_torch_func_transforms():

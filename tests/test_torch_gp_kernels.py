@@ -13,6 +13,8 @@ Tolerances:
 """
 
 import ast
+import dataclasses
+import itertools
 import pathlib
 
 import jax.numpy as jnp
@@ -60,6 +62,162 @@ def test_se_covariance_matches_pallas_interpret_f32():
     got = tgk.covariance_matrix(tgk.se_kernel(1.5, 0.8), T(x, np.float32), nugget=0.05)
     assert got.dtype == torch.float32
     close(got, want, rtol=0, atol=2e-5)
+
+
+def _nugget_forms(n, seed=11):
+    """name -> (nugget for the port, the same for the JAX package)."""
+    w = np.random.default_rng(seed).uniform(0.01, 0.2, size=n)
+    return {
+        "scalar": (0.05, 0.05),
+        "vector": (T(w), jnp.asarray(w)),
+        "callable": (lambda x: 0.02 + 0.1 * x[:, 0] ** 2, lambda x: 0.02 + 0.1 * x[:, 0] ** 2),
+    }
+
+
+@pytest.mark.parametrize("nugget", ["scalar", "vector"])
+def test_fused_covariance_matches_pallas_interpret_f32(nugget):
+    """The one-call assembly against the TPU function it ports (scale,
+    exponentiate, add the nugget), float32, the Pallas kernel's own bound."""
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(70, 3)).astype(np.float32)
+    nug = 0.05 if nugget == "scalar" else rng.uniform(0.01, 0.2, size=70).astype(np.float32)
+    want = jgk.se_covariance_pallas(jnp.asarray(x), 1.5, 0.8, nugget=jnp.asarray(nug), block=64, interpret=True)
+    kernel = tgk.se_kernel(1.5, 0.8)
+    assert kernel.matrix_with_nugget is not None
+    got = tgk.covariance_matrix(kernel, T(x, np.float32), nugget=torch.as_tensor(nug), symmetrize=False)
+    assert got.dtype == torch.float32
+    close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("nugget", ["scalar", "vector", "callable"])
+@pytest.mark.parametrize("lengthscale", [0.8, [0.5, 1.5, 2.0]], ids=["iso", "ard"])
+def test_fused_covariance_matches_jax_and_the_unfused_composition(lengthscale, nugget):
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(33, 3))
+    nug_t, nug_j = _nugget_forms(33)[nugget]
+    want = jgk.covariance_matrix(jgk.se_kernel(1.7, jnp.asarray(lengthscale)), jnp.asarray(x), nugget=nug_j)
+    kernel = tgk.se_kernel(1.7, T(lengthscale))
+    xt = T(x)
+    for symmetrize in (True, False):
+        got = tgk.covariance_matrix(kernel, xt, nugget=nug_t, symmetrize=symmetrize)
+        close(got, want, rtol=1e-12)
+        assert torch.equal(got, got.mT)
+        unfused = kernel.matrix(xt, xt.clone()) + torch.diag_embed(tgk._nugget_vector(nug_t, xt))
+        close(got, unfused, rtol=1e-15, atol=1e-15)
+    close(tgk.covariance_matrix(kernel, xt), jgk.covariance_matrix(jgk.se_kernel(1.7, jnp.asarray(lengthscale)),
+                                                                   jnp.asarray(x)), rtol=1e-12)
+
+
+def _record_plain_calls(monkeypatch):
+    """Every call that reaches the op's CPU implementation, with its operands."""
+    calls = []
+    plain = tgk.se_covariance_plain
+
+    def recorder(*args):
+        calls.append(args)
+        return plain(*args)
+
+    monkeypatch.setattr(tgk, "se_covariance_plain", recorder)
+    return calls
+
+
+def test_sums_products_and_asymmetric_kernels_take_the_general_path(monkeypatch):
+    rng = np.random.default_rng(14)
+    x = rng.normal(size=(20, 2))
+    se = tgk.se_kernel(1.3, 0.7)
+    for composite in (se + tgk.white_kernel(0.1), se * tgk.constant_kernel(2.0)):
+        assert composite.matrix_with_nugget is None
+    calls = _record_plain_calls(monkeypatch)
+    got = tgk.covariance_matrix(se + tgk.white_kernel(0.1), T(x), nugget=0.05)
+    assert [c[4] for c in calls] == [None]  # the op ran without a nugget: added by the general path
+    want = jgk.covariance_matrix(jgk.se_kernel(1.3, 0.7) + jgk.white_kernel(0.1), jnp.asarray(x), nugget=0.05)
+    close(got, want, rtol=1e-12)
+    # a kernel that does not promise exact symmetry is symmetrized the general way...
+    loose = dataclasses.replace(se, exactly_symmetric=False)
+    del calls[:]
+    got = tgk.covariance_matrix(loose, T(x), nugget=0.05, symmetrize=True)
+    assert [c[4] for c in calls] == [None]
+    close(got, jgk.covariance_matrix(jgk.se_kernel(1.3, 0.7), jnp.asarray(x), nugget=0.05), rtol=1e-12)
+    # ... and fused when it is not asked to be, like the exactly symmetric one always
+    for kernel, symmetrize in ((loose, False), (se, True), (se, False)):
+        del calls[:]
+        tgk.covariance_matrix(kernel, T(x), nugget=0.05, symmetrize=symmetrize)
+        assert len(calls) == 1 and calls[0][1] is None and calls[0][4] is not None
+
+
+def test_shared_data_is_not_copied_per_matrix(monkeypatch):
+    """The main path's call: thetas vmapped, data shared.  The op gets x
+    once ([1, n, d], the caller's storage), x2 as None, and the scalar
+    lengthscale and nugget as stride-0 views."""
+    rng = np.random.default_rng(15)
+    x = T(rng.normal(size=(11, 2)))
+    y = x[:, 0].clone()
+    thetas = T(rng.uniform(0.3, 2.0, size=(5, 3)))
+
+    def logml(th):
+        k = tgk.covariance_matrix(tgk.se_kernel(th[0] ** 2, th[1]), x, th[2] ** 2, symmetrize=False)
+        return tgk.gp_log_marginal_likelihood(k, y)
+
+    calls = _record_plain_calls(monkeypatch)
+    got = torch.func.vmap(logml)(thetas)
+    (x1, x2, variance, scale, nugget), = calls
+    assert x2 is None and tuple(x1.shape) == (1, 11, 2) and x1.data_ptr() == x.data_ptr()
+    assert tuple(variance.shape) == (5,)
+    assert tuple(scale.shape) == (5, 2) and scale.stride(1) == 0
+    assert tuple(nugget.shape) == (5, 11) and nugget.stride(1) == 0
+    del calls[:]
+    close(got, torch.stack([logml(t) for t in thetas]), rtol=1e-13)
+    assert all(c[0].data_ptr() == x.data_ptr() and c[0].shape[0] == 1 for c in calls)
+    # explicit batch dims: shared data stays [1, n, d], batched data is a view
+    xs = T(rng.normal(size=(4, 11, 2)))
+    del calls[:]
+    tgk.se_covariance(x, None, thetas[:4, 0], thetas[:4, 1:2], 0.1)
+    tgk.se_covariance(xs, x, thetas[:4, 0], T([0.5, 2.0]))
+    assert [tuple(c[0].shape) for c in calls] == [(1, 11, 2), (4, 11, 2)]
+    assert calls[0][0].data_ptr() == x.data_ptr() and calls[1][0].data_ptr() == xs.data_ptr()
+    assert tuple(calls[1][1].shape) == (1, 11, 2) and tuple(calls[1][3].shape) == (1, 2)
+    assert tuple(calls[0][4].shape) == (1, 11) and calls[0][4].stride(1) == 0
+
+
+_VMAP_ARGS = ("x1", "x2", "variance", "lengthscale", "nugget")
+
+
+# every subset of the operands vmapped: no x2 in the symmetric call, no nugget in the other
+_VMAP_CASES = [(sym, m) for sym in (True, False) for m in itertools.product([0, 1], repeat=5)
+               if any(m) and not m[1 if sym else 4]]
+
+
+@pytest.mark.parametrize("symmetric,mask", _VMAP_CASES,
+                         ids=[("x2_is_x1-" if s_ else "two_inputs-") + "".join(map(str, m)) for s_, m in _VMAP_CASES])
+def test_se_covariance_vmap_rule_every_in_dims(symmetric, mask):
+    """vmap over every subset of (x1, x2, variance, lengthscale,
+    nugget), the rest shared, equals the loop over the vmapped dim."""
+    rng = np.random.default_rng(16)
+    v, n1, n2, d = 3, 6, 6 if symmetric else 4, 2
+    full = {"x1": T(rng.normal(size=(v, n1, d))), "x2": None if symmetric else T(rng.normal(size=(v, n2, d))),
+            "variance": T(rng.uniform(0.5, 2.0, size=v)), "lengthscale": T(rng.uniform(0.5, 2.0, size=(v, d))),
+            "nugget": T(rng.uniform(0.01, 0.2, size=(v, n1))) if symmetric else None}
+    args = [full[name] if m or full[name] is None else full[name][0] for name, m in zip(_VMAP_ARGS, mask)]
+    in_dims = tuple(0 if m and a is not None else None for a, m in zip(args, mask))
+    got = torch.func.vmap(tgk.se_covariance, in_dims=in_dims)(*args)
+    want = torch.stack([tgk.se_covariance(*(a[i] if dim == 0 else a for a, dim in zip(args, in_dims)))
+                        for i in range(v)])
+    assert tuple(got.shape) == (v, n1, n2)
+    close(got, want, rtol=1e-15)
+    # the same through the plain version at the op's shapes
+    op_args = [None if a is None else (a if dim == 0 else a[None]) for a, dim in zip(args, in_dims)]
+    close(got, tgk.se_covariance_plain(*op_args), rtol=1e-15)
+
+
+def test_se_covariance_nested_vmap_and_moved_dims():
+    rng = np.random.default_rng(17)
+    x = T(rng.normal(size=(7, 2)))
+    var, scale, nug = (T(rng.uniform(0.5, 2.0, size=s)) for s in ((2, 3), (3, 2), (7, 3)))
+    inner = torch.func.vmap(lambda v_, l_, g_: tgk.se_covariance(x, None, v_, l_, g_), in_dims=(0, None, 1))
+    got = torch.func.vmap(inner, in_dims=(0, 0, None))(var, scale.T.reshape(2, 3)[:, :2].expand(2, 2), nug)
+    want = torch.stack([torch.stack([tgk.se_covariance(x, None, var[i, j], scale.T.reshape(2, 3)[i, :2], nug[:, j])
+                                     for j in range(3)]) for i in range(2)])
+    close(got, want, rtol=1e-15)
 
 
 @pytest.mark.parametrize("threshold", [None, 10])
@@ -155,6 +313,11 @@ def test_vmap_over_both_ops_equals_explicit_batch():
 
 @pytest.mark.parametrize("op,args", [
     ("se_covariance", lambda: (torch.randn(2, 5, 3, dtype=torch.float64),) * 2 + (torch.rand(2, dtype=torch.float64),)),
+    ("se_covariance", lambda: (torch.randn(1, 5, 3, dtype=torch.float64), None, torch.rand(2, dtype=torch.float64),
+                               torch.rand(2, 1, dtype=torch.float64).expand(2, 3),
+                               torch.rand(2, 1, dtype=torch.float64).expand(2, 5))),
+    ("se_covariance", lambda: (torch.randn(2, 5, 3, dtype=torch.float64), torch.randn(1, 4, 3, dtype=torch.float64),
+                               torch.rand(1, dtype=torch.float64), torch.rand(1, 3, dtype=torch.float64), None)),
     ("cholesky", lambda: (torch.eye(4, dtype=torch.float64).expand(3, 4, 4).contiguous(),)),
 ])
 def test_custom_op_registration(op, args):
@@ -162,7 +325,7 @@ def test_custom_op_registration(op, args):
     gradient is registered, so autograd through the op raises."""
     fn = getattr(torch.ops.bayesianinference_tpu_torch, op).default
     torch.library.opcheck(fn, args(), test_utils=("test_schema", "test_faketensor"))
-    inputs = [a.clone().requires_grad_(True) for a in args()]
+    inputs = [None if a is None else a.clone().requires_grad_(True) for a in args()]
     out = fn(*inputs)
     with pytest.raises(RuntimeError, match="autograd"):
         out.sum().backward()
@@ -178,12 +341,13 @@ def test_cuda_implementations_refuse_cpu_tensors():
 
 
 @pytest.mark.parametrize("n,route", [
-    (1, ("fused", 32)), (512, ("fused", 32)), (1000, ("fused", 32)), (1024, ("fused", 32)),
+    (1, ("fused", 32)), (512, ("fused", 32)), (640, ("fused", 32)), (641, ("blocked", 256)),
+    (768, ("blocked", 256)), (1000, ("blocked", 256)), (1024, ("blocked", 256)),
     (1025, ("blocked", 256)), (2048, ("blocked", 256)), (16384, ("blocked", 256)),
 ])
 def test_cholesky_route(n, route):
-    """One launch per call up to n = 1024 (the slice's n = 512 included),
-    256-wide panels above."""
+    """One launch per call up to n = 640, the measured crossover (the
+    slice's n = 512 included), 256-wide panels above."""
     assert tgk._cholesky_route(n) == route
 
 
