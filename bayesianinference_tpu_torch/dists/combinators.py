@@ -29,9 +29,41 @@ class Product(Distribution):
     def event_shape(self):
         return (len(self.components),)
 
+    def _runs(self):
+        """(start, stop, distribution) per run of neighbouring components:
+        a run of one class whose parameters are all 0-d tensors (what
+        ``ignorance_prior`` builds) is folded into one instance of that
+        class with the parameters stacked, so its ``log_prob`` is a handful
+        of vector operations whatever the dimension; any other component is
+        a run of its own."""
+        cached = getattr(self, "_runs_cache", None)
+        if cached is not None:
+            return cached
+
+        def foldable(c):
+            return dataclasses.is_dataclass(c) and c.event_shape == () and all(
+                isinstance(getattr(c, f.name), torch.Tensor) and getattr(c, f.name).dim() == 0
+                for f in dataclasses.fields(c))
+
+        runs, i, comps = [], 0, self.components
+        while i < len(comps):
+            j = i + 1
+            if foldable(comps[i]):
+                while j < len(comps) and type(comps[j]) is type(comps[i]) and foldable(comps[j]):
+                    j += 1
+            dist = comps[i]
+            if j - i > 1:
+                dist = type(dist)(**{f.name: torch.stack([getattr(c, f.name) for c in comps[i:j]])
+                                     for f in dataclasses.fields(dist)})
+            runs.append((i, j, dist))
+            i = j
+        object.__setattr__(self, "_runs_cache", runs)
+        return runs
+
     def log_prob(self, x):
         x = as_float(x)
-        return sum(c.log_prob(x[..., i]) for i, c in enumerate(self.components))
+        return sum(dist.log_prob(x[..., i]) if j - i == 1 else dist.log_prob(x[..., i:j]).sum(dim=-1)
+                   for i, j, dist in self._runs())
 
     def sample(self, generator, shape=()):
         shape = tuple(shape)

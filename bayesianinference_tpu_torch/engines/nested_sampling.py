@@ -1,32 +1,40 @@
-"""Nested sampling (port of the adaptive-Metropolis path of
-``bayesianinference_tpu.engines.nested_sampling``).
+"""Nested sampling (port of ``bayesianinference_tpu.engines.nested_sampling``).
 
 Each iteration deletes the ``num_delete`` worst live points and replaces
-them by that many adaptive-Metropolis chains run as one batch: every chain
-step evaluates the batch's likelihoods in one call (for a GP likelihood,
-one batched covariance assembly and one batched Cholesky on the card).
+them by that many chains run as one batch, started at random survivors:
+adaptive-Metropolis chains up to d = 16, random-direction slice chains
+above, constrained-HMC chains above d = 64 where the likelihood has a
+usable gradient (the ``"auto"`` policy; each can be asked for by name).
+Every chain step evaluates the batch's likelihoods in one call (for a GP
+likelihood, one batched covariance assembly and one batched Cholesky on
+the card; the constrained-HMC chains also run their reverse rules).
 
 The JAX package's on-device ``while_loop`` is a Python loop here.  The
-per-iteration work stays batched tensor ops with no host synchronization,
-except the termination test: it reads logZ and the missing-evidence
-estimate back to the host once per iteration after ``min_iterations``.
-Dead-point buffers are capacity-padded (``max_iterations * num_delete``)
-and written in place; ``n_dead`` and the iteration count are Python ints.
-The likelihood-evaluation counter is one int64 tensor on the device.
+per-iteration work stays batched tensor ops; the termination test reads
+logZ and the missing-evidence estimate (or, for a dynamic-NS batch, the
+deletion threshold) back to the host once per iteration after
+``min_iterations``, and the slice chains read one flag per pass of their
+step-out and shrink loops.  Dead-point buffers are capacity-padded
+(``max_iterations * num_delete``) and written in place; ``n_dead`` and the
+iteration count are Python ints.  The likelihood-evaluation counter is one
+int64 tensor on the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Callable, Optional, Tuple
 
 import torch
 
 from ..core.numerics import log_zero, logaddexp, logsubexp, logsumexp
 from ..models.problem import InferenceProblem, random_domain_points
-from ..ops.metropolis import am_init, proposal_chol, run_chain, run_chain_adaptive
+from ..ops.chmc import chmc_draws, run_chmc_chain
+from ..ops.metropolis import am_init, proposal_chol, run_chain, run_chain_adaptive, small_cholesky
 from ..ops.ns_math import crude_log_x_deleted, entropy_from_weights, log_x_live_tail, pool_schedule
+from ..ops.slice import run_slice_chain, slice_draws
 from .evidence import NestedSamplingResult, evidence_sampling, evidence_sampling_padded
 
 __all__ = [
@@ -34,7 +42,11 @@ __all__ = [
     "NSRunData",
     "crude_log_z_masked",
     "default_monte_carlo_steps",
+    "default_chmc_step_size",
+    "default_chmc_num_leapfrog",
     "resolve_monte_carlo_method",
+    "warn_if_slice_steps_below_dim",
+    "run_loop_from_state",
     "nested_sampling_loop",
     "generate_starting_points",
     "nested_sampling",
@@ -70,6 +82,27 @@ class NSState:
     interrupted: bool = False
 
 
+def default_chmc_step_size(dim: int) -> float:
+    """Dimension-scaled leapfrog step of the constrained-HMC chains.
+
+    In whitened momentum space a step moves the point by ``eps * |u|`` with
+    ``|u| ~ sqrt(d)``, so a fixed eps overshoots the O(1)-radius constrained
+    region as d grows.  ``eps = 0.8 / sqrt(d)`` holds the per-step
+    displacement at about 0.8 of the whitened region's scale; 0.4 caps it,
+    so d <= 4 is unchanged.  (The law is the JAX package's, found unbiased
+    on its d = 16 to 256 grids.)"""
+    return min(0.4, 0.8 / math.sqrt(max(dim, 1)))
+
+
+def default_chmc_num_leapfrog(dim: int) -> int:
+    """Leapfrog steps per trajectory: 16 up to the ``auto`` crossover, 4
+    above it.  Under a flat prior a trajectory is a straight line (plus
+    reflections) along one whitened direction, so at high d the number of
+    trajectories, not their length, decorrelates a replacement from its
+    seed."""
+    return 16 if dim <= _AUTO_CHMC_DIM else 4
+
+
 def default_monte_carlo_steps(method: str, dim: int) -> int:
     """Dimension-scaled default chain length per replacement (the JAX
     package's laws: slice 3d, chmc 6d above d = 64, adaptive-Metropolis 200)."""
@@ -80,26 +113,65 @@ def default_monte_carlo_steps(method: str, dim: int) -> int:
     return 200
 
 
-def resolve_monte_carlo_method(method: str, dim: int) -> str:
+def resolve_monte_carlo_method(
+    method: str, dim: int, gradient_check: Optional[Callable[[], bool]] = None
+) -> str:
     """Resolve ``"auto"`` as the JAX package does: adaptive-Metropolis up to
-    d = 16, slice sampling above, constrained HMC above d = 64.  Only the
-    adaptive-Metropolis kernel is ported so far: a method that resolves to
-    slice or chmc raises ``NotImplementedError``."""
+    d = 16, slice sampling above, and constrained HMC above d = 64 when a
+    ``gradient_check`` thunk is given and passes (it is only called there).
+    Without a thunk ``auto`` stays on the gradient-free slice chains; a
+    failing probe falls back to slice with a warning.  Explicit names pass
+    through unchanged."""
     if method == "auto":
-        method = "adaptive_metropolis" if dim <= _AUTO_SLICE_DIM else "slice"
+        if dim <= _AUTO_SLICE_DIM:
+            return "adaptive_metropolis"
+        if dim <= _AUTO_CHMC_DIM or gradient_check is None:
+            return "slice"
+        if gradient_check():
+            return "chmc"
+        warnings.warn(
+            f"auto would pick the constrained-HMC kernel at d={dim} "
+            "(the policy above d=64), but the likelihood gradient "
+            "probe failed (non-finite or identically zero at the probe "
+            "points); falling back to slice sampling. Pass "
+            "monte_carlo_method='chmc' explicitly if the gradient is "
+            "valid elsewhere in the domain.",
+            stacklevel=3,
+        )
+        return "slice"
     if method not in ("adaptive_metropolis", "slice", "chmc"):
         raise ValueError(
             f"unknown monte_carlo_method {method!r}; expected 'auto', "
             "'adaptive_metropolis', 'slice' or 'chmc'"
         )
-    if method != "adaptive_metropolis":
-        raise NotImplementedError(
-            f"monte_carlo_method={method!r} (d={dim}) is not ported yet: slice and "
-            "constrained-HMC nested sampling (ops/slice.py, ops/chmc.py) are the "
-            "ROADMAP.md (queue 1, 'Still to port'); use "
-            "monte_carlo_method='adaptive_metropolis'"
-        )
     return method
+
+
+def warn_if_slice_steps_below_dim(method: str, monte_carlo_steps, dim: int, chmc_num_leapfrog=None):
+    """Warn when a replacement gets fewer decorrelation units than there are
+    dimensions, which biases logZ high.  The unit is the slice update or the
+    chmc trajectory: each explores one random direction."""
+    steps0 = monte_carlo_steps if isinstance(monte_carlo_steps, int) else monte_carlo_steps[0]
+    if method == "slice" and steps0 < dim:
+        warnings.warn(
+            f"{steps0} slice updates per replacement at d={dim}: "
+            "fewer updates than dimensions leaves seed-replacement "
+            "correlation that biases logZ high by several nats; use "
+            "roughly 2-5x the dimension",
+            stacklevel=3,
+        )
+    if method == "chmc":
+        n_leap = chmc_num_leapfrog if chmc_num_leapfrog is not None else default_chmc_num_leapfrog(dim)
+        n_traj = steps0 // max(n_leap, 1)
+        if dim > _AUTO_CHMC_DIM and n_traj < dim:
+            warnings.warn(
+                f"{n_traj} chmc trajectories per replacement at d={dim}: "
+                "fewer trajectories than dimensions leaves seed-replacement "
+                "correlation that biases logZ high; use ~1.5x the dimension "
+                "(the default monte_carlo_steps=None resolves to 6d steps at "
+                "4 leapfrog steps each)",
+                stacklevel=3,
+            )
 
 
 def crude_log_z_masked(
@@ -188,61 +260,73 @@ def _init_state(problem: InferenceProblem, starting_points: torch.Tensor, capaci
     )
 
 
-def nested_sampling_loop(
+def _mc_steps_triple(monte_carlo_steps) -> Tuple[int, int, int]:
+    if isinstance(monte_carlo_steps, int):
+        return monte_carlo_steps, monte_carlo_steps, 5 * monte_carlo_steps
+    return tuple(monte_carlo_steps)
+
+
+def shared_factor(cov_est: torch.Tensor) -> torch.Tensor:
+    """The factor of ``cov_est + 1e-10 I`` that the slice and chmc chains
+    share; the identity where that factor is not finite."""
+    eye = torch.eye(cov_est.shape[-1], dtype=cov_est.dtype, device=cov_est.device)
+    factor = small_cholesky(cov_est + 1e-10 * eye)
+    return torch.where(torch.isfinite(factor).all(), factor, eye)
+
+
+def run_loop_from_state(
     problem: InferenceProblem,
-    starting_points,
+    s: NSState,
     generator: torch.Generator,
     *,
-    max_iterations: int = 10000,
-    min_iterations: int = 100,
-    monte_carlo_steps=None,
+    n_live: int,
+    num_delete: int,
+    max_iterations: int,
+    min_iterations: int,
+    monte_carlo_steps,
+    monte_carlo_method: str,
     termination_fraction: float = 0.01,
-    num_delete: int = 1,
     min_max_acceptance_rate: Tuple[float, float] = (0.0, 1.0),
     covariance_learn_delay: int = 10,
     log_likelihood_maximum: Optional[float] = None,
     progress_callback: Optional[Callable] = None,
     progress_interval: int = 0,
     interrupt_check: Optional[Callable] = None,
-    monte_carlo_method: str = "auto",
-) -> NSRunData:
-    """Run the nested-sampling loop on the device of ``starting_points``
-    [n_live, d] with randomness from ``generator``; returns the raw buffers
-    (use :func:`nested_sampling` for the whole pipeline).
-
-    ``monte_carlo_steps`` is an int ``s`` (first chain ``s`` steps, retry
-    blocks of ``s`` up to ``5 s``) or a triple.  ``progress_callback(
-    iteration, n_samples, log_z, entropy)`` is called every
-    ``progress_interval`` iterations and ``interrupt_check()`` once per
-    iteration; both are plain host calls."""
-    starting_points = torch.as_tensor(starting_points, dtype=problem.dtype, device=problem.device)
-    n_live, dim = starting_points.shape
-    if num_delete < 1 or num_delete >= n_live:
-        raise ValueError("need 1 <= num_delete < n_live")
-    resolve_monte_carlo_method(monte_carlo_method, dim)
-    if monte_carlo_steps is None:
-        monte_carlo_steps = default_monte_carlo_steps("adaptive_metropolis", dim)
-    if isinstance(monte_carlo_steps, int):
-        num_steps, extra_steps, max_steps = monte_carlo_steps, monte_carlo_steps, 5 * monte_carlo_steps
-    else:
-        num_steps, extra_steps, max_steps = monte_carlo_steps
-    max_iterations = max(max_iterations, min_iterations)
+    stop_at_log_likelihood: Optional[float] = None,
+    chmc_step_size: Optional[float] = None,
+    chmc_num_leapfrog: Optional[int] = None,
+) -> NSState:
+    """Iterate the loop from ``s`` (a fresh state or a resumed one) until it
+    terminates.  ``s`` is updated in place and returned; its dead buffers
+    must hold ``max_iterations * num_delete`` slots.  ``monte_carlo_method``
+    is a resolved name, not ``"auto"``, and ``monte_carlo_steps`` an int or
+    a triple."""
     k = num_delete
-    capacity = max_iterations * k
-    dtype, dev = starting_points.dtype, starting_points.device
+    dim = s.live_points.shape[1]
+    capacity = s.dead_logl.shape[0]
+    if capacity != max_iterations * k:
+        raise ValueError(f"dead buffers hold {capacity} slots, the loop needs {max_iterations * k}")
+    num_steps, extra_steps, max_steps = _mc_steps_triple(monte_carlo_steps)
+    dtype, dev = s.live_points.dtype, s.live_points.device
     lz = log_zero(dtype)
     log_xd = crude_log_x_deleted(pool_schedule(n_live, k, capacity, dtype=dtype, device=dev))
     log_term = math.log(termination_fraction)
     min_acc, max_acc = min_max_acceptance_rate
-
-    s = _init_state(problem, starting_points, capacity)
+    n_leap = chmc_num_leapfrog if chmc_num_leapfrog is not None else default_chmc_num_leapfrog(dim)
+    n_traj = max(1, num_steps // n_leap)
+    chmc_eps = chmc_step_size if chmc_step_size is not None else default_chmc_step_size(dim)
 
     def keep_going() -> bool:
         if s.interrupted or s.iteration > max_iterations:
             return False
         if s.iteration == 1 or s.iteration <= min_iterations:
             return True
-        return bool(s.log_missing > s.log_z + log_term)  # one host read
+        # one host read
+        if stop_at_log_likelihood is not None:
+            # a dynamic-NS batch: march the threshold up to the level and
+            # ignore the evidence criterion
+            return bool(s.live_logl[k - 1] <= stop_at_log_likelihood)
+        return bool(s.log_missing > s.log_z + log_term)
 
     while keep_going():
         threshold = s.live_logl[k - 1]
@@ -250,19 +334,34 @@ def nested_sampling_loop(
         cov_est = 0.5 * (s.cov_est + live_cov)
 
         def density(x):
-            ok = problem.in_support(x) & (problem.guarded_log_likelihood(x) > threshold)
-            return torch.where(ok, problem.guarded_log_prior(x), torch.full((x.shape[0],), lz, dtype=dtype, device=dev))
+            return problem.constrained_log_prior(x, threshold)
 
         # chains start at random survivors (ranks >= k)
         start_idx = torch.randint(k, n_live, (k,), generator=generator, device=dev)
-        st = am_init(s.live_points[start_idx], density, mean0=s.mean_est, t0=10,
-                     chol0=proposal_chol(cov_est))
-        st, accs = run_chain_adaptive(
-            generator, st, density, num_steps, extra_steps, max_steps,
-            min_acceptance=min_acc, max_acceptance=max_acc,
-            learn_delay=covariance_learn_delay,
-        )
-        xs = st.x
+        x0 = s.live_points[start_idx]
+        if monte_carlo_method == "slice":
+            draws = slice_draws(generator, k, dim, num_updates=num_steps, dtype=dtype)
+            st = run_slice_chain(draws, x0, density, shared_factor(cov_est))
+            xs, accs, evals = st.x, st.moved.to(dtype) / num_steps, st.evals.sum()
+            mean_est, covs = s.mean_est, cov_est
+        elif monte_carlo_method == "chmc":
+            st = run_chmc_chain(
+                chmc_draws(generator, n_traj, k, dim, dtype=dtype), x0,
+                problem.guarded_log_likelihood, problem.guarded_log_prior, threshold,
+                shared_factor(cov_est), problem.lower, problem.upper, n_leap, chmc_eps,
+                in_support=problem.in_support,
+            )
+            xs, accs, evals = st.x, st.accepted.to(dtype) / n_traj, st.evals.sum()
+            mean_est, covs = s.mean_est, cov_est
+        else:
+            st = am_init(x0, density, mean0=s.mean_est, t0=10, chol0=proposal_chol(cov_est))
+            st, accs = run_chain_adaptive(
+                generator, st, density, num_steps, extra_steps, max_steps,
+                min_acceptance=min_acc, max_acceptance=max_acc,
+                learn_delay=covariance_learn_delay,
+            )
+            xs, evals = st.x, st.proposed.sum()
+            mean_est, covs = st.mean.mean(dim=0), st.cov.mean(dim=0)
         new_logl = problem.guarded_log_likelihood(xs)
         new_logp = problem.guarded_log_prior(xs)
 
@@ -293,12 +392,70 @@ def nested_sampling_loop(
             progress_callback(s.iteration, s.n_dead + n_live, float(log_z), float(s.entropy))
         if interrupt_check is not None:
             s.interrupted = bool(interrupt_check())
-        covs = st.cov.mean(dim=0)
-        s.mean_est = st.mean.mean(dim=0)
+        s.mean_est = mean_est
         s.cov_est = 0.5 * (covs + covs.T)
-        s.num_likelihood_evals = s.num_likelihood_evals + st.proposed.sum() + k
+        s.num_likelihood_evals = s.num_likelihood_evals + evals + k
         s.iteration += 1
-    return NSRunData(state=s, n_live=n_live, num_delete=k, capacity=capacity)
+    return s
+
+
+def nested_sampling_loop(
+    problem: InferenceProblem,
+    starting_points,
+    generator: torch.Generator,
+    *,
+    max_iterations: int = 10000,
+    min_iterations: int = 100,
+    monte_carlo_steps=None,
+    termination_fraction: float = 0.01,
+    num_delete: int = 1,
+    min_max_acceptance_rate: Tuple[float, float] = (0.0, 1.0),
+    covariance_learn_delay: int = 10,
+    log_likelihood_maximum: Optional[float] = None,
+    progress_callback: Optional[Callable] = None,
+    progress_interval: int = 0,
+    interrupt_check: Optional[Callable] = None,
+    monte_carlo_method: str = "auto",
+    stop_at_log_likelihood: Optional[float] = None,
+    chmc_step_size: Optional[float] = None,
+    chmc_num_leapfrog: Optional[int] = None,
+) -> NSRunData:
+    """Run the nested-sampling loop on the device of ``starting_points``
+    [n_live, d] with randomness from ``generator``; returns the raw buffers
+    (use :func:`nested_sampling` for the whole pipeline).
+
+    ``monte_carlo_method`` is ``"auto"`` (by dimension, see
+    :func:`resolve_monte_carlo_method`), ``"adaptive_metropolis"``,
+    ``"slice"`` or ``"chmc"``.  ``monte_carlo_steps`` is an int ``s`` or a
+    triple, ``None`` for the method's dimension law: Metropolis steps (first
+    chain ``s`` steps, retry blocks of ``s`` up to ``5 s``), slice updates,
+    or leapfrog steps (``s // chmc_num_leapfrog`` trajectories).
+    ``stop_at_log_likelihood`` replaces the evidence criterion by "iterate
+    while the next deletion threshold is at most this level" (a dynamic-NS
+    batch).  ``progress_callback(iteration, n_samples, log_z, entropy)`` is
+    called every ``progress_interval`` iterations and ``interrupt_check()``
+    once per iteration; both are plain host calls."""
+    starting_points = torch.as_tensor(starting_points, dtype=problem.dtype, device=problem.device)
+    n_live, dim = starting_points.shape
+    if num_delete < 1 or num_delete >= n_live:
+        raise ValueError("need 1 <= num_delete < n_live")
+    monte_carlo_method = resolve_monte_carlo_method(monte_carlo_method, dim, gradient_check=problem.gradient_sanity)
+    if monte_carlo_steps is None:
+        monte_carlo_steps = default_monte_carlo_steps(monte_carlo_method, dim)
+    warn_if_slice_steps_below_dim(monte_carlo_method, monte_carlo_steps, dim, chmc_num_leapfrog)
+    max_iterations = max(max_iterations, min_iterations)
+    capacity = max_iterations * num_delete
+    state = run_loop_from_state(
+        problem, _init_state(problem, starting_points, capacity), generator,
+        n_live=n_live, num_delete=num_delete, max_iterations=max_iterations, min_iterations=min_iterations,
+        monte_carlo_steps=monte_carlo_steps, monte_carlo_method=monte_carlo_method,
+        termination_fraction=termination_fraction, min_max_acceptance_rate=min_max_acceptance_rate,
+        covariance_learn_delay=covariance_learn_delay, log_likelihood_maximum=log_likelihood_maximum,
+        progress_callback=progress_callback, progress_interval=progress_interval,
+        interrupt_check=interrupt_check, stop_at_log_likelihood=stop_at_log_likelihood,
+        chmc_step_size=chmc_step_size, chmc_num_leapfrog=chmc_num_leapfrog,
+    )
+    return NSRunData(state=state, n_live=n_live, num_delete=num_delete, capacity=capacity)
 
 
 def generate_starting_points(
@@ -329,6 +486,34 @@ def generate_starting_points(
     return torch.stack(pts)
 
 
+def _segmented_loop(problem, starting_points, generator, checkpoint_path, checkpoint_every: int,
+                    loop_kwargs: dict) -> NSRunData:
+    """The loop in segments of ``checkpoint_every`` iterations, each saved."""
+    from .checkpoint import resume_nested_sampling_loop, save_ns_run
+
+    total_max = loop_kwargs.get("max_iterations", 10000)
+    total_min = loop_kwargs.get("min_iterations", 100)
+    seg_max = min(checkpoint_every, total_max)
+    # the loop raises max_iterations to min_iterations: cap the segment's
+    # min_iterations so it cannot run past its checkpoint boundary
+    seg_kwargs = dict(loop_kwargs, max_iterations=seg_max, min_iterations=min(total_min, seg_max))
+    run = nested_sampling_loop(problem, starting_points, generator, **seg_kwargs)
+    save_ns_run(checkpoint_path, run, generator)
+    # the resume entry resolves "auto" and monte_carlo_steps=None as the loop does,
+    # so every segment runs the chains the first one ran
+    resume_kwargs = {key: v for key, v in loop_kwargs.items()
+                     if key not in ("max_iterations", "min_iterations", "num_delete")}
+    while True:
+        done = run.state.iteration - 1
+        terminated = done < run.capacity // run.num_delete or run.state.interrupted
+        if terminated or done >= total_max:
+            return run
+        extra = min(checkpoint_every, total_max - done)
+        run = resume_nested_sampling_loop(problem, run, generator, extra_iterations=extra,
+                                          min_iterations=min(total_min, done + extra), **resume_kwargs)
+        save_ns_run(checkpoint_path, run, generator)
+
+
 def nested_sampling(
     problem: InferenceProblem,
     generator: Optional[torch.Generator] = None,
@@ -343,16 +528,19 @@ def nested_sampling(
 ) -> NestedSamplingResult:
     """Starting points, the loop, then evidence resampling.  Runs on the
     problem's device; ``generator`` (on that device) defaults to one seeded
-    with 0."""
-    if checkpoint_path is not None or checkpoint_every is not None:
-        raise NotImplementedError(
-            "checkpointing waits for the port of engines/checkpoint.py (ROADMAP port queue)"
-        )
+    with 0.
+
+    With ``checkpoint_path`` and ``checkpoint_every`` the loop runs in
+    segments of that many iterations and writes a resumable checkpoint
+    after each (see :mod:`.checkpoint`)."""
     if generator is None:
         generator = torch.Generator(device=problem.device).manual_seed(0)
     if starting_points is None:
         starting_points = generate_starting_points(problem, generator, sample_pool_size)
-    run = nested_sampling_loop(problem, starting_points, generator, **loop_kwargs)
+    if checkpoint_path is not None and checkpoint_every:
+        run = _segmented_loop(problem, starting_points, generator, checkpoint_path, checkpoint_every, loop_kwargs)
+    else:
+        run = nested_sampling_loop(problem, starting_points, generator, **loop_kwargs)
     s = run.state
     if post_process_sampling_runs and post_process_sampling_runs > 0:
         order = torch.argsort(s.live_logl, stable=True)

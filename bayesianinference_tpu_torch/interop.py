@@ -1,8 +1,9 @@
 """Carry data and state between numpy arrays and the port's tensors.
 
-The JAX package's ``NSState`` and ``AMState`` are pytrees of arrays; taken
-field by field as ``np.asarray``, they become dicts of numpy arrays, which
-the functions here turn into the port's states on a given device and
+The JAX package's ``NSState``, ``AMState``, ``SliceState`` and ``CHMCState``
+are pytrees of arrays, and its ``NSSegment`` a dataclass of numpy arrays;
+taken field by field as ``np.asarray``, they become dicts of numpy arrays,
+which the functions here turn into the port's states on a given device and
 dtype (and back).  Without ``device=`` the tensors go to the CUDA card,
 and the call raises where there is none: ``device="cpu"`` asks for the
 host.  Nothing here imports JAX.
@@ -16,8 +17,11 @@ import numpy as np
 import torch
 
 from .core.device import resolve_device
+from .engines.dynamic_ns import NSSegment
 from .engines.nested_sampling import NSState
+from .ops.chmc import CHMCState
 from .ops.metropolis import AMState
+from .ops.slice import SliceState
 
 __all__ = [
     "problem_data_from_numpy",
@@ -25,6 +29,10 @@ __all__ = [
     "ns_state_to_numpy",
     "am_state_from_numpy",
     "am_state_to_numpy",
+    "slice_state_from_numpy",
+    "slice_state_to_numpy",
+    "chmc_state_to_numpy",
+    "ns_segment_from_numpy",
 ]
 
 _EVAL_BASE = 1 << 30  # radix of the JAX package's (hi, lo) int32 eval counter
@@ -101,3 +109,42 @@ def am_state_from_numpy(arrays: dict, *, device=None, dtype: Optional[torch.dtyp
 def am_state_to_numpy(state: AMState) -> dict:
     """The fields of an :class:`AMState` as numpy arrays (leading chain axis)."""
     return {name: getattr(state, name).detach().cpu().numpy() for name in AMState._fields}
+
+
+def slice_state_from_numpy(arrays: dict, *, device=None, dtype: Optional[torch.dtype] = None) -> SliceState:
+    """A :class:`SliceState` of C chains from the fields of the JAX package's
+    ``SliceState`` vmapped over chains; a single chain's fields become a
+    batch of one.  On ``device`` (default: the card)."""
+    device = resolve_device(device)
+    fix = (lambda a: np.asarray(a)[None]) if np.asarray(arrays["x"]).ndim == 1 else np.asarray
+    count = lambda a: torch.as_tensor(np.array(fix(a)), device=device).to(torch.int64)  # noqa: E731
+    return SliceState(
+        x=_float(fix(arrays["x"]), device, dtype),
+        log_density=_float(fix(arrays["log_density"]), device, dtype),
+        evals=count(arrays["evals"]),
+        moved=count(arrays["moved"]),
+    )
+
+
+def slice_state_to_numpy(state: SliceState) -> dict:
+    """The fields of a :class:`SliceState` as numpy arrays (leading chain axis)."""
+    return {name: getattr(state, name).detach().cpu().numpy() for name in SliceState._fields}
+
+
+def chmc_state_to_numpy(state: CHMCState) -> dict:
+    """The fields of a :class:`CHMCState` as numpy arrays (leading chain axis)."""
+    return {name: getattr(state, name).detach().cpu().numpy() for name in CHMCState._fields}
+
+
+_SEGMENT_ARRAYS = ("points", "log_likelihoods", "log_priors")
+_SEGMENT_INTS = ("n_live", "num_delete", "n_dead", "num_likelihood_evals")
+
+
+def ns_segment_from_numpy(fields: dict) -> NSSegment:
+    """An :class:`NSSegment` from the fields of the JAX package's
+    ``NSSegment`` (a segment lives on the host in both packages)."""
+    return NSSegment(
+        **{name: np.asarray(fields[name]) for name in _SEGMENT_ARRAYS},
+        **{name: int(fields[name]) for name in _SEGMENT_INTS if name in fields},
+        constraint_logl=float(fields["constraint_logl"]),
+    )

@@ -33,6 +33,8 @@ __all__ = [
     "ParamSpec",
     "ignorance_prior",
     "define_inference_problem",
+    "iid_likelihood",
+    "regression_likelihood",
     "validate_problem",
     "random_domain_points",
 ]
@@ -143,6 +145,46 @@ class InferenceProblem:
         raw = self.raw_log_likelihood(theta) + self._batched(self.log_prior, theta)
         return self._guard(theta, raw)
 
+    def constrained_log_prior(self, theta, threshold) -> torch.Tensor:
+        """The guarded log prior where the guarded likelihood exceeds
+        ``threshold``, log-zero elsewhere: the density that nested
+        sampling's replacement chains sample."""
+        ll = guard_log_density(self.raw_log_likelihood(theta))
+        lp = guard_log_density(self._batched(self.log_prior, theta))
+        return torch.where(self.in_support(theta) & (ll > threshold), lp, torch.full_like(lp, log_zero(lp.dtype)))
+
+    def gradient_sanity(self) -> bool:
+        """Whether ``grad logL`` is usable: the gate of the nested-sampling
+        ``"auto"`` policy before it picks constrained HMC at high d.
+
+        The gradient of the guarded likelihood is taken at two off-centre
+        probes (0.618 and 0.382 of the box; +0.7 and -0.7 on unbounded
+        axes), since the centre of the box is the mode of a centred
+        likelihood and a healthy gradient is zero there.  It must be finite
+        at both and nonzero somewhere; a likelihood built from lookups or
+        rounding (zero or NaN gradient) fails, and so does any exception.
+        The answer is memoized on the problem object."""
+        cached = getattr(self, "_gradient_sanity_cache", None)
+        if cached is not None:
+            return cached
+        try:
+            lo, hi = self.lower, self.upper
+            both = torch.isfinite(lo) & torch.isfinite(hi)
+            ok_any, ok_fin = False, True
+            for frac, fallback in ((0.618, 0.7), (0.382, -0.7)):
+                probe = torch.where(both, lo + frac * (hi - lo),
+                                    torch.clamp(torch.full_like(lo, fallback), min=lo, max=hi))
+                with torch.enable_grad():
+                    probe = probe.detach().requires_grad_(True)
+                    (g,) = torch.autograd.grad(self.guarded_log_likelihood(probe), probe)
+                ok_fin = ok_fin and bool(torch.isfinite(g).all())
+                ok_any = ok_any or bool((g != 0).any())
+            ok = ok_fin and ok_any
+        except Exception:  # the probe is advisory: whatever fails means "no usable gradient"
+            ok = False
+        object.__setattr__(self, "_gradient_sanity_cache", ok)
+        return ok
+
 
 def _as_param_specs(parameters) -> Tuple[ParamSpec, ...]:
     out = []
@@ -211,6 +253,30 @@ def _regression_loglike(dist_builder: Callable) -> Callable:
         return torch.sum(dist_builder(theta, x).log_prob(y))
 
     return log_likelihood
+
+
+def _data_tensor(data, device) -> torch.Tensor:
+    """Observations as a tensor: a tensor keeps its device unless ``device``
+    names another; anything else goes to ``device``, the card by default."""
+    if isinstance(data, torch.Tensor):
+        return data if device is None else data.to(torch.device(device))
+    return torch.as_tensor(data, device=resolve_device(device))
+
+
+def iid_likelihood(dist_builder: Callable, data, *, device=None) -> Callable:
+    """Per-point log-likelihood ``theta -> sum log p(data | theta)`` of
+    i.i.d. data under ``dist_builder(theta)``, closing over the data."""
+    data = _data_tensor(data, device)
+    fn = _iid_loglike(dist_builder)
+    return lambda theta: fn(theta, data)
+
+
+def regression_likelihood(dist_builder: Callable, x, y, *, device=None) -> Callable:
+    """Per-point log-likelihood of regression data: ``dist_builder(theta, x)``
+    is the distribution of y given x, vectorized over the data axis."""
+    data = (_data_tensor(x, device), _data_tensor(y, device))
+    fn = _regression_loglike(dist_builder)
+    return lambda theta: fn(theta, data)
 
 
 def random_domain_points(

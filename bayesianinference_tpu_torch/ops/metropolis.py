@@ -1,5 +1,6 @@
-"""Adaptive-Metropolis chains (port of the block-adaptive path of
-``bayesianinference_tpu.ops.metropolis``).
+"""Adaptive-Metropolis chains (port of ``bayesianinference_tpu.ops.metropolis``:
+the block-adaptive path the nested-sampling loop runs, and the per-step
+``am_step`` with its rank-one Welford update).
 
 The JAX package writes one chain and ``vmap``s it; here every function
 works on a written-out leading chain axis: ``x`` is [C, d], the factor is
@@ -34,6 +35,11 @@ __all__ = [
     "am_init",
     "am_draws",
     "am_block",
+    "chol_rank1_update",
+    "welford_absorb",
+    "welford_absorb_chol",
+    "am_step_draws",
+    "am_step",
     "run_chain",
     "run_chain_adaptive",
 ]
@@ -41,6 +47,7 @@ __all__ = [
 # Haario et al. (2001) optimal scaling and regularization
 _SCALING = 2.38**2
 _JITTER = 1e-10
+_JITTER_STD = 1e-5  # sqrt(_JITTER): standard deviation of am_step's jitter floor
 
 
 class AMState(NamedTuple):
@@ -178,6 +185,98 @@ def am_block(
         step=t,
         accepted=accepted,
         proposed=state.proposed + j,
+    )
+
+
+def chol_rank1_update(chol: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The lower factor of ``A + v v^T`` from the lower factor ``chol`` of
+    ``A`` ([..., d, d] and [..., d]): a LINPACK ``dchud``-style sweep of d
+    Givens stages, each a few [..., d] vector operations, O(d^2) in all.
+    An update (plus sign) keeps the factor positive definite."""
+    d = chol.shape[-1]
+    idx = torch.arange(d, device=chol.device)
+    x = v
+    out = []
+    for k in range(d):
+        col = chol[..., :, k]
+        lkk = col[..., k]
+        xk = x[..., k]
+        r = torch.sqrt(lkk * lkk + xk * xk)
+        c = (r / lkk)[..., None]
+        s = (xk / lkk)[..., None]
+        below = idx > k
+        newcol = torch.where(below, (col + s * x) / c, torch.zeros_like(col))
+        newcol = torch.where(idx == k, r[..., None], newcol)
+        x = torch.where(below, c * x - s * newcol, x)
+        out.append(newcol)
+    return torch.stack(out, dim=-1)
+
+
+def welford_absorb(mean, cov, step, x):
+    """Absorb one point per chain into dense running statistics
+    (mean [..., d], cov [..., d, d], step [...]).  Returns
+    (mean, cov, step + 1)."""
+    t = step + 1
+    tf = t.to(x.dtype)[..., None]
+    delta = x - mean
+    mean = mean + delta / tf
+    delta2 = x - mean
+    cov = cov * ((tf - 1.0) / tf)[..., None] + delta[..., :, None] * delta2[..., None, :] / tf[..., None]
+    return mean, 0.5 * (cov + cov.mT), t
+
+
+def welford_absorb_chol(mean, chol, step, x):
+    """Absorb one point per chain into the running mean and the factor of
+    the running covariance: the Welford recursion
+    ``cov <- ((t-1)/t) cov + ((t-1)/t^2) dd^T`` with ``d = x - mean_old`` is
+    a scaling and a rank-one update of the factor.  Returns
+    (mean, chol, step + 1)."""
+    t = step + 1
+    tf = t.to(x.dtype)[..., None]
+    delta = x - mean
+    mean = mean + delta / tf
+    a = (tf - 1.0) / tf
+    b = torch.sqrt(tf - 1.0) / tf
+    # a == 0 only at t == 1, where the candidate is dropped below; the floor
+    # keeps the rotations free of 0/0
+    cand = chol_rank1_update(torch.sqrt(torch.clamp(a, min=0.25))[..., None] * chol, b * delta)
+    ok = (t > 1) & torch.isfinite(cand).all(dim=-1).all(dim=-1)
+    return mean, torch.where(ok[..., None, None], cand, chol), t
+
+
+def am_step_draws(generator: torch.Generator, state: AMState):
+    """The random inputs of one :func:`am_step`: proposal directions
+    ``z`` [C, d], jitter-floor directions ``z2`` [C, d] and log-uniform
+    acceptance draws ``log_u`` [C]."""
+    kw = dict(generator=generator, dtype=state.x.dtype, device=state.x.device)
+    z, z2 = torch.randn(state.x.shape, **kw), torch.randn(state.x.shape, **kw)
+    u = torch.rand(state.x.shape[:1], **kw)
+    return z, z2, torch.log(1e-38 + (1.0 - 1e-38) * u)
+
+
+def am_step(state: AMState, log_density_fn: Callable, z, z2, log_u, learn_delay: int = 20) -> AMState:
+    """One Metropolis step of every chain with a per-step Welford update of
+    the mean and the factor.  The proposal is
+    ``x + sqrt(s) L z + sqrt(jitter) z2`` with ``s = 2.38^2 / d``: proposal
+    covariance ``s cov + jitter I`` with no factorization of the jittered
+    matrix."""
+    x, lp = state.x, state.log_density
+    d = x.shape[-1]
+    learn = (state.step >= learn_delay)[:, None]
+    shaped = (state.chol @ z[..., None])[..., 0]
+    x_new = x + math.sqrt(_SCALING / d) * torch.where(learn, shaped, z) + _JITTER_STD * z2
+    lp_new = log_density_fn(x_new)
+    accept = torch.logical_not(is_log_zero(lp_new)) & (log_u < lp_new - lp)
+    x = torch.where(accept[:, None], x_new, x)
+    mean, chol, t = welford_absorb_chol(state.mean, state.chol, state.step, x)
+    return AMState(
+        x=x,
+        log_density=torch.where(accept, lp_new, lp),
+        mean=mean,
+        chol=chol,
+        step=t,
+        accepted=state.accepted + accept,
+        proposed=state.proposed + 1,
     )
 
 

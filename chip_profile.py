@@ -5,7 +5,8 @@
 ``--repo`` imports ``bayesianinference_tpu_torch`` from another checkout
 (default: this one), so that two trees can be profiled in one run on one
 card, in turns.  Three workloads, those of ``chip_smoke.py`` phases 4, 7
-and 6:
+and 6, and, where the tree has the slice and constrained-HMC chains, four
+more, those of phases 8 and 9 (below):
 
 * the GP slice: nested sampling of the SE-kernel GP's hyperparameters at
   n = 512, d = 3, float64 (pool 100, ``num_delete=10``, 100 MC steps), for
@@ -23,6 +24,15 @@ device time (the sum of CUDA kernel durations), CUDA kernels per chain step
 or per factorization, the Cholesky kernels' and the SE covariance kernel's
 share of device time, and the busy share (device time over unprofiled
 wall).  Prints one line per workload and a JSON line last.
+
+The chain workloads: one nested-sampling iteration of the d = 32 oracle by
+slice chains (pool 400, 200 deletions, 40 updates) and of the d = 72 oracle
+by constrained-HMC chains (pool 512, 448 deletions, 108 four-step
+trajectories), and one of the GP with ARD lengthscales (n = 512, d = 20, 22
+hyperparameters, pool 100, 10 deletions) by each kind of chain.  The unit is
+a batch pass (one density call for all chains of the batch) for the slice
+chains and a leapfrog step (a likelihood value-and-gradient, a likelihood
+value and two priors) for the constrained-HMC chains.
 """
 
 from __future__ import annotations
@@ -77,6 +87,64 @@ def _profile(fn):
     ms = lambda es: sum(e.time_range.elapsed_us() for e in es) / 1e3  # noqa: E731
     return (ms(kernels), len(kernels), ms([e for e in kernels if any(c in e.name for c in CHOL_KERNELS)]),
             ms([e for e in kernels if "se_cov" in e.name]))
+
+
+def _chain_workloads(smi: str, out: dict) -> None:
+    """One iteration of each of chip_smoke.py's phase 8 and 9 runs: wall and
+    device time per unit, CUDA kernels per unit, the kernels' shares."""
+    import chip_smoke
+    from bayesianinference_tpu_torch.engines.nested_sampling import generate_starting_points, nested_sampling_loop
+    from bayesianinference_tpu_torch.interop import problem_data_from_numpy
+    from bayesianinference_tpu_torch.models.problem import InferenceProblem
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    x_np = rng.normal(size=(chip_smoke.ARD_N, chip_smoke.ARD_D))
+    y_np = np.sin(x_np[:, 0]) + 0.5 * x_np[:, 1] + 0.1 * rng.normal(size=chip_smoke.ARD_N)
+    ard = chip_smoke._ard_gp_problem(*problem_data_from_numpy(x_np, y_np, device=dev, dtype=torch.float64))
+    box32, box72 = chip_smoke._gaussian_box_problem(32)[0], chip_smoke._gaussian_box_problem(72)[0]
+    # name, problem, pool, loop options, leapfrog steps per iteration (None: count the slice chains' batch passes)
+    workloads = (
+        ("ns_d32_slice", box32, 400, dict(num_delete=200, monte_carlo_steps=40, monte_carlo_method="slice"), None),
+        ("ns_d72_chmc", box72, 512, dict(num_delete=448, monte_carlo_method="chmc"), 432),
+        ("gp_ard_slice", ard, 100, dict(num_delete=10, monte_carlo_steps=25, monte_carlo_method="slice"), None),
+        ("gp_ard_chmc", ard, 100, dict(num_delete=10, monte_carlo_steps=32, monte_carlo_method="chmc"), 32),
+    )
+    passes = [0]
+    density = InferenceProblem.constrained_log_prior
+
+    def counted(self, theta, threshold):
+        passes[0] += 1
+        return density(self, theta, threshold)
+
+    for name, problem, pool, kw, leapfrogs in workloads:
+        start = generate_starting_points(problem, torch.Generator(device=dev).manual_seed(0), pool)
+
+        def run():
+            nested_sampling_loop(problem, start, torch.Generator(device=dev).manual_seed(1), min_iterations=1,
+                                 max_iterations=1, **kw)
+
+        run()
+        torch.cuda.synchronize()
+        InferenceProblem.constrained_log_prior = counted
+        try:
+            passes[0] = 0
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            InferenceProblem.constrained_log_prior = density
+        units, unit, plural = ((passes[0], "batch pass", "batch passes") if leapfrogs is None
+                               else (leapfrogs, "leapfrog step", "leapfrog steps"))
+        dev_ms, kernels, chol_ms, se_ms = _profile(run)
+        out[name] = {"unit": unit, "units": units, "wall_ms_per_unit": wall / units, "device_ms_per_unit": dev_ms / units,
+                     "kernels_per_unit": kernels / units, "busy_share": dev_ms / wall,
+                     "cholesky_share": chol_ms / dev_ms, "se_covariance_share": se_ms / dev_ms}
+        print(f"{name}, one iteration, {kw['num_delete']} chains, {units} {plural}: wall {wall / units:.3f} ms and "
+              f"device {dev_ms / units:.3f} ms per {unit} (busy share {dev_ms / wall:.3f}), {kernels / units:.1f} CUDA "
+              f"kernels per {unit}, Cholesky {100 * chol_ms / dev_ms:.1f} % and SE covariance "
+              f"{100 * se_ms / dev_ms:.1f} % of device time | {smi}", flush=True)
 
 
 def main():
@@ -174,6 +242,10 @@ def main():
     print(f"GP logML+grad n={n} f32: wall ms {', '.join(f'{w:.1f}' for w in walls)}, device {dev_ms:.1f} ms in "
           f"{kernels} CUDA kernels (SE covariance {se_ms:.3f} ms, Cholesky {chol_ms:.1f} ms), peak device memory "
           f"{peak_mib:.0f} MiB above what was held | {smi}", flush=True)
+    del xg, yg
+    torch.cuda.empty_cache()
+    if os.path.exists(os.path.join(os.path.abspath(args.repo), "bayesianinference_tpu_torch", "ops", "chmc.py")):
+        _chain_workloads(smi, out)
     print(json.dumps(out))
 
 

@@ -35,9 +35,29 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
    kernels, twice, held against the same fit through the plain versions on
    CPU tensors, and its Gaussian posterior's density at 1000 of its draws
    against the same on the CPU; its logZ beside the nested-sampling logZ
-   of phase 4.
+   of phase 4;
+8. nested sampling above d = 16 on the analytic oracle (float64, no
+   kernel): d = 32 through ``monte_carlo_method="auto"`` (the slice
+   chains; pool 400, 200 deletions, 40 updates) and d = 72 through ``auto``
+   with no overrides of the chains (the constrained-HMC chains: 108
+   four-step trajectories at eps = 0.8 / sqrt(72); pool 512, 448
+   deletions), each within 4 max(sigma, 0.2) of the analytic logZ; one
+   slice iteration with the step-out and shrink loops ending early against
+   their full trip count;
+9. a GP with ARD lengthscales (n = 512, d = 20: 22 hyperparameters, so
+   ``auto`` takes the slice chains) by slice and by constrained-HMC nested
+   sampling, three iterations each: both kernels launched at least once
+   per batch of counted evaluations, every replacement in the box above
+   its threshold, logML through the kernels against the plain versions on
+   CPU tensors at the final live points (1e-8), and for the chmc chains the
+   likelihood gradient through both reverse rules at batch size 16 against
+   the plain path (1e-6);
+10. a run of phase 3's problem (pool 500) cut after 10 iterations, saved,
+    loaded and resumed, bit-equal to the uncut run; the same in segments
+    through ``nested_sampling(checkpoint_every=15)``; ``dynamic_nested_sampling``
+    against the analytic logZ and the static run's posterior ESS.
 
-Each of phases 4, 6 and 7 zeroes the kernels' launch counters before it
+Each of phases 4, 6, 7 and 9 zeroes the kernels' launch counters before it
 drives its path and fails if a kernel was not launched; the ``launches``
 of the JSON line are their sum.  Phase 5 fails unless each kernel is one
 CUDA kernel launch per call at the slice's shape, and unless
@@ -743,15 +763,298 @@ def phase_laplace(smi: str, problem, ns_logz):
     return launches, wall
 
 
-def main():
+def _gaussian_box_problem(dim: int):
+    """The analytic oracle: a standard Gaussian likelihood under the uniform
+    box [-5, 5]^dim, logZ = dim * log(erf(5 / sqrt 2) / 10)."""
+    from bayesianinference_tpu_torch.dists.scalar import Normal
+    from bayesianinference_tpu_torch.models.problem import define_inference_problem
+
+    problem = define_inference_problem(
+        parameters=[(f"x{i}", -5.0, 5.0) for i in range(dim)],
+        log_likelihood=lambda th: torch.sum(Normal(0.0, 1.0).log_prob(th)),
+        prior_distribution=["location"] * dim,
+        device=torch.device("cuda"), dtype=torch.float64,
+    )
+    return problem, dim * (math.log(math.erf(5.0 / math.sqrt(2.0))) - math.log(10.0))
+
+
+def _slice_loop_modes(problem, start, iterations: int, **loop_kw):
+    """Wall seconds of ``iterations`` slice iterations with the step-out and
+    shrink loops ending early (one host read per pass) and at their full
+    trip count (no host read), in turns from the same seed; the two must
+    leave bit-equal states.  Returns (early s, fixed s, evals)."""
+    from bayesianinference_tpu_torch.engines.nested_sampling import nested_sampling_loop
+    from bayesianinference_tpu_torch.ops import slice as slice_ops
+
+    times, states = {True: [], False: []}, {}
+    try:
+        for early in (True, False, False, True):
+            slice_ops.EARLY_EXIT = early
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run = nested_sampling_loop(problem, start, torch.Generator(device="cuda").manual_seed(5),
+                                       min_iterations=iterations, max_iterations=iterations,
+                                       monte_carlo_method="slice", **loop_kw)
+            evals = int(run.state.num_likelihood_evals)
+            times[early].append(time.perf_counter() - t0)
+            states[early] = run.state
+    finally:
+        slice_ops.EARLY_EXIT = True
+    a, b = states[True], states[False]
+    if not (torch.equal(a.live_points, b.live_points) and torch.equal(a.dead_acc, b.dead_acc)
+            and int(a.num_likelihood_evals) == int(b.num_likelihood_evals)):
+        raise AssertionError("slice chains: the early-exit and the fixed-trip loops left different states")
+    return statistics.median(times[True]), statistics.median(times[False]), evals
+
+
+def phase_ns_highdim(smi: str):
+    """Nested sampling above d = 16 on the analytic oracle, float64, through
+    ``monte_carlo_method="auto"``: (a) d = 32 takes the slice chains, (b)
+    d = 72 the constrained-HMC chains with the dimension laws' defaults."""
+    from bayesianinference_tpu_torch.engines.nested_sampling import (
+        generate_starting_points,
+        nested_sampling,
+        resolve_monte_carlo_method,
+    )
+
+    dev = torch.device("cuda")
+    cases = (
+        # the JAX tests' runs (tests/test_nested_sampling.py) with more deletions per iteration (50 of 400 and
+        # 256 of 512 there), which cuts the iterations to a quarter and a third: each run is host-bound, minutes
+        # long otherwise
+        ("a", 32, "slice", dict(sample_pool_size=400, max_iterations=400, min_iterations=40, monte_carlo_steps=40,
+                                num_delete=200)),
+        ("b", 72, "chmc", dict(sample_pool_size=512, max_iterations=150, min_iterations=20, num_delete=448,
+                               post_process_sampling_runs=20)),
+    )
+    for tag, dim, expect, kw in cases:
+        problem, analytic = _gaussian_box_problem(dim)
+        method = resolve_monte_carlo_method("auto", dim, gradient_check=problem.gradient_sanity)
+        if method != expect:
+            raise AssertionError(f"NS d={dim}: auto resolved to {method}, expected {expect}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = nested_sampling(problem, torch.Generator(device=dev).manual_seed(0), **kw)
+        logz, err = float(res.log_evidence.mean), float(res.log_evidence.standard_error)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        acc = float(res.acceptance_rates[: res.generated_nested_samples].mean())
+        if not (math.isfinite(logz) and math.isfinite(err) and abs(logz - analytic) <= 4 * max(err, 0.2)):
+            raise AssertionError(f"NS d={dim} ({method}): logZ {logz} +- {err}, analytic {analytic:.3f}")
+        extra = ""
+        if tag == "a":
+            start = generate_starting_points(problem, torch.Generator(device=dev).manual_seed(4), 400)
+            early, fixed, evals = _slice_loop_modes(problem, start, 1, num_delete=200, monte_carlo_steps=40)
+            extra = (f"; one iteration with the step-out and shrink loops ending early {early:.2f} s, at their full "
+                     f"trip count {fixed:.2f} s ({evals} evals either way, bit-equal states)")
+        log(f"[8{tag} NS d={dim}] auto -> {method}, pool {kw['sample_pool_size']}, num_delete {kw['num_delete']}: "
+            f"logZ {logz:.3f} +- {err:.3f} (analytic {analytic:.3f}), {res.iterations} iterations, "
+            f"{res.num_likelihood_evals} evals in {wall:.2f} s = {res.num_likelihood_evals / wall:.4g} evals/s, "
+            f"mean recorded acceptance {acc:.3f}{extra} | {smi}")
+
+
+ARD_N, ARD_D = 512, 20
+
+
+def _ard_gp_problem(x, y):
+    """SE kernel with an amplitude, one lengthscale per input and a nugget,
+    each hyperparameter sampled on its log scale under a uniform prior."""
+    from bayesianinference_tpu_torch.engines.gp import define_gaussian_process
+    from bayesianinference_tpu_torch.ops.gp_kernels import se_kernel
+
+    names = ["log_amp"] + [f"log_len{i}" for i in range(ARD_D)] + ["log_noise"]
+    bounds = [(0.05, 5.0)] + [(0.5, 50.0)] * ARD_D + [(0.01, 1.0)]
+    return define_gaussian_process(
+        x, y,
+        kernel_builder=lambda th: se_kernel(torch.exp(2.0 * th[0]), torch.exp(th[1:1 + ARD_D])),
+        nugget_builder=lambda th: torch.exp(2.0 * th[-1]),
+        parameters=[(n, math.log(lo), math.log(hi)) for n, (lo, hi) in zip(names, bounds)],
+        prior_distribution=["location"] * len(names),
+    )
+
+
+def _rel(got, want):
+    return ((got - want).abs() / torch.clamp(want.abs(), min=1.0)).max().item()
+
+
+def phase_gp_ard(smi: str):
+    """GP with ARD lengthscales (22 hyperparameters) by slice and by
+    constrained-HMC nested sampling, a fixed few iterations of each, one
+    iteration per loop entry so that every replacement can be held against
+    the threshold it was drawn under."""
+    from bayesianinference_tpu_torch.engines.checkpoint import resume_nested_sampling_loop
+    from bayesianinference_tpu_torch.engines.nested_sampling import (
+        generate_starting_points,
+        nested_sampling_loop,
+        resolve_monte_carlo_method,
+    )
+    from bayesianinference_tpu_torch.interop import problem_data_from_numpy
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    x_np = rng.normal(size=(ARD_N, ARD_D))
+    y_np = np.sin(x_np[:, 0]) + 0.5 * x_np[:, 1] + 0.1 * rng.normal(size=ARD_N)
+    x, y = problem_data_from_numpy(x_np, y_np, device=dev, dtype=torch.float64)
+    problem = _ard_gp_problem(x, y)
+    cpu_problem = _ard_gp_problem(x.cpu(), y.cpu())
+    if resolve_monte_carlo_method("auto", problem.dim, gradient_check=problem.gradient_sanity) != "slice":
+        raise AssertionError("GP ARD: auto did not resolve to slice at 22 hyperparameters")
+    k, total = 10, {"se_covariance": 0, "cholesky": 0}
+    lz = -1e300
+    start = generate_starting_points(problem, torch.Generator(device=dev).manual_seed(0), 100)
+    for method, steps, iterations in (("auto", 25, 3), ("chmc", 32, 3)):
+        g = torch.Generator(device=dev).manual_seed(1)
+        kw = dict(monte_carlo_steps=steps, monte_carlo_method=method)
+        gk.se_covariance_cuda.launches = 0
+        gk.cholesky_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = nested_sampling_loop(problem, start, g, num_delete=k, min_iterations=0, max_iterations=0, **kw)
+        init_launches = gk.cholesky_cuda.launches  # the starting points' likelihoods: not counted as evals
+        moved = 0
+        for it in range(iterations):
+            before = run.state
+            threshold = before.live_logl[k - 1]
+            run = resume_nested_sampling_loop(problem, run, g, extra_iterations=1, min_iterations=it + 1, **kw)
+            s = run.state
+            # every point the chains moved to lies strictly above the threshold; a chain that never moved
+            # leaves a copy of its seed, a survivor, which may tie with a later threshold but not fall below
+            new = torch.logical_not((s.live_points[:, None, :] == before.live_points[None]).all(dim=-1).any(dim=-1))
+            moved += int(new.sum())
+            gap = s.live_logl - threshold
+            if not (bool((gap[new] > 0).all()) and bool((gap >= 0).all())
+                    and bool(problem.in_support(s.live_points).all())):
+                raise AssertionError(f"GP ARD {method}: after iteration {it + 1} the live set is not all in the box "
+                                     f"above the threshold {float(threshold):.4f}: {int((gap < 0).sum())} below, "
+                                     f"{int((gap[new] <= 0).sum())} moved points not above, least gap "
+                                     f"{float(gap.min()):.3e}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"se_covariance": gk.se_covariance_cuda.launches, "cholesky": gk.cholesky_cuda.launches}
+        evals = int(run.state.num_likelihood_evals)
+        if s.n_dead != iterations * k or min(launches.values()) - init_launches < evals / k:
+            raise AssertionError(f"GP ARD {method}: {launches} launches for {evals} evals in batches of {k}")
+        for name in total:
+            total[name] += launches[name]
+        # logML through the kernels against the plain versions (the same model on CPU tensors)
+        pts = s.live_points
+        got = problem.guarded_log_likelihood(pts).cpu()
+        want = cpu_problem.guarded_log_likelihood(pts.cpu())
+        if not torch.equal(got <= 0.5 * lz, want <= 0.5 * lz):
+            raise AssertionError(f"GP ARD {method}: kernel and plain logML put the sentinel in different places")
+        ok = want > 0.5 * lz
+        rel = _rel(got[ok], want[ok])
+        if not (rel <= 1e-8 and _rel(s.live_logl.cpu()[ok], want[ok]) <= 1e-8):
+            raise AssertionError(f"GP ARD {method}: kernel vs plain logML rel diff {rel:.3e}")
+        grad_note = ""
+        if method == "chmc":
+            # the likelihood gradient through both kernels' reverse rules at B = 16 against the plain path
+            p16 = pts[-16:].detach()
+            with torch.enable_grad():
+                pg = p16.clone().requires_grad_(True)
+                (g_kernel,) = torch.autograd.grad(problem.guarded_log_likelihood(pg).sum(), pg)
+                pc = p16.cpu().requires_grad_(True)
+                (g_plain,) = torch.autograd.grad(cpu_problem.guarded_log_likelihood(pc).sum(), pc)
+            g_rel = ((g_kernel.cpu() - g_plain).abs().amax(dim=-1) / g_plain.abs().amax(dim=-1)).max().item()
+            if not (bool(torch.isfinite(g_kernel).all()) and g_rel <= 1e-6):
+                raise AssertionError(f"GP ARD chmc: gradient through the reverse rules vs plain rel diff {g_rel:.3e}")
+            grad_note = f", gradient at 16 live points through the reverse rules vs plain rel diff {g_rel:.3e}"
+        acc = float(s.dead_acc[: s.n_dead].mean())
+        log(f"[9 GP ARD {'slice (auto)' if method == 'auto' else method}] n={ARD_N} d={ARD_D} f64, 22 hyperparameters, "
+            f"pool 100, num_delete {k}, {steps} steps, {iterations} iterations: launches {launches}, {evals} evals in "
+            f"{wall:.2f} s = {evals / wall:.4g} evals/s, mean recorded acceptance {acc:.3f}; every replacement in the "
+            f"box above its threshold, {moved} of {iterations * k} moved off their seeds; logML kernel vs plain max rel diff {rel:.3e} on {int(ok.sum())} live points"
+            f"{grad_note} | {smi}")
+    return total
+
+
+def phase_checkpoint_dynamic(smi: str):
+    """Checkpoint, resume and dynamic NS on the NS spine's 2-D problem."""
+    import tempfile
+
+    from bayesianinference_tpu_torch.engines.checkpoint import load_ns_run, resume_nested_sampling_loop, save_ns_run
+    from bayesianinference_tpu_torch.engines.dynamic_ns import dynamic_nested_sampling
+    from bayesianinference_tpu_torch.engines.nested_sampling import (
+        generate_starting_points,
+        nested_sampling,
+        nested_sampling_loop,
+    )
+
+    dev = torch.device("cuda")
+    problem, analytic = _gaussian_box_problem(2)
+    # half of phase 3's pool and chain length, a fifth of the pool deleted per iteration
+    pool, kw = 500, dict(num_delete=100, monte_carlo_steps=50, min_iterations=20)
+    seeded = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "run.npz"
+        # one run uncut; the same seed cut after 10 iterations, saved, loaded and resumed to its end
+        g = seeded()
+        whole = nested_sampling_loop(problem, generate_starting_points(problem, g, pool), g, **kw)
+        g = seeded()
+        part = nested_sampling_loop(problem, generate_starting_points(problem, g, pool), g,
+                                    **dict(kw, min_iterations=10, max_iterations=10))
+        save_ns_run(path, part, g)
+        loaded = load_ns_run(path)
+        kept = loaded.state.dead_logl.clone()
+        done = resume_nested_sampling_loop(problem, loaded, g, extra_iterations=10000 - 10, min_iterations=20,
+                                           monte_carlo_steps=kw["monte_carlo_steps"])
+        if loaded.state.live_points.device.type != "cuda" or not torch.equal(loaded.state.dead_logl, kept):
+            raise AssertionError("checkpoint: the loaded run is not on the card, or the resumed run wrote into it")
+        if done.state.n_dead != whole.state.n_dead or not torch.equal(done.state.log_z, whole.state.log_z):
+            raise AssertionError(f"checkpoint: resumed run ends with n_dead {done.state.n_dead}, logZ "
+                                 f"{float(done.state.log_z)}; uncut {whole.state.n_dead}, {float(whole.state.log_z)}")
+        # the same through the entry point, in segments of 15 iterations
+        res = nested_sampling(problem, seeded(), sample_pool_size=pool, checkpoint_path=path, checkpoint_every=15, **kw)
+        on_disk = load_ns_run(path)
+    logz, err = float(res.log_evidence.mean), float(res.log_evidence.standard_error)
+    if res.generated_nested_samples != whole.state.n_dead or on_disk.state.n_dead != whole.state.n_dead:
+        raise AssertionError(f"checkpoint: segmented run n_dead {res.generated_nested_samples}, on disk "
+                             f"{on_disk.state.n_dead}, uncut {whole.state.n_dead}")
+    if not abs(logz - analytic) <= 3 * err:
+        raise AssertionError(f"checkpoint: segmented logZ {logz} +- {err}, analytic {analytic:.3f}")
+    wall_ckpt = time.perf_counter() - t0
+
+    # dynamic NS: its defaults but for batched deletion and shorter chains (one
+    # chain of 200 steps per iteration is host-bound for minutes)
+    ess = lambda r: float(1.0 / torch.sum(torch.exp(r.crude_log_posterior_weights) ** 2))  # noqa: E731
+    dkw = dict(sample_pool_size=100, num_delete=10, monte_carlo_steps=50)
+    t0 = time.perf_counter()
+    base = nested_sampling(problem, torch.Generator(device=dev).manual_seed(0), **dkw)
+    dyn = dynamic_nested_sampling(problem, torch.Generator(device=dev).manual_seed(0), **dkw)
+    dz, derr = float(dyn.log_evidence.mean), float(dyn.log_evidence.standard_error)
+    wall_dyn = time.perf_counter() - t0
+    if not (math.isfinite(derr) and abs(dz - analytic) <= 3 * derr):
+        raise AssertionError(f"dynamic NS: logZ {dz} +- {derr}, analytic {analytic:.3f}")
+    if not ess(dyn) >= ess(base):
+        raise AssertionError(f"dynamic NS: posterior ESS {ess(dyn):.1f} below the base run's {ess(base):.1f}")
+    log(f"[10 checkpoint, dynamic NS] 2-D spine problem, pool {pool}, num_delete {kw['num_delete']}, "
+        f"{kw['monte_carlo_steps']} steps: cut after 10 iterations, saved, loaded, resumed: n_dead "
+        f"{done.state.n_dead} and crude logZ {float(done.state.log_z):.4f}, bit-equal to the uncut run's; in segments "
+        f"of 15 through nested_sampling: n_dead {res.generated_nested_samples}, logZ {logz:.4f} +- {err:.4f} "
+        f"(analytic {analytic:.4f}); {wall_ckpt:.2f} s. dynamic_nested_sampling (pool 100, num_delete 10, 50 steps, "
+        f"4 batches): logZ {dz:.4f} +- {derr:.4f}, {dyn.total_samples} samples, {dyn.num_likelihood_evals} evals, "
+        f"posterior ESS {ess(dyn):.1f} against the static run's {ess(base):.1f} ({base.total_samples} samples); "
+        f"{wall_dyn:.2f} s | {smi}")
+
+
+def main(only=None):
     smi = phase_device()
+    if only:  # development: run only the named later phases (8, 9, 10); prints no result lines
+        for name in only:
+            {"8": phase_ns_highdim, "9": phase_gp_ard, "10": phase_checkpoint_dynamic}[name](smi)
+        return
     worst = phase_kernel_parity()
     phase_ns_spine(smi)
     launches, problem, ns_logz = phase_gp_slice(smi)
     times, big = phase_kernel_times(smi)
     grad_launches, _ = phase_gp_grad(smi)
     laplace_launches, _ = phase_laplace(smi, problem, ns_logz)
-    launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] for k in launches}
+    phase_ns_highdim(smi)
+    ard_launches = phase_gp_ard(smi)
+    phase_checkpoint_dynamic(smi)
+    launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] for k in launches}
     # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
     # at bench.py's width (B = 1, n = 16384, f32)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")
@@ -768,4 +1071,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", nargs="+", choices=("8", "9", "10"), help="run only these phases (development)")
+    main(parser.parse_args().only)

@@ -185,3 +185,83 @@ def test_failed_factorization_gives_zero_gradient_on_the_card(cuda):
     th = torch.zeros(1, device=cuda, dtype=torch.float64)
     assert f(th).item() == -1e300
     assert torch.equal(torch.func.grad(f)(th), torch.zeros_like(th))
+
+
+# --- the slice and constrained-HMC chains on the card
+
+def _ard_problem(device, n=64, d=9):
+    """A GP with one lengthscale per input (d + 2 hyperparameters on their
+    log scale): per-row ARD lengthscales and shared data under the chain
+    batch, d = 9 on the SE kernel's shared-memory path."""
+    from bayesianinference_tpu_torch.engines.gp import define_gaussian_process
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((n, d), generator=g, dtype=torch.float64)
+    y = torch.sin(x[:, 0]) + 0.5 * x[:, 1] + 0.1 * torch.randn(n, generator=g, dtype=torch.float64)
+    names = ["log_amp"] + [f"log_len{i}" for i in range(d)] + ["log_noise"]
+    return define_gaussian_process(
+        x.to(device), y.to(device),
+        kernel_builder=lambda th: gk.se_kernel(torch.exp(2.0 * th[0]), torch.exp(th[1:1 + d])),
+        nugget_builder=lambda th: torch.exp(2.0 * th[-1]),
+        parameters=[(name, -2.0, 2.0) for name in names], prior_distribution=["location"] * len(names))
+
+
+def test_batched_likelihood_gradient_through_reverse_rules_matches_plain(cuda):
+    """The chmc chains' gradient call: autograd on the batched likelihood, so
+    both reverse rules run once at B = 12 with per-row ARD lengthscales."""
+    problem, plain = _ard_problem(cuda), _ard_problem("cpu")
+    theta = torch.rand((12, problem.dim), generator=torch.Generator().manual_seed(1), dtype=torch.float64) * 2 - 1
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+    tg = theta.to(cuda).requires_grad_(True)
+    value = problem.guarded_log_likelihood(tg)
+    (grad,) = torch.autograd.grad(value.sum(), tg)
+    assert gk.se_covariance_cuda.launches == before[0] + 1 and gk.cholesky_cuda.launches == before[1] + 1
+    tc = theta.clone().requires_grad_(True)
+    want = plain.guarded_log_likelihood(tc)
+    (want_grad,) = torch.autograd.grad(want.sum(), tc)
+    assert ((value.detach().cpu() - want.detach()).abs() / want.detach().abs()).max().item() <= 1e-10
+    assert (grad.cpu() - want_grad).abs().max().item() <= 1e-8 * want_grad.abs().max().item()
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_slice_chain_on_the_card_matches_the_cpu_on_the_same_draws(cuda, early_exit, monkeypatch):
+    from bayesianinference_tpu_torch.ops import slice as slice_ops
+
+    monkeypatch.setattr(slice_ops, "EARLY_EXIT", early_exit)
+    problem, plain = _ard_problem(cuda), _ard_problem("cpu")
+    g = torch.Generator().manual_seed(2)
+    x0 = torch.rand((8, problem.dim), generator=g, dtype=torch.float64) - 0.5
+    draws = slice_ops.slice_draws(g, 8, problem.dim, num_updates=4, dtype=torch.float64)
+    chol = 0.5 * torch.eye(problem.dim, dtype=torch.float64)
+    threshold = float(plain.guarded_log_likelihood(x0).min()) - 5.0
+    before = gk.cholesky_cuda.launches
+    got = slice_ops.run_slice_chain(slice_ops.SliceDraws(*(a.to(cuda) for a in draws)), x0.to(cuda),
+                                    lambda x: problem.constrained_log_prior(x, threshold), chol.to(cuda))
+    want = slice_ops.run_slice_chain(draws, x0, lambda x: plain.constrained_log_prior(x, threshold), chol)
+    assert torch.equal(got.evals.cpu(), want.evals) and torch.equal(got.moved.cpu(), want.moved)
+    assert (got.x.cpu() - want.x).abs().max().item() <= 1e-10
+    # a pass is one launch for the batch; the batch makes at least its busiest chain's evaluations
+    assert gk.cholesky_cuda.launches - before >= int(want.evals.max())
+
+
+def test_chmc_chain_on_the_card_matches_the_cpu_on_the_same_draws(cuda):
+    from bayesianinference_tpu_torch.ops import chmc
+
+    problem, plain = _ard_problem(cuda), _ard_problem("cpu")
+    g = torch.Generator().manual_seed(3)
+    x0 = torch.rand((8, problem.dim), generator=g, dtype=torch.float64) - 0.5
+    draws = chmc.chmc_draws(g, 2, 8, problem.dim, dtype=torch.float64)
+    chol = 0.6 * torch.eye(problem.dim, dtype=torch.float64)
+    threshold = float(plain.guarded_log_likelihood(x0).min()) - 2.0
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+    got = chmc.run_chmc_chain(chmc.CHMCDraws(*(a.to(cuda) for a in draws)), x0.to(cuda),
+                              problem.guarded_log_likelihood, problem.guarded_log_prior, threshold, chol.to(cuda),
+                              problem.lower, problem.upper, 4, 0.2, in_support=problem.in_support)
+    want = chmc.run_chmc_chain(draws, x0, plain.guarded_log_likelihood, plain.guarded_log_prior, threshold, chol,
+                               plain.lower, plain.upper, 4, 0.2, in_support=plain.in_support)
+    # 1 start + 2 trajectories x 4 steps x (a value-and-gradient and a value) forward launches
+    assert gk.cholesky_cuda.launches - before[1] >= 17 and gk.se_covariance_cuda.launches - before[0] >= 17
+    assert torch.equal(got.accepted.cpu(), want.accepted) and int(want.accepted.sum()) > 0
+    assert (got.x.cpu() - want.x).abs().max().item() <= 1e-8
+    assert ((got.logl.cpu() - want.logl).abs() / want.logl.abs()).max().item() <= 1e-8
+    assert bool((got.logl > threshold).all()) and bool(problem.in_support(got.x).all())

@@ -207,17 +207,20 @@ def test_progress_callback_and_interrupt_are_per_iteration_calls():
     assert run.state.interrupted and run.state.iteration == 16 and run.state.n_dead == 60
 
 
-def test_policy_and_unported_options_raise():
+def test_policy_and_unported_options_raise(tmp_path):
+    """The policy resolves as the JAX package's; the options that once
+    raised as unported (slice, chmc, checkpointing) now run."""
     assert tns.resolve_monte_carlo_method("auto", 16) == "adaptive_metropolis"
     assert tns.default_monte_carlo_steps("adaptive_metropolis", 3) == jns.default_monte_carlo_steps(
         "adaptive_metropolis", 3)
     for method, dim in (("auto", 17), ("slice", 3), ("chmc", 3)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tns.resolve_monte_carlo_method(method, dim)
+        assert tns.resolve_monte_carlo_method(method, dim) == jns.resolve_monte_carlo_method(method, dim)
     with pytest.raises(ValueError):
         tns.resolve_monte_carlo_method("gibbs", 3)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tns.nested_sampling(_headline_problem(), checkpoint_path="x", checkpoint_every=2)
+    path = tmp_path / "run.npz"
+    res = tns.nested_sampling(_headline_problem(), sample_pool_size=30, num_delete=3, monte_carlo_steps=5,
+                              max_iterations=4, min_iterations=4, checkpoint_path=path, checkpoint_every=2)
+    assert res.iterations == 4 and path.exists()
 
 
 def test_starting_points_without_sampleable_prior():
