@@ -33,20 +33,16 @@ import torch
 from ..core.device import as_float_on
 from ..core.numerics import log_zero, logsumexp
 from ..models.problem import InferenceProblem
-from ..ops.chmc import chmc_draws, run_chmc_chain
 from ..ops.metropolis import am_init, proposal_chol, run_chain
 from ..ops.ns_math import entropy_from_weights, log_trapezoid_weights
-from ..ops.slice import run_slice_chain, slice_draws
 from .evidence import MeanAndError, NestedSamplingResult, _exponential, _mean_and_error
 from .nested_sampling import (
     NSRunData,
-    shared_factor,
-    default_chmc_num_leapfrog,
-    default_chmc_step_size,
     default_monte_carlo_steps,
     generate_starting_points,
     nested_sampling_loop,
     resolve_monte_carlo_method,
+    shared_factor_chains,
 )
 
 __all__ = [
@@ -239,26 +235,15 @@ def _decorrelate(problem: InferenceProblem, generator, candidates, threshold: fl
     uses for replacements, so that they are approximately independent draws
     from the prior restricted to logL > threshold.  Returns
     (points [n_seeds, d], likelihood evaluations)."""
-    dtype = candidates.dtype
     idx = torch.randint(0, candidates.shape[0], (n_seeds,), generator=generator, device=candidates.device)
     seeds = candidates[idx]
-    dim = seeds.shape[-1]
+    if method in ("slice", "chmc"):
+        x, _, evals = shared_factor_chains(problem, generator, seeds, threshold, cov, method, steps)
+        return x, int(evals)
 
     def density(x):
         return problem.constrained_log_prior(x, threshold)
 
-    if method == "slice":
-        draws = slice_draws(generator, n_seeds, dim, num_updates=steps, dtype=dtype)
-        st = run_slice_chain(draws, seeds, density, shared_factor(cov))
-        return st.x, int(st.evals.sum())
-    if method == "chmc":
-        n_leap = default_chmc_num_leapfrog(dim)
-        st = run_chmc_chain(
-            chmc_draws(generator, max(1, steps // n_leap), n_seeds, dim, dtype=dtype), seeds,
-            problem.guarded_log_likelihood, problem.guarded_log_prior, threshold, shared_factor(cov),
-            problem.lower, problem.upper, n_leap, default_chmc_step_size(dim), in_support=problem.in_support,
-        )
-        return st.x, int(st.evals.sum())
     st = am_init(seeds, density, mean0=seeds.mean(dim=0), t0=10, chol0=proposal_chol(cov))
     st = run_chain(generator, st, density, steps, learn_delay=10)
     return st.x, n_seeds * steps

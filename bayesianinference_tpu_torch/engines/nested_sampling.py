@@ -46,6 +46,7 @@ __all__ = [
     "default_chmc_num_leapfrog",
     "resolve_monte_carlo_method",
     "warn_if_slice_steps_below_dim",
+    "shared_factor_chains",
     "run_loop_from_state",
     "nested_sampling_loop",
     "generate_starting_points",
@@ -274,6 +275,40 @@ def shared_factor(cov_est: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(factor).all(), factor, eye)
 
 
+def shared_factor_chains(
+    problem: InferenceProblem,
+    generator: torch.Generator,
+    x0: torch.Tensor,  # [chains, d]
+    threshold,
+    cov: torch.Tensor,
+    method: str,  # "slice" or "chmc"
+    num_steps: int,
+    chmc_step_size: Optional[float] = None,
+    chmc_num_leapfrog: Optional[int] = None,
+):
+    """The slice or constrained-HMC chains from ``x0`` on the prior where
+    the likelihood exceeds ``threshold``, shaped by the factor of ``cov``:
+    ``num_steps`` slice updates, or ``num_steps // chmc_num_leapfrog``
+    trajectories.  Returns (points [chains, d], the share of updates that
+    moved or of trajectories accepted [chains], likelihood evaluations)."""
+    chains, dim = x0.shape
+    dtype = x0.dtype
+    if method == "slice":
+        draws = slice_draws(generator, chains, dim, num_updates=num_steps, dtype=dtype)
+        st = run_slice_chain(draws, x0, lambda x: problem.constrained_log_prior(x, threshold), shared_factor(cov))
+        return st.x, st.moved.to(dtype) / num_steps, st.evals.sum()
+    n_leap = chmc_num_leapfrog if chmc_num_leapfrog is not None else default_chmc_num_leapfrog(dim)
+    n_traj = max(1, num_steps // n_leap)
+    st = run_chmc_chain(
+        chmc_draws(generator, n_traj, chains, dim, dtype=dtype), x0,
+        problem.guarded_log_likelihood, problem.guarded_log_prior, threshold,
+        shared_factor(cov), problem.lower, problem.upper, n_leap,
+        chmc_step_size if chmc_step_size is not None else default_chmc_step_size(dim),
+        in_support=problem.in_support,
+    )
+    return st.x, st.accepted.to(dtype) / n_traj, st.evals.sum()
+
+
 def run_loop_from_state(
     problem: InferenceProblem,
     s: NSState,
@@ -312,9 +347,6 @@ def run_loop_from_state(
     log_xd = crude_log_x_deleted(pool_schedule(n_live, k, capacity, dtype=dtype, device=dev))
     log_term = math.log(termination_fraction)
     min_acc, max_acc = min_max_acceptance_rate
-    n_leap = chmc_num_leapfrog if chmc_num_leapfrog is not None else default_chmc_num_leapfrog(dim)
-    n_traj = max(1, num_steps // n_leap)
-    chmc_eps = chmc_step_size if chmc_step_size is not None else default_chmc_step_size(dim)
 
     def keep_going() -> bool:
         if s.interrupted or s.iteration > max_iterations:
@@ -333,27 +365,17 @@ def run_loop_from_state(
         live_cov = torch.cov(s.live_points.T, correction=1).reshape(dim, dim)
         cov_est = 0.5 * (s.cov_est + live_cov)
 
-        def density(x):
-            return problem.constrained_log_prior(x, threshold)
-
         # chains start at random survivors (ranks >= k)
         start_idx = torch.randint(k, n_live, (k,), generator=generator, device=dev)
         x0 = s.live_points[start_idx]
-        if monte_carlo_method == "slice":
-            draws = slice_draws(generator, k, dim, num_updates=num_steps, dtype=dtype)
-            st = run_slice_chain(draws, x0, density, shared_factor(cov_est))
-            xs, accs, evals = st.x, st.moved.to(dtype) / num_steps, st.evals.sum()
-            mean_est, covs = s.mean_est, cov_est
-        elif monte_carlo_method == "chmc":
-            st = run_chmc_chain(
-                chmc_draws(generator, n_traj, k, dim, dtype=dtype), x0,
-                problem.guarded_log_likelihood, problem.guarded_log_prior, threshold,
-                shared_factor(cov_est), problem.lower, problem.upper, n_leap, chmc_eps,
-                in_support=problem.in_support,
-            )
-            xs, accs, evals = st.x, st.accepted.to(dtype) / n_traj, st.evals.sum()
+        if monte_carlo_method in ("slice", "chmc"):
+            xs, accs, evals = shared_factor_chains(problem, generator, x0, threshold, cov_est, monte_carlo_method,
+                                                   num_steps, chmc_step_size, chmc_num_leapfrog)
             mean_est, covs = s.mean_est, cov_est
         else:
+            def density(x):
+                return problem.constrained_log_prior(x, threshold)
+
             st = am_init(x0, density, mean0=s.mean_est, t0=10, chol0=proposal_chol(cov_est))
             st, accs = run_chain_adaptive(
                 generator, st, density, num_steps, extra_steps, max_steps,

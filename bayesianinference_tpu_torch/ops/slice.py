@@ -15,9 +15,7 @@ the batch a pass is one density call for all chains under a per-chain
 "still running" mask: a finished chain's probe is evaluated with the batch
 and discarded, and ``evals`` counts only the probes a chain really made,
 so the counter equals the JAX one.  The loops stop as soon as no chain
-runs (one host read of ``active.any()`` per pass); with
-``EARLY_EXIT = False`` they run their full trip count with no host read.
-Both give the same states.
+runs, at the cost of one host read of ``active.any()`` per pass.
 """
 
 from __future__ import annotations
@@ -29,11 +27,6 @@ import torch
 from ..core.numerics import is_log_zero
 
 __all__ = ["SliceState", "SliceDraws", "slice_init", "slice_draws", "slice_update", "run_slice_chain"]
-
-# Stop a step-out or shrink loop when no chain is still running, at the cost
-# of one host read per pass.  False: fixed trip counts, no host read.
-EARLY_EXIT = True
-
 
 class SliceState(NamedTuple):
     x: torch.Tensor  # [C, d]
@@ -96,7 +89,6 @@ def slice_update(
     the last size of ``draws.shrink``."""
     x, lp0 = state.x, state.log_density
     max_shrink = draws.shrink.shape[-1]
-    early_exit = EARLY_EXIT
 
     # |direction| = width * |L z| / |z|
     z = draws.z
@@ -112,7 +104,7 @@ def slice_update(
         active, _ = on_slice(bound)
         evals = torch.ones_like(state.evals)
         for _ in range(max_stepout):
-            if early_exit and not bool(active.any()):
+            if not bool(active.any()):
                 break
             bound = torch.where(active, bound + sign, bound)
             inside, _ = on_slice(bound)
@@ -128,7 +120,7 @@ def slice_update(
     n_shrink = torch.zeros_like(state.evals)
     for i in range(max_shrink):
         active = torch.logical_not(found)
-        if early_exit and not bool(active.any()):
+        if not bool(active.any()):
             break
         t = lo + (hi - lo) * draws.shrink[:, i]
         ok, lp = on_slice(t)

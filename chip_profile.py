@@ -90,8 +90,9 @@ def _profile(fn):
 
 
 def _chain_workloads(smi: str, out: dict) -> None:
-    """One iteration of each of chip_smoke.py's phase 8 and 9 runs: wall and
-    device time per unit, CUDA kernels per unit, the kernels' shares."""
+    """One iteration on each of chip_smoke.py's phase 8 and 9 problems (the
+    d = 72 one with 448 of 512 deletions, 384 there): wall and device time
+    per unit, CUDA kernels per unit, the kernels' shares."""
     import chip_smoke
     from bayesianinference_tpu_torch.engines.nested_sampling import generate_starting_points, nested_sampling_loop
     from bayesianinference_tpu_torch.interop import problem_data_from_numpy

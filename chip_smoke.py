@@ -40,22 +40,23 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
    kernel): d = 32 through ``monte_carlo_method="auto"`` (the slice
    chains; pool 400, 200 deletions, 40 updates) and d = 72 through ``auto``
    with no overrides of the chains (the constrained-HMC chains: 108
-   four-step trajectories at eps = 0.8 / sqrt(72); pool 512, 448
-   deletions), each within 4 max(sigma, 0.2) of the analytic logZ; one
-   slice iteration with the step-out and shrink loops ending early against
-   their full trip count;
+   four-step trajectories at eps = 0.8 / sqrt(72); pool 512, 384
+   deletions), each within 4 max(sigma, 0.2) of the analytic logZ;
 9. a GP with ARD lengthscales (n = 512, d = 20: 22 hyperparameters, so
    ``auto`` takes the slice chains) by slice and by constrained-HMC nested
    sampling, three iterations each: both kernels launched at least once
    per batch of counted evaluations, every replacement in the box above
-   its threshold, logML through the kernels against the plain versions on
-   CPU tensors at the final live points (1e-8), and for the chmc chains the
+   its threshold; at the final live points' hyperparameters K and its
+   factor through the wrappers against the plain versions (B = 10), logML
+   through the kernels against the plain versions on CPU tensors (1e-8),
+   and for the chmc chains the
    likelihood gradient through both reverse rules at batch size 16 against
    the plain path (1e-6);
 10. a run of phase 3's problem (pool 500) cut after 10 iterations, saved,
     loaded and resumed, bit-equal to the uncut run; the same in segments
     through ``nested_sampling(checkpoint_every=15)``; ``dynamic_nested_sampling``
-    against the analytic logZ and the static run's posterior ESS.
+    with its default chain length against the analytic logZ and the static
+    run's posterior ESS.
 
 Each of phases 4, 6, 7 and 9 zeroes the kernels' launch counters before it
 drives its path and fails if a kernel was not launched; the ``launches``
@@ -80,6 +81,7 @@ import numpy as np
 import torch
 
 SLICE_N, SLICE_D, SLICE_B = 512, 3, 10
+ARD_N, ARD_D = 512, 20  # the GP with one lengthscale per input
 GRAD_N = 16384  # bench.py::bench_gp
 PARENT_GRAD_PEAK_MIB = 8193  # chip_profile.py --repo <the parent commit>, NVIDIA H100 80GB HBM3, 700.00 W (PERF.md)
 SE_SOURCE = "bayesianinference_tpu_torch/csrc/se_covariance.cu"
@@ -106,10 +108,15 @@ def phase_device():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     log(smi)
+    from concurrent.futures import ThreadPoolExecutor
+
     from bayesianinference_tpu_torch import csrc
 
     t0 = time.perf_counter()
-    csrc.load_library()
+    with ThreadPoolExecutor() as pool:  # phase 5's variant of the SE kernel compiles beside the kernels themselves
+        variant = pool.submit(_bulk_store_libraries, csrc, se_only=True)
+        csrc.load_library()
+        variant.result()
     log(f"[1 device] {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | kernels built/loaded in {time.perf_counter() - t0:.1f} s")
     return smi
@@ -129,7 +136,9 @@ def _se_parity_cases():
     """(B, n1, n2 or None for the symmetric call, d, ARD, nugget, shared data,
     tile): every d of both feature paths against every n (ragged, odd row
     length), the flags in rotation; every flag combination and both tile
-    edges at the slice's shape; the cross shape."""
+    edges at the slice's shape; the cross shape; the ARD problem's call
+    (d = 20, one lengthscale per matrix and input, shared data, nugget) at
+    the chains' batch of 10 and at the gradient check's 16."""
     cases, turn = [], 0
     for d in (1, 3, 8, 9, 40):
         for n in (1, 50, 512, 513, 1000):
@@ -143,6 +152,7 @@ def _se_parity_cases():
                 cases += [(SLICE_B, SLICE_N, None, SLICE_D, ard, nugget, shared, tile) for tile in (0, 32, 64)]
     cases += [(10, 512, 64, 3, True, False, False, 0), (3, 512, 64, 3, False, False, True, 32),
               (1, 64, 512, 9, True, False, False, 64)]
+    cases += [(b, ARD_N, None, ARD_D, True, True, True, 0) for b in (10, 16)]
     return cases
 
 
@@ -219,7 +229,7 @@ def phase_kernel_parity():
                     raise AssertionError(f"cholesky {name} {dtype} n={n}: non-PD input gave a finite diagonal")
     torch.cuda.synchronize()
     log(f"[2 kernel parity] se_covariance max abs err {worst['se_covariance']:.3e} over {len(cases)} cases "
-        f"(d 1-40, n 1-1000, B 1-10, cross, nugget, ARD, shared data, both tile edges; bitwise symmetric and "
+        f"(d 1-40, n 1-1000, B 1-16, cross, nugget, ARD, shared data, both tile edges; bitwise symmetric and "
         f"equal to the two-input call; NaN propagates), "
         f"cholesky max abs err {worst['cholesky']:.3e} (n up to 4096, both paths); symmetric, upper zero, "
         f"non-PD -> NaN on both paths (f32, f64)")
@@ -355,14 +365,21 @@ def _se_unfused(gk, x, var, scale, nug):
     return gk.se_covariance(x * inv, x * inv, var) + torch.diag_embed(nug)
 
 
+def _bulk_store_libraries(csrc, se_only: bool = False) -> list:
+    """The SE source built with -DSE_BULK_STORE, and the default Cholesky
+    beside it unless ``se_only``."""
+    se, chol = (Path(csrc.__file__).resolve().parent / name for name in csrc.SOURCES)
+    paths = csrc.build([se], flags=(*csrc.NVCC_FLAGS, "-DSE_BULK_STORE"))
+    return paths if se_only else paths + csrc.build([chol])
+
+
 def _bulk_store_variant(gk, smi: str, g):
     """The option the SE kernel's source keeps beside its vector stores:
     built with -DSE_BULK_STORE, whole 32 x 32 tiles leave shared memory by
     bulk asynchronous copies.  Same K, and its time beside the default's."""
     from bayesianinference_tpu_torch import csrc
 
-    sources = [Path(csrc.__file__).resolve().parent / name for name in csrc.SOURCES]
-    variant = csrc._Library(csrc.build(sources, flags=(*csrc.NVCC_FLAGS, "-DSE_BULK_STORE")))
+    variant = csrc._Library(_bulk_store_libraries(csrc))
     default = csrc.load_library
     for dtype in (torch.float64, torch.float32):
         x, var, scale, nug = _se_operands(SLICE_B, SLICE_N, dtype, g)
@@ -778,56 +795,22 @@ def _gaussian_box_problem(dim: int):
     return problem, dim * (math.log(math.erf(5.0 / math.sqrt(2.0))) - math.log(10.0))
 
 
-def _slice_loop_modes(problem, start, iterations: int, **loop_kw):
-    """Wall seconds of ``iterations`` slice iterations with the step-out and
-    shrink loops ending early (one host read per pass) and at their full
-    trip count (no host read), in turns from the same seed; the two must
-    leave bit-equal states.  Returns (early s, fixed s, evals)."""
-    from bayesianinference_tpu_torch.engines.nested_sampling import nested_sampling_loop
-    from bayesianinference_tpu_torch.ops import slice as slice_ops
-
-    times, states = {True: [], False: []}, {}
-    try:
-        for early in (True, False, False, True):
-            slice_ops.EARLY_EXIT = early
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run = nested_sampling_loop(problem, start, torch.Generator(device="cuda").manual_seed(5),
-                                       min_iterations=iterations, max_iterations=iterations,
-                                       monte_carlo_method="slice", **loop_kw)
-            evals = int(run.state.num_likelihood_evals)
-            times[early].append(time.perf_counter() - t0)
-            states[early] = run.state
-    finally:
-        slice_ops.EARLY_EXIT = True
-    a, b = states[True], states[False]
-    if not (torch.equal(a.live_points, b.live_points) and torch.equal(a.dead_acc, b.dead_acc)
-            and int(a.num_likelihood_evals) == int(b.num_likelihood_evals)):
-        raise AssertionError("slice chains: the early-exit and the fixed-trip loops left different states")
-    return statistics.median(times[True]), statistics.median(times[False]), evals
-
-
 def phase_ns_highdim(smi: str):
     """Nested sampling above d = 16 on the analytic oracle, float64, through
     ``monte_carlo_method="auto"``: (a) d = 32 takes the slice chains, (b)
     d = 72 the constrained-HMC chains with the dimension laws' defaults."""
-    from bayesianinference_tpu_torch.engines.nested_sampling import (
-        generate_starting_points,
-        nested_sampling,
-        resolve_monte_carlo_method,
-    )
+    from bayesianinference_tpu_torch.engines.nested_sampling import nested_sampling, resolve_monte_carlo_method
 
     dev = torch.device("cuda")
     cases = (
-        # the JAX tests' runs (tests/test_nested_sampling.py) with more deletions per iteration (50 of 400 and
-        # 256 of 512 there), which cuts the iterations to a quarter and a third: each run is host-bound, minutes
-        # long otherwise
-        ("a", 32, "slice", dict(sample_pool_size=400, max_iterations=400, min_iterations=40, monte_carlo_steps=40,
-                                num_delete=200)),
-        ("b", 72, "chmc", dict(sample_pool_size=512, max_iterations=150, min_iterations=20, num_delete=448,
-                               post_process_sampling_runs=20)),
+        # the JAX tests' runs (tests/test_nested_sampling.py) with more deletions per iteration, which cuts the
+        # iterations to a fifth and a half: each run is host-bound, minutes long otherwise
+        ("a", 32, "slice", 50, dict(sample_pool_size=400, max_iterations=400, min_iterations=40, monte_carlo_steps=40,
+                                    num_delete=200)),
+        ("b", 72, "chmc", 256, dict(sample_pool_size=512, max_iterations=150, min_iterations=20, num_delete=384,
+                                    post_process_sampling_runs=20)),
     )
-    for tag, dim, expect, kw in cases:
+    for tag, dim, expect, jax_delete, kw in cases:
         problem, analytic = _gaussian_box_problem(dim)
         method = resolve_monte_carlo_method("auto", dim, gradient_check=problem.gradient_sanity)
         if method != expect:
@@ -841,19 +824,11 @@ def phase_ns_highdim(smi: str):
         acc = float(res.acceptance_rates[: res.generated_nested_samples].mean())
         if not (math.isfinite(logz) and math.isfinite(err) and abs(logz - analytic) <= 4 * max(err, 0.2)):
             raise AssertionError(f"NS d={dim} ({method}): logZ {logz} +- {err}, analytic {analytic:.3f}")
-        extra = ""
-        if tag == "a":
-            start = generate_starting_points(problem, torch.Generator(device=dev).manual_seed(4), 400)
-            early, fixed, evals = _slice_loop_modes(problem, start, 1, num_delete=200, monte_carlo_steps=40)
-            extra = (f"; one iteration with the step-out and shrink loops ending early {early:.2f} s, at their full "
-                     f"trip count {fixed:.2f} s ({evals} evals either way, bit-equal states)")
-        log(f"[8{tag} NS d={dim}] auto -> {method}, pool {kw['sample_pool_size']}, num_delete {kw['num_delete']}: "
+        log(f"[8{tag} NS d={dim}] auto -> {method}, pool {kw['sample_pool_size']}, num_delete {kw['num_delete']} "
+            f"({jax_delete} in the JAX test's run; more here to fit the script's time): "
             f"logZ {logz:.3f} +- {err:.3f} (analytic {analytic:.3f}), {res.iterations} iterations, "
             f"{res.num_likelihood_evals} evals in {wall:.2f} s = {res.num_likelihood_evals / wall:.4g} evals/s, "
-            f"mean recorded acceptance {acc:.3f}{extra} | {smi}")
-
-
-ARD_N, ARD_D = 512, 20
+            f"mean recorded acceptance {acc:.3f} | {smi}")
 
 
 def _ard_gp_problem(x, y):
@@ -937,8 +912,20 @@ def phase_gp_ard(smi: str):
             raise AssertionError(f"GP ARD {method}: {launches} launches for {evals} evals in batches of {k}")
         for name in total:
             total[name] += launches[name]
-        # logML through the kernels against the plain versions (the same model on CPU tensors)
+        # K and its factor through the wrappers against the plain versions, at the hyperparameters of the k
+        # lowest live points: the shape the chains called (per-row ARD lengthscales, shared data, nugget)
         pts = s.live_points
+        var, scale = torch.exp(2.0 * pts[:k, 0]), torch.exp(pts[:k, 1:1 + ARD_D])
+        nug = torch.exp(2.0 * pts[:k, -1])[:, None].expand(k, ARD_N)
+        cov = gk.se_covariance(x, None, var, scale, nug)
+        se_err = ((cov - _se_plain_in_row_blocks(gk, x[None], None, var, scale, nug)).abs() / var[:, None, None]).max().item()
+        factor, factor_plain = gk.cholesky(cov), gk.cholesky_plain(cov)
+        chol_err = ((factor - factor_plain).abs().max() / factor_plain.abs().max()).item()
+        if not (cov.shape == (k, ARD_N, ARD_N) and se_err <= TOL["se"][torch.float64]
+                and chol_err <= TOL["chol"][torch.float64]):
+            raise AssertionError(f"GP ARD {method}: at B={k} n={ARD_N} d={ARD_D} se_covariance rel err {se_err:.3e}, "
+                                 f"cholesky rel err {chol_err:.3e} against the plain versions")
+        # logML through the kernels against the plain versions (the same model on CPU tensors)
         got = problem.guarded_log_likelihood(pts).cpu()
         want = cpu_problem.guarded_log_likelihood(pts.cpu())
         if not torch.equal(got <= 0.5 * lz, want <= 0.5 * lz):
@@ -964,7 +951,7 @@ def phase_gp_ard(smi: str):
         log(f"[9 GP ARD {'slice (auto)' if method == 'auto' else method}] n={ARD_N} d={ARD_D} f64, 22 hyperparameters, "
             f"pool 100, num_delete {k}, {steps} steps, {iterations} iterations: launches {launches}, {evals} evals in "
             f"{wall:.2f} s = {evals / wall:.4g} evals/s, mean recorded acceptance {acc:.3f}; every replacement in the "
-            f"box above its threshold, {moved} of {iterations * k} moved off their seeds; logML kernel vs plain max rel diff {rel:.3e} on {int(ok.sum())} live points"
+            f"box above its threshold, {moved} of {iterations * k} moved off their seeds; K and L at the first {k} live points kernel vs plain rel err {se_err:.3e} and {chol_err:.3e}; logML kernel vs plain max rel diff {rel:.3e} on {int(ok.sum())} live points"
             f"{grad_note} | {smi}")
     return total
 
@@ -1016,12 +1003,13 @@ def phase_checkpoint_dynamic(smi: str):
         raise AssertionError(f"checkpoint: segmented logZ {logz} +- {err}, analytic {analytic:.3f}")
     wall_ckpt = time.perf_counter() - t0
 
-    # dynamic NS: its defaults but for batched deletion and shorter chains (one
-    # chain of 200 steps per iteration is host-bound for minutes)
+    # dynamic NS with its defaults (pool 100, 4 batches, chains of 200 steps) but for 20 deletions per iteration
+    # instead of 1: one chain per iteration is host-bound for minutes.  The static run beside it ends by the
+    # evidence criterion; the dynamic run's base goes on to the loop's default of 100 iterations.
     ess = lambda r: float(1.0 / torch.sum(torch.exp(r.crude_log_posterior_weights) ** 2))  # noqa: E731
-    dkw = dict(sample_pool_size=100, num_delete=10, monte_carlo_steps=50)
+    dkw = dict(sample_pool_size=100, num_delete=20)
     t0 = time.perf_counter()
-    base = nested_sampling(problem, torch.Generator(device=dev).manual_seed(0), **dkw)
+    base = nested_sampling(problem, torch.Generator(device=dev).manual_seed(0), min_iterations=20, **dkw)
     dyn = dynamic_nested_sampling(problem, torch.Generator(device=dev).manual_seed(0), **dkw)
     dz, derr = float(dyn.log_evidence.mean), float(dyn.log_evidence.standard_error)
     wall_dyn = time.perf_counter() - t0
@@ -1033,27 +1021,32 @@ def phase_checkpoint_dynamic(smi: str):
         f"{kw['monte_carlo_steps']} steps: cut after 10 iterations, saved, loaded, resumed: n_dead "
         f"{done.state.n_dead} and crude logZ {float(done.state.log_z):.4f}, bit-equal to the uncut run's; in segments "
         f"of 15 through nested_sampling: n_dead {res.generated_nested_samples}, logZ {logz:.4f} +- {err:.4f} "
-        f"(analytic {analytic:.4f}); {wall_ckpt:.2f} s. dynamic_nested_sampling (pool 100, num_delete 10, 50 steps, "
-        f"4 batches): logZ {dz:.4f} +- {derr:.4f}, {dyn.total_samples} samples, {dyn.num_likelihood_evals} evals, "
-        f"posterior ESS {ess(dyn):.1f} against the static run's {ess(base):.1f} ({base.total_samples} samples); "
+        f"(analytic {analytic:.4f}); {wall_ckpt:.2f} s. dynamic_nested_sampling (its defaults: pool 100, 200 steps, "
+        f"4 batches; num_delete {dkw['num_delete']}, not its default 1, to fit the script's time): logZ {dz:.4f} +- {derr:.4f}, {dyn.total_samples} samples, {dyn.num_likelihood_evals} evals, "
+        f"posterior ESS {ess(dyn):.1f} against the static run's {ess(base):.1f} ({base.total_samples} samples, "
+        f"{base.iterations} iterations); "
         f"{wall_dyn:.2f} s | {smi}")
 
 
-def main(only=None):
-    smi = phase_device()
-    if only:  # development: run only the named later phases (8, 9, 10); prints no result lines
-        for name in only:
-            {"8": phase_ns_highdim, "9": phase_gp_ard, "10": phase_checkpoint_dynamic}[name](smi)
-        return
-    worst = phase_kernel_parity()
-    phase_ns_spine(smi)
-    launches, problem, ns_logz = phase_gp_slice(smi)
-    times, big = phase_kernel_times(smi)
-    grad_launches, _ = phase_gp_grad(smi)
-    laplace_launches, _ = phase_laplace(smi, problem, ns_logz)
-    phase_ns_highdim(smi)
-    ard_launches = phase_gp_ard(smi)
-    phase_checkpoint_dynamic(smi)
+def main():
+    t0 = time.perf_counter()
+
+    def timed(phase, *args):
+        """Run a phase and print the script's seconds so far."""
+        out = phase(*args)
+        log(f"[seconds] {phase.__name__} done at {time.perf_counter() - t0:.0f} s")
+        return out
+
+    smi = timed(phase_device)
+    worst = timed(phase_kernel_parity)
+    timed(phase_ns_spine, smi)
+    launches, problem, ns_logz = timed(phase_gp_slice, smi)
+    times, big = timed(phase_kernel_times, smi)
+    grad_launches, _ = timed(phase_gp_grad, smi)
+    laplace_launches, _ = timed(phase_laplace, smi, problem, ns_logz)
+    timed(phase_ns_highdim, smi)
+    ard_launches = timed(phase_gp_ard, smi)
+    timed(phase_checkpoint_dynamic, smi)
     launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] for k in launches}
     # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
     # at bench.py's width (B = 1, n = 16384, f32)
@@ -1071,8 +1064,4 @@ def main(only=None):
 
 
 if __name__ == "__main__":
-    import argparse
-
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", nargs="+", choices=("8", "9", "10"), help="run only these phases (development)")
-    main(parser.parse_args().only)
+    main()

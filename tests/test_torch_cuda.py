@@ -223,11 +223,9 @@ def test_batched_likelihood_gradient_through_reverse_rules_matches_plain(cuda):
     assert (grad.cpu() - want_grad).abs().max().item() <= 1e-8 * want_grad.abs().max().item()
 
 
-@pytest.mark.parametrize("early_exit", [True, False])
-def test_slice_chain_on_the_card_matches_the_cpu_on_the_same_draws(cuda, early_exit, monkeypatch):
+def test_slice_chain_on_the_card_matches_the_cpu_on_the_same_draws(cuda):
     from bayesianinference_tpu_torch.ops import slice as slice_ops
 
-    monkeypatch.setattr(slice_ops, "EARLY_EXIT", early_exit)
     problem, plain = _ard_problem(cuda), _ard_problem("cpu")
     g = torch.Generator().manual_seed(2)
     x0 = torch.rand((8, problem.dim), generator=g, dtype=torch.float64) - 0.5

@@ -227,3 +227,26 @@ def test_dynamic_validation_and_ess_target(conjugate):
     ev = tdyn.dynamic_nested_sampling(problem, torch.Generator().manual_seed(21), sample_pool_size=64,
                                       num_batches=1, posterior_fraction=0.0, monte_carlo_steps=30, num_delete=K)
     assert ev.total_samples > dyn.total_samples and math.isfinite(float(ev.log_evidence.mean))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("steps,num_delete", [(50, 10), (200, 20)])
+def test_dynamic_ns_is_unbiased_over_seeds(steps, num_delete):
+    """Mean of (logZ - analytic) / sigma over ten seeds on the 2-D unit
+    Gaussian in [-5, 5]^2 (pool 100, four batches).  Too few Metropolis
+    steps per replacement leave seed correlation that lifts logZ: printed
+    for both chain lengths (run with ``-s``), held to a mean below one
+    sigma; the default length, 200 steps, is the one a run should use."""
+    problem = define_inference_problem(
+        parameters=[("x", -5.0, 5.0), ("y", -5.0, 5.0)],
+        log_likelihood=lambda th: torch.sum(Normal(0.0, 1.0).log_prob(th)),
+        prior_distribution=["location", "location"], device="cpu", dtype=torch.float64)
+    analytic = 2 * (math.log(math.erf(5 / math.sqrt(2))) - math.log(10))
+    zs = []
+    for seed in range(10):
+        dyn = tdyn.dynamic_nested_sampling(problem, torch.Generator().manual_seed(seed), sample_pool_size=100,
+                                           num_delete=num_delete, monte_carlo_steps=steps)
+        zs.append((float(dyn.log_evidence.mean) - analytic) / float(dyn.log_evidence.standard_error))
+    print(f"dynamic NS, {steps} steps, {num_delete} deletions: z over ten seeds {[round(z, 2) for z in zs]}, "
+          f"mean {np.mean(zs):+.2f}")
+    assert abs(np.mean(zs)) < 1.0

@@ -86,11 +86,9 @@ def _slice_setup(d, chains, seed):
     return x0, chol
 
 
-@pytest.mark.parametrize("early_exit", [True, False])
 @pytest.mark.parametrize("name", ["gauss", "edge"])
 @pytest.mark.parametrize("d", [3, 8])
-def test_slice_update_matches_jax_on_jax_draws(d, name, early_exit, monkeypatch):
-    monkeypatch.setattr(tslice, "EARLY_EXIT", early_exit)
+def test_slice_update_matches_jax_on_jax_draws(d, name):
     jd, td = DENSITIES[name]
     chains = 16
     x0, chol = _slice_setup(d, chains, seed=d)
@@ -107,14 +105,12 @@ def test_slice_update_matches_jax_on_jax_draws(d, name, early_exit, monkeypatch)
     np.testing.assert_array_equal(out["moved"], np.asarray(jout.moved))
 
 
-@pytest.mark.parametrize("early_exit", [True, False])
 @pytest.mark.parametrize("d,name,max_shrink,max_stepout", [
     (3, "gauss", 32, 8), (8, "gauss", 32, 8), (3, "edge", 32, 8), (8, "edge", 32, 8),
     (3, "gauss", 32, 1),  # the step-out limit is hit on nearly every update
     (3, "edge", 2, 8), (8, "edge", 1, 8),  # shrink runs out: the chain stays put and does not count the move
 ])
-def test_run_slice_chain_matches_jax_on_jax_draws(d, name, max_shrink, max_stepout, early_exit, monkeypatch):
-    monkeypatch.setattr(tslice, "EARLY_EXIT", early_exit)
+def test_run_slice_chain_matches_jax_on_jax_draws(d, name, max_shrink, max_stepout):
     jd, td = DENSITIES[name]
     chains, updates = 16, 12
     x0, chol = _slice_setup(d, chains, seed=10 + d)
