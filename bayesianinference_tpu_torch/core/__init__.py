@@ -6,13 +6,19 @@ from .linalg import inverse_matrix_block_inverse, matrix_block_inverse
 from .numerics import (
     LOG2PI,
     exp_neg_precise,
+    gammaln_precise,
     guard_log_density,
     is_log_zero,
+    log1p_precise,
     log_precise,
     log_zero,
     logaddexp,
+    logmeanexp,
     logsubexp,
     logsumexp,
+    safe_log,
+    safe_sqrt,
+    xlogx,
     xlogy,
 )
 from .standardize import NormalizedData, Standardizer, data_normal_form, normalize_data, standardize

@@ -10,6 +10,8 @@ functions.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 LOG2PI = 1.8378770664093453
@@ -19,6 +21,8 @@ __all__ = [
     "LOG2PI",
     "as_float",
     "exp_neg_precise",
+    "gammaln_precise",
+    "log1p_precise",
     "log_precise",
     "log_zero",
     "is_log_zero",
@@ -27,10 +31,16 @@ __all__ = [
     "logaddexp",
     "log1mexp",
     "logsubexp",
+    "logmeanexp",
+    "safe_log",
+    "safe_sqrt",
+    "xlogx",
     "xlogy",
 ]
 
 exp_neg_precise = torch.exp
+gammaln_precise = torch.lgamma
+log1p_precise = torch.log1p
 log_precise = torch.log
 
 
@@ -126,6 +136,33 @@ def logsubexp(y, x) -> torch.Tensor:
     y, x = _pair(y, x)
     out = y + log1mexp(x - y)
     return torch.where(x >= y, torch.full_like(out, log_zero(out.dtype)), out)
+
+
+def logmeanexp(a, dim=None, keepdim: bool = False) -> torch.Tensor:
+    """log(mean(e^a)) = logsumexp(a) - log(n)."""
+    a = as_float(a)
+    n = a.numel() if dim is None else a.shape[dim]
+    return logsumexp(a, dim=dim, keepdim=keepdim) - math.log(n)
+
+
+def xlogx(x) -> torch.Tensor:
+    """x * log(x) with 0 log 0 = 0."""
+    x = as_float(x)
+    safe = torch.where(x > 0, x, torch.ones_like(x))
+    return torch.where(x > 0, x * torch.log(safe), torch.zeros_like(x))
+
+
+def safe_log(x) -> torch.Tensor:
+    """log with non-positive inputs mapped to the log-zero sentinel."""
+    x = as_float(x)
+    safe = torch.where(x > 0, x, torch.ones_like(x))
+    return torch.where(x > 0, torch.log(safe), torch.full_like(x, log_zero(x.dtype)))
+
+
+def safe_sqrt(x) -> torch.Tensor:
+    """sqrt clamped at 0, so that a variance negative by rounding gives 0,
+    not NaN."""
+    return torch.sqrt(torch.clamp(as_float(x), min=0))
 
 
 def xlogy(x, y) -> torch.Tensor:

@@ -1,8 +1,33 @@
-"""Distributions of the nested-sampling, GP and Laplace paths."""
+"""Distributions of the nested-sampling, GP, Laplace and conjugate paths."""
 
 from .base import Distribution
-from .combinators import ImproperUniform, Product, Truncated
+from .combinators import ConditionalProduct, ImproperUniform, Product, Truncated
+from .conjugate_structs import NormalInverseGamma, NormalInverseWishart
 from .empirical import Empirical, ParameterMixture
-from .multivariate import MultivariateNormal, MultivariateNormalPrecision, MultivariateT, mvgammaln
+from .multivariate import (
+    Dirichlet,
+    InverseWishart,
+    MatrixNormal,
+    MatrixT,
+    Multinomial,
+    MultivariateNormal,
+    MultivariateNormalPrecision,
+    MultivariateT,
+    Wishart,
+    mvgammaln,
+)
 from .pointwise import PointwiseMixture
-from .scalar import Bernoulli, BernoulliLogits, Cauchy, LogNormal, LogUniform, Normal, Uniform
+from .scalar import (
+    Bernoulli,
+    BernoulliLogits,
+    Beta,
+    Categorical,
+    Cauchy,
+    Gamma,
+    InverseGamma,
+    LogNormal,
+    LogUniform,
+    Normal,
+    StudentT,
+    Uniform,
+)

@@ -1,18 +1,19 @@
 """Distribution combinators (port of the part of
-``bayesianinference_tpu.dists.combinators`` that ``models/problem.py``
-imports: ``Product``, ``Truncated`` and ``ImproperUniform``)."""
+``bayesianinference_tpu.dists.combinators`` that ``models/problem.py`` and
+the conjugate engines use: ``Product``, ``Truncated``, ``ImproperUniform``
+and ``ConditionalProduct``)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 
 from ..core.numerics import as_float, log_zero
 from .base import Distribution, as_param, dist_dataclass, param_dtype
 
-__all__ = ["Product", "Truncated", "ImproperUniform"]
+__all__ = ["Product", "Truncated", "ImproperUniform", "ConditionalProduct"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +132,59 @@ class Truncated(Distribution):
         q = as_float(q)
         _, c_lo, c_hi = self._log_z(q)
         return self.base.icdf(c_lo + q * (c_hi - c_lo))
+
+
+class ConditionalProduct:
+    """Joint distribution over named variables in dependency order.
+
+    Nodes are ``(name, builder)`` pairs in topological order; a builder maps
+    the dict of the values drawn or given so far to a
+    :class:`Distribution` (or is a distribution itself).  ``log_prob`` sums
+    the nodes' densities over a value dict; ``sample`` draws ancestrally, in
+    node order, from the one generator."""
+
+    def __init__(self, nodes: Sequence[Tuple[str, Callable]]):
+        self.nodes = list(nodes)
+        names = [n for n, _ in self.nodes]
+        if len(set(names)) != len(names):
+            raise ValueError("duplicate variable names in ConditionalProduct")
+        self.names = names
+
+    def log_prob(self, values: dict):
+        total, known = 0.0, {}
+        for name, builder in self.nodes:
+            dist = builder(known) if callable(builder) else builder
+            total = total + dist.log_prob(values[name])
+            known[name] = values[name]
+        return total
+
+    def sample(self, generator: torch.Generator, shape=()) -> dict:
+        out = {}
+        for name, builder in self.nodes:
+            dist = builder(out) if callable(builder) else builder
+            out[name] = dist.sample(generator, shape)
+        return out
+
+    def graph(self):
+        """Edge list (parent -> child), found by recording which values each
+        builder reads."""
+        edges = []
+        for name, builder in self.nodes:
+            if not callable(builder):
+                continue
+            accessed = []
+
+            class _Probe(dict):
+                def __getitem__(probe, k):  # noqa: N805
+                    accessed.append(k)
+                    return torch.zeros(())
+
+            try:
+                builder(_Probe({n: torch.zeros(()) for n in self.names}))
+            except Exception:  # a builder may reject the probe's zeros after reading what it needs
+                pass
+            edges.extend((p, name) for p in accessed)
+        return edges
 
 
 @dist_dataclass

@@ -1,7 +1,11 @@
 """Scalar distribution families (port of the part of
-``bayesianinference_tpu.dists.scalar`` that the nested-sampling, GP and
-Laplace paths use: ``Normal``, ``Uniform``, ``LogUniform``, ``Cauchy``,
-``LogNormal``, ``Bernoulli`` and ``BernoulliLogits``)."""
+``bayesianinference_tpu.dists.scalar`` that the nested-sampling, GP,
+Laplace and conjugate paths use: ``Normal``, ``Uniform``, ``LogUniform``,
+``Cauchy``, ``LogNormal``, ``Bernoulli``, ``BernoulliLogits``, ``Gamma``,
+``InverseGamma``, ``Beta``, ``StudentT`` and ``Categorical``).
+
+Gamma variates come from ``multivariate._standard_gamma`` (Marsaglia and
+Tsang on the caller's generator)."""
 
 from __future__ import annotations
 
@@ -12,7 +16,10 @@ import torch
 from ..core.numerics import LOG2PI, as_float, log_zero, xlogy
 from .base import Distribution, as_param, dist_dataclass, param_dtype, param_shape
 
-__all__ = ["Normal", "Uniform", "LogUniform", "Cauchy", "LogNormal", "Bernoulli", "BernoulliLogits"]
+__all__ = [
+    "Normal", "Uniform", "LogUniform", "Cauchy", "LogNormal", "Bernoulli", "BernoulliLogits",
+    "Gamma", "InverseGamma", "Beta", "StudentT", "Categorical",
+]
 
 _LOGPI = 1.1447298858494002
 
@@ -257,3 +264,213 @@ class BernoulliLogits(Distribution):
 
     def mean(self):
         return torch.sigmoid(torch.as_tensor(self.logits, dtype=param_dtype(self.logits)))
+
+
+def _gamma_draw(generator: torch.Generator, shape, alpha, *params) -> torch.Tensor:
+    """Gamma(alpha, 1) draws at the broadcast of ``shape`` and the parameter
+    shapes, on the generator's device."""
+    from .multivariate import _standard_gamma  # multivariate imports this module
+
+    full = torch.broadcast_shapes(tuple(shape), param_shape(alpha, *params))
+    a = torch.as_tensor(alpha, dtype=param_dtype(alpha, *params), device=generator.device)
+    return _standard_gamma(generator, a.expand(full).contiguous())
+
+
+def _open_support(x, logp):
+    """The sentinel at and beyond the boundary x = 0 of an open support."""
+    return torch.where(x > 0, logp, torch.full_like(logp, log_zero(logp.dtype)))
+
+
+def _nan_unless(ok, value):
+    return torch.where(ok, value, torch.full_like(value, math.nan))
+
+
+@dist_dataclass
+class Gamma(Distribution):
+    """Gamma(shape a, rate b): p(x) = b^a x^(a-1) e^(-bx) / Gamma(a)."""
+
+    a: object = 1.0
+    rate: object = 1.0
+
+    def support(self):
+        return (0.0, math.inf)
+
+    def log_prob(self, x):
+        x = as_float(x)
+        a, b = as_param(self.a, x), as_param(self.rate, x)
+        safe_x = torch.where(x > 0, x, torch.ones_like(x))
+        logp = a * torch.log(b) + (a - 1.0) * torch.log(safe_x) - b * x - torch.lgamma(a)
+        return _open_support(x, self._mask_support(x, logp))
+
+    def sample(self, generator, shape=()):
+        g = _gamma_draw(generator, shape, self.a, self.rate)
+        return g / as_param(self.rate, g)
+
+    def cdf(self, x):
+        x = as_float(x)
+        return torch.special.gammainc(as_param(self.a, x), as_param(self.rate, x) * torch.clamp(x, min=0.0))
+
+    def mean(self):
+        dt = param_dtype(self.a, self.rate)
+        return torch.as_tensor(self.a, dtype=dt) / torch.as_tensor(self.rate, dtype=dt)
+
+    def variance(self):
+        dt = param_dtype(self.a, self.rate)
+        return torch.as_tensor(self.a, dtype=dt) / torch.as_tensor(self.rate, dtype=dt) ** 2
+
+
+@dist_dataclass
+class InverseGamma(Distribution):
+    """InverseGamma(a, b): p(x) = b^a x^(-a-1) e^(-b/x) / Gamma(a), the
+    error variance of conjugate regression."""
+
+    a: object = 1.0
+    b: object = 1.0
+
+    def support(self):
+        return (0.0, math.inf)
+
+    def log_prob(self, x):
+        x = as_float(x)
+        a, b = as_param(self.a, x), as_param(self.b, x)
+        safe_x = torch.where(x > 0, x, torch.ones_like(x))
+        logp = a * torch.log(b) - (a + 1.0) * torch.log(safe_x) - b / safe_x - torch.lgamma(a)
+        return _open_support(x, self._mask_support(x, logp))
+
+    def sample(self, generator, shape=()):
+        g = _gamma_draw(generator, shape, self.a, self.b)
+        return as_param(self.b, g) / g
+
+    def cdf(self, x):
+        x = as_float(x)
+        safe_x = torch.where(x > 0, x, torch.ones_like(x))
+        c = torch.special.gammaincc(as_param(self.a, x), as_param(self.b, x) / safe_x)
+        return torch.where(x > 0, c, torch.zeros_like(c))
+
+    def _ab(self):
+        dt = param_dtype(self.a, self.b)
+        return torch.as_tensor(self.a, dtype=dt), torch.as_tensor(self.b, dtype=dt)
+
+    def mean(self):
+        a, b = self._ab()
+        return _nan_unless(a > 1, b / (a - 1.0))
+
+    def variance(self):
+        a, b = self._ab()
+        return _nan_unless(a > 2, b**2 / ((a - 1.0) ** 2 * (a - 2.0)))
+
+
+@dist_dataclass
+class Beta(Distribution):
+    a: object = 1.0
+    b: object = 1.0
+
+    def support(self):
+        return (0.0, 1.0)
+
+    def log_prob(self, x):
+        x = as_float(x)
+        a, b = as_param(self.a, x), as_param(self.b, x)
+        sx = torch.clamp(x, 1e-38, 1.0 - 1e-7)
+        logp = (a - 1.0) * torch.log(sx) + (b - 1.0) * torch.log1p(-sx) - (
+            torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b))
+        # open on both ends: the density at 0 and 1 is 0 or infinite
+        inside = (x > 0) & (x < 1)
+        return torch.where(inside, self._mask_support(x, logp), torch.full_like(logp, log_zero(logp.dtype)))
+
+    def sample(self, generator, shape=()):
+        ga = _gamma_draw(generator, shape, self.a, self.b)
+        gb = _gamma_draw(generator, ga.shape, self.b, self.a)
+        return ga / (ga + gb)
+
+    def _ab(self):
+        dt = param_dtype(self.a, self.b)
+        return torch.as_tensor(self.a, dtype=dt), torch.as_tensor(self.b, dtype=dt)
+
+    def mean(self):
+        a, b = self._ab()
+        return a / (a + b)
+
+    def variance(self):
+        a, b = self._ab()
+        return a * b / ((a + b) ** 2 * (a + b + 1.0))
+
+
+@dist_dataclass
+class StudentT(Distribution):
+    """StudentT(df, loc, scale): the predictive of conjugate regression."""
+
+    df: object = 1.0
+    loc: object = 0.0
+    scale: object = 1.0
+
+    def log_prob(self, x):
+        x = as_float(x)
+        v, loc, s = as_param(self.df, x), as_param(self.loc, x), as_param(self.scale, x)
+        z = (x - loc) / s
+        logp = (torch.lgamma(0.5 * (v + 1.0)) - torch.lgamma(0.5 * v) - 0.5 * torch.log(v) - 0.5 * _LOGPI
+                - torch.log(s) - 0.5 * (v + 1.0) * torch.log1p(z * z / v))
+        return self._mask_support(x, logp)
+
+    def sample(self, generator, shape=()):
+        z = _draw(torch.randn, generator, shape, self.df, self.loc, self.scale)
+        v = as_param(self.df, z)
+        chi2 = 2.0 * _gamma_draw(generator, z.shape, 0.5 * v)
+        return as_param(self.loc, z) + as_param(self.scale, z) * z * torch.sqrt(v / chi2)
+
+    def _params(self):
+        dt = param_dtype(self.df, self.loc, self.scale)
+        return (torch.as_tensor(p, dtype=dt) for p in (self.df, self.loc, self.scale))
+
+    def mean(self):
+        v, loc, _ = self._params()
+        return _nan_unless(v > 1, loc * torch.ones_like(v))
+
+    def variance(self):
+        v, _, s = self._params()
+        return _nan_unless(v > 2, s**2 * v / (v - 2.0))
+
+
+@dist_dataclass
+class Categorical(Distribution):
+    """Categorical over {0, ..., k-1} parameterized by logits [..., k]
+    (unnormalized log-probabilities)."""
+
+    logits: object
+
+    def support(self):
+        return (0.0, self.logits.shape[-1] - 1.0)
+
+    def log_prob(self, x):
+        x = as_float(x)
+        lg = as_param(self.logits, x)
+        k = lg.shape[-1]
+        logp_all = torch.log_softmax(lg, dim=-1)
+        batch = torch.broadcast_shapes(x.shape, logp_all.shape[:-1])
+        xi = torch.clamp(x.to(torch.int64), 0, k - 1).expand(batch)
+        logp = torch.gather(logp_all.expand(*batch, k), -1, xi[..., None])[..., 0]
+        valid = (x >= 0) & (x <= k - 1) & (x == torch.floor(x))
+        return torch.where(valid & torch.isfinite(logp), logp, torch.full_like(logp, log_zero(logp.dtype)))
+
+    def sample(self, generator, shape=()):
+        """Gumbel-max: the argmax of logits plus standard Gumbel noise."""
+        lg = torch.as_tensor(self.logits).to(generator.device)
+        lg = lg if lg.is_floating_point() else lg.to(torch.get_default_dtype())
+        u = torch.rand((*shape, *lg.shape), generator=generator, dtype=lg.dtype, device=generator.device)
+        tiny = torch.finfo(lg.dtype).tiny
+        gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+        return torch.argmax(lg + gumbel, dim=-1).to(lg.dtype)
+
+    def _probs(self):
+        return torch.softmax(as_float(self.logits), dim=-1)
+
+    def mean(self):
+        p = self._probs()
+        i = torch.arange(p.shape[-1], dtype=p.dtype, device=p.device)
+        return torch.sum(p * i, dim=-1)
+
+    def variance(self):
+        p = self._probs()
+        i = torch.arange(p.shape[-1], dtype=p.dtype, device=p.device)
+        m = torch.sum(p * i, dim=-1)
+        return torch.sum(p * i * i, dim=-1) - m * m

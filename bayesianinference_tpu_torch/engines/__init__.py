@@ -1,10 +1,24 @@
 """Inference engines: nested sampling (static and dynamic) with its
-checkpoints, evidence resampling, the Markov-chain API, GP regression and
-the Laplace approximation.  ``nested_sampling`` stays in its module
+checkpoints, evidence resampling, the Markov-chain API, GP regression,
+the Laplace approximation, the conjugate models and direct quadrature.  ``nested_sampling`` stays in its module
 (``engines.nested_sampling``): a package attribute of that name would hide
 the module."""
 
 from .checkpoint import load_ns_run, load_result, resume_nested_sampling_loop, save_ns_run, save_result
+from .conjugate import (
+    BLRParameters,
+    BLRResult,
+    ConjugateModelResult,
+    bayesian_linear_regression,
+    categorical_conjugate_model,
+    categorical_conjugate_model_from_counts,
+    design_matrix,
+    multinormal_conjugate_model,
+    normal_conjugate_model,
+    polynomial_basis,
+    update_conjugate_model,
+)
+from .direct import DirectPosterior, direct_posterior_distribution, gauss_legendre_grid
 from .dynamic_ns import (
     NSSegment,
     dynamic_nested_sampling,

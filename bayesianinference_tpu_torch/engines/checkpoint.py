@@ -31,13 +31,7 @@ from ..core.numerics import log_zero
 from ..models.problem import InferenceProblem
 from .evidence import MeanAndError, NestedSamplingResult
 from .laplace import LaplaceFit
-from .nested_sampling import (
-    NSRunData,
-    default_monte_carlo_steps,
-    resolve_monte_carlo_method,
-    run_loop_from_state,
-    warn_if_slice_steps_below_dim,
-)
+from .nested_sampling import NSRunData, make_loop_config, run_loop_from_state
 
 __all__ = [
     "save_ns_run",
@@ -130,20 +124,16 @@ def resume_nested_sampling_loop(
         dead_logp=grown(s.dead_logp, lz), dead_acc=grown(s.dead_acc, 0.0),
         interrupted=False,
     )
-    method = resolve_monte_carlo_method(monte_carlo_method, dim, gradient_check=problem.gradient_sanity)
-    if monte_carlo_steps is None:
-        monte_carlo_steps = default_monte_carlo_steps(method, dim)
-    warn_if_slice_steps_below_dim(method, monte_carlo_steps, dim, chmc_num_leapfrog)
-    state = run_loop_from_state(
-        problem, state, generator,
-        n_live=run.n_live, num_delete=k, max_iterations=new_max, min_iterations=min_iterations,
-        monte_carlo_steps=monte_carlo_steps, monte_carlo_method=method,
-        termination_fraction=termination_fraction, min_max_acceptance_rate=min_max_acceptance_rate,
+    cfg = make_loop_config(
+        dim, gradient_check=problem.gradient_sanity, max_iterations=new_max,
+        min_iterations=min(min_iterations, new_max), monte_carlo_steps=monte_carlo_steps,
+        termination_fraction=termination_fraction, num_delete=k, min_max_acceptance_rate=min_max_acceptance_rate,
         covariance_learn_delay=covariance_learn_delay, log_likelihood_maximum=log_likelihood_maximum,
-        progress_callback=progress_callback, progress_interval=progress_interval,
-        interrupt_check=interrupt_check, stop_at_log_likelihood=stop_at_log_likelihood,
-        chmc_step_size=chmc_step_size, chmc_num_leapfrog=chmc_num_leapfrog,
+        progress_callback=progress_callback, progress_interval=progress_interval, interrupt_check=interrupt_check,
+        monte_carlo_method=monte_carlo_method, chmc_step_size=chmc_step_size, chmc_num_leapfrog=chmc_num_leapfrog,
     )
+    state = run_loop_from_state(problem, state, generator, cfg, n_live=run.n_live,
+                                stop_at_log_likelihood=stop_at_log_likelihood)
     return dataclasses.replace(run, state=state, capacity=new_capacity)
 
 

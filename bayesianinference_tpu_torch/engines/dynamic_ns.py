@@ -42,6 +42,7 @@ from .nested_sampling import (
     generate_starting_points,
     nested_sampling_loop,
     resolve_monte_carlo_method,
+    shared_factor,
     shared_factor_chains,
 )
 
@@ -238,8 +239,8 @@ def _decorrelate(problem: InferenceProblem, generator, candidates, threshold: fl
     idx = torch.randint(0, candidates.shape[0], (n_seeds,), generator=generator, device=candidates.device)
     seeds = candidates[idx]
     if method in ("slice", "chmc"):
-        x, _, evals = shared_factor_chains(problem, generator, seeds, threshold, cov, method, steps)
-        return x, int(evals)
+        x, _, evals = shared_factor_chains(problem, generator, seeds, threshold, shared_factor(cov), method, steps)
+        return x, int(evals.sum())
 
     def density(x):
         return problem.constrained_log_prior(x, threshold)

@@ -9,15 +9,18 @@ Every chain step evaluates the batch's likelihoods in one call (for a GP
 likelihood, one batched covariance assembly and one batched Cholesky on
 the card; the constrained-HMC chains also run their reverse rules).
 
-The JAX package's on-device ``while_loop`` is a Python loop here.  The
+The JAX package's on-device ``while_loop`` is a Python loop here, over a
+leading run axis (:func:`run_loop_batched`: R runs with their chains in one
+batch, which the parallel runs use; a single run is R = 1).  The
 per-iteration work stays batched tensor ops; the termination test reads
 logZ and the missing-evidence estimate (or, for a dynamic-NS batch, the
-deletion threshold) back to the host once per iteration after
+deletion threshold) of every run back to the host once per iteration after
 ``min_iterations``, and the slice chains read one flag per pass of their
 step-out and shrink loops.  Dead-point buffers are capacity-padded
 (``max_iterations * num_delete``) and written in place; ``n_dead`` and the
 iteration count are Python ints.  The likelihood-evaluation counter is one
-int64 tensor on the device.
+int64 tensor on the device (the JAX package's (hi, lo) int32 digits and
+``evals_to_int`` work around the TPU's lack of int64 and are not ported).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import warnings
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -39,14 +42,19 @@ from .evidence import NestedSamplingResult, evidence_sampling, evidence_sampling
 
 __all__ = [
     "NSState",
+    "NSBatchState",
     "NSRunData",
+    "LoopConfig",
+    "make_loop_config",
     "crude_log_z_masked",
     "default_monte_carlo_steps",
     "default_chmc_step_size",
     "default_chmc_num_leapfrog",
     "resolve_monte_carlo_method",
     "warn_if_slice_steps_below_dim",
+    "shared_factor",
     "shared_factor_chains",
+    "run_loop_batched",
     "run_loop_from_state",
     "nested_sampling_loop",
     "generate_starting_points",
@@ -178,15 +186,16 @@ def warn_if_slice_steps_below_dim(method: str, monte_carlo_steps, dim: int, chmc
 def crude_log_z_masked(
     log_xd: torch.Tensor,  # [cap] analytic deleted logX
     n_dead: int,
-    dead_logl: torch.Tensor,  # [cap]
-    live_logl_sorted: torch.Tensor,  # [n] ascending
+    dead_logl: torch.Tensor,  # [..., cap]
+    live_logl_sorted: torch.Tensor,  # [..., n] ascending
 ):
     """Crude logZ and the trapezoid log-weights (without the logL term) of
-    the dead prefix and the live tail.  Returns
-    (log_z, dead_w [cap], live_w [n], live_log_x [n])."""
+    the dead prefix and the live tail.  The weights depend on ``n_dead``
+    alone, so runs that have made as many deletions share them.  Returns
+    (log_z [...], dead_w [cap], live_w [n], live_log_x [n])."""
     dtype, dev = log_xd.dtype, log_xd.device
     cap = log_xd.shape[0]
-    n = live_logl_sorted.shape[0]
+    n = live_logl_sorted.shape[-1]
     lz = log_zero(dtype)
     active = torch.arange(cap, device=dev) < n_dead
     log_x_last = log_xd[n_dead - 1] if n_dead > 0 else torch.zeros((), dtype=dtype, device=dev)
@@ -206,8 +215,8 @@ def crude_log_z_masked(
     live_w = torch.cat([live_w[:-1], _LOG_HALF + logaddexp(live_log_x[-2:-1], live_log_x[-1:])])
 
     log_z = logaddexp(
-        logsumexp(torch.where(active, dead_w + dead_logl, torch.full_like(dead_w, lz))),
-        logsumexp(live_w + live_logl_sorted),
+        logsumexp(torch.where(active, dead_w + dead_logl, torch.full_like(dead_w, lz)), dim=-1),
+        logsumexp(live_w + live_logl_sorted, dim=-1),
     )
     return log_z, dead_w, live_w, live_log_x
 
@@ -235,44 +244,168 @@ class NSRunData:
         return points, logl, logp, acc, nd
 
 
-def _init_state(problem: InferenceProblem, starting_points: torch.Tensor, capacity: int) -> NSState:
-    n_live, dim = starting_points.shape
+@dataclasses.dataclass
+class NSBatchState:
+    """State of R runs of the loop, one leading run axis on every tensor
+    of :class:`NSState`.  Runs that are still going have done the same
+    number of iterations; a run that has ended keeps its state."""
+
+    live_points: torch.Tensor  # [R, n, d], each run sorted ascending by logL
+    live_logl: torch.Tensor  # [R, n]
+    live_logp: torch.Tensor  # [R, n]
+    dead_points: torch.Tensor  # [R, cap, d]
+    dead_logl: torch.Tensor  # [R, cap]
+    dead_logp: torch.Tensor  # [R, cap]
+    dead_acc: torch.Tensor  # [R, cap]
+    n_dead: List[int]
+    iteration: List[int]  # 1-based
+    mean_est: torch.Tensor  # [R, d]
+    cov_est: torch.Tensor  # [R, d, d]
+    log_z: torch.Tensor  # [R]
+    entropy: torch.Tensor  # [R]
+    log_missing: torch.Tensor  # [R]
+    num_likelihood_evals: torch.Tensor  # [R] int64
+    interrupted: bool = False
+
+    @classmethod
+    def of_state(cls, s: NSState) -> "NSBatchState":
+        """One run as a batch of one; its tensors are views of ``s``'s."""
+        kw = {f.name: getattr(s, f.name) for f in dataclasses.fields(NSState)}
+        kw = {k: v.unsqueeze(0) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+        return cls(**dict(kw, n_dead=[s.n_dead], iteration=[s.iteration]))
+
+    def state(self, r: int) -> NSState:
+        """Run ``r`` as an :class:`NSState` (views of the batch's tensors)."""
+        kw = {f.name: getattr(self, f.name) for f in dataclasses.fields(NSState)}
+        kw = {k: v[r] if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+        return NSState(**dict(kw, n_dead=self.n_dead[r], iteration=self.iteration[r]))
+
+
+def _batched_cov(x: torch.Tensor) -> torch.Tensor:
+    """Sample covariance (ddof 1) of each run's points: [R, n, d] -> [R, d, d]."""
+    xm = x - x.mean(dim=1, keepdim=True)
+    return xm.mT @ xm / (x.shape[1] - 1)
+
+
+def _init_batch(problem: InferenceProblem, starting_points: torch.Tensor, capacity: int) -> NSBatchState:
+    """The state of R fresh runs from their starting points [R, n, d]; all
+    R * n likelihoods in one batched call."""
+    r, _, dim = starting_points.shape
     dtype, dev = starting_points.dtype, starting_points.device
     lz = log_zero(dtype)
     logl = problem.guarded_log_likelihood(starting_points)
     logp = problem.guarded_log_prior(starting_points)
-    order = torch.argsort(logl, stable=True)
-    return NSState(
-        live_points=starting_points[order],
-        live_logl=logl[order],
-        live_logp=logp[order],
-        dead_points=torch.zeros((capacity, dim), dtype=dtype, device=dev),
-        dead_logl=torch.full((capacity,), lz, dtype=dtype, device=dev),
-        dead_logp=torch.full((capacity,), lz, dtype=dtype, device=dev),
-        dead_acc=torch.zeros((capacity,), dtype=dtype, device=dev),
-        n_dead=0,
-        iteration=1,
-        mean_est=starting_points.mean(dim=0),
-        cov_est=torch.cov(starting_points.T, correction=1).reshape(dim, dim),
-        log_z=torch.tensor(lz, dtype=dtype, device=dev),
-        entropy=torch.zeros((), dtype=dtype, device=dev),
-        log_missing=torch.zeros((), dtype=dtype, device=dev),
-        num_likelihood_evals=torch.zeros((), dtype=torch.int64, device=dev),
+    order = torch.argsort(logl, dim=1, stable=True)
+    full = lambda shape, v: torch.full(shape, v, dtype=dtype, device=dev)  # noqa: E731
+    return NSBatchState(
+        live_points=torch.gather(starting_points, 1, order[..., None].expand(-1, -1, dim)),
+        live_logl=torch.gather(logl, 1, order),
+        live_logp=torch.gather(logp, 1, order),
+        dead_points=torch.zeros((r, capacity, dim), dtype=dtype, device=dev),
+        dead_logl=full((r, capacity), lz),
+        dead_logp=full((r, capacity), lz),
+        dead_acc=torch.zeros((r, capacity), dtype=dtype, device=dev),
+        n_dead=[0] * r,
+        iteration=[1] * r,
+        mean_est=starting_points.mean(dim=1),
+        cov_est=_batched_cov(starting_points),
+        log_z=full((r,), lz),
+        entropy=torch.zeros((r,), dtype=dtype, device=dev),
+        log_missing=torch.zeros((r,), dtype=dtype, device=dev),
+        num_likelihood_evals=torch.zeros((r,), dtype=torch.int64, device=dev),
     )
 
 
-def _mc_steps_triple(monte_carlo_steps) -> Tuple[int, int, int]:
+def _init_state(problem: InferenceProblem, starting_points: torch.Tensor, capacity: int) -> NSState:
+    return _init_batch(problem, starting_points[None], capacity).state(0)
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopConfig:
+    """The loop's options, resolved: a named chain kind (never ``"auto"``),
+    the chain length as a triple, ``max_iterations >= min_iterations``."""
+
+    max_iterations: int
+    min_iterations: int
+    mc_steps: Tuple[int, int, int]  # first chain, retry block, most steps (adaptive Metropolis)
+    termination_fraction: float
+    num_delete: int
+    min_max_acceptance_rate: Tuple[float, float]
+    covariance_learn_delay: int
+    log_likelihood_maximum: Optional[float]
+    progress_callback: Optional[Callable]
+    progress_interval: int
+    interrupt_check: Optional[Callable]
+    monte_carlo_method: str
+    chmc_step_size: Optional[float]
+    chmc_num_leapfrog: Optional[int]
+
+    @property
+    def capacity(self) -> int:
+        """Dead-buffer slots of one run."""
+        return self.max_iterations * self.num_delete
+
+
+def make_loop_config(
+    dim: int,
+    *,
+    gradient_check: Optional[Callable[[], bool]] = None,
+    max_iterations: int = 10000,
+    min_iterations: int = 100,
+    monte_carlo_steps=None,
+    termination_fraction: float = 0.01,
+    num_delete: int = 1,
+    min_max_acceptance_rate: Tuple[float, float] = (0.0, 1.0),
+    covariance_learn_delay: int = 10,
+    log_likelihood_maximum: Optional[float] = None,
+    progress_callback: Optional[Callable] = None,
+    progress_interval: int = 0,
+    interrupt_check: Optional[Callable] = None,
+    monte_carlo_method: str = "auto",
+    chmc_step_size: Optional[float] = None,
+    chmc_num_leapfrog: Optional[int] = None,
+) -> LoopConfig:
+    """The loop options of a ``dim``-dimensional problem, resolved once:
+    ``"auto"`` through :func:`resolve_monte_carlo_method` (with the
+    problem's ``gradient_check``), ``monte_carlo_steps=None`` to the chosen
+    method's dimension law, an int ``s`` to the triple ``(s, s, 5 s)``.
+    Warns where the chains get fewer updates or trajectories than there
+    are dimensions.  The single-run loop, its resume and the parallel runs
+    share it.  (The JAX ``make_loop_config`` defaults to 200 steps at every
+    dimension and leaves ``"auto"`` to its caller.)"""
+    method = resolve_monte_carlo_method(monte_carlo_method, dim, gradient_check=gradient_check)
+    if monte_carlo_steps is None:
+        monte_carlo_steps = default_monte_carlo_steps(method, dim)
+    warn_if_slice_steps_below_dim(method, monte_carlo_steps, dim, chmc_num_leapfrog)
     if isinstance(monte_carlo_steps, int):
-        return monte_carlo_steps, monte_carlo_steps, 5 * monte_carlo_steps
-    return tuple(monte_carlo_steps)
+        mc_steps = (monte_carlo_steps, monte_carlo_steps, 5 * monte_carlo_steps)
+    else:
+        mc_steps = tuple(int(v) for v in monte_carlo_steps)
+    return LoopConfig(
+        max_iterations=max(max_iterations, min_iterations),
+        min_iterations=min_iterations,
+        mc_steps=mc_steps,
+        termination_fraction=float(termination_fraction),
+        num_delete=num_delete,
+        min_max_acceptance_rate=tuple(min_max_acceptance_rate),
+        covariance_learn_delay=covariance_learn_delay,
+        log_likelihood_maximum=log_likelihood_maximum,
+        progress_callback=progress_callback,
+        progress_interval=progress_interval,
+        interrupt_check=interrupt_check,
+        monte_carlo_method=method,
+        chmc_step_size=None if chmc_step_size is None else float(chmc_step_size),
+        chmc_num_leapfrog=None if chmc_num_leapfrog is None else int(chmc_num_leapfrog),
+    )
 
 
 def shared_factor(cov_est: torch.Tensor) -> torch.Tensor:
-    """The factor of ``cov_est + 1e-10 I`` that the slice and chmc chains
-    share; the identity where that factor is not finite."""
+    """The factor of ``cov_est + 1e-10 I`` ([d, d] or one per run,
+    [R, d, d]) that the slice and chmc chains of a run share; the identity
+    where that factor is not finite."""
     eye = torch.eye(cov_est.shape[-1], dtype=cov_est.dtype, device=cov_est.device)
     factor = small_cholesky(cov_est + 1e-10 * eye)
-    return torch.where(torch.isfinite(factor).all(), factor, eye)
+    return torch.where(torch.isfinite(factor).flatten(-2).all(dim=-1)[..., None, None], factor, eye)
 
 
 def shared_factor_chains(
@@ -280,145 +413,191 @@ def shared_factor_chains(
     generator: torch.Generator,
     x0: torch.Tensor,  # [chains, d]
     threshold,
-    cov: torch.Tensor,
+    factor: torch.Tensor,
     method: str,  # "slice" or "chmc"
     num_steps: int,
     chmc_step_size: Optional[float] = None,
     chmc_num_leapfrog: Optional[int] = None,
 ):
     """The slice or constrained-HMC chains from ``x0`` on the prior where
-    the likelihood exceeds ``threshold``, shaped by the factor of ``cov``:
-    ``num_steps`` slice updates, or ``num_steps // chmc_num_leapfrog``
-    trajectories.  Returns (points [chains, d], the share of updates that
-    moved or of trajectories accepted [chains], likelihood evaluations)."""
+    the likelihood exceeds ``threshold`` (a scalar or one per chain),
+    shaped by ``factor`` (:func:`shared_factor`; [d, d], or [chains, d, d]
+    for one per chain): ``num_steps`` slice updates, or
+    ``num_steps // chmc_num_leapfrog`` trajectories.  Returns (points
+    [chains, d], the share of updates that moved or of trajectories
+    accepted [chains], likelihood evaluations per chain [chains])."""
     chains, dim = x0.shape
     dtype = x0.dtype
     if method == "slice":
         draws = slice_draws(generator, chains, dim, num_updates=num_steps, dtype=dtype)
-        st = run_slice_chain(draws, x0, lambda x: problem.constrained_log_prior(x, threshold), shared_factor(cov))
-        return st.x, st.moved.to(dtype) / num_steps, st.evals.sum()
+        st = run_slice_chain(draws, x0, lambda x: problem.constrained_log_prior(x, threshold), factor)
+        return st.x, st.moved.to(dtype) / num_steps, st.evals
     n_leap = chmc_num_leapfrog if chmc_num_leapfrog is not None else default_chmc_num_leapfrog(dim)
     n_traj = max(1, num_steps // n_leap)
     st = run_chmc_chain(
         chmc_draws(generator, n_traj, chains, dim, dtype=dtype), x0,
         problem.guarded_log_likelihood, problem.guarded_log_prior, threshold,
-        shared_factor(cov), problem.lower, problem.upper, n_leap,
+        factor, problem.lower, problem.upper, n_leap,
         chmc_step_size if chmc_step_size is not None else default_chmc_step_size(dim),
         in_support=problem.in_support,
     )
-    return st.x, st.accepted.to(dtype) / n_traj, st.evals.sum()
+    return st.x, st.accepted.to(dtype) / n_traj, st.evals
+
+
+def run_loop_batched(
+    problem: InferenceProblem,
+    b: NSBatchState,
+    generator: torch.Generator,
+    cfg: LoopConfig,
+    *,
+    n_live: int,
+    stop_at_log_likelihood: Optional[float] = None,
+) -> NSBatchState:
+    """Iterate R runs of the loop from ``b`` until each has ended.  ``b`` is
+    updated in place and returned; its dead buffers must hold
+    ``cfg.capacity`` slots per run.
+
+    An iteration treats the runs that are still going as one batch: one
+    ``randint`` for the survivors that seed the chains ([R, k]), one batch
+    of R * k chains (each run's chains share that run's proposal factor,
+    and each chain gets its run's threshold), one likelihood call, a per-run
+    stable re-sort and crude logZ.  The termination test reads one [R]
+    vector back to the host per iteration after ``min_iterations``
+    (counted in ``run_loop_batched.host_reads``).  A run that has ended
+    keeps its state and its evaluation counter, as under the JAX package's
+    vmapped ``while_loop``, and its chains leave the batch.  With R = 1 this
+    is the single-run loop: the same draws in the same order."""
+    k = cfg.num_delete
+    n_runs, _, dim = b.live_points.shape
+    capacity = b.dead_logl.shape[1]
+    if capacity != cfg.capacity:
+        raise ValueError(f"dead buffers hold {capacity} slots, the loop needs {cfg.capacity}")
+    num_steps, extra_steps, max_steps = cfg.mc_steps
+    dtype, dev = b.live_points.dtype, b.live_points.device
+    lz = log_zero(dtype)
+    log_xd = crude_log_x_deleted(pool_schedule(n_live, k, capacity, dtype=dtype, device=dev))
+    log_term = math.log(cfg.termination_fraction)
+    min_acc, max_acc = cfg.min_max_acceptance_rate
+    slots_all = torch.arange(capacity, device=dev)
+    lz_cap = torch.full((capacity,), lz, dtype=dtype, device=dev)
+    going = [r for r in range(n_runs) if b.iteration[r] <= cfg.max_iterations and not b.interrupted]
+    # runs still going have done the same number of iterations
+    if len({b.iteration[r] for r in going}) > 1:
+        raise ValueError("the runs still going must stand at the same iteration")
+
+    while going:
+        it = b.iteration[going[0]]
+        if b.interrupted or it > cfg.max_iterations:
+            break
+        if it > 1 and it > cfg.min_iterations:
+            if stop_at_log_likelihood is not None:
+                # a dynamic-NS batch: march the threshold up to the level and ignore the evidence criterion
+                keep = b.live_logl[going, k - 1] <= stop_at_log_likelihood
+            else:
+                keep = b.log_missing[going] > b.log_z[going] + log_term
+            run_loop_batched.host_reads += 1
+            going = [r for r, kp in zip(going, keep.tolist()) if kp]
+            if not going:
+                break
+        every = len(going) == n_runs
+        rows = slice(None) if every else torch.tensor(going, device=dev)
+        ra, c = len(going), len(going) * k
+        live_points, live_logl, live_logp = b.live_points[rows], b.live_logl[rows], b.live_logp[rows]
+        threshold = live_logl[:, k - 1]
+        cov_est = 0.5 * (b.cov_est[rows] + _batched_cov(live_points))
+        mean_est = b.mean_est[rows]
+
+        # chains start at random survivors (ranks >= k) of their own run
+        start_idx = torch.randint(k, n_live, (ra, k), generator=generator, device=dev)
+        x0 = live_points[torch.arange(ra, device=dev)[:, None], start_idx].reshape(c, dim)
+        chain_threshold = threshold[:, None].expand(ra, k).reshape(c)
+        if cfg.monte_carlo_method in ("slice", "chmc"):
+            factor = shared_factor(cov_est)
+            # one run's chains share one factor
+            factor = factor[0] if ra == 1 else factor.repeat_interleave(k, dim=0)
+            xs, accs, evals = shared_factor_chains(problem, generator, x0, chain_threshold, factor,
+                                                   cfg.monte_carlo_method, num_steps, cfg.chmc_step_size,
+                                                   cfg.chmc_num_leapfrog)
+            mean_new, covs = mean_est, cov_est
+        else:
+            def density(x):
+                return problem.constrained_log_prior(x, chain_threshold)
+
+            st = am_init(x0, density, mean0=mean_est.repeat_interleave(k, dim=0), t0=10,
+                         chol0=proposal_chol(cov_est).repeat_interleave(k, dim=0))
+            st, accs = run_chain_adaptive(
+                generator, st, density, num_steps, extra_steps, max_steps,
+                min_acceptance=min_acc, max_acceptance=max_acc, learn_delay=cfg.covariance_learn_delay,
+            )
+            xs, evals = st.x, st.proposed
+            mean_new, covs = st.mean.reshape(ra, k, dim).mean(dim=1), st.cov.reshape(ra, k, dim, dim).mean(dim=1)
+        new_logl = problem.guarded_log_likelihood(xs).reshape(ra, k)
+        new_logp = problem.guarded_log_prior(xs).reshape(ra, k)
+
+        nd = b.n_dead[going[0]]
+        slots = slice(nd, nd + k)
+        b.dead_points[rows, slots] = live_points[:, :k]
+        b.dead_logl[rows, slots] = live_logl[:, :k]
+        b.dead_logp[rows, slots] = live_logp[:, :k]
+        b.dead_acc[rows, slots] = accs.reshape(ra, k)
+        live_points = torch.cat([xs.reshape(ra, k, dim), live_points[:, k:]], dim=1)
+        live_logl = torch.cat([new_logl, live_logl[:, k:]], dim=1)
+        live_logp = torch.cat([new_logp, live_logp[:, k:]], dim=1)
+        order = torch.argsort(live_logl, dim=1, stable=True)
+        live_points = torch.gather(live_points, 1, order[..., None].expand(-1, -1, dim))
+        live_logl, live_logp = torch.gather(live_logl, 1, order), torch.gather(live_logp, 1, order)
+        nd += k
+
+        dead_logl = b.dead_logl[rows]
+        log_z, dead_w, live_w, live_log_x = crude_log_z_masked(log_xd, nd, dead_logl, live_logl)
+        lmax = live_logl[:, -1] if cfg.log_likelihood_maximum is None else torch.full(
+            (ra,), cfg.log_likelihood_maximum, dtype=dtype, device=dev)
+        active = slots_all < nd
+        entropy = entropy_from_weights(
+            torch.cat([torch.where(active, dead_w + dead_logl, lz_cap), live_w + live_logl], dim=-1),
+            torch.cat([torch.where(active, dead_logl, lz_cap), live_logl], dim=-1),
+            log_z,
+        )
+        if every:
+            b.live_points, b.live_logl, b.live_logp = live_points, live_logl, live_logp
+            b.log_z, b.entropy, b.log_missing = log_z, entropy, live_log_x[-1] + lmax
+            b.mean_est, b.cov_est = mean_new, 0.5 * (covs + covs.mT)
+            b.num_likelihood_evals = b.num_likelihood_evals + evals.reshape(ra, k).sum(dim=1) + k
+        else:
+            b.live_points[rows], b.live_logl[rows], b.live_logp[rows] = live_points, live_logl, live_logp
+            b.log_z[rows], b.entropy[rows], b.log_missing[rows] = log_z, entropy, live_log_x[-1] + lmax
+            b.mean_est[rows], b.cov_est[rows] = mean_new, 0.5 * (covs + covs.mT)
+            b.num_likelihood_evals[rows] += evals.reshape(ra, k).sum(dim=1) + k
+        if cfg.progress_callback is not None and cfg.progress_interval > 0 and it % cfg.progress_interval == 0:
+            for j, r in enumerate(going):
+                cfg.progress_callback(it, nd + n_live, float(log_z[j]), float(entropy[j]))
+        if cfg.interrupt_check is not None:
+            b.interrupted = bool(cfg.interrupt_check())
+        for r in going:
+            b.n_dead[r] = nd
+            b.iteration[r] = it + 1
+    return b
+
+
+run_loop_batched.host_reads = 0
 
 
 def run_loop_from_state(
     problem: InferenceProblem,
     s: NSState,
     generator: torch.Generator,
+    cfg: LoopConfig,
     *,
     n_live: int,
-    num_delete: int,
-    max_iterations: int,
-    min_iterations: int,
-    monte_carlo_steps,
-    monte_carlo_method: str,
-    termination_fraction: float = 0.01,
-    min_max_acceptance_rate: Tuple[float, float] = (0.0, 1.0),
-    covariance_learn_delay: int = 10,
-    log_likelihood_maximum: Optional[float] = None,
-    progress_callback: Optional[Callable] = None,
-    progress_interval: int = 0,
-    interrupt_check: Optional[Callable] = None,
     stop_at_log_likelihood: Optional[float] = None,
-    chmc_step_size: Optional[float] = None,
-    chmc_num_leapfrog: Optional[int] = None,
 ) -> NSState:
-    """Iterate the loop from ``s`` (a fresh state or a resumed one) until it
-    terminates.  ``s`` is updated in place and returned; its dead buffers
-    must hold ``max_iterations * num_delete`` slots.  ``monte_carlo_method``
-    is a resolved name, not ``"auto"``, and ``monte_carlo_steps`` an int or
-    a triple."""
-    k = num_delete
-    dim = s.live_points.shape[1]
-    capacity = s.dead_logl.shape[0]
-    if capacity != max_iterations * k:
-        raise ValueError(f"dead buffers hold {capacity} slots, the loop needs {max_iterations * k}")
-    num_steps, extra_steps, max_steps = _mc_steps_triple(monte_carlo_steps)
-    dtype, dev = s.live_points.dtype, s.live_points.device
-    lz = log_zero(dtype)
-    log_xd = crude_log_x_deleted(pool_schedule(n_live, k, capacity, dtype=dtype, device=dev))
-    log_term = math.log(termination_fraction)
-    min_acc, max_acc = min_max_acceptance_rate
-
-    def keep_going() -> bool:
-        if s.interrupted or s.iteration > max_iterations:
-            return False
-        if s.iteration == 1 or s.iteration <= min_iterations:
-            return True
-        # one host read
-        if stop_at_log_likelihood is not None:
-            # a dynamic-NS batch: march the threshold up to the level and
-            # ignore the evidence criterion
-            return bool(s.live_logl[k - 1] <= stop_at_log_likelihood)
-        return bool(s.log_missing > s.log_z + log_term)
-
-    while keep_going():
-        threshold = s.live_logl[k - 1]
-        live_cov = torch.cov(s.live_points.T, correction=1).reshape(dim, dim)
-        cov_est = 0.5 * (s.cov_est + live_cov)
-
-        # chains start at random survivors (ranks >= k)
-        start_idx = torch.randint(k, n_live, (k,), generator=generator, device=dev)
-        x0 = s.live_points[start_idx]
-        if monte_carlo_method in ("slice", "chmc"):
-            xs, accs, evals = shared_factor_chains(problem, generator, x0, threshold, cov_est, monte_carlo_method,
-                                                   num_steps, chmc_step_size, chmc_num_leapfrog)
-            mean_est, covs = s.mean_est, cov_est
-        else:
-            def density(x):
-                return problem.constrained_log_prior(x, threshold)
-
-            st = am_init(x0, density, mean0=s.mean_est, t0=10, chol0=proposal_chol(cov_est))
-            st, accs = run_chain_adaptive(
-                generator, st, density, num_steps, extra_steps, max_steps,
-                min_acceptance=min_acc, max_acceptance=max_acc,
-                learn_delay=covariance_learn_delay,
-            )
-            xs, evals = st.x, st.proposed.sum()
-            mean_est, covs = st.mean.mean(dim=0), st.cov.mean(dim=0)
-        new_logl = problem.guarded_log_likelihood(xs)
-        new_logp = problem.guarded_log_prior(xs)
-
-        slots = slice(s.n_dead, s.n_dead + k)
-        s.dead_points[slots] = s.live_points[:k]
-        s.dead_logl[slots] = s.live_logl[:k]
-        s.dead_logp[slots] = s.live_logp[:k]
-        s.dead_acc[slots] = accs
-        live_points = torch.cat([xs, s.live_points[k:]])
-        live_logl = torch.cat([new_logl, s.live_logl[k:]])
-        live_logp = torch.cat([new_logp, s.live_logp[k:]])
-        order = torch.argsort(live_logl, stable=True)
-        s.live_points, s.live_logl, s.live_logp = live_points[order], live_logl[order], live_logp[order]
-        s.n_dead += k
-
-        log_z, dead_w, live_w, live_log_x = crude_log_z_masked(log_xd, s.n_dead, s.dead_logl, s.live_logl)
-        lmax = s.live_logl[-1] if log_likelihood_maximum is None else log_likelihood_maximum
-        s.log_missing = live_log_x[-1] + lmax
-        active = torch.arange(capacity, device=dev) < s.n_dead
-        lz_cap = torch.full((capacity,), lz, dtype=dtype, device=dev)
-        s.entropy = entropy_from_weights(
-            torch.cat([torch.where(active, dead_w + s.dead_logl, lz_cap), live_w + s.live_logl]),
-            torch.cat([torch.where(active, s.dead_logl, lz_cap), s.live_logl]),
-            log_z,
-        )
-        s.log_z = log_z
-        if progress_callback is not None and progress_interval > 0 and s.iteration % progress_interval == 0:
-            progress_callback(s.iteration, s.n_dead + n_live, float(log_z), float(s.entropy))
-        if interrupt_check is not None:
-            s.interrupted = bool(interrupt_check())
-        s.mean_est = mean_est
-        s.cov_est = 0.5 * (covs + covs.T)
-        s.num_likelihood_evals = s.num_likelihood_evals + evals + k
-        s.iteration += 1
-    return s
+    """Iterate one run from ``s`` (a fresh state or a resumed one) until it
+    terminates: :func:`run_loop_batched` on a batch of one.  The dead
+    buffers of ``s`` are written in place; they must hold ``cfg.capacity``
+    slots."""
+    b = run_loop_batched(problem, NSBatchState.of_state(s), generator, cfg, n_live=n_live,
+                         stop_at_log_likelihood=stop_at_log_likelihood)
+    return b.state(0)
 
 
 def nested_sampling_loop(
@@ -461,23 +640,18 @@ def nested_sampling_loop(
     n_live, dim = starting_points.shape
     if num_delete < 1 or num_delete >= n_live:
         raise ValueError("need 1 <= num_delete < n_live")
-    monte_carlo_method = resolve_monte_carlo_method(monte_carlo_method, dim, gradient_check=problem.gradient_sanity)
-    if monte_carlo_steps is None:
-        monte_carlo_steps = default_monte_carlo_steps(monte_carlo_method, dim)
-    warn_if_slice_steps_below_dim(monte_carlo_method, monte_carlo_steps, dim, chmc_num_leapfrog)
-    max_iterations = max(max_iterations, min_iterations)
-    capacity = max_iterations * num_delete
-    state = run_loop_from_state(
-        problem, _init_state(problem, starting_points, capacity), generator,
-        n_live=n_live, num_delete=num_delete, max_iterations=max_iterations, min_iterations=min_iterations,
-        monte_carlo_steps=monte_carlo_steps, monte_carlo_method=monte_carlo_method,
-        termination_fraction=termination_fraction, min_max_acceptance_rate=min_max_acceptance_rate,
-        covariance_learn_delay=covariance_learn_delay, log_likelihood_maximum=log_likelihood_maximum,
-        progress_callback=progress_callback, progress_interval=progress_interval,
-        interrupt_check=interrupt_check, stop_at_log_likelihood=stop_at_log_likelihood,
-        chmc_step_size=chmc_step_size, chmc_num_leapfrog=chmc_num_leapfrog,
+    cfg = make_loop_config(
+        dim, gradient_check=problem.gradient_sanity, max_iterations=max_iterations,
+        min_iterations=min_iterations, monte_carlo_steps=monte_carlo_steps,
+        termination_fraction=termination_fraction, num_delete=num_delete,
+        min_max_acceptance_rate=min_max_acceptance_rate, covariance_learn_delay=covariance_learn_delay,
+        log_likelihood_maximum=log_likelihood_maximum, progress_callback=progress_callback,
+        progress_interval=progress_interval, interrupt_check=interrupt_check,
+        monte_carlo_method=monte_carlo_method, chmc_step_size=chmc_step_size, chmc_num_leapfrog=chmc_num_leapfrog,
     )
-    return NSRunData(state=state, n_live=n_live, num_delete=num_delete, capacity=capacity)
+    state = run_loop_from_state(problem, _init_state(problem, starting_points, cfg.capacity), generator, cfg,
+                                n_live=n_live, stop_at_log_likelihood=stop_at_log_likelihood)
+    return NSRunData(state=state, n_live=n_live, num_delete=num_delete, capacity=cfg.capacity)
 
 
 def generate_starting_points(

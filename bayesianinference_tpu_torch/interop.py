@@ -4,7 +4,9 @@ The JAX package's ``NSState``, ``AMState``, ``SliceState`` and ``CHMCState``
 are pytrees of arrays, and its ``NSSegment`` a dataclass of numpy arrays;
 taken field by field as ``np.asarray``, they become dicts of numpy arrays,
 which the functions here turn into the port's states on a given device and
-dtype (and back).  Without ``device=`` the tensors go to the CUDA card,
+dtype (and back).  The conjugate parameter sets (``BLRParameters``,
+``NormalInverseGamma``, ``NormalInverseWishart``) are taken as such a dict
+or as the object itself, read by attribute.  Without ``device=`` the tensors go to the CUDA card,
 and the call raises where there is none: ``device="cpu"`` asks for the
 host.  Nothing here imports JAX.
 """
@@ -17,6 +19,8 @@ import numpy as np
 import torch
 
 from .core.device import resolve_device
+from .dists.conjugate_structs import NormalInverseGamma, NormalInverseWishart
+from .engines.conjugate import BLRParameters
 from .engines.dynamic_ns import NSSegment
 from .engines.nested_sampling import NSState
 from .ops.chmc import CHMCState
@@ -33,6 +37,9 @@ __all__ = [
     "slice_state_to_numpy",
     "chmc_state_to_numpy",
     "ns_segment_from_numpy",
+    "blr_parameters_from_numpy",
+    "normal_inverse_gamma_from_numpy",
+    "normal_inverse_wishart_from_numpy",
 ]
 
 _EVAL_BASE = 1 << 30  # radix of the JAX package's (hi, lo) int32 eval counter
@@ -148,3 +155,35 @@ def ns_segment_from_numpy(fields: dict) -> NSSegment:
         **{name: int(fields[name]) for name in _SEGMENT_INTS if name in fields},
         constraint_logl=float(fields["constraint_logl"]),
     )
+
+
+def _params_from(fields, names, device, dtype: Optional[torch.dtype]) -> dict:
+    """Named fields of a dict or an object as tensors on ``device`` (default:
+    the card) in ``dtype`` (default: each array's own float dtype)."""
+    device = resolve_device(device)
+    out = {}
+    for name in names:
+        t = torch.as_tensor(np.array(fields[name] if isinstance(fields, dict) else getattr(fields, name)),
+                            device=device)
+        out[name] = t.to(dtype or (t.dtype if t.is_floating_point() else torch.get_default_dtype()))
+    return out
+
+
+def blr_parameters_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> BLRParameters:
+    """A :class:`~.engines.conjugate.BLRParameters` from the JAX package's
+    ``BLRParameters`` (``b``, ``lam``, ``lam_inv``, ``v``, ``nu``): a prior
+    or posterior of its Bayesian linear regression, to seed the port's."""
+    return BLRParameters(**_params_from(fields, ("b", "lam", "lam_inv", "v", "nu"), device, dtype))
+
+
+def normal_inverse_gamma_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> NormalInverseGamma:
+    """A :class:`~.dists.conjugate_structs.NormalInverseGamma` from the JAX
+    package's (``mu0``, ``lam``, ``beta``, ``nu``)."""
+    return NormalInverseGamma(**_params_from(fields, ("mu0", "lam", "beta", "nu"), device, dtype))
+
+
+def normal_inverse_wishart_from_numpy(fields, *, device=None,
+                                      dtype: Optional[torch.dtype] = None) -> NormalInverseWishart:
+    """A :class:`~.dists.conjugate_structs.NormalInverseWishart` from the
+    JAX package's (``mu0``, ``lam``, ``psi``, ``nu``)."""
+    return NormalInverseWishart(**_params_from(fields, ("mu0", "lam", "psi", "nu"), device, dtype))

@@ -110,6 +110,13 @@ class InferenceProblem:
         conv = lambda t: torch.as_tensor(t, dtype=old.dtype, device=old.device)  # noqa: E731
         return dataclasses.replace(self, data=_tree_map(conv, data))
 
+    def with_metadata(self, **kw) -> "InferenceProblem":
+        """A copy whose ``metadata`` is this one's updated with ``kw``; this
+        problem is left unchanged."""
+        md = dict(self.metadata or {})
+        md.update(kw)
+        return dataclasses.replace(self, metadata=md)
+
     def _batched(self, fn: Callable, theta, *extra) -> torch.Tensor:
         theta = torch.as_tensor(theta, dtype=self.dtype, device=self.device)
         flat = theta.reshape(-1, theta.shape[-1])

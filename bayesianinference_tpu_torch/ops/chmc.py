@@ -7,8 +7,9 @@ Hamiltonian trajectories whose momentum reflects off the likelihood
 iso-contour and off the box faces.  The construction is the JAX package's,
 step for step:
 
-* momenta live in whitened u-space (``v = L u`` with the shared mass factor
-  ``L = chol``): the kinetic energy is ``|u|^2 / 2``, the prior kick is
+* momenta live in whitened u-space (``v = L u`` with the mass factor
+  ``L = chol``, shared by the chains or one per chain): the kinetic energy
+  is ``|u|^2 / 2``, the prior kick is
   ``u += (eps / 2) L^T grad logprior``, and a reflection off a normal ``n``
   is the Householder ``u -= 2 (w.u / |w|^2) w`` with ``w = L^T n``;
 * a violating primary move is retried within the same step by the
@@ -84,7 +85,7 @@ def run_chmc_chain(
     log_likelihood: Callable,
     log_prior: Callable,
     threshold,
-    chol: torch.Tensor,  # [d, d] lower Cholesky factor of the shared mass matrix
+    chol: torch.Tensor,  # [d, d] lower Cholesky factor of the mass matrix, or [C, d, d] one per chain
     lower: torch.Tensor,
     upper: torch.Tensor,
     num_leapfrog: int,
@@ -92,10 +93,21 @@ def run_chmc_chain(
     in_support: Optional[Callable] = None,
 ) -> CHMCState:
     """``draws.momenta.shape[0]`` trajectories of ``num_leapfrog`` steps for
-    every chain, each trajectory with fresh momenta."""
+    every chain, each trajectory with fresh momenta.  A shared [d, d]
+    factor is taken as one copy per chain, so that a [C, d, d] factor of
+    equal rows gives the same chains bit for bit."""
     num_trajectories = draws.momenta.shape[0]
     eps = float(step_size)
     x0 = x0.detach()
+    chol = chol.expand(x0.shape[0], *chol.shape[-2:]).contiguous()
+
+    def times_l(v):
+        """Rows v_c L_c."""
+        return torch.bmm(v.unsqueeze(1), chol).squeeze(1)
+
+    def times_lt(v):
+        """Rows v_c L_c^T."""
+        return torch.bmm(v.unsqueeze(1), chol.mT).squeeze(1)
 
     def constraint_normal(x_prop, g_like):
         """Inward normal at a violating proposal: grad logL for likelihood
@@ -115,7 +127,7 @@ def run_chmc_chain(
     def reflect(u, n):
         """Householder on the whitened momentum; a degenerate normal falls
         back to full reversal."""
-        w = n @ chol  # rows L^T n
+        w = times_l(n)  # rows L^T n
         w2 = (w * w).sum(dim=-1, keepdim=True)
         wu = (w * u).sum(dim=-1, keepdim=True)
         return torch.where(w2 > 1e-30, u - (2.0 * wu / torch.where(w2 > 0, w2, torch.ones_like(w2))) * w, -u)
@@ -126,14 +138,14 @@ def run_chmc_chain(
         return torch.where(ok1, a1, torch.where(use2, a2, a0))
 
     def leapfrog(x, u, logl_x, logp_x, gp_x):
-        u_half = u + (0.5 * eps) * (_safe_grad(gp_x) @ chol)
-        x1 = x + eps * (u_half @ chol.mT)
+        u_half = u + (0.5 * eps) * times_l(_safe_grad(gp_x))
+        x1 = x + eps * times_lt(u_half)
         logl_1, gl_1 = _value_and_grad(log_likelihood, x1)
         logp_1, gp_1 = _value_and_grad(log_prior, x1)
         ok1 = valid(x1, logl_1, logp_1)
         # Galilean retry: reflect at the violating point and go on from it
         u_ref = reflect(u_half, constraint_normal(x1, gl_1))
-        x2 = x1 + eps * (u_ref @ chol.mT)
+        x2 = x1 + eps * times_lt(u_ref)
         with torch.no_grad():  # the retry's likelihood gradient is never used
             logl_2 = log_likelihood(x2)
         logp_2, gp_2 = _value_and_grad(log_prior, x2)
@@ -148,7 +160,7 @@ def run_chmc_chain(
         logp_n = pick(ok1, use2, logp_1, logp_2, logp_x)
         gp_n = pick(ok1, use2, gp_1, gp_2, gp_x)
         # second half-kick at the landing point; a double failure reverses
-        u_n = torch.where(stuck[:, None], -u, u_move + (0.5 * eps) * (_safe_grad(gp_n) @ chol))
+        u_n = torch.where(stuck[:, None], -u, u_move + (0.5 * eps) * times_l(_safe_grad(gp_n)))
         return x_n, u_n, logl_n, logp_n, gp_n
 
     x = x0

@@ -56,13 +56,29 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     loaded and resumed, bit-equal to the uncut run; the same in segments
     through ``nested_sampling(checkpoint_every=15)``; ``dynamic_nested_sampling``
     with its default chain length against the analytic logZ and the static
-    run's posterior ESS.
+    run's posterior ESS;
+11. ``parallel_nested_sampling``: (a) four runs of phase 3's problem at its
+    per-run settings, the merged logZ within 3 sigma of the analytic one
+    and its error bar below phase 3's, one host read of the termination
+    test per iteration for all runs; (b) four runs of phase 4's GP problem
+    for 20 iterations, every kernel launch at B = 40 (four runs of 10
+    chains) after the starting points' one, logML at the merged run's live
+    points against the plain versions on CPU tensors (1e-8);
+12. Bayesian linear regression at bench.py's width (n = 4096, degree 3,
+    float64 and float32) against the textbook normal-inverse-gamma evidence,
+    through the Cholesky kernel, with its fits per second; the vector-output
+    regression, the Normal, Multinormal and categorical models against the
+    same on CPU tensors; precision.py's blr, conjugate-normal, direct
+    quadrature (400 x 400 nodes) and two NS bookkeeping checks against
+    numpy references, float64 within 1e-10 and float32 within ten times
+    PRECISION.json's float32 value or 1e-6.
 
-Each of phases 4, 6, 7 and 9 zeroes the kernels' launch counters before it
-drives its path and fails if a kernel was not launched; the ``launches``
-of the JSON line are their sum.  Phase 5 fails unless each kernel is one
-CUDA kernel launch per call at the slice's shape, and unless
-``covariance_matrix(se_kernel(...), x, nugget)`` is one CUDA kernel in all.
+Each of phases 4, 6, 7, 9, 11b and 12 zeroes the kernels' launch counters
+before it drives its path and fails if a kernel of that path was not
+launched; the ``launches`` of the JSON line are their sum.  Phase 5 fails
+unless each kernel is one CUDA kernel launch per call at the slice's shape,
+and unless ``covariance_matrix(se_kernel(...), x, nugget)`` is one CUDA
+kernel in all.
 
 The line before the last is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -512,6 +528,7 @@ def phase_ns_spine(smi: str):
         raise AssertionError(f"NS spine: logZ {logz} +- {err}, analytic {analytic:.3f}")
     log(f"[3 NS spine] logZ {logz:.4f} +- {err:.4f} (analytic {analytic:.4f}), {res.iterations} iterations, "
         f"{res.num_likelihood_evals} evals in {wall:.2f} s = {res.num_likelihood_evals / wall:.4g} evals/s | {smi}")
+    return err, res.num_likelihood_evals / wall
 
 
 def _gp_problem(x, y):
@@ -604,7 +621,7 @@ def phase_gp_slice(smi: str):
         f"grid quadrature logZ {z_fine:.4f} (40^3 vs 30^3 differ by {grid_err:.1e}); launches {launches}; logML kernel vs plain max rel diff {max_rel:.3e} on {int(ok.sum())} points "
         f"({int(sentinel_got.sum())} sentinels); predictive mean range [{mean.min().item():.3f}, "
         f"{mean.max().item():.3f}] | {smi}")
-    return launches, problem, (logz, err)
+    return launches, problem, (logz, err), res.num_likelihood_evals / wall
 
 
 def _gp_logml(th, x, y):
@@ -780,7 +797,7 @@ def phase_laplace(smi: str, problem, ns_logz):
     return launches, wall
 
 
-def _gaussian_box_problem(dim: int):
+def _gaussian_box_problem(dim: int, device="cuda"):
     """The analytic oracle: a standard Gaussian likelihood under the uniform
     box [-5, 5]^dim, logZ = dim * log(erf(5 / sqrt 2) / 10)."""
     from bayesianinference_tpu_torch.dists.scalar import Normal
@@ -790,7 +807,7 @@ def _gaussian_box_problem(dim: int):
         parameters=[(f"x{i}", -5.0, 5.0) for i in range(dim)],
         log_likelihood=lambda th: torch.sum(Normal(0.0, 1.0).log_prob(th)),
         prior_distribution=["location"] * dim,
-        device=torch.device("cuda"), dtype=torch.float64,
+        device=torch.device(device), dtype=torch.float64,
     )
     return problem, dim * (math.log(math.erf(5.0 / math.sqrt(2.0))) - math.log(10.0))
 
@@ -1028,6 +1045,343 @@ def phase_checkpoint_dynamic(smi: str):
         f"{wall_dyn:.2f} s | {smi}")
 
 
+class _RecordingLibrary:
+    """The kernels' library with every launch's batch size recorded by entry
+    point family ("bi_se_covariance", "bi_cholesky")."""
+
+    _BATCH_ARG = {"bi_se_covariance": 6, "bi_cholesky": 2}
+
+    def __init__(self, lib, seen: dict):
+        self._lib, self._seen = lib, seen
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        family = next(f for f in self._BATCH_ARG if name.startswith(f))
+
+        def call(*args):
+            self._seen[family].append(int(args[self._BATCH_ARG[family]]))
+            return fn(*args)
+
+        return call
+
+
+def phase_parallel_ns(smi: str, spine, gp_rate: float, dev="cuda"):
+    """Run-level parallel nested sampling through ``parallel_nested_sampling``:
+    (a) four runs of phase 3's problem at phase 3's per-run settings, against
+    the analytic logZ and phase 3's error bar; (b) four runs of phase 4's GP
+    problem for a fixed 20 iterations, every kernel launch at B = 40 (four
+    runs of 10 chains) after the starting points' one call at B = 400."""
+    from bayesianinference_tpu_torch import csrc
+    from bayesianinference_tpu_torch.engines import nested_sampling as tns
+    from bayesianinference_tpu_torch.interop import problem_data_from_numpy
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+    from bayesianinference_tpu_torch.parallel import parallel_nested_sampling
+
+    dev = torch.device(dev)
+    runs = 4
+    spine_err, spine_rate = spine
+    problem, analytic = _gaussian_box_problem(2, dev)
+    reads = tns.run_loop_batched.host_reads
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = parallel_nested_sampling(problem, torch.Generator(device=dev).manual_seed(0), num_runs=runs,
+                                   sample_pool_size=1000, num_delete=100, monte_carlo_steps=100)
+    logz, err = float(res.log_evidence.mean), float(res.log_evidence.standard_error)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reads = tns.run_loop_batched.host_reads - reads
+    if not (math.isfinite(err) and abs(logz - analytic) <= 3 * err and err < spine_err):
+        raise AssertionError(f"parallel NS: logZ {logz} +- {err} (analytic {analytic:.4f}; phase 3's error bar "
+                             f"{spine_err:.4f})")
+    if reads > res.iterations - 100 + 1:
+        raise AssertionError(f"parallel NS: {reads} host reads of the termination test in {res.iterations} "
+                             f"iterations, min_iterations 100")
+    rate = res.num_likelihood_evals / wall
+    log(f"[11a parallel NS] {runs} runs of phase 3's problem (pool 1000 each, 100 deletions, 100 steps, f64): "
+        f"merged logZ {logz:.4f} +- {err:.4f} (analytic {analytic:.4f}; phase 3's one run +- {spine_err:.4f}), "
+        f"{res.iterations} iterations, {res.num_likelihood_evals} evals in {wall:.2f} s = {rate:.4g} evals/s "
+        f"(phase 3's one run here {spine_rate:.4g}: {rate / spine_rate:.2f} x); the termination test read "
+        f"{reads} times for all {runs} runs: once per iteration past min_iterations = 100 | {smi}")
+
+    # (b) the GP problem: both kernels at B = 4 runs x 10 chains
+    rng = np.random.default_rng(0)
+    x_np = rng.normal(size=(SLICE_N, SLICE_D))
+    y_np = np.sin(x_np[:, 0]) + 0.1 * rng.normal(size=SLICE_N)
+    x, y = problem_data_from_numpy(x_np, y_np, device=dev, dtype=torch.float64)
+    problem = _gp_problem(x, y)
+    k, steps, iterations = 10, 100, 20
+    seen = {"bi_se_covariance": [], "bi_cholesky": []}
+    default = csrc.load_library
+    csrc.load_library = lambda: _RecordingLibrary(default(), seen)
+    gk.se_covariance_cuda.launches = 0
+    gk.cholesky_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = parallel_nested_sampling(problem, torch.Generator(device=dev).manual_seed(1), num_runs=runs,
+                                       sample_pool_size=100, num_delete=k, monte_carlo_steps=steps,
+                                       min_iterations=iterations, max_iterations=iterations)
+        torch.cuda.synchronize()
+    finally:
+        csrc.load_library = default
+    wall = time.perf_counter() - t0
+    launches = {"se_covariance": gk.se_covariance_cuda.launches, "cholesky": gk.cholesky_cuda.launches}
+    # logML through the kernels against the plain versions (CPU tensors) at the merged run's live points, its
+    # 400 highest likelihoods
+    live = res.points[torch.argsort(res.log_likelihoods)[-runs * 100:]]
+    cpu_problem = _gp_problem(x.cpu(), y.cpu())
+    got = torch.cat([problem.guarded_log_likelihood(live[i:i + 100]) for i in range(0, live.shape[0], 100)]).cpu()
+    want = torch.cat([cpu_problem.guarded_log_likelihood(live[i:i + 100].cpu()) for i in range(0, live.shape[0], 100)])
+    ok = want > -0.5e300
+    rel = _rel(got[ok], want[ok])
+    if not (torch.equal(got > -0.5e300, ok) and bool(ok.all()) and rel <= 1e-8):
+        raise AssertionError(f"parallel GP: logML kernel vs plain rel diff {rel:.3e}, {int((~ok).sum())} sentinels")
+    # every chain step is one density call for all 40 chains
+    calls = 1 + iterations * (steps + 2)  # the starting points; per iteration the chains' seeds, steps, results
+    batches = {name: sorted(set(b[1:])) for name, b in seen.items()}
+    if not (launches["se_covariance"] == launches["cholesky"] == calls
+            and all(len(b) == calls and b[0] == runs * 100 for b in seen.values())
+            and all(v == [runs * k] for v in batches.values())):
+        raise AssertionError(f"parallel GP: launches {launches} (expected {calls} of each), batch sizes after the "
+                             f"first {batches}, first {[b[:1] for b in seen.values()]}")
+    rate = res.num_likelihood_evals / wall
+    log(f"[11b parallel GP] {runs} runs of phase 4's problem (n={SLICE_N} d={SLICE_D} f64, pool 100 each, {k} "
+        f"deletions, {steps} steps), {iterations} iterations: launches {launches}, every one at B = {runs * k} "
+        f"after the starting points' one at B = {runs * 100}; {res.num_likelihood_evals} evals in {wall:.2f} s = "
+        f"{rate:.4g} evals/s (phase 4's one run here {gp_rate:.4g}: {rate / gp_rate:.2f} x); logML kernel vs plain "
+        f"max rel diff {rel:.3e} at the merged run's {live.shape[0]} live points | {smi}")
+    return launches
+
+
+# PRECISION.json's f32 section (the JAX package on the CPU): a check's float32 bound here is the larger of ten times
+# its value there and 1e-6
+PRECISION_F32 = {
+    "blr_exact_logz": 4.2287002350864096e-07,
+    "conjugate_normal_logz": 5.136424420553033e-09,
+    "direct_quadrature_logz": 3.3116995292051024e-08,
+    "ns_crude_bookkeeping": 8.495712652407968e-08,
+    "merged_ns_bookkeeping": 5.797480376155269e-08,
+}
+
+
+def _nig_quadrature(y, *, mu0, lam, a_ig, scale_ig, mu_lo, mu_hi, v_lo, v_hi, n=400) -> float:
+    """log of the integral of prod_i N(y_i | mu, var) N(mu | mu0, var / lam)
+    InverseGamma(var | a_ig, scale_ig) over the (mu, var) box, by
+    Gauss-Legendre in (mu, log var), in numpy float64."""
+    y = np.asarray(y, float)
+    xb, wb = np.polynomial.legendre.leggauss(n)
+    mu = 0.5 * (mu_hi - mu_lo) * xb + 0.5 * (mu_hi + mu_lo)
+    wmu = 0.5 * (mu_hi - mu_lo) * wb
+    lo, hi = np.log(v_lo), np.log(v_hi)
+    wv = 0.5 * (hi - lo) * wb
+    mm, v = mu[:, None], np.exp(0.5 * (hi - lo) * xb + 0.5 * (hi + lo))[None, :]
+    ss = (y**2).sum() - 2 * mm * y.sum() + y.size * mm**2
+    logint = (-0.5 * ss / v - 0.5 * y.size * np.log(2 * np.pi * v) - 0.5 * lam * (mm - mu0) ** 2 / v
+              - 0.5 * np.log(2 * np.pi * v / lam) + a_ig * np.log(scale_ig) - math.lgamma(a_ig)
+              - (a_ig + 1) * np.log(v) - scale_ig / v + np.log(v))
+    mx = logint.max()
+    return float(mx + np.log(np.einsum("i,j,ij->", wmu, wv, np.exp(logint - mx))))
+
+
+def _nig_textbook_log_z(fit, n: int) -> float:
+    """The NIG marginal likelihood pi^(-n/2) sqrt(|L0| / |Ln|) G(nun/2) /
+    G(nu0/2) (v0/2)^(nu0/2) / (vn/2)^(nun/2), in numpy float64 from the
+    fit's own prior and posterior parameters (precision.py::check_blr)."""
+    p0, p1 = fit.prior_parameters, fit.posterior_parameters
+    lam0, lam1 = (p.lam.double().cpu().numpy() for p in (p0, p1))
+    v0, nu0, v1, nu1 = (float(t) for t in (p0.v, p0.nu, p1.v, p1.nu))
+    return float(-0.5 * n * np.log(2.0 * np.pi) + 0.5 * (np.linalg.slogdet(lam0)[1] - np.linalg.slogdet(lam1)[1])
+                 + math.lgamma(nu1 / 2.0) - math.lgamma(nu0 / 2.0) + (nu0 / 2.0) * np.log(v0 / 2.0)
+                 - (nu1 / 2.0) * np.log(v1 / 2.0))
+
+
+def _check_blr(dev, dtype):
+    from bayesianinference_tpu_torch.engines.conjugate import bayesian_linear_regression
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-2, 2, (64, 1))
+    y = 1.0 - 2.0 * x[:, 0] + 0.5 * x[:, 0] ** 3 + 0.3 * rng.standard_normal(64)
+    t = lambda a: torch.as_tensor(a, device=dev, dtype=dtype)  # noqa: E731
+    fit = bayesian_linear_regression(t(x), t(y), degree=3)
+    return float(fit.log_evidence), _nig_textbook_log_z(fit, 64)
+
+
+def _check_conjugate_normal(dev, dtype):
+    from bayesianinference_tpu_torch.dists.conjugate_structs import NormalInverseGamma
+    from bayesianinference_tpu_torch.engines.conjugate import normal_conjugate_model
+
+    y = np.random.default_rng(1).normal(0.4, 1.3, 40)
+    fit = normal_conjugate_model(torch.as_tensor(y, device=dev, dtype=dtype),
+                                 prior=NormalInverseGamma(mu0=0.0, lam=0.5, beta=1.0, nu=2.0))
+    return float(fit.log_evidence), _nig_quadrature(y, mu0=0.0, lam=0.5, a_ig=2.0, scale_ig=1.0, mu_lo=-30.0,
+                                                    mu_hi=30.0, v_lo=1e-5, v_hi=1e4, n=2000)
+
+
+def _check_direct(dev, dtype):
+    from bayesianinference_tpu_torch.dists.scalar import InverseGamma, Normal
+    from bayesianinference_tpu_torch.engines.direct import direct_posterior_distribution
+    from bayesianinference_tpu_torch.models.problem import define_inference_problem
+
+    y_np = np.random.default_rng(2).normal(0.2, 1.1, 25)
+    y = torch.as_tensor(y_np, device=dev, dtype=dtype)
+    problem = define_inference_problem(
+        parameters=[("mu", -8.0, 8.0), ("var", 0.05, 20.0)],
+        log_likelihood=lambda th: torch.sum(Normal(th[0], torch.sqrt(th[1])).log_prob(y)),
+        log_prior=lambda th: Normal(0.0, torch.sqrt(th[1] / 0.5)).log_prob(th[0]) + InverseGamma(2.0, 1.0).log_prob(
+            th[1]),
+        validate=False, device=dev, dtype=dtype,
+    )
+    post = direct_posterior_distribution(problem=problem, num_points=400)
+    return float(post.log_evidence), _nig_quadrature(y_np, mu0=0.0, lam=0.5, a_ig=2.0, scale_ig=1.0, mu_lo=-8.0,
+                                                     mu_hi=8.0, v_lo=0.05, v_hi=20.0)
+
+
+def _dense_crude_log_z(log_x: np.ndarray, logl: np.ndarray) -> float:
+    """Trapezoid crude logZ in numpy float64: mirror 2 - X_1 before the
+    first point, (X_{m-1} + X_m) / 2 for the last."""
+    xs = np.exp(log_x)
+    prev = np.concatenate([[2.0 - xs[0]], xs[:-1]])
+    w = 0.5 * (prev - np.concatenate([xs[1:], [0.0]]))
+    w[-1] = 0.5 * (xs[-2] + xs[-1])
+    return float(np.log(np.sum(w * np.exp(logl - logl.max()))) + logl.max())
+
+
+def _check_ns_bookkeeping(dev, dtype):
+    from bayesianinference_tpu_torch.engines.nested_sampling import crude_log_z_masked
+    from bayesianinference_tpu_torch.ops.ns_math import crude_log_x_deleted, pool_schedule
+
+    rng = np.random.default_rng(4)
+    n_live, n_dead, cap = 50, 300, 400
+    logl_all = np.sort(rng.normal(-20.0, 6.0, n_dead + n_live))
+    dead = np.full(cap, -1e30)
+    dead[:n_dead] = logl_all[:n_dead]
+    t = lambda a: torch.as_tensor(a, device=dev, dtype=dtype)  # noqa: E731
+    log_xd = crude_log_x_deleted(pool_schedule(n_live, 1, cap, dtype=dtype, device=dev))
+    log_z = crude_log_z_masked(log_xd, n_dead, t(dead), t(logl_all[n_dead:]))[0]
+    xs_dead = -np.arange(1, n_dead + 1) / n_live
+    log_x = np.concatenate([xs_dead, np.log(np.arange(n_live, 0, -1) / (n_live + 1.0)) + xs_dead[-1]])
+    return float(log_z), _dense_crude_log_z(log_x, logl_all)
+
+
+def _check_merged_ns_bookkeeping(dev, dtype):
+    from bayesianinference_tpu_torch.engines.dynamic_ns import NSSegment, merge_segments, merged_evidence_sampling
+
+    rng = np.random.default_rng(7)
+
+    def synth(n_live, k, n_dead, lo, hi, constraint):
+        levels = np.sort(rng.uniform(lo, hi, n_dead + n_live))
+        return NSSegment(points=levels[:, None].copy(), log_likelihoods=levels, log_priors=np.zeros_like(levels),
+                         n_live=n_live, num_delete=k, n_dead=n_dead, constraint_logl=constraint)
+
+    base = synth(60, 1, 240, -40.0, -5.0, -np.inf)
+    mid = float(np.median(base.log_likelihoods))
+    pts, logl, logp, m = merge_segments([base, synth(40, 4, 120, mid + 1e-6, -5.0, mid)])
+    t = lambda a: torch.as_tensor(a, device=dev, dtype=dtype)  # noqa: E731
+    res = merged_evidence_sampling(points=t(pts), log_likelihoods=t(logl), log_priors=t(logp), schedule=t(m),
+                                   num_runs=None)
+    return float(res.crude_log_evidence), _dense_crude_log_z(-np.cumsum(1.0 / m), logl)
+
+
+PRECISION_CHECKS = (
+    ("blr_exact_logz", _check_blr),
+    ("conjugate_normal_logz", _check_conjugate_normal),
+    ("direct_quadrature_logz", _check_direct),
+    ("ns_crude_bookkeeping", _check_ns_bookkeeping),
+    ("merged_ns_bookkeeping", _check_merged_ns_bookkeeping),
+)
+
+
+def _bench_blr_data(n: int = 4096):
+    """bench.py::bench_blr's law with numpy draws: x ~ U(-2, 2), y = 1 - 2 x
+    + x^3 / 2 + 0.1 N(0, 1); a second output sin(x) + 0.1 N(0, 1)."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-2.0, 2.0, (n, 1))
+    y = 1.0 - 2.0 * x[:, 0] + 0.5 * x[:, 0] ** 3 + 0.1 * rng.standard_normal(n)
+    return x, y, np.sin(x[:, 0]) + 0.1 * rng.standard_normal(n)
+
+
+def phase_conjugate(smi: str, dev="cuda"):
+    """The conjugate engines and direct quadrature on the card: BLR at
+    bench.py::bench_blr's width (n = 4096, degree 3) in float64 and float32
+    against the textbook NIG evidence, with its fits per second; the
+    vector-output BLR, the Normal, Multinormal and categorical models
+    against the same on CPU tensors; precision.py's five checks of these
+    paths against numpy references, in float64 and float32."""
+    from bayesianinference_tpu_torch.engines import conjugate as tc
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    dev = torch.device(dev)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("float32 matrix products would run in TF32")
+    gk.se_covariance_cuda.launches = 0
+    gk.cholesky_cuda.launches = 0
+    x_np, y_np, y2_np = _bench_blr_data()
+    n = x_np.shape[0]
+    notes = []
+    for dtype, bound in ((torch.float64, 1e-10), (torch.float32, max(10 * PRECISION_F32["blr_exact_logz"], 1e-6))):
+        x, y = (torch.as_tensor(a, device=dev, dtype=dtype) for a in (x_np, y_np))
+        fit = tc.bayesian_linear_regression(x, y, degree=3)
+        got, ref = float(fit.log_evidence), _nig_textbook_log_z(fit, n)
+        rel = abs(got - ref) / abs(ref)
+        if not rel <= bound:
+            raise AssertionError(f"BLR n={n} {dtype}: logZ {got} against the textbook NIG {ref}: rel {rel:.3e}")
+        fit_once = lambda: float(tc.bayesian_linear_regression(x, y, degree=3).log_evidence)  # noqa: E731
+        wall = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            fit_once()
+            wall.append(time.perf_counter() - t0)
+        notes.append(f"{str(dtype)[6:]} logZ {got:.6f} (textbook NIG {ref:.6f}, rel {rel:.2e}, bound {bound:.2e}), "
+                     f"{1.0 / statistics.median(wall[1:]):.1f} fits/s (median of 20 after one warm-up), "
+                     f"{_launches_per_call(fit_once, 3):g} CUDA kernels per fit")
+    blr_launches = gk.cholesky_cuda.launches
+    if blr_launches == 0:
+        raise AssertionError("BLR: the cholesky kernel was not launched")
+
+    # the other engines on the card against the same on CPU tensors (float64)
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(3, 3))
+    mv_data = rng.normal(size=(200, 3)) @ (a @ a.T / 3 + np.eye(3)) + 0.5
+    categories = rng.integers(0, 5, 300).astype(float)
+    engines = {
+        "vector-output BLR": lambda d: tc.bayesian_linear_regression(
+            torch.as_tensor(x_np, device=d), torch.as_tensor(np.stack([y_np, y2_np], -1), device=d), degree=3),
+        "normal model": lambda d: tc.normal_conjugate_model(torch.as_tensor(y_np[:500], device=d)),
+        "multinormal model (d = 3)": lambda d: tc.multinormal_conjugate_model(torch.as_tensor(mv_data, device=d)),
+        "categorical model": lambda d: tc.categorical_conjugate_model(
+            torch.as_tensor(categories, device=d), num_categories=5),
+    }
+    for name, run in engines.items():
+        before = gk.cholesky_cuda.launches
+        on_card, on_cpu = run(dev), run("cpu")
+        got, want = float(on_card.log_evidence), float(on_cpu.log_evidence)
+        rel = abs(got - want) / abs(want)
+        if not (on_card.log_evidence.device.type == dev.type and rel <= 1e-10):
+            raise AssertionError(f"{name}: logZ {got} on {on_card.log_evidence.device}, {want} on the CPU")
+        notes.append(f"{name} logZ {got:.6f} (CPU {rel:.1e} rel, {gk.cholesky_cuda.launches - before} cholesky "
+                     f"launches)")
+    fit = engines["vector-output BLR"](dev)
+    draw = fit.posterior["FullPosterior"].sample(torch.Generator(device=dev).manual_seed(0))
+    lp = fit.posterior["FullPosterior"].log_prob(draw)
+    if not (draw["covariance"].shape == (2, 2) and draw["coefficients"].shape == (4, 2) and bool(torch.isfinite(lp))):
+        raise AssertionError(f"vector-output BLR: posterior draw {[tuple(v.shape) for v in draw.values()]}, "
+                             f"log density {float(lp)}")
+
+    checks = []
+    for name, check in PRECISION_CHECKS:
+        for dtype in (torch.float64, torch.float32):
+            got, ref = check(dev, dtype)
+            rel = abs(got - ref) / max(abs(ref), 1e-300)
+            bound = 1e-10 if dtype == torch.float64 else max(10 * PRECISION_F32[name], 1e-6)
+            if not rel <= bound:
+                raise AssertionError(f"{name} {dtype}: {got} against {ref}: rel {rel:.3e} above {bound:.1e}")
+            checks.append(f"{name} {str(dtype)[6:]} {rel:.2e} (bound {bound:.1e})")
+    log(f"[12 conjugate, BLR, direct] BLR n={n} degree 3: " + "; ".join(notes) + f"; {blr_launches} cholesky "
+        f"launches in the BLR fits; precision.py's checks, rel err against numpy references: " + ", ".join(checks)
+        + f" | {smi}")
+    return {"se_covariance": gk.se_covariance_cuda.launches, "cholesky": gk.cholesky_cuda.launches}
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -1039,15 +1393,20 @@ def main():
 
     smi = timed(phase_device)
     worst = timed(phase_kernel_parity)
-    timed(phase_ns_spine, smi)
-    launches, problem, ns_logz = timed(phase_gp_slice, smi)
+    spine = timed(phase_ns_spine, smi)
+    launches, problem, ns_logz, gp_rate = timed(phase_gp_slice, smi)
     times, big = timed(phase_kernel_times, smi)
     grad_launches, _ = timed(phase_gp_grad, smi)
     laplace_launches, _ = timed(phase_laplace, smi, problem, ns_logz)
     timed(phase_ns_highdim, smi)
     ard_launches = timed(phase_gp_ard, smi)
     timed(phase_checkpoint_dynamic, smi)
-    launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] for k in launches}
+    t11 = time.perf_counter()
+    par_launches = timed(phase_parallel_ns, smi, spine, gp_rate)
+    conj_launches = timed(phase_conjugate, smi)
+    log(f"[seconds] phases 11 and 12 took {time.perf_counter() - t11:.0f} s")
+    launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] + par_launches[k]
+                + conj_launches[k] for k in launches}
     # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
     # at bench.py's width (B = 1, n = 16384, f32)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")

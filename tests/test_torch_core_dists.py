@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from scipy.special import gammaln
 
 from bayesianinference_tpu.core import numerics as jnum
 from bayesianinference_tpu.core.containers import WeightedSamples as JWeightedSamples
@@ -263,3 +264,122 @@ def test_validate_problem_rejects_nan_and_all_log_zero():
         tproblem.define_inference_problem(parameters=params, log_likelihood=lambda th: th[0],
                                           prior_distribution=["location"], device="cpu",
                                           dtype=torch.float64).with_data(T([1.0]))
+
+
+# --- the families, numerics and combinator of the conjugate engines
+
+
+def _conjugate_pairs():
+    return {
+        "gamma": (tscalar.Gamma(T(2.5), T(1.5)), jscalar.Gamma(2.5, 1.5)),
+        "inverse_gamma": (tscalar.InverseGamma(T(3.5), T(2.0)), jscalar.InverseGamma(3.5, 2.0)),
+        "beta": (tscalar.Beta(T(2.0), T(3.5)), jscalar.Beta(2.0, 3.5)),
+        "student_t": (tscalar.StudentT(T(4.5), T(0.3), T(1.2)), jscalar.StudentT(4.5, 0.3, 1.2)),
+    }
+
+
+@pytest.mark.parametrize("name", ["gamma", "inverse_gamma", "beta", "student_t"])
+def test_conjugate_scalar_families_match_jax(name):
+    """log_prob on a grid through the support's edges (the sentinel outside,
+    and at the open boundaries), mean and variance."""
+    tdist, jdist = _conjugate_pairs()[name]
+    x = np.concatenate([np.linspace(-2.0, 6.0, 33), [0.0, 1.0, 1e-3, 0.999]])
+    got, want = tdist.log_prob(T(x)), jdist.log_prob(jnp.asarray(x))
+    close(got, want)
+    assert not bool(torch.isnan(got).any())
+    if name != "student_t":
+        assert float(got[0]) == -1e300  # x = -2 lies outside the support
+    close(tdist.mean(), jdist.mean())
+    close(tdist.variance(), jdist.variance())
+    if name in ("gamma", "inverse_gamma"):
+        close(tdist.cdf(T(x)), jdist.cdf(jnp.asarray(x)), rtol=1e-10, atol=1e-15)
+
+
+@pytest.mark.parametrize("name", ["gamma", "inverse_gamma", "beta", "student_t"])
+def test_conjugate_scalar_samples_have_the_closed_form_moments(name):
+    """Sample mean within 4 standard errors, sample variance within 4
+    standard errors of its own estimate (from the fourth moment)."""
+    tdist, _ = _conjugate_pairs()[name]
+    n = 40000
+    s = tdist.sample(torch.Generator().manual_seed(7), (n,))
+    assert s.shape == (n,) and s.dtype == torch.float64
+    assert bool((tdist.log_prob(s) > -1e299).all())
+    m, v = float(tdist.mean()), float(tdist.variance())
+    assert abs(float(s.mean()) - m) < 4 * np.sqrt(v / n)
+    m4 = float(((s - m) ** 4).mean())
+    assert abs(float(s.var()) - v) < 4 * np.sqrt(max(m4 - v * v, 0.0) / n)
+
+
+def test_categorical_matches_jax_and_samples_its_probabilities():
+    logits = np.array([[0.3, -1.0, 2.0, 0.0], [1.0, 1.0, -0.5, 0.2]])
+    tdist, jdist = tscalar.Categorical(T(logits)), jscalar.Categorical(jnp.asarray(logits))
+    x = np.array([[0.0, 2.0], [3.0, 1.0], [-1.0, 1.5], [4.0, 2.0]])
+    got = tdist.log_prob(T(x))
+    close(got, jdist.log_prob(jnp.asarray(x)))
+    assert float(got[2, 0]) == float(got[2, 1]) == float(got[3, 0]) == -1e300
+    close(tdist.mean(), jdist.mean())
+    close(tdist.variance(), jdist.variance())
+    n = 40000
+    s = tdist.sample(torch.Generator().manual_seed(3), (n,))
+    assert s.shape == (n, 2)
+    p = torch.softmax(T(logits), dim=-1)
+    for row in range(2):
+        freq = torch.stack([(s[:, row] == c).double().mean() for c in range(4)])
+        assert bool((torch.abs(freq - p[row]) < 4 * torch.sqrt(p[row] * (1 - p[row]) / n)).all())
+
+
+def test_conjugate_numerics_match_jax():
+    rng = np.random.default_rng(11)
+    a = rng.normal(size=(4, 6)) * 3.0
+    for axis in (None, 0, 1):
+        close(tnum.logmeanexp(T(a), dim=axis), jnum.logmeanexp(jnp.asarray(a), axis=axis))
+    x = np.array([-1.0, 0.0, 1e-300, 0.5, 2.0, 7.0])
+    close(tnum.xlogx(T(x)), jnum.xlogx(jnp.asarray(x)))
+    close(tnum.safe_log(T(x)), jnum.safe_log(jnp.asarray(x)))
+    close(tnum.safe_sqrt(T(x - 0.25)), jnum.safe_sqrt(jnp.asarray(x - 0.25)))
+    assert float(tnum.safe_log(T(-1.0))) == -1e300 and float(tnum.safe_sqrt(T(-1e-18))) == 0.0
+    close(tnum.gammaln_precise(T(x[3:])), gammaln(x[3:]))
+    close(tnum.log1p_precise(T(x[1:])), np.log1p(x[1:]))
+
+
+def test_conditional_product_matches_jax():
+    """variance ~ InverseGamma, mean | variance ~ Normal(0.5, sqrt(variance)):
+    the joint density, ancestral draws in node order, the dependency graph."""
+    tcp = tcomb.ConditionalProduct([
+        ("variance", tscalar.InverseGamma(T(3.0), T(2.0))),
+        ("mean", lambda v: tscalar.Normal(T(0.5), torch.sqrt(torch.as_tensor(v["variance"])))),
+    ])
+    jcp = jcomb.ConditionalProduct([
+        ("variance", jscalar.InverseGamma(3.0, 2.0)),
+        ("mean", lambda v: jscalar.Normal(0.5, jnp.sqrt(jnp.asarray(v["variance"])))),
+    ])
+    var, mean = np.array([0.5, 1.0, 2.0, -1.0]), np.array([0.1, 0.5, -2.0, 0.0])
+    close(tcp.log_prob({"variance": T(var), "mean": T(mean)}),
+          jcp.log_prob({"variance": jnp.asarray(var), "mean": jnp.asarray(mean)}))
+    draws = tcp.sample(torch.Generator().manual_seed(0), (20000,))
+    assert list(draws) == ["variance", "mean"] and draws["mean"].shape == (20000,)
+    # E[variance] = 2 / (3 - 1) = 1, and the mean's marginal variance is E[variance]
+    assert abs(float(draws["variance"].mean()) - 1.0) < 0.05
+    assert abs(float(draws["mean"].var()) - 1.0) < 0.06
+    assert tcp.graph() == jcp.graph() == [("variance", "mean")]
+    with pytest.raises(ValueError):
+        tcomb.ConditionalProduct([("a", tscalar.Normal()), ("a", tscalar.Normal())])
+
+
+def test_with_metadata_returns_an_updated_copy():
+    """``InferenceProblem.with_metadata`` was missing from the port: it
+    returns a copy with the metadata dict updated and leaves the original
+    unchanged, as the JAX method does."""
+    problem = tproblem.define_inference_problem(
+        parameters=[("a", -1.0, 1.0)], log_likelihood=lambda th: -th[0] ** 2, prior_distribution=["location"],
+        device="cpu", dtype=torch.float64, tag=0, source="x")
+    jprob = jproblem.define_inference_problem(
+        parameters=[("a", -1.0, 1.0)], log_likelihood=lambda th: -th[0] ** 2, prior_distribution=["location"],
+        tag=0, source="x")
+    tagged, jtagged = problem.with_metadata(tag=1, extra=True), jprob.with_metadata(tag=1, extra=True)
+    assert tagged.metadata == jtagged.metadata == {"tag": 1, "source": "x", "extra": True}
+    assert problem.metadata == jprob.metadata == {"tag": 0, "source": "x"}
+    assert tagged.lower is problem.lower and tagged.log_likelihood is problem.log_likelihood
+    bare = tproblem.define_inference_problem(parameters=[("a", -1.0, 1.0)], log_likelihood=lambda th: -th[0] ** 2,
+                                             prior_distribution=["location"], device="cpu")
+    assert bare.metadata is None and bare.with_metadata(k=2).metadata == {"k": 2}

@@ -263,3 +263,41 @@ def test_chmc_chain_on_the_card_matches_the_cpu_on_the_same_draws(cuda):
     assert (got.x.cpu() - want.x).abs().max().item() <= 1e-8
     assert ((got.logl.cpu() - want.logl).abs() / want.logl.abs()).max().item() <= 1e-8
     assert bool((got.logl > threshold).all()) and bool(problem.in_support(got.x).all())
+
+
+def test_conjugate_engines_on_the_card_factor_through_the_kernel(cuda):
+    """Bayesian linear regression and the Multinormal model on the card:
+    the Cholesky kernel runs, and the log evidence equals the same fit on
+    CPU tensors to 1e-10 (float64)."""
+    from bayesianinference_tpu_torch.engines import conjugate as tc
+
+    g = torch.Generator().manual_seed(0)
+    x = 4.0 * torch.rand((256, 1), generator=g, dtype=torch.float64) - 2.0
+    y = 1.0 - 2.0 * x[:, 0] + 0.5 * x[:, 0] ** 3 + 0.1 * torch.randn(256, generator=g, dtype=torch.float64)
+    data = torch.randn((50, 3), generator=g, dtype=torch.float64)
+    for fit in (lambda d: tc.bayesian_linear_regression(x.to(d), y.to(d), degree=3),
+                lambda d: tc.multinormal_conjugate_model(data.to(d))):
+        before = gk.cholesky_cuda.launches
+        got = float(fit(cuda).log_evidence)
+        assert gk.cholesky_cuda.launches > before
+        want = float(fit("cpu").log_evidence)
+        assert abs(got - want) <= 1e-10 * abs(want)
+
+
+def test_parallel_runs_on_the_card_batch_their_chains(cuda):
+    """Two runs of a 2-D Gaussian in a box on the card, merged: finite
+    evidence near the analytic -log 100."""
+    import math
+
+    from bayesianinference_tpu_torch.dists.scalar import Normal
+    from bayesianinference_tpu_torch.models.problem import define_inference_problem
+    from bayesianinference_tpu_torch.parallel import parallel_nested_sampling
+
+    problem = define_inference_problem(
+        parameters=[("x", -5.0, 5.0), ("y", -5.0, 5.0)],
+        log_likelihood=lambda th: torch.sum(Normal(0.0, 1.0).log_prob(th)),
+        prior_distribution=["location", "location"], device=cuda, dtype=torch.float64)
+    res = parallel_nested_sampling(problem, torch.Generator(device=cuda).manual_seed(0), num_runs=2,
+                                   sample_pool_size=200, num_delete=20, monte_carlo_steps=30)
+    logz, err = float(res.log_evidence.mean), float(res.log_evidence.standard_error)
+    assert res.points.device.type == "cuda" and abs(logz + math.log(100.0)) <= 4 * err

@@ -165,3 +165,112 @@ def test_parameter_mixture_marginal():
     close(mix.log_prob(x), want, rtol=0, atol=0.02)
     s = mix.sample(torch.Generator().manual_seed(1), (500,))
     assert s.shape == (500,) and abs(float(s.var()) - 1.25) < 0.25
+
+
+# --- the matrix-variate and simplex families of the conjugate engines (rtol 1e-12)
+
+
+def _matrix_pairs(rng):
+    n, p = 4, 2
+    loc, row, col = rng.normal(size=(n, p)), _spd(rng, n), _spd(rng, p)
+    scale = _spd(rng, 3)
+    alpha, probs = np.array([1.5, 2.0, 0.7, 3.0]), np.array([0.1, 0.2, 0.3, 0.4])
+    return {
+        "matrix_normal": (td.MatrixNormal(T(loc), T(row), T(col)),
+                          jmv.MatrixNormal(jnp.asarray(loc), jnp.asarray(row), jnp.asarray(col))),
+        "matrix_t": (td.MatrixT(T(6.0), T(loc), T(row), T(col)),
+                     jmv.MatrixT(jnp.asarray(6.0), jnp.asarray(loc), jnp.asarray(row), jnp.asarray(col))),
+        "wishart": (td.Wishart(T(7.0), T(scale)), jmv.Wishart(jnp.asarray(7.0), jnp.asarray(scale))),
+        "inverse_wishart": (td.InverseWishart(T(8.0), T(scale)),
+                            jmv.InverseWishart(jnp.asarray(8.0), jnp.asarray(scale))),
+        "dirichlet": (td.Dirichlet(T(alpha)), jmv.Dirichlet(jnp.asarray(alpha))),
+        "multinomial": (td.Multinomial(10, T(probs)), jmv.Multinomial(10, jnp.asarray(probs))),
+    }
+
+
+def _points(name, rng):
+    """Points of each family's support, and (after them) points outside it."""
+    if name in ("matrix_normal", "matrix_t"):
+        return rng.normal(size=(5, 4, 2)), None
+    if name in ("wishart", "inverse_wishart"):
+        good = np.stack([_spd(rng, 3) * s for s in (0.5, 1.0, 3.0)])
+        return good, np.stack([-np.eye(3), np.diag([1.0, -1.0, 1.0])])
+    if name == "dirichlet":
+        good = rng.dirichlet([1.0, 1.0, 1.0, 1.0], size=5)
+        return good, np.array([[0.5, 0.5, 0.5, -0.5], [0.2, 0.2, 0.2, 0.2]])
+    good = np.array([[1.0, 2.0, 3.0, 4.0], [0.0, 0.0, 10.0, 0.0], [2.0, 2.0, 2.0, 4.0]])
+    return good, np.array([[1.0, 2.0, 3.0, 3.0], [1.5, 2.0, 3.0, 3.5], [-1.0, 2.0, 5.0, 4.0]])
+
+
+@pytest.mark.parametrize("name", ["matrix_normal", "matrix_t", "wishart", "inverse_wishart", "dirichlet",
+                                  "multinomial"])
+def test_matrix_and_simplex_families_match_jax(name):
+    rng = np.random.default_rng(21)
+    tdist, jdist = _matrix_pairs(rng)[name]
+    good, bad = _points(name, rng)
+    close(tdist.log_prob(T(good)), jdist.log_prob(jnp.asarray(good)), rtol=1e-12)
+    close(tdist.log_prob(T(good[0])), jdist.log_prob(jnp.asarray(good[0])), rtol=1e-12)
+    close(tdist.mean(), jdist.mean(), rtol=1e-12)
+    if bad is not None:
+        got = tdist.log_prob(T(bad))
+        assert bool((got == -1e300).all()), got
+        close(got, jdist.log_prob(jnp.asarray(bad)), rtol=0)
+    if name in ("dirichlet", "multinomial"):
+        close(tdist.variance(), jdist.variance(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["matrix_normal", "matrix_t", "wishart", "inverse_wishart", "dirichlet",
+                                  "multinomial"])
+def test_matrix_and_simplex_samples_have_their_means(name):
+    """The sample mean of 20000 draws within 4 standard errors (the draws'
+    own) of the closed-form mean, elementwise; every draw in the support."""
+    rng = np.random.default_rng(22)
+    tdist, _ = _matrix_pairs(rng)[name]
+    n = 20000
+    s = tdist.sample(torch.Generator().manual_seed(5), (n,))
+    assert s.shape == (n, *tdist.event_shape)
+    assert bool((tdist.log_prob(s) > -1e299).all())
+    se = s.std(dim=0) / np.sqrt(n)
+    assert bool((torch.abs(s.mean(dim=0) - tdist.mean()) <= 4 * se + 1e-12).all())
+
+
+def test_bartlett_factor_gives_wishart_draws():
+    """A A^T of the lower-triangular Bartlett factor has the Wishart(df, I)
+    mean df I, and its diagonal is positive."""
+    from bayesianinference_tpu_torch.dists.multivariate import _bartlett
+
+    a = _bartlett(torch.Generator().manual_seed(1), 6.0, 3, torch.float64, (20000,))
+    assert a.shape == (20000, 3, 3) and bool((torch.triu(a, 1) == 0).all())
+    assert bool((torch.diagonal(a, dim1=-2, dim2=-1) > 0).all())
+    w = a @ a.mT
+    # Var(W_ii) = 2 df, Var(W_ij) = df for the identity scale
+    se = torch.sqrt(torch.tensor([[12.0, 6.0, 6.0], [6.0, 12.0, 6.0], [6.0, 6.0, 12.0]]) / 20000)
+    assert bool((torch.abs(w.mean(dim=0) - 6.0 * torch.eye(3, dtype=torch.float64)) < 4 * se).all())
+
+
+def test_normal_inverse_gamma_and_wishart_match_jax():
+    from bayesianinference_tpu.dists import conjugate_structs as jcs
+    from bayesianinference_tpu_torch.dists import conjugate_structs as tcs
+
+    tnig, jnig = tcs.NormalInverseGamma(0.3, 2.0, 1.5, 3.0), jcs.NormalInverseGamma(0.3, 2.0, 1.5, 3.0)
+    mean, var = np.array([0.1, -0.5, 1.0]), np.array([0.4, 1.0, 2.5])
+    close(tnig.log_prob(T(mean), T(var)), jnig.log_prob(jnp.asarray(mean), jnp.asarray(var)), rtol=1e-12)
+    close(tnig.marginal_mean().log_prob(T(mean)), jnig.marginal_mean().log_prob(jnp.asarray(mean)), rtol=1e-12)
+    close(tnig.marginal_variance().log_prob(T(var)), jnig.marginal_variance().log_prob(jnp.asarray(var)), rtol=1e-12)
+    m, v = tnig.sample(torch.Generator().manual_seed(0), (20000,))
+    # E[var] = beta / (nu - 1); the mean's marginal is StudentT(2 nu, mu0, sqrt(beta / (nu lam)))
+    assert abs(float(v.mean()) - 0.75) < 4 * float(v.std()) / np.sqrt(20000)
+    assert abs(float(m.mean()) - 0.3) < 4 * float(m.std()) / np.sqrt(20000)
+
+    rng = np.random.default_rng(3)
+    mu0, psi = rng.normal(size=3), _spd(rng, 3)
+    tniw = tcs.NormalInverseWishart(T(mu0), T(0.5), T(psi), T(6.0))
+    jniw = jcs.NormalInverseWishart(jnp.asarray(mu0), 0.5, jnp.asarray(psi), 6.0)
+    x, cov = rng.normal(size=(4, 3)), _spd(rng, 3)
+    close(tniw.log_prob(T(x), T(cov)), jniw.log_prob(jnp.asarray(x), jnp.asarray(cov)), rtol=1e-12)
+    close(tniw.marginal_mean().log_prob(T(x)), jniw.marginal_mean().log_prob(jnp.asarray(x)), rtol=1e-12)
+    close(tniw.marginal_cov().log_prob(T(cov)), jniw.marginal_cov().log_prob(jnp.asarray(cov)), rtol=1e-12)
+    m, c = tniw.sample(torch.Generator().manual_seed(1), (20000,))
+    assert m.shape == (20000, 3) and c.shape == (20000, 3, 3)
+    assert bool((torch.abs(c.mean(dim=0) - T(psi) / 2.0) < 4 * c.std(dim=0) / np.sqrt(20000)).all())
+    assert bool((torch.abs(m.mean(dim=0) - T(mu0)) < 4 * m.std(dim=0) / np.sqrt(20000)).all())
