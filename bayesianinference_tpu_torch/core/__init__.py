@@ -21,4 +21,5 @@ from .numerics import (
     xlogx,
     xlogy,
 )
+from .transforms import BoxBijection, box_bijection
 from .standardize import NormalizedData, Standardizer, data_normal_form, normalize_data, standardize

@@ -16,6 +16,7 @@ Conventions
 from __future__ import annotations
 
 import dataclasses
+import numbers
 from typing import Tuple
 
 import torch
@@ -32,9 +33,12 @@ def dist_dataclass(cls):
 
 def as_param(p, ref: torch.Tensor) -> torch.Tensor:
     """A parameter as a tensor on ``ref``'s device, in ``ref``'s dtype when
-    it was a Python number."""
+    it was a Python number.  A number is filled in on the device: copying
+    it from the host would wait for the device's queue to drain."""
     if isinstance(p, torch.Tensor):
         return p.to(device=ref.device)
+    if isinstance(p, numbers.Number):
+        return torch.full((), p, dtype=ref.dtype, device=ref.device)
     return torch.as_tensor(p, dtype=ref.dtype, device=ref.device)
 
 

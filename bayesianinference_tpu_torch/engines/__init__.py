@@ -1,6 +1,7 @@
 """Inference engines: nested sampling (static and dynamic) with its
 checkpoints, evidence resampling, the Markov-chain API, GP regression,
-the Laplace approximation, the conjugate models and direct quadrature.  ``nested_sampling`` stays in its module
+the Laplace approximation, the conjugate models, direct quadrature, HMC,
+tempered SMC and the affine-invariant ensemble.  ``nested_sampling`` stays in its module
 (``engines.nested_sampling``): a package attribute of that name would hide
 the module."""
 
@@ -18,6 +19,7 @@ from .conjugate import (
     polynomial_basis,
     update_conjugate_model,
 )
+from .ensemble import EnsembleResult, ensemble_sample
 from .direct import DirectPosterior, direct_posterior_distribution, gauss_legendre_grid
 from .dynamic_ns import (
     NSSegment,
@@ -26,6 +28,7 @@ from .dynamic_ns import (
     merged_evidence_sampling,
     segment_from_run,
 )
+from .hmc import HMCResult, hmc_sample
 from .gp import coordinate_bounds_grid, define_gaussian_process, predict_from_gaussian_process
 from .laplace import (
     LaplaceFit,
@@ -39,3 +42,4 @@ from .laplace import (
     mackay_update_2,
 )
 from .mcmc import MCMCChain, create_mcmc_chain, iterate_mcmc
+from .smc import SMCConfig, SMCResult, smc_log_evidence, smc_sampler, thermodynamic_log_evidence

@@ -30,8 +30,10 @@ from ..core.device import resolve_device
 from ..core.numerics import log_zero
 from ..models.problem import InferenceProblem
 from .evidence import MeanAndError, NestedSamplingResult
+from .hmc import HMCResult
 from .laplace import LaplaceFit
 from .nested_sampling import NSRunData, make_loop_config, run_loop_from_state
+from .smc import SMCResult
 
 __all__ = [
     "save_ns_run",
@@ -141,11 +143,10 @@ def resume_nested_sampling_loop(
 # Result files
 # ---------------------------------------------------------------------------
 
-_RESULT_CLASSES = {"NestedSamplingResult": NestedSamplingResult, "LaplaceFit": LaplaceFit}
+_RESULT_CLASSES = {"NestedSamplingResult": NestedSamplingResult, "LaplaceFit": LaplaceFit, "SMCResult": SMCResult,
+                   "HMCResult": HMCResult}
 # result types of the JAX package whose engines the port does not have yet
 _WAITING = {
-    "SMCResult": "engines/smc.py",
-    "HMCResult": "engines/hmc.py",
     "VIResult": "engines/vi.py",
     "PathfinderResult": "engines/pathfinder.py",
 }
@@ -156,10 +157,11 @@ def _np(t) -> np.ndarray:
 
 
 def save_result(path, result) -> None:
-    """Write a :class:`~.evidence.NestedSamplingResult` or a
-    :class:`~.laplace.LaplaceFit` to one ``.npz`` in the JAX package's
-    layout.  Tensors, ``MeanAndError`` pairs and ``WeightedSamples`` pools
-    round-trip exactly and static fields go to a JSON header; callables
+    """Write a :class:`~.evidence.NestedSamplingResult`, a
+    :class:`~.laplace.LaplaceFit`, an :class:`~.hmc.HMCResult` or an
+    :class:`~.smc.SMCResult` to one ``.npz`` in the JAX package's layout.
+    Tensors, ``MeanAndError`` pairs and ``WeightedSamples`` pools round-trip
+    exactly and static fields go to a JSON header; callables
     (``predictive_builder``) and tuples that are not all strings
     (``hyper_path``) are dropped."""
     name = type(result).__name__

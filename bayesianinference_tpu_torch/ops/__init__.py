@@ -1,8 +1,23 @@
-"""Numerical building blocks: NS bookkeeping, the three chain kinds
-(adaptive Metropolis, slice, constrained HMC), and the GP kernels (two of
-them hand-written CUDA)."""
+"""Numerical building blocks: NS bookkeeping, the chain kinds (adaptive
+Metropolis, slice, constrained HMC, HMC with fixed and ChEES trajectories,
+the ensemble moves), and the GP kernels (two of them hand-written CUDA)."""
 
+from .chees import ChEESDraws, chees_draws, chees_warmup_and_sample, halton_base2
 from .chmc import CHMCDraws, CHMCState, chmc_draws, run_chmc_chain
+from .ensemble import DEDraws, EnsembleState, StretchDraws, ensemble_draws, ensemble_init, ensemble_sweep
+from .hmc import (
+    DAState,
+    HMCDraws,
+    HMCState,
+    dual_averaging_init,
+    dual_averaging_update,
+    hmc_draws,
+    hmc_init,
+    hmc_step,
+    leapfrog,
+    momentum_factor,
+    warmup_and_sample,
+)
 from .metropolis import (
     AMState,
     am_block,

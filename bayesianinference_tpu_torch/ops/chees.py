@@ -1,0 +1,171 @@
+"""ChEES-HMC: the trajectory length learned by gradient ascent (port of
+``bayesianinference_tpu.ops.chees``; Hoffman, Radul & Sountsov 2021).
+
+One trajectory length T, shared by the chains, adapts by Adam on log T
+along the ChEES criterion's per-chain gradient estimate
+``delta * <x' - m', v'> * t``, weighted by acceptance probability.  Each
+iteration draws one jitter fraction h from the base-2 van der Corput
+sequence, shared by the chains: the trajectory runs ``t = h T`` for
+``n = ceil(t / eps)`` steps, clipped to [1, max_leapfrog].
+
+The chains are a leading [C, d] axis as in :mod:`.hmc`.  Because n is one
+number for all chains, it is read to the host once per trajectory and the
+leapfrog loop runs exactly n steps: no chain runs masked steps to a
+worst-case length.  Step size, mass, warmup phases, divergence and the
+sentinel are :mod:`.hmc`'s.  The momenta and acceptance uniforms are
+inputs (:class:`ChEESDraws`), as for the fixed-length kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from .hmc import (
+    HMCState,
+    _accept_prob,
+    _adapt_and_sample,
+    _apply_inv_mass,
+    _draw_source,
+    _kinetic,
+    _sample_momentum,
+    _select,
+    leapfrog,
+)
+
+__all__ = ["ChEESDraws", "chees_draws", "chees_warmup_and_sample", "halton_base2"]
+
+_HALTON_BITS = 16
+
+
+def halton_base2(i: int) -> float:
+    """Van der Corput base-2 radical inverse of ``i``: its low 16 bits
+    reversed across the binary point (exact in float32, as the JAX
+    function computes it)."""
+    return sum(((i >> b) & 1) * 2.0 ** -(b + 1) for b in range(_HALTON_BITS))
+
+
+class ChEESDraws(NamedTuple):
+    """The random inputs of one ChEES iteration of C chains (or of T, with
+    that as the leading axis)."""
+
+    momentum: torch.Tensor  # [..., C, d] standard normal
+    accept: torch.Tensor  # [..., C] uniform on [0, 1)
+
+
+def chees_draws(generator: torch.Generator, chains: int, dim: int, *, num_trajectories: Optional[int] = None,
+                dtype: Optional[torch.dtype] = None) -> ChEESDraws:
+    lead = () if num_trajectories is None else (num_trajectories,)
+    kw = dict(generator=generator, dtype=dtype or torch.get_default_dtype(), device=generator.device)
+    return ChEESDraws(momentum=torch.randn(lead + (chains, dim), **kw), accept=torch.rand(lead + (chains,), **kw))
+
+
+class AdamState(NamedTuple):
+    """Adam accumulators of the log-trajectory-length ascent."""
+
+    log_t: torch.Tensor
+    log_t_avg: torch.Tensor  # Polyak t^-0.75 average: the frozen value
+    m: torch.Tensor
+    v: torch.Tensor
+    step: int
+
+
+def _adam_init(t0: torch.Tensor) -> AdamState:
+    lt = torch.log(t0)
+    return AdamState(log_t=lt, log_t_avg=lt, m=torch.zeros_like(lt), v=torch.zeros_like(lt), step=0)
+
+
+def _adam_ascent(st: AdamState, grad, lr=0.025, b1=0.9, b2=0.999, eps=1e-8) -> AdamState:
+    t = st.step + 1
+    m = b1 * st.m + (1.0 - b1) * grad
+    v = b2 * st.v + (1.0 - b2) * grad * grad
+    mhat = m / (1.0 - b1**t)
+    vhat = v / (1.0 - b2**t)
+    log_t = st.log_t + lr * mhat / (torch.sqrt(vhat) + eps)
+    eta = t ** (-0.75)  # the decay family of dual averaging's kappa
+    return AdamState(log_t=log_t, log_t_avg=eta * log_t + (1.0 - eta) * st.log_t_avg, m=m, v=v, step=t)
+
+
+def _chees_iteration(draws: ChEESDraws, states: HMCState, log_density_fn, step_size, inv_mass, p_chol, traj_time,
+                     max_leapfrog: int):
+    """One iteration of every chain: a trajectory of the shared length
+    ``traj_time``, a Metropolis test per chain, and the ChEES log-T
+    gradient.  Returns (states, mean acceptance probability, gradient)."""
+    # a NaN length takes one step, as XLA's float-to-int conversion (NaN -> 0) and the clip give
+    num_steps = torch.clamp(torch.nan_to_num(torch.ceil(traj_time / step_size), nan=0.0), 1, max_leapfrog)
+    p0 = _sample_momentum(draws.momentum, p_chol)
+    # the trajectory's one host read: its step count
+    x_new, p_new, lp_new, g_new = leapfrog(states.x, p0, states.grad, log_density_fn, step_size, inv_mass,
+                                           int(num_steps))
+    h0 = -states.log_density + _kinetic(p0, inv_mass)
+    h1 = -lp_new + _kinetic(p_new, inv_mass)
+    prob, divergent = _accept_prob(h0, h1, lp_new)
+    accept = draws.accept < prob
+
+    # the ChEES log-T gradient (the paper's dChEES/dT, times t by the chain rule)
+    c_new = x_new - x_new.mean(dim=0)
+    delta = (c_new * c_new).sum(dim=-1) - ((states.x - states.x.mean(dim=0)) ** 2).sum(dim=-1)
+    v_new = _apply_inv_mass(inv_mass, p_new)  # end velocity M^-1 p'
+    per_chain = delta * (c_new * v_new).sum(dim=-1) * traj_time
+    chees_grad = (prob * per_chain).sum() / torch.clamp(prob.sum(), min=1e-6)
+    # the scale is normalized out, which keeps one learning rate for every target
+    chees_grad = chees_grad / (torch.abs(chees_grad) + 1e-12)
+    return _select(accept, states, x_new, lp_new, g_new, divergent), prob.mean(), chees_grad
+
+
+class _LearnedLength:
+    """The iteration of :func:`chees_warmup_and_sample` for
+    :func:`.hmc._adapt_and_sample`: during warmup the trajectory length T
+    adapts by Adam on log T, capped at ``max_leapfrog`` steps of the
+    current step size; :meth:`freeze` fixes it to the Polyak average.  Each
+    iteration ``i`` runs ``halton_base2(i + 1) * T``."""
+
+    def __init__(self, log_density_fn: Callable, max_leapfrog: int, initial_length: torch.Tensor):
+        self.log_density_fn = log_density_fn
+        self.max_leapfrog = max_leapfrog
+        self.adam = _adam_init(initial_length)
+        self.length = None
+
+    def step(self, draws, states, eps, inv_mass, p_chol, i: int, adapt: bool):
+        big_t = torch.minimum(torch.exp(self.adam.log_t), self.max_leapfrog * eps) if adapt else self.length
+        states, ap_mean, grad = _chees_iteration(draws, states, self.log_density_fn, eps, inv_mass, p_chol,
+                                                 halton_base2(i + 1) * big_t, self.max_leapfrog)
+        if adapt:
+            self.adam = _adam_ascent(self.adam, grad)
+        return states, ap_mean
+
+    def freeze(self, step_size):
+        self.length = torch.minimum(torch.exp(self.adam.log_t_avg), self.max_leapfrog * step_size)
+        return self.length
+
+
+def chees_warmup_and_sample(
+    generator: Optional[torch.Generator],
+    x0: torch.Tensor,  # [C, d]
+    log_density_fn: Callable,
+    *,
+    num_warmup: int,
+    num_samples: int,
+    max_leapfrog: int = 256,
+    thinning: int = 1,
+    target_accept: float = 0.8,
+    initial_step_size: float = 0.1,
+    initial_trajectory_length: float = 1.0,
+    dense_mass: bool = False,
+    draws: Optional[ChEESDraws] = None,
+):
+    """:func:`.hmc.warmup_and_sample` with the trajectory length learned:
+    the same three warmup phases, log T adapting throughout and frozen to
+    its Polyak average (capped at ``max_leapfrog`` steps); sampling jitters
+    each iteration's length by the van der Corput sequence, continued from
+    where warmup left it.
+
+    Returns (samples [C, num_samples, d], final states, step size, inverse
+    mass, trajectory length)."""
+    x0 = x0.detach()
+    next_draws = _draw_source(generator, draws, x0.shape[0], x0.shape[1], x0.dtype, make=chees_draws)
+    t0 = torch.full((), initial_trajectory_length, dtype=x0.dtype, device=x0.device)
+    return _adapt_and_sample(next_draws, x0, _LearnedLength(log_density_fn, max_leapfrog, t0), num_warmup=num_warmup,
+                             num_samples=num_samples, thinning=thinning, target_accept=target_accept,
+                             initial_step_size=initial_step_size, dense_mass=dense_mass)

@@ -33,6 +33,12 @@ hyperparameters, pool 100, 10 deletions) by each kind of chain.  The unit is
 a batch pass (one density call for all chains of the batch) for the slice
 chains and a leapfrog step (a likelihood value-and-gradient, a likelihood
 value and two priors) for the constrained-HMC chains.
+
+The HMC workloads, where the tree has ``ops/hmc.py``: one trajectory of
+``chip_smoke.py`` phase 13a (8192 chains on the d = 16 box Gaussian in
+z-space, float32, 16 leapfrog steps) and of phase 13c (16 chains on the GP
+slice's problem, float64, 8 steps: both kernels and both reverse rules per
+step); the unit is a leapfrog step (one batched value-and-gradient).
 """
 
 from __future__ import annotations
@@ -148,6 +154,57 @@ def _chain_workloads(smi: str, out: dict) -> None:
               f"{100 * se_ms / dev_ms:.1f} % of device time | {smi}", flush=True)
 
 
+def _hmc_workloads(smi: str, out: dict) -> None:
+    """One HMC trajectory of chip_smoke.py's phases 13a and 13c: wall (median
+    of 3) and device ms per leapfrog step, CUDA kernels per step, busy share,
+    the kernels' shares."""
+    import chip_smoke
+    from bayesianinference_tpu_torch.core.transforms import box_bijection
+    from bayesianinference_tpu_torch.engines.hmc import z_space_density
+    from bayesianinference_tpu_torch.engines.nested_sampling import generate_starting_points
+    from bayesianinference_tpu_torch.interop import problem_data_from_numpy
+    from bayesianinference_tpu_torch.ops import hmc
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    x_np = rng.normal(size=(512, 3))
+    y_np = np.sin(x_np[:, 0]) + 0.1 * rng.normal(size=512)
+    gp = _gp_problem(*problem_data_from_numpy(x_np, y_np, device=dev, dtype=torch.float64))
+    # name, problem, chains, leapfrog steps, step size
+    workloads = (("hmc_box_d16", chip_smoke._box_problem_f32(16, dev), 8192, 16, 0.5),
+                 ("hmc_gp", gp, 16, 8, 0.05))
+    for name, problem, chains, leapfrog, eps in workloads:
+        bij = box_bijection(problem.lower, problem.upper)
+        density = z_space_density(problem, bij)
+        g = torch.Generator(device=dev).manual_seed(0)
+        state = hmc.hmc_init(bij.to_z(generate_starting_points(problem, g, chains)), density)
+        draws = hmc.hmc_draws(g, chains, problem.dim, dtype=problem.dtype)
+        inv_mass = torch.ones(problem.dim, dtype=problem.dtype, device=dev)
+
+        def run():
+            hmc.hmc_step(draws, state, density, eps, inv_mass, leapfrog)
+
+        run()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / leapfrog)
+        wall = statistics.median(walls)
+        dev_ms, kernels, chol_ms, se_ms = _profile(run)
+        dev_ms, kernels = dev_ms / leapfrog, kernels / leapfrog
+        out[name] = {"chains": chains, "leapfrog": leapfrog, "wall_ms_per_step": walls, "device_ms_per_step": dev_ms,
+                     "kernels_per_step": kernels, "busy_share": dev_ms / wall,
+                     "cholesky_share": chol_ms / leapfrog / dev_ms, "se_covariance_share": se_ms / leapfrog / dev_ms}
+        print(f"{name}, one trajectory, {chains} chains, {leapfrog} leapfrog steps: wall "
+              f"{', '.join(f'{w:.3f}' for w in walls)} ms and device {dev_ms:.3f} ms per leapfrog step (busy share "
+              f"{dev_ms / wall:.3f}), {kernels:.1f} CUDA kernels per step, Cholesky "
+              f"{100 * chol_ms / leapfrog / dev_ms:.1f} % and SE covariance {100 * se_ms / leapfrog / dev_ms:.1f} % "
+              f"of device time | {smi}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.abspath(__file__)))
@@ -247,6 +304,8 @@ def main():
     torch.cuda.empty_cache()
     if os.path.exists(os.path.join(os.path.abspath(args.repo), "bayesianinference_tpu_torch", "ops", "chmc.py")):
         _chain_workloads(smi, out)
+    if os.path.exists(os.path.join(os.path.abspath(args.repo), "bayesianinference_tpu_torch", "ops", "hmc.py")):
+        _hmc_workloads(smi, out)
     print(json.dumps(out))
 
 

@@ -71,11 +71,29 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     same on CPU tensors; precision.py's blr, conjugate-normal, direct
     quadrature (400 x 400 nodes) and two NS bookkeeping checks against
     numpy references, float64 within 1e-10 and float32 within ten times
-    PRECISION.json's float32 value or 1e-6.
+    PRECISION.json's float32 value or 1e-6;
+13. the samplers at the JAX bench's widths: (a) HMC, d = 16 box Gaussian,
+    8192 chains, 60 warmup, 64 samples, 16 leapfrog, float32, its
+    grad-evals/s, moments, acceptance, divergences, no synchronizing CUDA
+    call inside a trajectory (``torch.cuda.set_sync_debug_mode``); (b)
+    ChEES on the same problem (1024 chains, 150 warmup, 100 samples,
+    max_leapfrog 64, dense mass: its factor through the Cholesky kernel at
+    n = 16), one synchronizing call per trajectory, and on tests/test_hmc.py's
+    rho = 0.9 Gaussian; (c) HMC on phase 4's GP problem, 16 chains (started
+    at draws of phase 4's posterior) through
+    both kernels and both reverse rules at B = 16, logML and gradient at
+    the final states against the plain path, the posterior against phase
+    4's, no synchronizing call inside a trajectory; (d) SMC at bench_smc's width (d = 2, 2 x 32768 particles, 100 MH
+    steps, float32) against the analytic logZ and its thermodynamic
+    estimate, one synchronizing call per stage; (e) SMC of phase 4's GP problem, 2 x 500 particles, both
+    kernels at B = 1000, against phase 4's grid-quadrature logZ, one
+    synchronizing call per stage, with its peak device memory; (f) the ensemble at bench_ensemble's width (32768
+    walkers, d = 8, float32, 1024 stretch sweeps; 256 DE sweeps).
 
-Each of phases 4, 6, 7, 9, 11b and 12 zeroes the kernels' launch counters
-before it drives its path and fails if a kernel of that path was not
-launched; the ``launches`` of the JSON line are their sum.  Phase 5 fails
+Each of phases 4, 6, 7, 9, 11b, 12, 13c and 13e (and 13b the Cholesky's)
+zeroes the kernels' launch counters before it drives its path and fails if
+a kernel of that path was not launched; the ``launches`` of the JSON line
+are their sum.  Phase 5 fails
 unless each kernel is one CUDA kernel launch per call at the slice's shape,
 and unless ``covariance_matrix(se_kernel(...), x, nugget)`` is one CUDA
 kernel in all.
@@ -86,11 +104,14 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import statistics
 import subprocess
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -601,7 +622,8 @@ def phase_gp_slice(smi: str):
     # PyTorch versions) on 256 posterior points
     thetas = res.points[:256]
     got = problem.guarded_log_likelihood(thetas).cpu()
-    want = _gp_problem(x.cpu(), y.cpu()).guarded_log_likelihood(thetas.cpu())
+    cpu_problem = _gp_problem(x.cpu(), y.cpu())
+    want = cpu_problem.guarded_log_likelihood(thetas.cpu())
     lz = -1e300
     sentinel_got, sentinel_want = got <= 0.5 * lz, want <= 0.5 * lz
     if not torch.equal(sentinel_got, sentinel_want):
@@ -621,7 +643,7 @@ def phase_gp_slice(smi: str):
         f"grid quadrature logZ {z_fine:.4f} (40^3 vs 30^3 differ by {grid_err:.1e}); launches {launches}; logML kernel vs plain max rel diff {max_rel:.3e} on {int(ok.sum())} points "
         f"({int(sentinel_got.sum())} sentinels); predictive mean range [{mean.min().item():.3f}, "
         f"{mean.max().item():.3f}] | {smi}")
-    return launches, problem, (logz, err), res.num_likelihood_evals / wall
+    return launches, problem, (logz, err), res.num_likelihood_evals / wall, (res, z_fine, cpu_problem)
 
 
 def _gp_logml(th, x, y):
@@ -1382,6 +1404,390 @@ def phase_conjugate(smi: str, dev="cuda"):
     return {"se_covariance": gk.se_covariance_cuda.launches, "cholesky": gk.cholesky_cuda.launches}
 
 
+
+class _Syncs:
+    """The synchronizing CUDA calls made while entered, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: every copy to
+    or from the host, ``.item()`` and ``bool()``, ``nonzero``, masked
+    indexing, every wait on a stream or event, in Python or inside an op or
+    its reverse rule.  Each is kept as the names of the port's functions on
+    the stack when it was made, innermost last, and the innermost one's
+    line."""
+
+    def __enter__(self):
+        self.stacks, self.sites = [], collections.Counter()
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+
+        def record(message, category, filename, lineno, file=None, line=None):
+            if "synchronizing CUDA operation" not in str(message):
+                return shown(message, category, filename, lineno, file, line)
+            port = [f for f in traceback.extract_stack() if "bayesianinference_tpu_torch" in f.filename]
+            self.stacks.append(tuple(f.name for f in port))
+            self.sites[f"{Path(port[-1].filename).name}:{port[-1].lineno} {port[-1].name}" if port else "script"] += 1
+
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+
+    def inside(self, name: str) -> int:
+        """The syncs made while ``name`` was on the stack."""
+        return sum(name in st for st in self.stacks)
+
+
+def _box_problem_f32(dim: int, dev):
+    """benchmarks/smc_hmc_throughput.py::make_problem: a standard Gaussian
+    likelihood under the uniform box [-5, 5]^dim, float32."""
+    from bayesianinference_tpu_torch.dists.scalar import Normal
+    from bayesianinference_tpu_torch.models.problem import define_inference_problem
+
+    return define_inference_problem(
+        parameters=[(f"x{i}", -5.0, 5.0) for i in range(dim)],
+        log_likelihood=lambda th: torch.sum(Normal(0.0, 1.0).log_prob(th)),
+        prior_distribution=["location"] * dim, device=torch.device(dev), dtype=torch.float32)
+
+
+# the variance of a standard normal truncated to [-5, 5]
+_BOX_VAR = 1.0 - 10.0 * math.exp(-12.5) / math.sqrt(2 * math.pi) / math.erf(5.0 / math.sqrt(2.0))
+
+
+def _check_box_moments(tag, samples, tol_mean=0.05, tol_var=0.10):
+    pooled = samples.reshape(-1, samples.shape[-1]).double()
+    mean, var = pooled.mean(dim=0), pooled.var(dim=0)
+    worst_mean, worst_var = mean.abs().max().item(), ((var - _BOX_VAR).abs() / _BOX_VAR).max().item()
+    if not (worst_mean <= tol_mean and worst_var <= tol_var):
+        raise AssertionError(f"{tag}: pooled mean off 0 by {worst_mean:.4f} (gate {tol_mean}), variance off the "
+                             f"truncated unit variance by {worst_var:.2%} (gate {tol_var:.0%})")
+    return f"pooled mean within {worst_mean:.4f} of 0, variance within {worst_var:.2%} of {_BOX_VAR:.6f}"
+
+
+def _sampler_hmc(smi, dev, chains=8192, warmup=60, samples=64, leapfrog=16, dim=16):
+    """(a) bench_hmc's width: fixed 16-step trajectories, float32.  64
+    samples, the bench's setting through its round 4 (256 since): with 256
+    this run took 37 s and the phase 96 s on a slow host."""
+    from bayesianinference_tpu_torch.engines.hmc import hmc_sample
+
+    problem = _box_problem_f32(dim, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Syncs() as syncs:
+        r = hmc_sample(problem, torch.Generator(device=dev).manual_seed(0), num_chains=chains, num_samples=samples,
+                       num_warmup=warmup, num_leapfrog=leapfrog)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moments = _check_box_moments("13a HMC", r.samples)
+    acc = float(r.acceptance_rates.mean())
+    div = int(r.divergences.sum()) / (chains * samples)
+    # none inside a trajectory, and too few in the run for one per iteration anywhere
+    in_traj, total = syncs.inside("hmc_step"), sum(syncs.sites.values())
+    if not (0.6 <= acc <= 0.95 and div < 0.01 and in_traj == 0 and total < warmup + samples):
+        raise AssertionError(f"13a HMC: acceptance {acc:.3f}, divergent share {div:.4f}, {in_traj} syncs inside a "
+                             f"trajectory, {total} in the run: {dict(syncs.sites)}")
+    rate = chains * (samples + warmup) * leapfrog / wall
+    log(f"[13a HMC] d={dim} box Gaussian f32, {chains} chains, {warmup} warmup, {samples} samples (the bench's 256 "
+        f"cut to its round-4 64 to fit the script's time), {leapfrog} leapfrog: {rate:.4g} grad-evals/s (the bench's "
+        f"chains x (samples + warmup) x leapfrog / wall; {wall:.2f} s); {moments}; acceptance {acc:.3f}, divergent "
+        f"share {div:.4%}, step size {float(r.step_size):.4f}; synchronizing calls {in_traj} inside trajectories, "
+        f"{total} in the whole run ({dict(syncs.sites)}) | {smi}")
+
+
+def _sampler_chees(smi, dev, chains=1024, warmup=150, samples=100, max_leapfrog=64, dim=16):
+    """(b) ChEES on (a)'s problem with a dense mass (its factor through the
+    Cholesky kernel at n = d), and on tests/test_hmc.py's rho = 0.9
+    Gaussian, where the JAX test holds the learned length above 4 steps."""
+    from bayesianinference_tpu_torch.engines.hmc import hmc_sample
+    from bayesianinference_tpu_torch.ops import chees
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    problem = _box_problem_f32(dim, dev)
+    steps, run_leapfrog = [], chees.leapfrog
+
+    def recording(x, p, grad, fn, eps, inv_mass, num_steps):
+        steps.append(num_steps)
+        return run_leapfrog(x, p, grad, fn, eps, inv_mass, num_steps)
+
+    gk.cholesky_cuda.launches = 0
+    chees.leapfrog = recording
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with _Syncs() as syncs:
+            r = hmc_sample(problem, torch.Generator(device=dev).manual_seed(1), num_chains=chains,
+                           num_samples=samples, num_warmup=warmup, num_leapfrog="auto", max_leapfrog=max_leapfrog,
+                           dense_mass=True)
+            torch.cuda.synchronize()
+    finally:
+        chees.leapfrog = run_leapfrog
+    wall = time.perf_counter() - t0
+    chol = gk.cholesky_cuda.launches
+    moments = _check_box_moments("13b ChEES", r.samples)
+    trajectories = warmup + samples
+    tl, eps = float(r.trajectory_length), float(r.step_size)
+    acc = float(r.acceptance_rates.mean())
+    in_traj, total = syncs.inside("_chees_iteration"), sum(syncs.sites.values())
+    # the learned length on this isotropic target: the JAX package gives 3.5-4.0 step sizes here (CPU, 256
+    # chains, two seeds), so its 4-step floor is gated on the correlated target below, and here at 2
+    if not (math.isfinite(tl) and tl > 2 * eps and len(steps) == trajectories and max(steps) <= max_leapfrog
+            and in_traj == trajectories and total - in_traj < trajectories and chol == 2 and 0.6 <= acc <= 0.95):
+        raise AssertionError(f"13b ChEES: length {tl} at step {eps}, {len(steps)} trajectories of at most "
+                             f"{max(steps, default=0)} steps, {in_traj} syncs inside {trajectories} trajectories and "
+                             f"{total} in the run ({dict(syncs.sites)}), {chol} dense factors, acceptance {acc:.3f}")
+    line = (f"[13b ChEES] d={dim} box Gaussian f32, {chains} chains, {warmup} warmup, {samples} samples, "
+            f"max_leapfrog {max_leapfrog}, dense mass (its factor: {chol} Cholesky kernel launches at n = {dim}): "
+            f"{wall:.2f} s; {moments}; learned length {tl:.4f} = {tl / eps:.2f} steps of {eps:.4f}, longest "
+            f"trajectory {max(steps)} steps, acceptance {acc:.3f}; synchronizing calls {in_traj} inside "
+            f"{trajectories} trajectories, {total} in the whole run ({dict(syncs.sites)})")
+
+    cov = torch.tensor([[1.0, 0.9], [0.9, 1.0]], dtype=torch.float32, device=dev)
+    prec = torch.linalg.inv(cov)
+    x0 = torch.randn((chains, 2), generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    r = hmc_sample(lambda x: -0.5 * x @ prec @ x, torch.Generator(device=dev).manual_seed(3), num_chains=chains,
+                   num_samples=samples, num_warmup=450, num_leapfrog="auto", starting_points=x0)
+    tl, eps = float(r.trajectory_length), float(r.step_size)
+    pooled = r.samples.reshape(-1, 2).double()
+    err = (torch.cov(pooled.T) - cov.double()).abs().max().item()
+    if not (tl > 4 * eps and pooled.mean(dim=0).abs().max().item() <= 0.05 and err <= 0.05):
+        raise AssertionError(f"13b ChEES rho = 0.9: length {tl} at step {eps}, covariance error {err:.4f}")
+    log(f"{line}; on tests/test_hmc.py's rho = 0.9 Gaussian (450 warmup, diagonal mass): {tl / eps:.2f} steps "
+        f"(gate 4), covariance within {err:.4f} | {smi}")
+    return chol
+
+
+def _sampler_hmc_gp(smi, dev, problem, cpu_problem, ns_res, chains=16, warmup=60, samples=60, leapfrog=8):
+    """(c) HMC on phase 4's GP problem through both kernels and both reverse
+    rules at B = 16, the chains started at draws of phase 4's weighted NS
+    posterior.  From prior draws some chains stay away from the bulk (on
+    the card a secondary mode, lengthscale about 0.29 and the noise at its
+    floor): 60, 150 and 300 warmup iterations each left a chain there
+    (split R-hat 2.3-7.3).  The JAX package's ``hmc_sample`` from the same
+    prior draws does the same (``tests/witness_port_jax.py gp-hmc``)."""
+    from bayesianinference_tpu_torch import csrc
+    from bayesianinference_tpu_torch.engines.hmc import hmc_sample
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+    from bayesianinference_tpu_torch.results import gelman_rubin
+
+    w = torch.exp(ns_res.crude_log_posterior_weights)
+    w = w / w.sum()
+    starts = ns_res.points[torch.multinomial(w, chains, replacement=True,
+                                             generator=torch.Generator(device=dev).manual_seed(11))]
+    seen = {"bi_se_covariance": [], "bi_cholesky": []}
+    default = csrc.load_library
+    csrc.load_library = lambda: _RecordingLibrary(default(), seen)
+    gk.se_covariance_cuda.launches = 0
+    gk.cholesky_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with _Syncs() as syncs:
+            r = hmc_sample(problem, torch.Generator(device=dev).manual_seed(4), num_chains=chains,
+                           num_samples=samples, num_warmup=warmup, num_leapfrog=leapfrog, starting_points=starts)
+            torch.cuda.synchronize()
+    finally:
+        csrc.load_library = default
+    wall = time.perf_counter() - t0
+    launches = {"se_covariance": gk.se_covariance_cuda.launches, "cholesky": gk.cholesky_cuda.launches}
+    steps = (warmup + samples) * leapfrog
+    batches = {name: sorted(set(b)) for name, b in seen.items()}
+    if not (min(launches.values()) >= steps and all(v == [chains] for v in batches.values())):
+        raise AssertionError(f"13c GP HMC: launches {launches} for {steps} leapfrog steps, batch sizes {batches}")
+    # logML and its gradient at the final states against the plain path on CPU tensors
+    final = r.samples[:, -1]
+    got, got_g = _problem_value_and_grad(problem, final)
+    want, want_g = _problem_value_and_grad(cpu_problem, final.cpu())
+    rel_v = _rel(got.cpu(), want)
+    rel_g = ((got_g.cpu() - want_g).abs().max() / want_g.abs().max()).item()
+    # the posterior of the log-hyperparameters against phase 4's weighted NS posterior
+    u = torch.log(ns_res.points)
+    ns_mean = (w[:, None] * u).sum(dim=0)
+    ns_sd = torch.sqrt((w[:, None] * (u - ns_mean) ** 2).sum(dim=0))
+    hmc_mean = torch.log(r.samples).reshape(-1, r.samples.shape[-1]).mean(dim=0)
+    off = ((hmc_mean - ns_mean).abs() / ns_sd).max().item()
+    rhat = max(float(gelman_rubin(r.per_parameter_chains(i))) for i in range(r.samples.shape[-1]))
+    acc = float(r.acceptance_rates.mean())
+    in_traj = syncs.inside("hmc_step")
+    if not (rel_v <= 1e-8 and rel_g <= 1e-6 and off <= 0.3 and rhat < 1.1 and in_traj == 0):
+        raise AssertionError(f"13c GP HMC: logML vs plain {rel_v:.3e}, gradient {rel_g:.3e}, posterior mean "
+                             f"{off:.3f} NS sds off, split R-hat {rhat:.4f}, {in_traj} syncs inside trajectories "
+                             f"({dict(syncs.sites)})")
+    log(f"[13c GP HMC] phase 4's problem (n={SLICE_N} d={SLICE_D} f64), {chains} chains started at draws of phase 4's "
+        f"NS posterior, {warmup} warmup, {samples} samples (100 cut to fit the script's time), {leapfrog} leapfrog: "
+        f"{wall:.2f} s = {1e3 * wall / steps:.2f} ms per leapfrog step, {chains * steps / wall:.4g} grad-evals/s; "
+        f"launches {launches}, every one at B = {chains}; acceptance {acc:.3f}, divergences "
+        f"{int(r.divergences.sum())}; logML vs plain {rel_v:.3e}, gradient {rel_g:.3e} at the final states; "
+        f"log-hyperparameter means within {off:.3f} posterior sds of phase 4's NS posterior; split R-hat at most "
+        f"{rhat:.4f}; synchronizing calls {in_traj} inside trajectories, "
+        f"{sum(syncs.sites.values())} in the whole run ({dict(syncs.sites)}) | {smi}")
+    return launches
+
+
+def _problem_value_and_grad(problem, theta):
+    th = theta.detach().clone().requires_grad_(True)
+    value = problem.guarded_log_likelihood(th)
+    (grad,) = torch.autograd.grad(value.sum(), th)
+    return value.detach(), grad
+
+
+def _sampler_smc(smi, dev, particles=32768, runs=2, steps=100, dim=2):
+    """(d) bench_smc's width: the d = 2 box Gaussian, float32."""
+    from bayesianinference_tpu_torch.engines.smc import smc_sampler, thermodynamic_log_evidence
+
+    problem = _box_problem_f32(dim, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Syncs() as syncs:
+        r = smc_sampler(problem, torch.Generator(device=dev).manual_seed(5), n_particles=particles, num_runs=runs,
+                        mcmc_steps=steps)
+        logz, sem = float(r.log_evidence.mean), float(r.log_evidence.standard_error)
+    wall = time.perf_counter() - t0
+    stages = int(r.n_stages.max())
+    in_loop = syncs.inside("_smc_ladders")
+    ti = thermodynamic_log_evidence(r)
+    ti_mean, ti_sem = float(ti.mean), float(ti.standard_error)
+    analytic = -math.log(100.0)
+    ladders_ok = True
+    for run in range(runs):
+        ns = int(r.n_stages[run])
+        b = r.betas[run, :ns].double().cpu().numpy()
+        ladders_ok &= bool(b[-1] == 1.0 and (np.diff(np.concatenate([[0.0], b])) > 0).all())
+    if not (abs(logz - analytic) <= 4 * max(sem, 0.02) and abs(ti_mean - logz) <= 4 * max(math.hypot(ti_sem, sem),
+                                                                                         0.05) and ladders_ok
+            and in_loop == stages + 1):
+        raise AssertionError(f"13d SMC: logZ {logz} +- {sem} (analytic {analytic:.4f}), TI {ti_mean} +- {ti_sem}, "
+                             f"ladders ending at 1 and rising: {ladders_ok}; {in_loop} syncs in the stage loop of "
+                             f"{stages} stages ({dict(syncs.sites)})")
+    log(f"[13d SMC] d={dim} box Gaussian f32, {particles} particles x {runs} runs, {steps} MH steps: logZ "
+        f"{logz:.4f} +- {sem:.4f} (analytic {analytic:.4f}), thermodynamic {ti_mean:.4f} +- {ti_sem:.4f}; stages "
+        f"{r.n_stages.tolist()}; {r.num_likelihood_evals} evals in {wall:.2f} s = "
+        f"{r.num_likelihood_evals / wall:.4g} evals/s; synchronizing calls {in_loop} in the stage loop (one per "
+        f"stage and the last test), {sum(syncs.sites.values())} in the whole run ({dict(syncs.sites)}) | "
+        f"{smi}")
+
+
+def _sampler_smc_gp(smi, dev, problem, cpu_problem, grid_logz, particles=500, runs=2, steps=10):
+    """(e) SMC on phase 4's GP problem: both forward kernels at B = 1000."""
+    from bayesianinference_tpu_torch import csrc
+    from bayesianinference_tpu_torch.engines.smc import smc_sampler
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    seen = {"bi_se_covariance": [], "bi_cholesky": []}
+    default = csrc.load_library
+    csrc.load_library = lambda: _RecordingLibrary(default(), seen)
+    gk.se_covariance_cuda.launches = 0
+    gk.cholesky_cuda.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with _Syncs() as syncs:
+            r = smc_sampler(problem, torch.Generator(device=dev).manual_seed(6), n_particles=particles,
+                            num_runs=runs, mcmc_steps=steps)
+            logz, sem = float(r.log_evidence.mean), float(r.log_evidence.standard_error)
+    finally:
+        csrc.load_library = default
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    launches = {"se_covariance": gk.se_covariance_cuda.launches, "cholesky": gk.cholesky_cuda.launches}
+    batches = {name: sorted(set(b)) for name, b in seen.items()}
+    stages = int(r.n_stages.max())
+    calls = 1 + stages * (steps + 2)  # the starting particles; per stage the chains' seeds, steps and results
+    if not (all(v == [runs * particles] for v in batches.values())
+            and launches["se_covariance"] == launches["cholesky"] == calls):
+        raise AssertionError(f"13e GP SMC: launches {launches} (expected {calls} of each), batch sizes {batches}")
+    # the card's side in one call at B = runs * particles, the ladder's shape; the plain side in chunks
+    pts = r.particles.reshape(-1, r.particles.shape[-1])
+    se_before = gk.se_covariance_cuda.launches
+    got = problem.guarded_log_likelihood(pts).cpu()
+    if gk.se_covariance_cuda.launches != se_before + 1:
+        raise AssertionError(f"13e: the check at B = {pts.shape[0]} made "
+                             f"{gk.se_covariance_cuda.launches - se_before} SE covariance launches, not one")
+    want = torch.cat([cpu_problem.guarded_log_likelihood(pts[i:i + 100].cpu()) for i in range(0, pts.shape[0], 100)])
+    ok = want > -0.5e300
+    rel = _rel(got[ok], want[ok])
+    in_loop = syncs.inside("_smc_ladders")
+    if not (abs(logz - grid_logz) <= 4 * max(sem, 0.1) and bool(ok.all()) and rel <= 1e-8
+            and in_loop == stages + 1):
+        raise AssertionError(f"13e GP SMC: logZ {logz} +- {sem} against the grid's {grid_logz:.4f}; logML vs plain "
+                             f"{rel:.3e}, {int((~ok).sum())} sentinels; {in_loop} syncs in the loop of {stages} "
+                             f"stages ({dict(syncs.sites)})")
+    # the fused Cholesky at the SMC's batch, timed against its plain version (cholesky_ex) and its bound
+    g = torch.Generator(device=dev).manual_seed(9)
+    a = torch.randn((runs * particles, SLICE_N, 64), generator=g, device=dev, dtype=torch.float64)
+    k = a @ a.mT + SLICE_N * torch.eye(SLICE_N, device=dev, dtype=torch.float64)
+    del a
+    err = ((gk.cholesky_cuda(k) - gk.cholesky_plain(k)).abs().max() / gk.cholesky_plain(k).abs().max()).item()
+    kern_ms, plain_ms, _, _ = _in_turns(lambda: gk.cholesky_cuda(k), lambda: gk.cholesky_plain(k), reps=3, groups=3,
+                                        per_group=3)
+    bound_ms, bound_by = _chol_bound(runs * particles, SLICE_N, 8)
+    del k
+    if not err <= TOL["chol"][torch.float64]:
+        raise AssertionError(f"13e: the Cholesky kernel at B = {runs * particles} against plain: {err:.3e}")
+    log(f"[13e GP SMC] phase 4's problem (n={SLICE_N} d={SLICE_D} f64), {runs} runs x {particles} particles, "
+        f"{steps} MH steps: logZ {logz:.4f} +- {sem:.4f} (phase 4's grid quadrature {grid_logz:.4f}), stages "
+        f"{r.n_stages.tolist()}; launches {launches}, every one at B = {runs * particles}; {r.num_likelihood_evals} "
+        f"evals in {wall:.2f} s = {r.num_likelihood_evals / wall:.4g} evals/s; logML vs plain {rel:.3e} at the "
+        f"{pts.shape[0]} final particles; peak device memory {peak:.0f} MiB; the Cholesky kernel at B = "
+        f"{runs * particles}, n = {SLICE_N} f64: {kern_ms:.3f} device ms against plain {plain_ms:.3f} (bound "
+        f"{bound_ms:.4f} by {bound_by}), max error {err:.2e} of max |L|; synchronizing calls "
+        f"{in_loop} in the stage loop, {sum(syncs.sites.values())} in the whole run "
+        f"({dict(syncs.sites)}) | {smi}")
+    return launches
+
+
+def _sampler_ensemble(smi, dev, walkers=32768, dim=8, sweeps=1024, de_sweeps=256):
+    """(f) bench.py::bench_ensemble's width: the correlated d = 8 Gaussian,
+    float32, stretch move; then the DE move."""
+    from bayesianinference_tpu_torch.engines.ensemble import ensemble_sample
+
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((dim, dim))
+    prec_np = np.eye(dim) + 0.1 * (a @ a.T)
+    prec = torch.tensor(prec_np, dtype=torch.float32, device=dev)
+    want = np.diag(np.linalg.inv(prec_np))
+    x0 = torch.randn((walkers, dim), generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    notes = []
+    for move, n in (("stretch", sweeps), ("de", de_sweeps)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = ensemble_sample(lambda x: -0.5 * x @ prec @ x, torch.Generator(device=dev).manual_seed(8),
+                            num_walkers=walkers, num_samples=n, num_warmup=0, starting_points=x0, move=move)
+        acc = float(r.acceptance_rates.mean())
+        wall = time.perf_counter() - t0
+        # the sweeps after the first quarter: the walkers start from N(0, I)
+        kept = r.samples[:, n // 4:].reshape(-1, dim).double()
+        var = kept.var(dim=0).cpu().numpy()
+        worst = float(np.max(np.abs(var - want) / want))
+        if not (worst <= 0.10 and (move == "de" or 0.2 < acc < 0.9)):
+            raise AssertionError(f"13f ensemble {move}: variance off by {worst:.2%}, acceptance {acc:.3f}")
+        notes.append(f"{move}: {n} sweeps, {walkers * n / wall:.4g} evals/s (walkers x sweeps / wall, {wall:.2f} "
+                     f"s), acceptance {acc:.3f}, sample variances within {worst:.2%} of inv(prec)'s diagonal "
+                     f"(sweeps after the first {n // 4})")
+    log(f"[13f ensemble] {walkers} walkers, d={dim} correlated Gaussian f32: " + "; ".join(notes) + f" | {smi}")
+
+
+def phase_samplers(smi: str, gp_problem, gp_posterior, dev="cuda"):
+    """HMC (fixed and ChEES), tempered SMC and the ensemble at the JAX
+    bench's widths, and HMC and SMC of phase 4's GP problem through both
+    kernels.  Returns the kernels' launches of (c) and (e)."""
+    dev = torch.device(dev)
+    ns_res, grid_logz, cpu_problem = gp_posterior
+    t = time.perf_counter()
+    _sampler_hmc(smi, dev)
+    dense_factors = _sampler_chees(smi, dev)
+    launches = _sampler_hmc_gp(smi, dev, gp_problem, cpu_problem, ns_res)
+    _sampler_smc(smi, dev)
+    smc_launches = _sampler_smc_gp(smi, dev, gp_problem, cpu_problem, grid_logz)
+    _sampler_ensemble(smi, dev)
+    log(f"[13 samplers] {time.perf_counter() - t:.1f} s")
+    return {"se_covariance": launches["se_covariance"] + smc_launches["se_covariance"],
+            "cholesky": launches["cholesky"] + smc_launches["cholesky"] + dense_factors}
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -1394,7 +1800,7 @@ def main():
     smi = timed(phase_device)
     worst = timed(phase_kernel_parity)
     spine = timed(phase_ns_spine, smi)
-    launches, problem, ns_logz, gp_rate = timed(phase_gp_slice, smi)
+    launches, problem, ns_logz, gp_rate, gp_posterior = timed(phase_gp_slice, smi)
     times, big = timed(phase_kernel_times, smi)
     grad_launches, _ = timed(phase_gp_grad, smi)
     laplace_launches, _ = timed(phase_laplace, smi, problem, ns_logz)
@@ -1405,8 +1811,9 @@ def main():
     par_launches = timed(phase_parallel_ns, smi, spine, gp_rate)
     conj_launches = timed(phase_conjugate, smi)
     log(f"[seconds] phases 11 and 12 took {time.perf_counter() - t11:.0f} s")
+    sampler_launches = timed(phase_samplers, smi, problem, gp_posterior)
     launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] + par_launches[k]
-                + conj_launches[k] for k in launches}
+                + conj_launches[k] + sampler_launches[k] for k in launches}
     # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
     # at bench.py's width (B = 1, n = 16384, f32)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")

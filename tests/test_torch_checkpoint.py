@@ -2,9 +2,11 @@
 package's file format, on the CPU in float64: a checkpoint written by
 either package is loaded and resumed by the other; a resumed run leaves the
 run it came from unchanged; ``checkpoint_every`` is respected by the
-segmented run; result files round-trip and cross between the packages.
+segmented run; result files (nested sampling, Laplace, HMC, SMC)
+round-trip and cross between the packages.
 """
 
+import dataclasses
 import importlib
 import math
 
@@ -207,14 +209,49 @@ def test_result_files_round_trip_and_cross_packages(tmp_path):
     np.testing.assert_array_equal(np.asarray(jck.load_result(path).mean), fit.mean.numpy())
 
 
+def test_hmc_and_smc_results_cross_packages(tmp_path):
+    """An HMCResult (fixed trajectories, then ChEES with its learned length)
+    and an SMCResult written by the port are read by the JAX package, and
+    the JAX package's files of them by the port, every array bit-equal."""
+    from bayesianinference_tpu_torch.engines.hmc import hmc_sample
+    from bayesianinference_tpu_torch.engines.smc import smc_sampler
+
+    problem = _t_problem()
+    results = [
+        hmc_sample(problem, torch.Generator().manual_seed(0), num_chains=3, num_samples=5, num_warmup=6,
+                   num_leapfrog=3),
+        hmc_sample(problem, torch.Generator().manual_seed(0), num_chains=3, num_samples=5, num_warmup=6,
+                   num_leapfrog="auto", max_leapfrog=8, dense_mass=True),
+        smc_sampler(problem, torch.Generator().manual_seed(0), n_particles=40, num_runs=2, mcmc_steps=3),
+    ]
+    for res in results:
+        path = tmp_path / f"{type(res).__name__}.npz"
+        tck.save_result(path, res)
+        jback = jck.load_result(path)
+        assert type(jback).__name__ == type(res).__name__ and jback.param_names == ("x", "y")
+        jck.save_result(path, jback)  # the JAX package's own file
+        back = tck.load_result(path, device="cpu")
+        assert type(back) is type(res) and back.param_names == res.param_names
+        for f in dataclasses.fields(res):
+            v = getattr(res, f.name)
+            if isinstance(v, torch.Tensor):
+                np.testing.assert_array_equal(np.asarray(getattr(jback, f.name)), v.numpy(), err_msg=f.name)
+                got = getattr(back, f.name)
+                assert got.dtype == v.dtype, f.name
+                np.testing.assert_array_equal(got.numpy(), v.numpy(), err_msg=f.name)  # NaN equals NaN here
+        if hasattr(res, "log_evidence"):
+            assert torch.equal(back.log_evidence.mean, res.log_evidence.mean)
+            assert back.num_likelihood_evals == res.num_likelihood_evals == jback.num_likelihood_evals
+
+
 def test_result_types_of_unported_engines_raise_naming_the_module(tmp_path):
-    path = tmp_path / "smc.npz"
-    np.savez_compressed(path, __meta__=np.frombuffer(b'{"__class__": "SMCResult"}', dtype=np.uint8))
-    with pytest.raises(NotImplementedError, match="engines/smc.py"):
+    path = tmp_path / "vi.npz"
+    np.savez_compressed(path, __meta__=np.frombuffer(b'{"__class__": "VIResult"}', dtype=np.uint8))
+    with pytest.raises(NotImplementedError, match="engines/vi.py"):
         tck.load_result(path, device="cpu")
 
-    class HMCResult:  # stands for the JAX package's result of an engine the port lacks
+    class PathfinderResult:  # stands for the JAX package's result of an engine the port lacks
         pass
 
-    with pytest.raises(NotImplementedError, match="engines/hmc.py"):
-        tck.save_result(path, HMCResult())
+    with pytest.raises(NotImplementedError, match="engines/pathfinder.py"):
+        tck.save_result(path, PathfinderResult())

@@ -11,7 +11,10 @@ panel edges, at B = 1 and 10.  Tolerances are chip_smoke.py's: se_covariance max
 (float64) and 1e-5 * var (float32); cholesky <= 1e-10 * max|L| (float64)
 and 5e-4 * max|L| (float32, the bound of tests/test_gp.py).  The GP logML
 gradient and Hessian through the kernels: 1e-8 of the largest entry
-against the same on CPU tensors (float64).
+against the same on CPU tensors (float64).  The samplers' new shapes: the
+fused Cholesky at the GP SMC's B = 1000 (1e-10 * max|L|), and one HMC
+trajectory of 16 chains on a GP's z-space density through both kernels and
+both reverse rules against the same on CPU tensors (1e-8).
 """
 
 import pytest
@@ -301,3 +304,71 @@ def test_parallel_runs_on_the_card_batch_their_chains(cuda):
                                    sample_pool_size=200, num_delete=20, monte_carlo_steps=30)
     logz, err = float(res.log_evidence.mean), float(res.log_evidence.standard_error)
     assert res.points.device.type == "cuda" and abs(logz + math.log(100.0)) <= 4 * err
+
+
+def test_fused_cholesky_at_the_smc_batch_matches_plain(cuda):
+    """The fused path at B = 1000, n = 512 float64 (the GP SMC's batch:
+    many waves of 8-CTA clusters) against cholesky_ex."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.randn((1000, 512, 64), generator=g, device=cuda, dtype=torch.float64)
+    k = a @ a.mT + 512 * torch.eye(512, device=cuda, dtype=torch.float64)
+    assert gk._cholesky_route(512)[0] == "fused"
+    got, want = gk.cholesky(k), gk.cholesky_plain(k)
+    assert (got - want).abs().max().item() <= 1e-10 * want.abs().max().item()
+
+
+def test_gp_hmc_trajectory_on_the_card_matches_the_cpu_on_the_same_draws(cuda):
+    """One HMC trajectory of 16 chains on the ARD GP's z-space density:
+    every leapfrog step is a value-and-gradient through both kernels and
+    both reverse rules at B = 16; the end states, densities and gradients
+    against the same trajectory on CPU tensors, 1e-8."""
+    from bayesianinference_tpu_torch.core.transforms import box_bijection
+    from bayesianinference_tpu_torch.engines.hmc import z_space_density
+    from bayesianinference_tpu_torch.ops import hmc
+
+    problem, plain = _ard_problem(cuda), _ard_problem("cpu")
+    dens = z_space_density(problem, box_bijection(problem.lower, problem.upper))
+    dens_cpu = z_space_density(plain, box_bijection(plain.lower, plain.upper))
+    g = torch.Generator().manual_seed(5)
+    z0 = 0.5 * torch.randn((16, problem.dim), generator=g, dtype=torch.float64)
+    draws = hmc.hmc_draws(g, 16, problem.dim, dtype=torch.float64)
+    inv_mass = torch.full((problem.dim,), 0.3, dtype=torch.float64)
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+    got, got_p = hmc.hmc_step(hmc.HMCDraws(*(a.to(cuda) for a in draws)), hmc.hmc_init(z0.to(cuda), dens), dens,
+                              0.05, inv_mass.to(cuda), 6)
+    want, want_p = hmc.hmc_step(draws, hmc.hmc_init(z0, dens_cpu), dens_cpu, 0.05, inv_mass, 6)
+    assert gk.se_covariance_cuda.launches - before[0] == 7 and gk.cholesky_cuda.launches - before[1] == 7
+    assert torch.equal(got.accepted.cpu(), want.accepted) and int(want.accepted.sum()) > 0
+    for a, b in ((got.x, want.x), (got.log_density, want.log_density), (got.grad, want.grad), (got_p, want_p)):
+        assert (a.cpu() - b).abs().max().item() <= 1e-8 * max(b.abs().max().item(), 1.0)
+
+
+def test_hmc_trajectory_on_the_card_makes_no_synchronizing_call(cuda):
+    """A trajectory of the box-Gaussian problem's z-space density
+    (``chip_smoke.py`` phase 13a's target) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no copy to or from the
+    host and no wait, so the host can queue a whole trajectory ahead of the
+    card.  Distribution parameters given as Python numbers are filled in on
+    the device."""
+    from bayesianinference_tpu_torch.core.transforms import box_bijection
+    from bayesianinference_tpu_torch.dists.scalar import Normal
+    from bayesianinference_tpu_torch.engines.hmc import z_space_density
+    from bayesianinference_tpu_torch.models.problem import define_inference_problem
+    from bayesianinference_tpu_torch.ops import hmc
+
+    problem = define_inference_problem(
+        parameters=[(f"x{i}", -5.0, 5.0) for i in range(4)],
+        log_likelihood=lambda th: torch.sum(Normal(0.0, 1.0).log_prob(th)),
+        prior_distribution=["location"] * 4, device=cuda, dtype=torch.float32)
+    dens = z_space_density(problem, box_bijection(problem.lower, problem.upper))
+    g = torch.Generator(device=cuda).manual_seed(6)
+    state = hmc.hmc_init(torch.randn((64, 4), generator=g, device=cuda), dens)
+    draws = hmc.hmc_draws(g, 64, 4, dtype=torch.float32)
+    inv_mass = torch.ones((4,), device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, prob = hmc.hmc_step(draws, state, dens, 0.3, inv_mass, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(state.proposed.sum()) == 64 and float(prob.mean()) > 0.5
