@@ -1,5 +1,6 @@
 """Inference engines: nested sampling (static and dynamic) with its
-checkpoints, evidence resampling, the Markov-chain API, GP regression,
+checkpoints, evidence resampling, the Markov-chain API, GP regression
+(dense, sparse, Student-t, multi-output) and latent-GP classification,
 the Laplace approximation, the conjugate models, direct quadrature, HMC,
 tempered SMC and the affine-invariant ensemble.  ``nested_sampling`` stays in its module
 (``engines.nested_sampling``): a package attribute of that name would hide
@@ -30,6 +31,19 @@ from .dynamic_ns import (
 )
 from .hmc import HMCResult, hmc_sample
 from .gp import coordinate_bounds_grid, define_gaussian_process, predict_from_gaussian_process
+from .gp_classify import (
+    GPClassifierModel,
+    GPClassifierOptimization,
+    GPClassPrediction,
+    GPLatentDraws,
+    GPLatentSamples,
+    define_gp_classifier,
+    gp_latent_draws,
+    latent_draws_at,
+    optimize_gp_classifier,
+    predict_from_gp_classifier,
+    sample_gp_latents,
+)
 from .laplace import (
     LaplaceFit,
     approximate_evidence,
@@ -42,4 +56,13 @@ from .laplace import (
     mackay_update_2,
 )
 from .mcmc import MCMCChain, create_mcmc_chain, iterate_mcmc
+from .mogp import MOGPModel, define_multi_output_gp, predict_from_multi_output_gp
 from .smc import SMCConfig, SMCResult, smc_log_evidence, smc_sampler, thermodynamic_log_evidence
+from .sparse_gp import (
+    SGPRModel,
+    SGPROptimization,
+    define_sparse_gaussian_process,
+    optimize_sparse_gp,
+    select_inducing_points,
+)
+from .t_process import TPModel, define_t_process, predict_from_t_process

@@ -293,7 +293,7 @@ def bayesian_linear_regression(
     x = as_float_on(x, device)
     if x.dim() == 1:
         x = x[:, None]
-    y = torch.as_tensor(y, device=x.device).to(x.dtype)
+    y = torch.as_tensor(y, device=x.device, dtype=x.dtype)  # a list straight to x's dtype, not via float32
     if basis is None:
         basis = polynomial_basis(degree) if degree is not None else _identity_basis(x.shape[1])
     univariate = y.dim() == 1 or y.shape[-1] == 1

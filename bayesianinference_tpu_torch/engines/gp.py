@@ -139,7 +139,7 @@ def define_gaussian_process(
     if log_likelihood_method not in ("direct", "automatic"):
         raise ValueError(f"bad log_likelihood_method {log_likelihood_method!r}")
     x = torch.atleast_2d(as_float_on(x, device))
-    y = torch.as_tensor(y).to(device=x.device, dtype=x.dtype)
+    y = torch.as_tensor(y, device=x.device, dtype=x.dtype)  # a list straight to x's dtype, not via float32
     if y.dim() == 2:
         if y.shape[1] != 1:
             raise ValueError(f"only 1-D output supported for GP regression, got {tuple(y.shape)}")

@@ -6,7 +6,10 @@ taken field by field as ``np.asarray``, they become dicts of numpy arrays,
 which the functions here turn into the port's states on a given device and
 dtype (and back).  The conjugate parameter sets (``BLRParameters``,
 ``NormalInverseGamma``, ``NormalInverseWishart``) are taken as such a dict
-or as the object itself, read by attribute.  Without ``device=`` the tensors go to the CUDA card,
+or as the object itself, read by attribute.  A type-II maximum-likelihood fit
+of the latent-GP classifier or of the sparse GP, and the coregionalization
+parameters of the multi-output GP, carry over the same way.  Without
+``device=`` the tensors go to the CUDA card,
 and the call raises where there is none: ``device="cpu"`` asks for the
 host.  Nothing here imports JAX.
 """
@@ -22,6 +25,8 @@ from .core.device import resolve_device
 from .dists.conjugate_structs import NormalInverseGamma, NormalInverseWishart
 from .engines.conjugate import BLRParameters
 from .engines.dynamic_ns import NSSegment
+from .engines.gp_classify import GPClassifierOptimization
+from .engines.sparse_gp import SGPROptimization, with_inducing
 from .engines.nested_sampling import NSState
 from .ops.chmc import CHMCState
 from .ops.metropolis import AMState
@@ -40,6 +45,9 @@ __all__ = [
     "blr_parameters_from_numpy",
     "normal_inverse_gamma_from_numpy",
     "normal_inverse_wishart_from_numpy",
+    "gp_classifier_optimization_from_numpy",
+    "sgpr_optimization_from_numpy",
+    "coregional_parameters_from_numpy",
 ]
 
 _EVAL_BASE = 1 << 30  # radix of the JAX package's (hi, lo) int32 eval counter
@@ -187,3 +195,28 @@ def normal_inverse_wishart_from_numpy(fields, *, device=None,
     """A :class:`~.dists.conjugate_structs.NormalInverseWishart` from the
     JAX package's (``mu0``, ``lam``, ``psi``, ``nu``)."""
     return NormalInverseWishart(**_params_from(fields, ("mu0", "lam", "psi", "nu"), device, dtype))
+
+
+def gp_classifier_optimization_from_numpy(fields, *, device=None,
+                                          dtype: Optional[torch.dtype] = None) -> GPClassifierOptimization:
+    """A :class:`~.engines.gp_classify.GPClassifierOptimization` from the JAX
+    package's (``theta``, ``log_marginal``, ``trace``)."""
+    return GPClassifierOptimization(**_params_from(fields, ("theta", "log_marginal", "trace"), device, dtype))
+
+
+def sgpr_optimization_from_numpy(fields, problem) -> SGPROptimization:
+    """A :class:`~.engines.sparse_gp.SGPROptimization` from the JAX
+    package's (``theta``, ``z``, ``bound``, ``bound_trace``), on the device
+    and in the dtype of ``problem``, the port's problem of the same data
+    (built by ``define_sparse_gaussian_process``); its ``problem`` is that
+    one with its bound at the optimized ``z``."""
+    out = _params_from(fields, ("theta", "z", "bound", "bound_trace"), problem.device, problem.dtype)
+    return SGPROptimization(**out, problem=with_inducing(problem, out["z"]))
+
+
+def coregional_parameters_from_numpy(a, d=None, *, device=None, dtype: Optional[torch.dtype] = None):
+    """The multi-output GP's coregionalization parameters (``a`` [T, r] or
+    [T], ``d`` [T] or None) as tensors for ``ops.mogp.coregional_matrix``."""
+    out = _params_from({"a": a, **({} if d is None else {"d": d})}, ("a",) + (() if d is None else ("d",)),
+                       device, dtype)
+    return out["a"], out.get("d")

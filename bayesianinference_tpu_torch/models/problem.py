@@ -85,6 +85,9 @@ class InferenceProblem:
     metadata: Optional[dict] = None
     # observed data; when present the likelihood is called as f(theta, data)
     data: Optional[object] = None
+    # the likelihood takes the whole batch [B, d] -> [B] itself (set by the
+    # engines whose likelihood runs a host loop, which torch.func.vmap cannot)
+    batched_likelihood: bool = False
 
     @property
     def dim(self) -> int:
@@ -126,6 +129,9 @@ class InferenceProblem:
 
     def raw_log_likelihood(self, theta) -> torch.Tensor:
         """The unguarded likelihood, data-aware, batched over [..., d]."""
+        if self.batched_likelihood:
+            theta = torch.as_tensor(theta, dtype=self.dtype, device=self.device)
+            return self.log_likelihood(theta.reshape(-1, theta.shape[-1])).reshape(theta.shape[:-1])
         if self.data is not None:
             return self._batched(self.log_likelihood, theta, self.data)
         return self._batched(self.log_likelihood, theta)
@@ -351,6 +357,7 @@ def define_inference_problem(
     generator: Optional[torch.Generator] = None,
     device=None,
     dtype: Optional[torch.dtype] = None,
+    batched_likelihood: bool = False,
     **metadata,
 ) -> InferenceProblem:
     """Canonicalize and validate a problem spec.
@@ -369,6 +376,12 @@ def define_inference_problem(
     data is given, else on ``device`` in ``dtype``.  Without either,
     ``device`` is the CUDA card (raising where there is none; pass
     ``device="cpu"`` for the host) and ``dtype`` PyTorch's default.
+
+    ``batched_likelihood=True`` is for the engines whose likelihood runs a
+    host loop over a batch (the latent-GP classifier's Newton and EP
+    loops): the problem hands ``log_likelihood`` the whole batch [B, d]
+    and takes [B] back, instead of mapping a per-point callable with
+    ``torch.func.vmap``.
     """
     params = _as_param_specs(parameters)
     names = tuple(p.name for p in params)
@@ -454,6 +467,7 @@ def define_inference_problem(
         constraint=constraint,
         metadata=dict(metadata) if metadata else None,
         data=problem_data,
+        batched_likelihood=batched_likelihood,
     )
     if validate:
         validate_problem(problem, generator=generator)

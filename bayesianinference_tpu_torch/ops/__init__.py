@@ -1,10 +1,29 @@
 """Numerical building blocks: NS bookkeeping, the chain kinds (adaptive
 Metropolis, slice, constrained HMC, HMC with fixed and ChEES trajectories,
-the ensemble moves), and the GP kernels (two of them hand-written CUDA)."""
+the ensemble moves, elliptical slice), the GP kernels (two of them
+hand-written CUDA) and the latent-GP, sparse-GP, Student-t-process and
+multi-output GP numerics built on them."""
 
 from .chees import ChEESDraws, chees_draws, chees_warmup_and_sample, halton_base2
 from .chmc import CHMCDraws, CHMCState, chmc_draws, run_chmc_chain
+from .ess import ESSDraws, EllipticalState, ess_draws, ess_init, ess_sample, ess_update, run_ess_chain
 from .ensemble import DEDraws, EnsembleState, StretchDraws, ensemble_draws, ensemble_init, ensemble_sweep
+from .gp_ep import EPState, gp_ep_latent_moments, gp_ep_log_marginal, gp_ep_state
+from .gp_laplace import (
+    LatentLikelihood,
+    bernoulli_logit_likelihood,
+    bernoulli_probit_likelihood,
+    binomial_logit_likelihood,
+    gamma_log_likelihood,
+    gauss_hermite_expectation,
+    gp_laplace_latent_moments,
+    gp_laplace_log_marginal,
+    gp_laplace_mode,
+    latent_likelihood,
+    negative_binomial_likelihood,
+    ordinal_logit_likelihood,
+    poisson_log_likelihood,
+)
 from .hmc import (
     DAState,
     HMCDraws,
@@ -40,4 +59,21 @@ from .ns_math import (
     log_x_live_tail,
     pool_schedule,
 )
+from .mogp import (
+    coregional_matrix,
+    mogp_covariance,
+    mogp_log_marginal_kronecker,
+    mogp_log_marginal_likelihood,
+    mogp_posterior_moments,
+)
+from .sgpr import (
+    SGPRState,
+    sgpr_bound,
+    sgpr_data_stats,
+    sgpr_kuu_inv_chol,
+    sgpr_predict,
+    sgpr_state,
+    sgpr_state_from_stats,
+)
 from .slice import SliceDraws, SliceState, run_slice_chain, slice_draws, slice_init, slice_update
+from .t_process import tp_log_marginal_likelihood, tp_posterior_moments

@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..core.optim import adam_init, adam_step
 from .hmc import (
     HMCState,
     _accept_prob,
@@ -61,32 +62,6 @@ def chees_draws(generator: torch.Generator, chains: int, dim: int, *, num_trajec
     return ChEESDraws(momentum=torch.randn(lead + (chains, dim), **kw), accept=torch.rand(lead + (chains,), **kw))
 
 
-class AdamState(NamedTuple):
-    """Adam accumulators of the log-trajectory-length ascent."""
-
-    log_t: torch.Tensor
-    log_t_avg: torch.Tensor  # Polyak t^-0.75 average: the frozen value
-    m: torch.Tensor
-    v: torch.Tensor
-    step: int
-
-
-def _adam_init(t0: torch.Tensor) -> AdamState:
-    lt = torch.log(t0)
-    return AdamState(log_t=lt, log_t_avg=lt, m=torch.zeros_like(lt), v=torch.zeros_like(lt), step=0)
-
-
-def _adam_ascent(st: AdamState, grad, lr=0.025, b1=0.9, b2=0.999, eps=1e-8) -> AdamState:
-    t = st.step + 1
-    m = b1 * st.m + (1.0 - b1) * grad
-    v = b2 * st.v + (1.0 - b2) * grad * grad
-    mhat = m / (1.0 - b1**t)
-    vhat = v / (1.0 - b2**t)
-    log_t = st.log_t + lr * mhat / (torch.sqrt(vhat) + eps)
-    eta = t ** (-0.75)  # the decay family of dual averaging's kappa
-    return AdamState(log_t=log_t, log_t_avg=eta * log_t + (1.0 - eta) * st.log_t_avg, m=m, v=v, step=t)
-
-
 def _chees_iteration(draws: ChEESDraws, states: HMCState, log_density_fn, step_size, inv_mass, p_chol, traj_time,
                      max_leapfrog: int):
     """One iteration of every chain: a trajectory of the shared length
@@ -124,19 +99,24 @@ class _LearnedLength:
     def __init__(self, log_density_fn: Callable, max_leapfrog: int, initial_length: torch.Tensor):
         self.log_density_fn = log_density_fn
         self.max_leapfrog = max_leapfrog
-        self.adam = _adam_init(initial_length)
+        self.log_t = torch.log(initial_length)
+        self.log_t_avg = self.log_t  # Polyak t^-0.75 average: the frozen value
+        self.adam = adam_init({"log_t": self.log_t})
         self.length = None
 
     def step(self, draws, states, eps, inv_mass, p_chol, i: int, adapt: bool):
-        big_t = torch.minimum(torch.exp(self.adam.log_t), self.max_leapfrog * eps) if adapt else self.length
+        big_t = torch.minimum(torch.exp(self.log_t), self.max_leapfrog * eps) if adapt else self.length
         states, ap_mean, grad = _chees_iteration(draws, states, self.log_density_fn, eps, inv_mass, p_chol,
                                                  halton_base2(i + 1) * big_t, self.max_leapfrog)
-        if adapt:
-            self.adam = _adam_ascent(self.adam, grad)
+        if adapt:  # Adam ascent on log T: a descent step on -grad
+            params, self.adam = adam_step({"log_t": self.log_t}, {"log_t": -grad}, self.adam, 0.025)
+            self.log_t = params["log_t"]
+            eta = self.adam.count ** (-0.75)  # the decay family of dual averaging's kappa
+            self.log_t_avg = eta * self.log_t + (1.0 - eta) * self.log_t_avg
         return states, ap_mean
 
     def freeze(self, step_size):
-        self.length = torch.minimum(torch.exp(self.adam.log_t_avg), self.max_leapfrog * step_size)
+        self.length = torch.minimum(torch.exp(self.log_t_avg), self.max_leapfrog * step_size)
         return self.length
 
 

@@ -90,7 +90,22 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     synchronizing call per stage, with its peak device memory; (f) the ensemble at bench_ensemble's width (32768
     walkers, d = 8, float32, 1024 stretch sweeps; 256 DE sweeps).
 
-Each of phases 4, 6, 7, 9, 11b, 12, 13c and 13e (and 13b the Cholesky's)
+14. the slice of the latent-GP, sparse, Student-t and multi-output engines:
+    (a) the main path, GP classification (Bernoulli logit, Laplace) by
+    nested sampling over (amp, ls) at n = 512 (f64, pool 100, 10 deletions,
+    20 AM steps), logZ within 3 sigma of a grid quadrature, every launch at
+    the chains' batch, logML and Newton steps at the live points against
+    the plain path, its Laplace fit against CPU tensors, predictions at 41
+    points; (b) Laplace and EP logML + gradient at n = 512-4096 f32 against
+    plain f64; (c) the SGPR bound + gradient at n = 262144, m = 512 f32 and
+    its Adam fit against CPU tensors; (d) the Student-t process on phase 4's
+    data; (e) the multi-output GP at nT = 8192 f32, and against its
+    Kronecker identity; (f) ESS latents at (a)'s mode, against CPU tensors
+    on the same draws and against the Laplace latent moments.  Every
+    launch of both kernels at a new shape is held against the plain version
+    on the same inputs.
+
+Each of phases 4, 6, 7, 9, 11b, 12, 13c, 13e and 14 (and 13b the Cholesky's)
 zeroes the kernels' launch counters before it drives its path and fails if
 a kernel of that path was not launched; the ``launches`` of the JSON line
 are their sum.  Phase 5 fails
@@ -1788,6 +1803,660 @@ def phase_samplers(smi: str, gp_problem, gp_posterior, dev="cuda"):
             "cholesky": launches["cholesky"] + smc_launches["cholesky"] + dense_factors}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: latent-GP classification (Laplace, EP, ESS), SGPR, the Student-t
+# process and the multi-output GP
+# ---------------------------------------------------------------------------
+
+CLASS_N = 512  # benchmarks/latent_gp.py::bench_bridges' first width
+BRIDGE_NS = (512, 1024, 2048, 4096)  # benchmarks/latent_gp.py::bench_bridges
+BRIDGE_SEEDS = 8  # data draws per 14b case
+SGPR_N, SGPR_M, SGPR_D = 262144, 512, 4  # bench.py::bench_sgpr
+MOGP_N, MOGP_T = 2048, 4  # benchmarks/latent_gp.py::bench_mogp
+_CLASS_PARAMS = [("amp", 0.05, 10.0), ("ls", 0.1, 5.0)]  # tests/test_gp_classify.py:209-223
+
+
+class _KernelWatch:
+    """Holds the first launch of each kernel at each new shape against the
+    plain version on the same inputs, while the path runs: wraps the SE
+    op's CUDA implementation and the Cholesky's launch (the wrappers' own
+    launch counters go on counting; the plain versions launch no kernel).
+    ``errs`` maps each shape seen to its error: the SE's max abs error over
+    the variance, the Cholesky's over max |L| (failed matrices must fail
+    on both sides).  A Cholesky factor's forward error grows with the
+    matrix's condition number (K_uu of an SGPR fit, with its 1e-12 jitter,
+    is near singular); where it passes phase 2's bound the shape passes,
+    and elsewhere the kernel's backward error max|L L^T - K| / max|K| must
+    be at most twice cuSOLVER's plus n eps (``backward`` holds those)."""
+
+    def __init__(self):
+        self.errs, self.backward = {}, {}
+
+    def __enter__(self):
+        from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+        self.gk, self.se_orig, self.launch_orig = gk, gk.se_covariance_cuda, gk._cholesky_launch
+        watch = self
+
+        def se(x1, x2, variance, lengthscale=None, nugget=None, tile=0):
+            out = watch.se_orig(x1, x2, variance, lengthscale, nugget, tile)
+            key = ("se_covariance", str(x1.dtype).split(".")[-1], tuple(out.shape), x1.shape[-1],
+                   "symmetric" if x2 is None else "cross", lengthscale is not None, nugget is not None)
+            if key not in watch.errs:
+                with torch.no_grad():
+                    want = _se_plain_in_row_blocks(gk, x1, x2, variance, lengthscale, nugget)
+                    watch.errs[key] = ((out - want).abs() / variance.abs()[:, None, None]).max().item()
+            return out
+
+        se.launches = self.se_orig.launches
+
+        def launch(k, route, nb):
+            out = watch.launch_orig(k, route, nb)
+            key = ("cholesky", str(k.dtype).split(".")[-1], tuple(k.shape), route)
+            if key not in watch.errs:
+                with torch.no_grad():
+                    want = gk.cholesky_plain(k)
+                    ok_got = torch.isfinite(torch.diagonal(out, dim1=-2, dim2=-1)).all(dim=-1)
+                    ok_want = torch.isfinite(torch.diagonal(want, dim1=-2, dim2=-1)).all(dim=-1)
+                    if not torch.equal(ok_got, ok_want):
+                        watch.errs[key] = math.inf
+                    elif bool(ok_want.any()):
+                        got_ok, want_ok, kk = out[ok_want], want[ok_want], k[ok_want]
+                        watch.errs[key] = ((got_ok - want_ok).abs().max() / want_ok.abs().max()).item()
+                        if watch.errs[key] > TOL["chol"][k.dtype]:
+                            sym = kk.tril() + kk.tril(-1).mT
+                            res = lambda f: ((f @ f.mT - sym).abs().max() / sym.abs().max()).item()  # noqa: E731
+                            watch.backward[key] = (res(got_ok), res(want_ok),
+                                                   k.shape[-1] * torch.finfo(k.dtype).eps)
+                    else:
+                        watch.errs[key] = 0.0
+            return out
+
+        gk.se_covariance_cuda, gk._cholesky_launch = se, launch
+        return self
+
+    def __exit__(self, *exc):
+        self.se_orig.launches = self.gk.se_covariance_cuda.launches
+        self.gk.se_covariance_cuda, self.gk._cholesky_launch = self.se_orig, self.launch_orig
+        return False
+
+    def counts(self) -> dict:
+        return {"se_covariance": self.gk.se_covariance_cuda.launches, "cholesky": self.gk.cholesky_cuda.launches}
+
+    def zero(self) -> None:
+        self.gk.se_covariance_cuda.launches = 0
+        self.gk.cholesky_cuda.launches = 0
+
+    def check(self, what: str) -> str:
+        """Fails unless every shape seen so far is within TOL; a summary."""
+        def passes(key, err):
+            if err <= TOL["se" if key[0] == "se_covariance" else "chol"][getattr(torch, key[1])]:
+                return True
+            r_kernel, r_plain, floor = self.backward.get(key, (math.inf, 0.0, 0.0))
+            return r_kernel <= 2.0 * r_plain + floor
+
+        bad = {k: (v, self.backward.get(k)) for k, v in self.errs.items() if not passes(k, v)}
+        if bad:
+            raise AssertionError(f"{what}: kernel against its plain version out of tolerance at {bad}")
+        worst = {name: max([v for k, v in self.errs.items() if k[0] == name] or [0.0])
+                 for name in ("se_covariance", "cholesky")}
+        by_backward = "".join(f"; {k[1]} {k[2]} by backward error {r:.1e} (cuSOLVER {p:.1e})"
+                              for k, (r, p, _) in self.backward.items())
+        return (f"{len(self.errs)} kernel shapes held against the plain versions, worst rel err "
+                f"se {worst['se_covariance']:.2e}, cholesky {worst['cholesky']:.2e}{by_backward}")
+
+
+class _plain_ops:
+    """Routes the GP modules through plain PyTorch (no hand-written kernel):
+    the SE kernel's covariance by ``squared_distances`` and ``exp``, every
+    Cholesky by ``torch.linalg.cholesky_ex`` (NaN where it fails), both
+    differentiated by autograd.  The plain path of a sub-phase's accuracy
+    gate; the launch counters must not move inside."""
+
+    def __enter__(self):
+        from bayesianinference_tpu_torch.engines import gp_classify
+        from bayesianinference_tpu_torch.ops import gp_kernels as gk
+        from bayesianinference_tpu_torch.ops import gp_laplace, mogp, sgpr, t_process
+
+        def chol(k):
+            factor, info = torch.linalg.cholesky_ex(k)
+            return torch.where((info == 0)[..., None, None], factor, torch.full_like(factor, math.nan))
+
+        def se(x1, x2, variance, lengthscale=None, nugget=None):
+            x1 = torch.as_tensor(x1)
+            x2 = x1 if x2 is None else x2
+            scale = 1.0 if lengthscale is None else lengthscale
+            k = variance * torch.exp(-0.5 * gk.squared_distances(x1 / scale, x2 / scale))
+            if nugget is not None:
+                k = k + torch.diag_embed(torch.broadcast_to(torch.as_tensor(nugget, dtype=k.dtype, device=k.device),
+                                                            k.shape[:-1]))
+            return k
+
+        self.saved = [(m, name, getattr(m, name)) for m, name in (
+            (gk, "se_covariance"), (gk, "cholesky"), (gp_laplace, "cholesky"), (sgpr, "cholesky"),
+            (t_process, "cholesky"), (mogp, "cholesky"), (gp_classify, "cholesky"))]
+        for m, name, _ in self.saved:
+            setattr(m, name, se if name == "se_covariance" else chol)
+        self.before = gk.se_covariance_cuda.launches + gk.cholesky_cuda.launches
+        self.gk = gk
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+        if exc_type is None and self.gk.se_covariance_cuda.launches + self.gk.cholesky_cuda.launches != self.before:
+            raise AssertionError("the plain path launched a hand-written kernel")
+        return False
+
+
+def _chol_turns(n: int, dtype, dev, b: int = 1) -> str:
+    """The Cholesky at [b, n, n] against ``cholesky_ex`` in turns (device ms)
+    beside its bound, on a well-conditioned matrix (the time does not
+    depend on the values)."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    a = torch.randn((b, n, n), generator=g, device=dev, dtype=dtype)
+    k = a @ a.mT / n + torch.eye(n, device=dev, dtype=dtype)
+    kw = dict(reps=3, groups=3, per_group=3) if n >= 4096 else dict(reps=5, groups=3, per_group=10)
+    ms, lib_ms, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), **kw)
+    bound, by = _chol_bound(b, n, k.element_size())
+    return (f"B={b} n={n} {str(dtype).split('.')[-1]} {gk._cholesky_route(n)[0]}: {ms:.3f} ms (cholesky_ex "
+            f"{lib_ms:.3f}, bound {bound:.3f} by {by})")
+
+
+def _class_data(n: int, seed: int = 0):
+    """benchmarks/latent_gp.py::_class_data: sorted x on [-3, 3] (float32),
+    y ~ Bernoulli(sigmoid(3 sin(1.5 x)))."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(-3, 3, size=(n, 1)), axis=0).astype(np.float32)
+    p = 1 / (1 + np.exp(-3.0 * np.sin(1.5 * x[:, 0])))
+    return x, (rng.uniform(size=n) < p).astype(np.float32)
+
+
+def _classifier(x, y, method: str = "laplace"):
+    """tests/test_gp_classify.py's classifier (:209-223): SE kernel (amp^2, ls),
+    Bernoulli-logit likelihood, scale priors."""
+    from bayesianinference_tpu_torch.engines.gp_classify import define_gp_classifier
+    from bayesianinference_tpu_torch.ops.gp_kernels import se_kernel
+
+    return define_gp_classifier(x, y, lambda th: se_kernel(th[0] ** 2, th[1]), _CLASS_PARAMS, method=method,
+                                prior_distribution=["scale", "scale"], validate=False)
+
+
+def _profile_call(fn):
+    """(device ms, CUDA kernels) of one call of ``fn`` under torch.profiler,
+    the window opened with a traced warm-up step that is dropped."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(10):
+            torch.zeros(8, device="cuda").add_(1.0)
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
+
+
+def _vg(fn, *args):
+    """[value, gradient...] of ``fn(*args)``, the gradient in those of
+    ``args`` that require one, as one detached vector."""
+    with torch.enable_grad():
+        args = [a.detach().requires_grad_(True) if isinstance(a, torch.Tensor) and a.requires_grad else a
+                for a in args]
+        value = fn(*args)
+        grads = torch.autograd.grad(value, [a for a in args if isinstance(a, torch.Tensor) and a.requires_grad])
+    return torch.cat([value.detach().reshape(1)] + [g.detach().reshape(-1) for g in grads])
+
+
+def _args(values, dev, grad: int):
+    """``values`` as float32 and float64 tensors on ``dev`` ({dtype: list}),
+    the first ``grad`` of them requiring a gradient."""
+    return {dt: [torch.as_tensor(v, dtype=dt, device=dev).requires_grad_(i < grad) for i, v in enumerate(values)]
+            for dt in (torch.float32, torch.float64)}
+
+
+def _accuracy(fn, args32, args64):
+    """The kernel path (float32) and the plain path (float32) against the
+    plain float64 [value, gradient...] of ``fn`` on the same f32-rounded
+    inputs.  Returns (kernel, plain, f64) as CPU float64 vectors and the
+    two paths' normalized errors: the value's over |value|, each gradient
+    entry's over the gradient's norm."""
+    got = _vg(fn, *args32)
+    with _plain_ops():
+        plain = _vg(fn, *args32)
+        ref = _vg(fn, *args64)
+    torch.cuda.synchronize()
+    got, plain, ref = got.double().cpu(), plain.double().cpu(), ref.double().cpu()
+    scale = torch.cat([ref[:1].abs(), torch.full_like(ref[1:], float(ref[1:].norm()))]).clamp(min=1e-30)
+    return got, plain, ref, (got - ref) / scale, (plain - ref) / scale
+
+
+def _case_error(errs) -> float:
+    """A case's normalized error over its runs (each an ``_accuracy``
+    vector): the root mean square of the runs' norms, which is the norm
+    itself for one run."""
+    return math.sqrt(float(torch.stack([e.norm() ** 2 for e in errs]).mean()))
+
+
+def _within_rule(ek: float, ep: float) -> bool:
+    """The f32 accuracy rule: the kernel path's error at most twice the
+    plain path's plus 1e-6."""
+    return math.isfinite(ek) and ek <= 2.0 * ep + 1e-6
+
+
+def _accuracy_gate(what: str, errs_kernel, errs_plain) -> str:
+    """Fails unless one case's normalized errors (``_case_error`` of its
+    runs) meet ``_within_rule``, the rule of phase 6."""
+    ek, ep = _case_error(errs_kernel), _case_error(errs_plain)
+    if not _within_rule(ek, ep):
+        raise AssertionError(f"{what}: normalized error kernel path {ek:.3e} against the plain f32 path's {ep:.3e}")
+    return f"normalized error kernel {ek:.2e} plain f32 {ep:.2e}"
+
+
+def _phase14_classifier(smi, watch, dev, pool, k, steps, starts, n=CLASS_N):
+    """14a: the main path (NS over (amp, ls) of the logit classifier at
+    n = 512, f64, Laplace), its Laplace fit and its predictions."""
+    from bayesianinference_tpu_torch import csrc
+    from bayesianinference_tpu_torch.engines.gp_classify import predict_from_gp_classifier
+    from bayesianinference_tpu_torch.engines.laplace import laplace_posterior_fit
+    from bayesianinference_tpu_torch.engines.nested_sampling import nested_sampling
+    from bayesianinference_tpu_torch.models.problem import random_domain_points
+    from bayesianinference_tpu_torch.ops import gp_laplace as gl
+
+    x_np, y_np = _class_data(n)
+    x, y = (torch.as_tensor(a, dtype=torch.float64, device=dev) for a in (x_np, y_np))
+    problem = _classifier(x, y)
+    seen = {"bi_se_covariance": [], "bi_cholesky": []}
+    default = csrc.load_library
+    csrc.load_library = lambda: _RecordingLibrary(default(), seen)
+    watch.zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = nested_sampling(problem, torch.Generator(device=dev).manual_seed(0), sample_pool_size=pool,
+                              num_delete=k, monte_carlo_steps=steps)
+        torch.cuda.synchronize()
+    finally:
+        csrc.load_library = default
+    wall = time.perf_counter() - t0
+    launches = watch.counts()
+    calls = len(seen["bi_se_covariance"])  # one SE launch per density call
+    newton = launches["cholesky"] - calls  # each call: a factorization per Newton step and one at the mode
+    logz, err = float(res.log_evidence.mean), float(res.log_evidence.standard_error)
+    # every density call at the live batch: the starting pool's once, then the chains'
+    se_b, chol_b = seen["bi_se_covariance"], seen["bi_cholesky"]
+    first = next((i for i, b in enumerate(chol_b) if b != pool), len(chol_b))
+    if not (se_b[:1] == [pool] and set(se_b[1:]) == {k} and set(chol_b[first:]) == {k} and launches["cholesky"]
+            == len(chol_b) and launches["se_covariance"] == calls and launches["cholesky"] >= calls):
+        raise AssertionError(f"14a: launches {launches}, SE batch sizes {sorted(set(se_b))} (first {se_b[:1]}), "
+                             f"Cholesky batch sizes {sorted(set(chol_b[first:]))} after the first call's {first}")
+    # logZ against a 2-D grid quadrature of the same logML x prior on the card
+    z_fine, z_coarse = _grid_log_evidence(problem, res, 40, chunk=400), _grid_log_evidence(problem, res, 30, chunk=400)
+    grid_err = abs(z_fine - z_coarse)
+    if not (math.isfinite(logz) and abs(logz - z_fine) <= 3 * err + grid_err):
+        raise AssertionError(f"14a: logZ {logz} +- {err} vs grid quadrature {z_fine} (grid err {grid_err:.2e})")
+    # logML and Newton steps at the final live points against the plain path (CPU tensors)
+    live = res.points[torch.argsort(res.log_likelihoods)[-pool:]]
+    cpu_problem = _classifier(x.cpu(), y.cpu())
+    got = problem.guarded_log_likelihood(live).cpu()
+    want = cpu_problem.guarded_log_likelihood(live.cpu())
+    rel = _rel(got, want)
+    model, cpu_model = problem.metadata["gp_classifier"], cpu_problem.metadata["gp_classifier"]
+    it_gpu = gl._newton_loop(model._k_batch(live), model.y, model.likelihood._derivs(), 50, 1e-8).iterations.cpu()
+    it_cpu = gl._newton_loop(cpu_model._k_batch(live.cpu()), cpu_model.y, cpu_model.likelihood._derivs(), 50,
+                             1e-8).iterations
+    if not (rel <= 1e-8 and torch.equal(it_gpu, it_cpu)):
+        raise AssertionError(f"14a: logML kernel vs plain rel diff {rel:.3e}; Newton steps equal "
+                             f"{torch.equal(it_gpu, it_cpu)}")
+    # the Laplace fit on the card against the same on CPU tensors
+    st = random_domain_points(torch.Generator().manual_seed(0), cpu_problem.lower, cpu_problem.upper, starts,
+                              scale=5.0)
+    t1 = time.perf_counter()
+    fit = laplace_posterior_fit(problem=problem, initial_guess=st.to(dev))
+    fit_wall = time.perf_counter() - t1
+    ref = laplace_posterior_fit(problem=cpu_problem, initial_guess=st)
+    mode, prec = fit.mean.cpu(), fit.precision_matrix.cpu()
+    errs = {"mode": ((mode - ref.mean).abs() / ref.mean.abs()).max().item(),
+            "logZ": abs(float(fit.log_evidence) - float(ref.log_evidence)) / abs(float(ref.log_evidence)),
+            "Hessian": ((prec - ref.precision_matrix).abs().max() / ref.precision_matrix.abs().max()).item()}
+    tol = {"mode": 1e-6, "logZ": 1e-6, "Hessian": 1e-5}
+    if not all(errs[key] <= tol[key] for key in tol):
+        raise AssertionError(f"14a: Laplace fit on the card vs on CPU tensors, relative errors {errs} (bounds {tol})")
+    xq = torch.linspace(-3, 3, 41, dtype=torch.float64, device=dev)[:, None]
+    pred = predict_from_gp_classifier(res, problem, xq)
+    p = pred.mean.cpu().numpy()
+    p_true = 1 / (1 + np.exp(-3.0 * np.sin(1.5 * xq[:, 0].cpu().numpy())))
+    corr = float(np.corrcoef(p, p_true)[0, 1])
+    if not (p.shape == (41,) and np.all((p >= 0) & (p <= 1)) and corr > 0.85):
+        raise AssertionError(f"14a: predictions {p.tolist()} (correlation with the generating p {corr:.3f})")
+    # per density call at the chains' batch: CUDA kernels, Newton steps, wall and device time
+    th = live[-k:]
+    one = lambda: problem.guarded_log_likelihood(th)  # noqa: E731
+    c0 = watch.counts()["cholesky"]
+    one()
+    steps_here = watch.counts()["cholesky"] - c0 - 1
+    kernels = _launches_per_call(one, calls=3)
+    dev_ms, _ = _profile_call(one)
+    wall_ms = _wall_ms(one)
+    chol = _chol_turns(n, torch.float64, dev, b=k)
+    log(f"[14a GP classifier] logit, Laplace, n={n} f64 (benchmarks/latent_gp.py::_class_data), NS pool {pool}, "
+        f"{k} deletions, {steps} AM steps (cut from phase 4's 100 to fit the time limit): logZ {logz:.4f} +- "
+        f"{err:.4f}, grid quadrature {z_fine:.4f} (40^2 vs 30^2 differ by {grid_err:.1e}); {res.iterations} "
+        f"iterations, {res.num_likelihood_evals} evals in {wall:.2f} s = {res.num_likelihood_evals / wall:.4g} "
+        f"evals/s; {calls} density calls, {newton} batched Newton steps = {newton / calls:.2f} per call; launches "
+        f"{launches}, every one at B = {k} after the starting pool's call at B = {pool}; logML kernel vs plain max "
+        f"rel diff {rel:.3e} at the {pool} live points, Newton steps equal ({int(it_gpu.min())}-{int(it_gpu.max())}); "
+        f"Laplace fit ({starts} starts) {fit_wall:.2f} s, mode {[round(v, 6) for v in mode.tolist()]}, logZ "
+        f"{float(fit.log_evidence):.6f}, vs CPU tensors rel err {', '.join(f'{a} {b:.2e}' for a, b in errs.items())}; "
+        f"predictions at 41 points, correlation with the generating p {corr:.3f}; one density call at B = {k}: "
+        f"{steps_here} Newton steps, {kernels:.1f} CUDA kernels, wall {wall_ms:.2f} ms, device {dev_ms:.3f} ms, "
+        f"busy share {dev_ms / wall_ms:.3f}; the Cholesky of B, device ms in turns: {chol} | {smi}")
+    return launches, problem, cpu_problem, fit.mean
+
+
+def _phase14_bridges(smi, watch, dev, sizes, seeds=BRIDGE_SEEDS):
+    """14b: logML + gradient of the logit classifier, Laplace and EP, at
+    bench_bridges' widths (f32, theta = [1.5, 1.0], jitter 1e-5).  Each
+    (n, method) case is gated on its own, over the data of ``seeds``
+    generator seeds (seed 0 is the bench's): a single float32 gradient's
+    error at these widths moves by a factor of two or more with the last
+    bit of K, so one draw cannot tell two paths of like accuracy apart."""
+    from bayesianinference_tpu_torch.ops import gp_ep as ge
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+    from bayesianinference_tpu_torch.ops import gp_laplace as gl
+
+    lik = gl.bernoulli_logit_likelihood()
+    lines, failed, launches = [], [], {"se_covariance": 0, "cholesky": 0}
+    for n in sizes:
+        for method, fn_ in (("laplace", gl.gp_laplace_log_marginal), ("ep", ge.gp_ep_log_marginal)):
+            def logml(th, x, y, fn_=fn_):
+                return fn_(gk.covariance_matrix(gk.se_kernel(th[0] ** 2, th[1]), x, 1e-5), y, lik)
+
+            errs_k, errs_p = [], []
+            watch.zero()
+            for seed in range(seeds):
+                x_np, y_np = _class_data(n, seed)
+                args = _args(([1.5, 1.0], x_np, y_np), dev, grad=1)
+                got, plain, ref, ek, ep = _accuracy(logml, args[torch.float32], args[torch.float64])
+                errs_k.append(ek)
+                errs_p.append(ep)
+                if seed == 0:
+                    bench = (got, ref, args)
+            got, ref, args = bench
+            with torch.no_grad():  # the kernel path's loop length on the bench's data, from the loop itself
+                th, x, y = args[torch.float32]
+                k = gk.covariance_matrix(gk.se_kernel(th[0] ** 2, th[1]), x, 1e-5)[None]
+                loops = int((gl._newton_loop(0.5 * (k + k.mT), y, lik._derivs(), 50, 1e-4).iterations
+                             if method == "laplace" else ge.gp_ep_state(k, y, lik).iterations)[0])
+            for key, v in watch.counts().items():
+                launches[key] += v
+            ms = _wall_ms(lambda: _vg(logml, *args[torch.float32]), reps=3)
+            ek, ep = _case_error(errs_k), _case_error(errs_p)
+            ok = _within_rule(ek, ep)
+            if not ok:
+                failed.append(f"n={n} {method}")
+            lines.append(f"n={n} {method}: {ms:.1f} ms, {loops} {'Newton steps' if method == 'laplace' else 'sweeps'}"
+                         f" (kernel path), logML {got[0]:.6f} (f64 {ref[0]:.6f}), normalized error over {seeds} "
+                         f"seeds kernel {ek:.2e} plain f32 {ep:.2e} ({'within' if ok else 'ABOVE'} 2x + 1e-6; "
+                         f"the bench's data alone {errs_k[0].norm():.2e} and {errs_p[0].norm():.2e})")
+        lines[-1] += f", B's Cholesky route {gk._cholesky_route(n)[0]}"
+    check = watch.check("14b")
+    chol = "; ".join(_chol_turns(n, torch.float32, dev) for n in sizes)
+    log(f"[14b latent-GP logML+grad] logit, f32, theta [1.5, 1.0], B = 1, data of seeds 0-{seeds - 1} of "
+        f"_class_data: " + "; ".join(lines) + f"; {check}; the Cholesky of B, device ms in turns: {chol} | {smi}")
+    if failed:
+        raise AssertionError(f"14b: the kernel path's normalized error is above twice the plain f32 path's plus "
+                             f"1e-6 at {', '.join(failed)}")
+    return launches
+
+
+def _phase14_sgpr(smi, watch, dev, n=SGPR_N, m=SGPR_M, opt_n=16384, opt_m=128, opt_steps=50):
+    """14c: the SGPR bound + gradient at bench_sgpr's width, the SE call that
+    makes K_uf, and optimize_sparse_gp against the same on CPU tensors."""
+    from bayesianinference_tpu_torch.engines.sparse_gp import define_sparse_gaussian_process, optimize_sparse_gp
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+    from bayesianinference_tpu_torch.ops.sgpr import sgpr_bound
+
+    rng = np.random.default_rng(0)
+    x_np = rng.normal(size=(n, SGPR_D)).astype(np.float32)
+    y_np = (np.sin(x_np[:, 0]) + 0.1 * rng.normal(size=n)).astype(np.float32)
+    z_np = x_np[:: n // m][:m]
+
+    def bound(th, x, y, z):
+        return sgpr_bound(gk.se_kernel(torch.exp(th[0]), torch.exp(th[1])), x, y, z, torch.exp(th[2]))
+
+    args = _args(([0.0, 0.0, -2.0], x_np, y_np, z_np), dev, grad=1)
+    watch.zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _vg(bound, *args[torch.float32])
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    got, plain, ref, ek, ep = _accuracy(bound, args[torch.float32], args[torch.float64])
+    gate = _accuracy_gate("14c SGPR", [ek], [ep])
+    launches = watch.counts()
+    # 50 Adam steps at n = 16384, m = 128 (f64) on the card against the same on CPU tensors
+    rng = np.random.default_rng(1)
+    xo = rng.normal(size=(opt_n, SGPR_D))
+    yo = np.sin(xo[:, 0]) + 0.1 * rng.normal(size=opt_n)
+    traces = []
+    for d in (dev, torch.device("cpu")):
+        problem = define_sparse_gaussian_process(
+            torch.as_tensor(xo, device=d), torch.as_tensor(yo, device=d),
+            lambda th: gk.se_kernel(variance=th[0], lengthscale=th[1]),
+            [("v", 0.05, 20.0), ("l", 0.05, 20.0), ("s2", 1e-3, 2.0)], nugget_builder=lambda th: th[2],
+            inducing=opt_m, prior_distribution=["scale"] * 3, validate=False)
+        t0 = time.perf_counter()
+        opt = optimize_sparse_gp(problem, steps=opt_steps, learning_rate=0.03)
+        traces.append((opt.bound_trace.cpu(), opt.theta.cpu(), time.perf_counter() - t0))
+    launches = watch.counts()
+    trace_rel = _rel(traces[0][0], traces[1][0])
+    if not (trace_rel <= 1e-6 and float(traces[0][0][-1]) > float(traces[0][0][0])):
+        raise AssertionError(f"14c: optimize_sparse_gp trace on the card vs CPU tensors rel diff {trace_rel:.3e}, "
+                             f"first {float(traces[0][0][0])} last {float(traces[0][0][-1])}")
+    ms = _wall_ms(lambda: _vg(bound, *args[torch.float32]), reps=3)
+    x32, z32 = args[torch.float32][1], args[torch.float32][3]
+    one = torch.ones(1, dtype=torch.float32, device=dev)
+    se_ms, _ = _time_ms(lambda: gk.se_covariance_cuda(z32[None], x32[None], one), reps=5, groups=3, per_group=5)
+    se_plain_ms, _ = _time_ms(lambda: gk.se_covariance_plain(z32[None], x32[None], one), reps=3, groups=3,
+                              per_group=3)
+    se_bound, se_by = _se_bound(z32[None], x32[None], one, None, None)
+    log(f"[14c SGPR] n={n} m={m} d={SGPR_D} f32, z = x[::n//m][:m], theta [0, 0, -2] (numpy's generator, not "
+        f"JAX's): bound {got[0]:.6f} (f64 {ref[0]:.6f}), value+grad {gate}; {ms:.1f} ms per value-and-grad; "
+        f"peak device memory of the call {peak:.0f} MiB above "
+        f"what was held; the SE call making K_uf [{m}, {n}]: {se_ms:.4f} ms (plain {se_plain_ms:.4f}, bound "
+        f"{se_bound:.4f} by {se_by}); optimize_sparse_gp n={opt_n} m={opt_m} f64, {opt_steps} Adam steps: bound "
+        f"{float(traces[0][0][0]):.4f} -> {float(traces[0][0][-1]):.4f}, trace vs CPU tensors rel diff "
+        f"{trace_rel:.2e}, {traces[0][2]:.2f} s on the card ({traces[1][2]:.2f} s on the host); launches {launches}; "
+        f"{watch.check('14c')} | {smi}")
+    return launches
+
+
+def _tp_problem(x, y):
+    from bayesianinference_tpu_torch.engines.t_process import define_t_process
+    from bayesianinference_tpu_torch.ops.gp_kernels import se_kernel
+
+    return define_t_process(x, y, lambda th: se_kernel(th[0] ** 2, th[1]),
+                            [("amp", 0.05, 5.0), ("length", 0.05, 5.0), ("noise", 0.01, 1.0)], nu=4.0,
+                            nugget_builder=lambda th: th[2] ** 2, prior_distribution=["scale"] * 3, validate=False)
+
+
+def _phase14_tp(smi, watch, dev, starts):
+    """14d: the Student-t process on phase 4's data: logML and gradient
+    against the plain path, the Laplace fit against CPU tensors."""
+    from bayesianinference_tpu_torch.engines.laplace import laplace_posterior_fit
+    from bayesianinference_tpu_torch.interop import problem_data_from_numpy
+    from bayesianinference_tpu_torch.models.problem import random_domain_points
+
+    rng = np.random.default_rng(0)
+    x_np = rng.normal(size=(SLICE_N, SLICE_D))
+    y_np = np.sin(x_np[:, 0]) + 0.1 * rng.normal(size=SLICE_N)
+    x, y = problem_data_from_numpy(x_np, y_np, device=dev, dtype=torch.float64)
+    problem, cpu_problem = _tp_problem(x, y), _tp_problem(x.cpu(), y.cpu())
+    watch.zero()
+    thetas = random_domain_points(torch.Generator().manual_seed(2), cpu_problem.lower, cpu_problem.upper, 16,
+                                  scale=5.0)
+    got_v, got_g = _problem_value_and_grad(problem, thetas.to(dev))
+    want_v, want_g = _problem_value_and_grad(cpu_problem, thetas)
+    rel_v = _rel(got_v.cpu(), want_v)
+    rel_g = ((got_g.cpu() - want_g).abs().max() / want_g.abs().max()).item()
+    if not (rel_v <= 1e-8 and rel_g <= 1e-8):
+        raise AssertionError(f"14d: TP logML kernel vs plain rel diff {rel_v:.3e}, gradient {rel_g:.3e}")
+    st = random_domain_points(torch.Generator().manual_seed(0), cpu_problem.lower, cpu_problem.upper, starts,
+                              scale=5.0)
+    t0 = time.perf_counter()
+    fit = laplace_posterior_fit(problem=problem, initial_guess=st.to(dev))
+    wall = time.perf_counter() - t0
+    ref = laplace_posterior_fit(problem=cpu_problem, initial_guess=st)
+    launches = watch.counts()
+    mode = fit.mean.cpu()
+    errs = {"mode": ((mode - ref.mean).abs() / ref.mean.abs()).max().item(),
+            "logZ": abs(float(fit.log_evidence) - float(ref.log_evidence)) / abs(float(ref.log_evidence))}
+    if not all(v <= 1e-6 for v in errs.values()):
+        raise AssertionError(f"14d: TP Laplace fit on the card vs on CPU tensors, relative errors {errs}")
+    log(f"[14d Student-t process] phase 4's data (n={SLICE_N} d={SLICE_D} f64), nu = 4: logML and gradient at 16 "
+        f"points (B = 16) vs CPU tensors rel diff {rel_v:.2e} and {rel_g:.2e}; Laplace fit ({starts} starts) "
+        f"{wall:.2f} s, mode {[round(v, 6) for v in mode.tolist()]}, logZ {float(fit.log_evidence):.6f}, vs CPU "
+        f"tensors rel err {', '.join(f'{a} {b:.2e}' for a, b in errs.items())}; launches {launches}; "
+        f"{watch.check('14d')} | {smi}")
+    return launches
+
+
+def _phase14_mogp(smi, watch, dev, n=MOGP_N, t_out=MOGP_T):
+    """14e: the multi-output GP at bench_mogp's width: the dense logML and
+    its gradient through both kernels against the plain path, and against
+    the Kronecker path."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+    from bayesianinference_tpu_torch.ops import mogp as mo
+
+    rng = np.random.default_rng(2)
+    x_np = np.sort(rng.uniform(-2, 2, size=(n, 1)), axis=0).astype(np.float32)
+    y_np = rng.normal(size=(t_out, n)).reshape(-1).astype(np.float32)
+    a_np = rng.normal(size=(t_out, 2)).astype(np.float32)
+
+    def logml(var, ls, a, noise, x, y, jitter=1e-6):
+        b = mo.coregional_matrix(a, torch.full((t_out,), 0.1, dtype=a.dtype, device=a.device))
+        return mo.mogp_log_marginal_likelihood(gk.se_kernel(var, ls), b, x, y, noise.expand(t_out), jitter=jitter)
+
+    args = _args((1.5, 0.9, a_np, [0.05], x_np, y_np), dev, grad=4)
+    watch.zero()
+    got, plain, ref, ek, ep = _accuracy(logml, args[torch.float32], args[torch.float64])
+    gate = _accuracy_gate("14e MOGP", [ek], [ep])
+    # the dense path (kernels, f64) against the Kronecker identity, both without jitter (the two paths place
+    # a jitter differently)
+    v64, l64, a64, s64, x64, y64 = args[torch.float64]
+    b64 = mo.coregional_matrix(a64, torch.full((t_out,), 0.1, dtype=torch.float64, device=dev))
+    with torch.no_grad():
+        dense = float(logml(v64, l64, a64, s64, x64, y64, jitter=0.0))
+        kron = float(mo.mogp_log_marginal_kronecker(gk.se_kernel(v64, l64), b64, x64, y64.reshape(t_out, n).mT,
+                                                    s64[0], jitter=0.0))
+    launches = watch.counts()
+    ms = _wall_ms(lambda: _vg(logml, *args[torch.float32]), reps=3)
+    chol = _chol_turns(n * t_out, torch.float32, dev)
+    if not abs(dense - kron) <= 1e-8 * abs(kron):
+        raise AssertionError(f"14e: dense logML {dense} vs Kronecker {kron}")
+    log(f"[14e MOGP] n={n} T={t_out} (nT={n * t_out}) f32 (benchmarks/latent_gp.py::bench_mogp's data), gradient in "
+        f"(variance, lengthscale, a, noise): logML {got[0]:.4f} (f64 {ref[0]:.4f}), {gate}; {ms:.1f} ms per "
+        f"value-and-grad; dense (kernels, f64, no jitter) {dense:.6f} vs "
+        f"Kronecker {kron:.6f}; the Cholesky of the covariance, device ms in turns: {chol}; launches {launches}; "
+        f"{watch.check('14e')} | {smi}")
+    return launches
+
+
+def _phase14_ess(smi, watch, dev, problem, cpu_problem, theta, chains, burn_in, samples, thin):
+    """14f: latents by elliptical slice sampling at 14a's problem and
+    Laplace mode: the card against CPU tensors on the same draws, and the
+    latent means against the Laplace latent moments."""
+    from bayesianinference_tpu_torch.engines.gp_classify import GPLatentDraws, gp_latent_draws, sample_gp_latents
+    from bayesianinference_tpu_torch.ops.ess import ESSDraws
+
+    model = problem.metadata["gp_classifier"]
+    n = model.x.shape[0]
+    updates = burn_in + samples * thin
+    draws = gp_latent_draws(torch.Generator().manual_seed(0), chains, n, updates, dtype=torch.float64)
+    on_card = GPLatentDraws(draws.init.to(dev), ESSDraws(*(t.to(dev) for t in draws.updates)))
+    watch.zero()
+    t0 = time.perf_counter()
+    out = sample_gp_latents(None, problem, theta.to(dev), samples, num_chains=chains, burn_in=burn_in, thin=thin,
+                            draws=on_card)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = watch.counts()
+    ref = sample_gp_latents(None, cpu_problem, theta.cpu(), samples, num_chains=chains, burn_in=burn_in, thin=thin,
+                            draws=draws)
+    with _plain_ops():  # the same run on the card through cuSOLVER's factor: no hand-written kernel
+        witness = sample_gp_latents(None, problem, theta.to(dev), samples, num_chains=chains, burn_in=burn_in,
+                                    thin=thin, draws=on_card)
+
+    def rel(a):
+        return ((a.draws.cpu() - ref.draws).abs().max() / ref.draws.abs().max()).item()
+
+    # the draws are linear in the prior's factor (nu = L z), and two correct factors of this K (jitter 1e-6,
+    # condition number near 1e7) differ by about its condition number times eps: the draws are held to
+    # 1e-10 or ten times the difference that cuSOLVER's factor makes on the card, whichever is larger, and
+    # every shrink loop must have taken the same steps
+    diff, spread = rel(out), rel(witness)
+    if not (diff <= max(1e-10, 10.0 * spread) and torch.equal(out.evals.cpu(), ref.evals)):
+        raise AssertionError(f"14f: ESS draws on the card vs CPU tensors rel diff {diff:.3e} (through cuSOLVER's "
+                             f"factor {spread:.3e}); shrink steps equal {torch.equal(out.evals.cpu(), ref.evals)}")
+    # ESS's latent means against the Laplace latent moments, per point over the
+    # Monte Carlo standard error of the mean (from the chains' own means)
+    mu, var = model.latent_moments(theta.to(dev), model.x)
+    chain_means = out.draws.mean(dim=1)  # [C, n]
+    z = ((chain_means.mean(dim=0) - mu) / (chain_means.std(dim=0) / math.sqrt(chains))).cpu()
+    sd = torch.sqrt(var)
+    near = (sd < sd.median()).cpu()  # the data-rich half, where the latent posterior is closest to Gaussian
+    frac = float((z[near].abs() <= 3.0).double().mean())
+    if not (bool(out.moved.min() == updates) and frac >= 0.95):
+        raise AssertionError(f"14f: moves {out.moved.tolist()} of {updates}; {frac:.3f} of the near-Gaussian points "
+                             f"within 3 MC standard errors of the Laplace mean")
+    log(f"[14f ESS latents] 14a's problem at its Laplace mode, {chains} chains, {burn_in} burn-in + {samples} x "
+        f"{thin} updates: {wall:.2f} s on the card; draws vs CPU tensors (the same draws) rel diff {diff:.2e} "
+        f"(through cuSOLVER's factor on the card {spread:.2e}), the same shrink steps; "
+        f"{float(out.evals.double().mean()) / updates:.2f} likelihood evaluations (shrink steps) per update; "
+        f"latent means vs the Laplace latent moments: {frac:.3f} of the "
+        f"{int(near.sum())} near-Gaussian points within 3 MC standard errors (median |z| "
+        f"{float(z[near].abs().median()):.2f}, all points {float((z.abs() <= 3).double().mean()):.3f}); launches "
+        f"{launches}; {watch.check('14f')} | {smi}")
+    return launches
+
+
+def phase_latent_gp(smi: str, dev="cuda", pool=100, k=10, steps=20, starts=4, bridge_sizes=BRIDGE_NS,
+                    sgpr_n=SGPR_N, sgpr_m=SGPR_M, mogp_n=MOGP_N, ess=(16, 200, 200, 2)):
+    """Phase 14: the slice's engines on the card (module docstring).  The
+    keyword arguments shrink it for a rehearsal; the defaults are the run."""
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    total = {"se_covariance": 0, "cholesky": 0}
+    with _KernelWatch() as watch:
+        def add(launches):
+            for key in total:
+                total[key] += launches[key]
+
+        launches, problem, cpu_problem, mode = _phase14_classifier(smi, watch, dev, pool, k, steps, starts)
+        add(launches)
+        log(f"[14a check] {watch.check('14a')}")
+        seconds = [f"14a {time.perf_counter() - t0:.1f}"]
+        for name, run in (("14b", lambda: _phase14_bridges(smi, watch, dev, bridge_sizes)),
+                          ("14c", lambda: _phase14_sgpr(smi, watch, dev, n=sgpr_n, m=sgpr_m)),
+                          ("14d", lambda: _phase14_tp(smi, watch, dev, starts)),
+                          ("14e", lambda: _phase14_mogp(smi, watch, dev, n=mogp_n)),
+                          ("14f", lambda: _phase14_ess(smi, watch, dev, problem, cpu_problem, mode, *ess))):
+            t = time.perf_counter()
+            add(run())
+            seconds.append(f"{name} {time.perf_counter() - t:.1f}")
+        log(f"[14 latent GP] {time.perf_counter() - t0:.1f} s ({', '.join(seconds)}); launches {total}; "
+            f"{watch.check('14')}")
+    return total
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -1812,8 +2481,9 @@ def main():
     conj_launches = timed(phase_conjugate, smi)
     log(f"[seconds] phases 11 and 12 took {time.perf_counter() - t11:.0f} s")
     sampler_launches = timed(phase_samplers, smi, problem, gp_posterior)
+    latent_launches = timed(phase_latent_gp, smi)
     launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] + par_launches[k]
-                + conj_launches[k] + sampler_launches[k] for k in launches}
+                + conj_launches[k] + sampler_launches[k] + latent_launches[k] for k in launches}
     # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
     # at bench.py's width (B = 1, n = 16384, f32)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")

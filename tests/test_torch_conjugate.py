@@ -251,3 +251,14 @@ def test_entry_points_take_numpy_on_the_cpu_when_asked():
     assert fit.log_evidence.device.type == "cpu" and fit.log_evidence.dtype == torch.float64
     assert tc.normal_conjugate_model(y, device="cpu").log_evidence.device.type == "cpu"
     assert tc.multinormal_conjugate_model(np.stack([x[:, 0], y], -1), device="cpu").log_evidence.device.type == "cpu"
+
+
+def test_blr_list_targets_keep_float64():
+    """``bayesian_linear_regression`` with y as a Python list equals the
+    same y as a float64 array: the list goes to x's dtype directly, not
+    through a float32 tensor."""
+    x = np.linspace(-1.0, 1.0, 12)
+    y = [0.1 * i + 0.01 * i * i for i in range(12)]
+    a = tc.bayesian_linear_regression(T(x), y, degree=2)
+    b = tc.bayesian_linear_regression(T(x), T(np.asarray(y)), degree=2)
+    assert float(a.log_evidence) == float(b.log_evidence)

@@ -14,7 +14,14 @@ gradient and Hessian through the kernels: 1e-8 of the largest entry
 against the same on CPU tensors (float64).  The samplers' new shapes: the
 fused Cholesky at the GP SMC's B = 1000 (1e-10 * max|L|), and one HMC
 trajectory of 16 chains on a GP's z-space density through both kernels and
-both reverse rules against the same on CPU tensors (1e-8).
+both reverse rules against the same on CPU tensors (1e-8).  The latent-GP,
+sparse, Student-t and multi-output engines (float64, against CPU tensors):
+the classifier's Laplace and EP logML and gradient at B = 3 (Newton steps
+and sweeps equal lane by lane) and its Hessian, 1e-8; ESS draws on the same
+draws, 1e-10 of the largest or ten times the two prior factors' relative
+difference, whichever is larger (the factor of a kernel matrix with a 1e-6
+jitter carries its condition number); the SGPR bound and gradient, the TP
+and MOGP logML and gradients, 1e-8.
 """
 
 import pytest
@@ -372,3 +379,104 @@ def test_hmc_trajectory_on_the_card_makes_no_synchronizing_call(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(state.proposed.sum()) == 64 and float(prob.mean()) > 0.5
+
+
+def _class_problem(device, method="laplace", n=64):
+    import numpy as np
+
+    from bayesianinference_tpu_torch.engines.gp_classify import define_gp_classifier
+
+    rng = np.random.default_rng(5)
+    x = np.sort(rng.uniform(-3, 3, size=(n, 1)), axis=0)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-3.0 * np.sin(1.5 * x[:, 0])))).astype(float)
+    return define_gp_classifier(torch.tensor(x, device=device), torch.tensor(y, device=device),
+                                lambda th: gk.se_kernel(th[0] ** 2, th[1]), [("amp", 0.05, 10.0), ("ls", 0.1, 5.0)],
+                                method=method, prior_distribution=["scale", "scale"], validate=False)
+
+
+def _value_and_grad(problem, theta):
+    th = theta.detach().clone().requires_grad_(True)
+    value = problem.guarded_log_likelihood(th)
+    (grad,) = torch.autograd.grad(value.sum(), th)
+    return value.detach().cpu(), grad.cpu()
+
+
+@pytest.mark.parametrize("method", ["laplace", "ep"])
+def test_classifier_logml_gradient_and_steps_on_the_card_match_the_cpu(cuda, method):
+    from bayesianinference_tpu_torch.ops import gp_ep, gp_laplace
+
+    gpu, cpu = _class_problem(cuda, method), _class_problem("cpu", method)
+    theta = torch.tensor([[1.5, 1.0], [0.5, 0.4], [3.0, 2.0]], dtype=torch.float64)
+    before = gk.cholesky_cuda.launches
+    for got, want in zip(_value_and_grad(gpu, theta.to(cuda)), _value_and_grad(cpu, theta)):
+        assert torch.allclose(got, want, rtol=0, atol=1e-8 * want.abs().max())
+    assert gk.cholesky_cuda.launches > before
+    models = [p.metadata["gp_classifier"] for p in (gpu, cpu)]
+    ks = [m._k_batch(theta.to(m.x.device)) for m in models]
+    if method == "laplace":
+        steps = [gp_laplace._newton_loop(k, m.y, m.likelihood._derivs(), 50, 1e-8).iterations.cpu()
+                 for k, m in zip(ks, models)]
+    else:
+        steps = [gp_ep.gp_ep_state(k, m.y, m.likelihood).iterations.cpu() for k, m in zip(ks, models)]
+    assert torch.equal(*steps)
+    th = torch.tensor([1.7, 0.9], dtype=torch.float64)
+    h_gpu = torch.autograd.functional.hessian(gpu.log_likelihood, th.to(cuda)).cpu()
+    h_cpu = torch.autograd.functional.hessian(cpu.log_likelihood, th)
+    assert torch.allclose(h_gpu, h_cpu, rtol=0, atol=1e-8 * h_cpu.abs().max())
+
+
+def test_ess_latents_on_the_card_match_the_cpu_on_the_same_draws(cuda, monkeypatch):
+    from bayesianinference_tpu_torch.engines import gp_classify
+    from bayesianinference_tpu_torch.engines.gp_classify import GPLatentDraws, gp_latent_draws, sample_gp_latents
+    from bayesianinference_tpu_torch.ops.ess import ESSDraws
+
+    gpu, cpu = _class_problem(cuda), _class_problem("cpu")
+    draws = gp_latent_draws(torch.Generator().manual_seed(0), 8, 64, 40, dtype=torch.float64)
+    on_card = GPLatentDraws(draws.init.to(cuda), ESSDraws(*(t.to(cuda) for t in draws.updates)))
+    theta = torch.tensor([1.7, 0.9], dtype=torch.float64)
+    before = gk.cholesky_cuda.launches
+    got = sample_gp_latents(None, gpu, theta.to(cuda), 20, num_chains=8, burn_in=20, thin=1, draws=on_card)
+    assert gk.cholesky_cuda.launches > before
+    want = sample_gp_latents(None, cpu, theta, 20, num_chains=8, burn_in=20, thin=1, draws=draws)
+    # the draws are linear in the prior's factor, and two correct factors of this K (jitter 1e-6) differ by
+    # about its condition number times eps: 1e-10 or ten times the difference that cuSOLVER's factor makes
+    # on the card, as chip_smoke.py 14f
+    monkeypatch.setattr(gp_classify, "cholesky", gk.cholesky_plain)
+    witness = sample_gp_latents(None, gpu, theta.to(cuda), 20, num_chains=8, burn_in=20, thin=1, draws=on_card)
+    spread = ((witness.draws.cpu() - want.draws).abs().max() / want.draws.abs().max()).item()
+    tol = max(1e-10, 10.0 * spread)
+    assert torch.allclose(got.draws.cpu(), want.draws, rtol=0, atol=tol * want.draws.abs().max())
+    assert torch.equal(got.evals.cpu(), want.evals)
+
+
+def test_sgpr_tp_and_mogp_on_the_card_match_the_cpu(cuda):
+    import numpy as np
+
+    from bayesianinference_tpu_torch.engines.mogp import define_multi_output_gp
+    from bayesianinference_tpu_torch.engines.sparse_gp import define_sparse_gaussian_process
+    from bayesianinference_tpu_torch.engines.t_process import define_t_process
+    from bayesianinference_tpu_torch.ops.mogp import coregional_matrix
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(200, 2))
+    y = np.sin(x[:, 0]) + 0.1 * rng.normal(size=200)
+    y2 = np.stack([y, 0.5 * y + 0.1 * rng.normal(size=200)], axis=-1)[:60]
+    kern = lambda th: gk.se_kernel(th[0] ** 2, th[1])  # noqa: E731
+    params = [("amp", 0.05, 5.0), ("ls", 0.05, 5.0), ("noise", 0.01, 1.0)]
+
+    def problems(d):
+        xt, yt = torch.tensor(x, device=d), torch.tensor(y, device=d)
+        common = dict(prior_distribution=["scale"] * 3, validate=False)
+        return (define_sparse_gaussian_process(xt, yt, kern, params, nugget_builder=lambda th: th[2] ** 2,
+                                               inducing=32, **common),
+                define_t_process(xt, yt, kern, params, nu=4.0, nugget_builder=lambda th: th[2] ** 2, **common),
+                define_multi_output_gp(xt[:60], y2, kern,
+                                       lambda th: coregional_matrix(torch.stack([th[2], 0.5 * th[2]]),
+                                                                    torch.full((2,), 0.1, dtype=th.dtype,
+                                                                               device=th.device)),
+                                       params, noise_builder=lambda th: th[2] ** 2, **common))
+
+    theta = torch.tensor([[1.3, 0.8, 0.3], [0.7, 1.5, 0.5]], dtype=torch.float64)
+    for gpu, cpu in zip(problems(cuda), problems("cpu")):
+        for got, want in zip(_value_and_grad(gpu, theta.to(cuda)), _value_and_grad(cpu, theta)):
+            assert torch.allclose(got, want, rtol=0, atol=1e-8 * want.abs().max())

@@ -12,7 +12,10 @@ Tolerances (float64):
 * the op rules against finite differences: ``gradcheck``/``gradgradcheck``
   defaults (atol 1e-5, rtol 1e-3, eps 1e-6);
 * the integer query grid of ``predict_from_gaussian_process``: rtol 1e-10
-  for the predictive moments.
+  for the predictive moments;
+* the SE op's float32 lengthscale gradient on data 30 lengthscales wide,
+  against float64 on the same float32-rounded inputs: 1e-6 of its norm
+  (the Gram form of the sum misses it by 1e-4).
 """
 
 import jax
@@ -282,3 +285,30 @@ def test_predict_grid_from_numpy_integer():
     assert tuple(got.mean().shape) == (25,) == tuple(np.shape(want.mean()))
     close(got.mean(), want.mean(), rtol=1e-10)
     close(got.variance(), want.variance(), rtol=1e-10)
+
+
+def test_list_targets_keep_float64():
+    """Targets given as a Python list reach the problem in x's dtype
+    directly: a list first made a float32 tensor (PyTorch's default dtype)
+    lost its digits below 1e-8 before the float64 cast."""
+    x = T(np.linspace(-1.0, 1.0, 5)[:, None])
+    y = [0.1, 0.2, 0.3, 0.4, 0.7]
+    p = define_gaussian_process(x, y, lambda th: tgk.se_kernel(1.0, th[0]), [("l", 0.1, 2.0)],
+                                nugget_builder=lambda th: 0.1, prior_distribution=["scale"])
+    assert p.metadata["gaussian_process"].y.tolist() == y
+
+
+@pytest.mark.parametrize("same", [True, False], ids=["symmetric", "cross"])
+def test_float32_lengthscale_gradient_on_wide_data(same):
+    rng = np.random.default_rng(0)
+    x1 = rng.uniform(-30, 30, size=(1, 200, 2)).astype(np.float32)
+    x2 = None if same else rng.uniform(-30, 30, size=(1, 150, 2)).astype(np.float32)
+    g = rng.normal(size=(1, 200, 200 if same else 150)).astype(np.float32)
+    grads = {}
+    for dt in (torch.float32, torch.float64):
+        ls = torch.tensor([[1.0, 2.0]], dtype=dt, requires_grad=True)
+        k = tgk.se_covariance(torch.as_tensor(x1, dtype=dt), None if same else torch.as_tensor(x2, dtype=dt),
+                              torch.tensor([1.5], dtype=dt), ls)
+        (grads[dt],) = torch.autograd.grad((k * torch.as_tensor(g, dtype=dt)).sum(), ls)
+    got, want = grads[torch.float32].double(), grads[torch.float64]
+    assert (got - want).norm() <= 1e-6 * want.norm()
