@@ -32,6 +32,7 @@ __all__ = [
     "log1mexp",
     "logsubexp",
     "logmeanexp",
+    "ndtr",
     "safe_log",
     "safe_sqrt",
     "xlogx",
@@ -42,6 +43,14 @@ exp_neg_precise = torch.exp
 gammaln_precise = torch.lgamma
 log1p_precise = torch.log1p
 log_precise = torch.log
+
+
+def ndtr(x: torch.Tensor) -> torch.Tensor:
+    """The standard normal CDF as erfc(-x / sqrt 2) / 2, accurate in the
+    lower tail, as ``jax.scipy.special.ndtr`` is.  ``torch.special.ndtr``
+    loses it there (8.9e-12 relative at x = -4.71, 1.3e-10 at -6, and 0 for
+    7.6e-24 at -10, in float64 on the CPU)."""
+    return 0.5 * torch.special.erfc(x * -0.7071067811865476)
 
 
 def log_zero(dtype: torch.dtype | None = None) -> float:

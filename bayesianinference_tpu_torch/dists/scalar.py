@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from ..core.numerics import LOG2PI, as_float, log_zero, xlogy
+from ..core.numerics import LOG2PI, as_float, log_zero, ndtr, xlogy
 from .base import Distribution, as_param, dist_dataclass, param_dtype, param_shape
 
 __all__ = [
@@ -50,7 +50,7 @@ class Normal(Distribution):
 
     def cdf(self, x):
         x = as_float(x)
-        return torch.special.ndtr((x - as_param(self.loc, x)) / as_param(self.scale, x))
+        return ndtr((x - as_param(self.loc, x)) / as_param(self.scale, x))
 
     def icdf(self, q):
         q = as_float(q)
@@ -195,7 +195,7 @@ class LogNormal(Distribution):
     def cdf(self, x):
         x = as_float(x)
         safe_x = torch.where(x > 0, x, torch.ones_like(x))
-        c = torch.special.ndtr((torch.log(safe_x) - as_param(self.loc, x)) / as_param(self.scale, x))
+        c = ndtr((torch.log(safe_x) - as_param(self.loc, x)) / as_param(self.scale, x))
         return torch.where(x > 0, c, torch.zeros_like(c))
 
     def icdf(self, q):

@@ -1,11 +1,25 @@
 """Inference engines: nested sampling (static and dynamic) with its
 checkpoints, evidence resampling, the Markov-chain API, GP regression
 (dense, sparse, Student-t, multi-output) and latent-GP classification,
-the Laplace approximation, the conjugate models, direct quadrature, HMC,
+the stochastic variational GP, Bayesian optimization, the Laplace
+approximation, the conjugate models, direct quadrature, HMC,
 tempered SMC and the affine-invariant ensemble.  ``nested_sampling`` stays in its module
 (``engines.nested_sampling``): a package attribute of that name would hide
 the module."""
 
+from .bayesopt import (
+    BayesOptConfig,
+    BayesOptResult,
+    BayesOptState,
+    BODraws,
+    DesignDraws,
+    bayes_optimize,
+    bo_draws,
+    bo_init,
+    bo_observe,
+    bo_suggest,
+    design_draws,
+)
 from .checkpoint import load_ns_run, load_result, resume_nested_sampling_loop, save_ns_run, save_result
 from .conjugate import (
     BLRParameters,
@@ -64,5 +78,18 @@ from .sparse_gp import (
     define_sparse_gaussian_process,
     optimize_sparse_gp,
     select_inducing_points,
+)
+from .svgp import (
+    SVGPDraws,
+    SVGPFit,
+    SVGPHeteroFit,
+    SVGPMulticlassFit,
+    fit_svgp,
+    fit_svgp_heteroscedastic,
+    fit_svgp_multiclass,
+    predict_from_svgp,
+    predict_from_svgp_heteroscedastic,
+    predict_from_svgp_multiclass,
+    svgp_draws,
 )
 from .t_process import TPModel, define_t_process, predict_from_t_process

@@ -16,16 +16,22 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.numerics import logsumexp
 from ..models.problem import InferenceProblem, define_inference_problem
 
 __all__ = ["DirectPosterior", "direct_posterior_distribution", "gauss_legendre_grid"]
 
 
-def gauss_legendre_grid(lower, upper, num_points: int, *, dtype=torch.float64, device="cpu"):
+def gauss_legendre_grid(lower, upper, num_points: int, *, dtype=torch.float64, device=None):
     """Tensor-product Gauss-Legendre nodes and log-weights over a box:
     (nodes [N, d], log_weights [N]) with N = num_points^d, built in numpy
-    float64 and then cast to ``dtype`` on ``device``."""
+    float64 and then cast to ``dtype`` on ``device``.  Without ``device``
+    the grid goes where a tensor ``lower`` lies, and otherwise to the card
+    (:func:`~..core.device.resolve_device`): ``device="cpu"`` asks for the
+    host."""
+    if device is None:
+        device = lower.device if isinstance(lower, torch.Tensor) else resolve_device()
     to_np = lambda v: np.atleast_1d(v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))  # noqa: E731
     lower, upper = to_np(lower).astype(float), to_np(upper).astype(float)
     x, w = np.polynomial.legendre.leggauss(num_points)

@@ -562,20 +562,26 @@ def laplace_posterior_fit(
     * ``problem``, an :class:`InferenceProblem` (its per-point likelihood,
       data-aware, and prior; its box);
     * ``log_likelihood`` + ``log_prior`` per-point callables with box
-      bounds.
+      bounds;
+    * ``model`` (a :class:`~..dists.combinators.ConditionalProduct`
+      generative model) + ``data`` (observed variables) + ``parameters``
+      (free-variable specs) [+ ``model_inputs``]: the problem of
+      :func:`~..models.generative.generative_model_problem`, with its
+      graph validation (LaplaceApproximation.wl:485-518).
 
     Without ``initial_guess`` the ``num_starts`` starts are drawn from the
     truncated Cauchy domain distribution by ``generator`` (default: seed 0
-    on the bounds' device).  Bounds and starts that are not tensors (lists,
-    numpy arrays) go to ``device``: the CUDA card when that is ``None``,
-    never the CPU unasked.  With ``hyper_density_builder`` (eta ->
-    (loglike, logprior)) the MacKay / search hyperparameter machinery is
-    engaged.  The ``model=`` generative front end is not ported yet."""
-    if model is not None or data is not None or parameters is not None or model_inputs is not None:
-        raise NotImplementedError(
-            "laplace_posterior_fit(model=...) needs models/generative.py, which is not ported yet "
-            "(ROADMAP queue 1, item 14: models/generative)"
-        )
+    on the bounds' device).  Bounds, starts and model data that are not
+    tensors (lists, numpy arrays) go to ``device``: the CUDA card when that
+    is ``None``, never the CPU unasked.  With ``hyper_density_builder``
+    (eta -> (loglike, logprior)) the MacKay / search hyperparameter
+    machinery is engaged."""
+    if model is not None:
+        if problem is not None:
+            raise ValueError("pass either model=... or problem=..., not both")
+        from ..models.generative import generative_model_problem
+
+        problem = generative_model_problem(model, data or {}, parameters or (), inputs=model_inputs, device=device)
     problem_data = None
     if problem is not None:
         if problem.data is not None:

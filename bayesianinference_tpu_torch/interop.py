@@ -8,7 +8,9 @@ dtype (and back).  The conjugate parameter sets (``BLRParameters``,
 ``NormalInverseGamma``, ``NormalInverseWishart``) are taken as such a dict
 or as the object itself, read by attribute.  A type-II maximum-likelihood fit
 of the latent-GP classifier or of the sparse GP, and the coregionalization
-parameters of the multi-output GP, carry over the same way.  Without
+parameters of the multi-output GP, carry over the same way, and so do the
+stochastic variational GP's parameter sets (``SVGPVariational`` and the
+three fits) and Bayesian optimization's ``BayesOptState``.  Without
 ``device=`` the tensors go to the CUDA card,
 and the call raises where there is none: ``device="cpu"`` asks for the
 host.  Nothing here imports JAX.
@@ -25,12 +27,15 @@ from .core.device import resolve_device
 from .dists.conjugate_structs import NormalInverseGamma, NormalInverseWishart
 from .engines.conjugate import BLRParameters
 from .engines.dynamic_ns import NSSegment
-from .engines.gp_classify import GPClassifierOptimization
+from .engines.bayesopt import BayesOptState
+from .engines.gp_classify import _NAMED_LIKELIHOODS, GPClassifierOptimization
 from .engines.sparse_gp import SGPROptimization, with_inducing
+from .engines.svgp import SVGPFit, SVGPHeteroFit, SVGPMulticlassFit
 from .engines.nested_sampling import NSState
 from .ops.chmc import CHMCState
 from .ops.metropolis import AMState
 from .ops.slice import SliceState
+from .ops.svgp import SVGPVariational
 
 __all__ = [
     "problem_data_from_numpy",
@@ -48,6 +53,12 @@ __all__ = [
     "gp_classifier_optimization_from_numpy",
     "sgpr_optimization_from_numpy",
     "coregional_parameters_from_numpy",
+    "svgp_variational_from_numpy",
+    "svgp_fit_from_numpy",
+    "svgp_multiclass_fit_from_numpy",
+    "svgp_hetero_fit_from_numpy",
+    "bayes_opt_state_from_numpy",
+    "bayes_opt_state_to_numpy",
 ]
 
 _EVAL_BASE = 1 << 30  # radix of the JAX package's (hi, lo) int32 eval counter
@@ -220,3 +231,68 @@ def coregional_parameters_from_numpy(a, d=None, *, device=None, dtype: Optional[
     out = _params_from({"a": a, **({} if d is None else {"d": d})}, ("a",) + (() if d is None else ("d",)),
                        device, dtype)
     return out["a"], out.get("d")
+
+
+def _field(fields, name):
+    return fields[name] if isinstance(fields, dict) else getattr(fields, name)
+
+
+def svgp_variational_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> SVGPVariational:
+    """An :class:`~.ops.svgp.SVGPVariational` from the JAX package's
+    (``m``, ``raw_scale``)."""
+    return SVGPVariational(**_params_from(fields, ("m", "raw_scale"), device, dtype))
+
+
+def _jitter(fields):
+    j = fields.get("jitter") if isinstance(fields, dict) else getattr(fields, "jitter", None)
+    return None if j is None else float(j)
+
+
+def svgp_fit_from_numpy(fields, kernel_builder, likelihood="bernoulli_logit", *, device=None,
+                        dtype: Optional[torch.dtype] = None) -> SVGPFit:
+    """An :class:`~.engines.svgp.SVGPFit` from the JAX package's fit: its
+    (``theta``, ``z``, ``variational``, ``elbo``, ``elbo_trace``), with the
+    port's ``kernel_builder`` and likelihood (a name or a port
+    ``LatentLikelihood``)."""
+    out = _params_from(fields, ("theta", "z", "elbo", "elbo_trace"), device, dtype)
+    var = svgp_variational_from_numpy(_field(fields, "variational"), device=device, dtype=dtype)
+    lik = _NAMED_LIKELIHOODS[likelihood]() if isinstance(likelihood, str) else likelihood
+    return SVGPFit(**out, variational=var, kernel_builder=kernel_builder, likelihood=lik, jitter=_jitter(fields))
+
+
+def svgp_multiclass_fit_from_numpy(fields, kernel_builder, *, device=None,
+                                   dtype: Optional[torch.dtype] = None) -> SVGPMulticlassFit:
+    """An :class:`~.engines.svgp.SVGPMulticlassFit` from the JAX package's
+    (``theta``, ``z``, ``m``, ``raw_scale``, ``elbo``, ``elbo_trace``,
+    ``num_classes``)."""
+    out = _params_from(fields, ("theta", "z", "m", "raw_scale", "elbo", "elbo_trace"), device, dtype)
+    return SVGPMulticlassFit(**out, num_classes=int(_field(fields, "num_classes")), kernel_builder=kernel_builder,
+                             jitter=_jitter(fields))
+
+
+def svgp_hetero_fit_from_numpy(fields, mean_kernel_builder, noise_kernel_builder, *, device=None,
+                               dtype: Optional[torch.dtype] = None) -> SVGPHeteroFit:
+    """An :class:`~.engines.svgp.SVGPHeteroFit` from the JAX package's
+    (``theta``, ``z``, ``var_f``, ``var_g``, ``noise_bias``, ``elbo``,
+    ``elbo_trace``)."""
+    out = _params_from(fields, ("theta", "z", "noise_bias", "elbo", "elbo_trace"), device, dtype)
+    var = {k: svgp_variational_from_numpy(_field(fields, k), device=device, dtype=dtype) for k in ("var_f", "var_g")}
+    return SVGPHeteroFit(**out, **var, mean_kernel_builder=mean_kernel_builder,
+                         noise_kernel_builder=noise_kernel_builder, jitter=_jitter(fields))
+
+
+_BO_FLOATS = ("x", "y", "log_var", "log_ell", "log_nugget", "lower", "upper")
+
+
+def bayes_opt_state_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> BayesOptState:
+    """A :class:`~.engines.bayesopt.BayesOptState` from the JAX package's
+    state (its capacity-padded ``x``, ``y``, ``mask``, the count ``n``, the
+    surrogate's hyperparameters and the box)."""
+    out = _params_from(fields, _BO_FLOATS, device, dtype)
+    mask = torch.as_tensor(np.array(_field(fields, "mask")), device=out["x"].device).to(torch.bool)
+    return BayesOptState(**out, mask=mask, n=int(_field(fields, "n")))
+
+
+def bayes_opt_state_to_numpy(state: BayesOptState) -> dict:
+    out = {k: getattr(state, k).detach().cpu().numpy() for k in _BO_FLOATS}
+    return {**out, "mask": state.mask.cpu().numpy(), "n": state.n}

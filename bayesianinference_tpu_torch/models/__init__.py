@@ -1,5 +1,7 @@
-"""Problem definition."""
+"""Problem definition, the generative-model front end and Laplace-marginalized latents."""
 
+from .generative import generative_model_problem
+from .marginalize import LaplaceMarginal, marginalize_latents
 from .problem import (
     InferenceProblem,
     ParamSpec,

@@ -56,7 +56,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.numerics import as_float
+from ..core.numerics import as_float, ndtr
 from .gp_kernels import _inv_from_chol, cholesky
 
 __all__ = [
@@ -171,7 +171,7 @@ def bernoulli_probit_likelihood() -> LatentLikelihood:
     """y in {0, 1}; p(y=1|f) = Phi(f) (GPML eq. 3.2, probit).  Closed-form
     derivatives of log Phi(z), z = +-f, through the inverse Mills ratio
     r = phi(z) / Phi(z): dz = r, dz^2 = -r (z + r), dz^3 = r ((z + r)(z + 2 r) - 1)."""
-    return LatentLikelihood(_probit_lp, torch.special.ndtr, "bernoulli_probit",
+    return LatentLikelihood(_probit_lp, ndtr, "bernoulli_probit",
                             pointwise=(_probit_lp, _probit_d1, _probit_d2, _probit_d3))
 
 

@@ -39,8 +39,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
 8. nested sampling above d = 16 on the analytic oracle (float64, no
    kernel): d = 32 through ``monte_carlo_method="auto"`` (the slice
    chains; pool 400, 200 deletions, 40 updates) and d = 72 through ``auto``
-   with no overrides of the chains (the constrained-HMC chains: 108
-   four-step trajectories at eps = 0.8 / sqrt(72); pool 512, 384
+   (the constrained-HMC chains: 72 four-step trajectories per replacement,
+   d where the law takes 1.5 d, at eps = 0.8 / sqrt(72); pool 512, 384
    deletions), each within 4 max(sigma, 0.2) of the analytic logZ;
 9. a GP with ARD lengthscales (n = 512, d = 20: 22 hyperparameters, so
    ``auto`` takes the slice chains) by slice and by constrained-HMC nested
@@ -105,7 +105,32 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     launch of both kernels at a new shape is held against the plain version
     on the same inputs.
 
-Each of phases 4, 6, 7, 9, 11b, 12, 13c, 13e and 14 (and 13b the Cholesky's)
+15. the stochastic variational GP and Bayesian optimization: (a) the
+    SVGP ELBO and its gradient in (theta, z, m, raw) at bench_svgp_step's
+    width (n = 262144, M = 256, batch 8192, f32; K_zz's jitter 1e-4 in
+    both dtypes) through the kernels and plain against plain f64, each
+    quantity's error over 8 data seeds at
+    most twice the plain f32 path's plus 1e-6, with the step's wall and
+    device time, CUDA kernels, busy share and peak memory; (b) fit_svgp on
+    _class_data at n = 262144 (256 farthest inducing points, minibatch
+    8192, 300 steps, f32), its full-data bound, its predictions against the
+    truth, and an f64 fit against CPU tensors on the same draws (within ten
+    times the change that an eps-sized change of K_zz makes to the CPU run,
+    or 1e-6, a gate that must reject the same run with K_zz factored in
+    float32); (c) the multiclass (C = 3) and heteroscedastic fits, f64,
+    against CPU tensors alike;
+    (d) Bayesian optimization: Branin's ask/tell run on the JAX test's
+    draws (tests/data), the Six-Hump Camel at the default configuration
+    (8 + 56 evaluations) in f32 and f64, the f64 history against CPU
+    tensors (1e-8), the final states' masked logML and moments against
+    plain (printed); (e) laplace_posterior_fit(model=...) against problem= on a
+    logistic model at n = 4096, eight schools collapsed by
+    marginalize_latents through direct quadrature, and a 256-group random
+    effects model at 64 thetas against its closed form (no hand-written
+    kernel runs in 15e).  Then the kernels at the slice's new shapes
+    against their plain versions, bounds and cholesky_ex.
+
+Each of phases 4, 6, 7, 9, 11b, 12, 13c, 13e, 14 and 15 (and 13b the Cholesky's)
 zeroes the kernels' launch counters before it drives its path and fails if
 a kernel of that path was not launched; the ``launches`` of the JSON line
 are their sum.  Phase 5 fails
@@ -852,7 +877,7 @@ def _gaussian_box_problem(dim: int, device="cuda"):
 def phase_ns_highdim(smi: str):
     """Nested sampling above d = 16 on the analytic oracle, float64, through
     ``monte_carlo_method="auto"``: (a) d = 32 takes the slice chains, (b)
-    d = 72 the constrained-HMC chains with the dimension laws' defaults."""
+    d = 72 the constrained-HMC chains, at d trajectories per replacement."""
     from bayesianinference_tpu_torch.engines.nested_sampling import nested_sampling, resolve_monte_carlo_method
 
     dev = torch.device("cuda")
@@ -861,8 +886,11 @@ def phase_ns_highdim(smi: str):
         # iterations to a fifth and a half: each run is host-bound, minutes long otherwise
         ("a", 32, "slice", 50, dict(sample_pool_size=400, max_iterations=400, min_iterations=40, monte_carlo_steps=40,
                                     num_delete=200)),
+        # 8b's chains at d trajectories per replacement (288 leapfrog steps), not the law's 1.5 d (432), for
+        # the script's time limit: 218 s at 432 steps, 69-70 s at 288 with logZ +0.83 and -0.33 sigma at
+        # seeds 0 and 1 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
         ("b", 72, "chmc", 256, dict(sample_pool_size=512, max_iterations=150, min_iterations=20, num_delete=384,
-                                    post_process_sampling_runs=20)),
+                                    post_process_sampling_runs=20, monte_carlo_steps=288)),
     )
     for tag, dim, expect, jax_delete, kw in cases:
         problem, analytic = _gaussian_box_problem(dim)
@@ -879,7 +907,8 @@ def phase_ns_highdim(smi: str):
         if not (math.isfinite(logz) and math.isfinite(err) and abs(logz - analytic) <= 4 * max(err, 0.2)):
             raise AssertionError(f"NS d={dim} ({method}): logZ {logz} +- {err}, analytic {analytic:.3f}")
         log(f"[8{tag} NS d={dim}] auto -> {method}, pool {kw['sample_pool_size']}, num_delete {kw['num_delete']} "
-            f"({jax_delete} in the JAX test's run; more here to fit the script's time): "
+            f"({jax_delete} in the JAX test's run; more here to fit the script's time)"
+            f"{', 72 four-step chmc trajectories per replacement (the law 108; cut to fit the time)' if tag == 'b' else ''}: "
             f"logZ {logz:.3f} +- {err:.3f} (analytic {analytic:.3f}), {res.iterations} iterations, "
             f"{res.num_likelihood_evals} evals in {wall:.2f} s = {res.num_likelihood_evals / wall:.4g} evals/s, "
             f"mean recorded acceptance {acc:.3f} | {smi}")
@@ -1914,9 +1943,9 @@ class _plain_ops:
     gate; the launch counters must not move inside."""
 
     def __enter__(self):
-        from bayesianinference_tpu_torch.engines import gp_classify
+        from bayesianinference_tpu_torch.engines import bayesopt, gp_classify
         from bayesianinference_tpu_torch.ops import gp_kernels as gk
-        from bayesianinference_tpu_torch.ops import gp_laplace, mogp, sgpr, t_process
+        from bayesianinference_tpu_torch.ops import gp_laplace, mogp, sgpr, svgp, t_process
 
         def chol(k):
             factor, info = torch.linalg.cholesky_ex(k)
@@ -1934,7 +1963,8 @@ class _plain_ops:
 
         self.saved = [(m, name, getattr(m, name)) for m, name in (
             (gk, "se_covariance"), (gk, "cholesky"), (gp_laplace, "cholesky"), (sgpr, "cholesky"),
-            (t_process, "cholesky"), (mogp, "cholesky"), (gp_classify, "cholesky"))]
+            (t_process, "cholesky"), (mogp, "cholesky"), (gp_classify, "cholesky"), (svgp, "cholesky"),
+            (bayesopt, "cholesky"), (bayesopt, "se_covariance"))]
         for m, name, _ in self.saved:
             setattr(m, name, se if name == "se_covariance" else chol)
         self.before = gk.se_covariance_cuda.launches + gk.cholesky_cuda.launches
@@ -1962,7 +1992,7 @@ def _chol_turns(n: int, dtype, dev, b: int = 1) -> str:
     ms, lib_ms, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), **kw)
     bound, by = _chol_bound(b, n, k.element_size())
     return (f"B={b} n={n} {str(dtype).split('.')[-1]} {gk._cholesky_route(n)[0]}: {ms:.3f} ms (cholesky_ex "
-            f"{lib_ms:.3f}, bound {bound:.3f} by {by})")
+            f"{lib_ms:.3f}, bound {bound:.3g} by {by})")
 
 
 def _class_data(n: int, seed: int = 0):
@@ -2457,6 +2487,604 @@ def phase_latent_gp(smi: str, dev="cuda", pool=100, k=10, steps=20, starts=4, br
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the stochastic variational GP, Bayesian optimization, the
+# generative front end and Laplace-marginalized latents
+# ---------------------------------------------------------------------------
+
+SVGP_N, SVGP_M, SVGP_B = 262144, 256, 8192  # benchmarks/latent_gp.py::bench_svgp_step
+SVGP_SEEDS = range(1, 9)  # 15a's data draws; seed 1 is the bench's
+SVGP_FIT_STEPS = 300  # the JAX default is 500, cut to fit the time limit
+SVGP_MARGIN = 0.06  # 15b's predictive gate (PERF.md: a CPU rehearsal at the same width)
+BRANIN_DRAWS = Path(__file__).resolve().parent / "tests" / "data" / "bo_branin_jax_draws.npz"
+
+
+def _rel_max(got, want) -> float:
+    """max |got - want| over max |want|."""
+    got, want = torch.as_tensor(got).double().cpu(), torch.as_tensor(want).double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-300))
+
+
+def _svgp_bench_values(seed: int, n=SVGP_N, m=SVGP_M, batch=SVGP_B):
+    """bench_svgp_step's data (x, y uniform labels and z uniform on [-3, 3]^2
+    from the numpy generator of ``seed``), its first minibatch, and a
+    variational state away from the prior (at the bench's prior state,
+    m = 0 and L = I, the bound does not depend on z or theta, and their
+    gradients are rounding): theta = [2, 1], m ~ N(0, 0.5^2),
+    L = 0.5 I + 0.05 N(0, 1) below the diagonal."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-3, 3, size=(n, 2)).astype(np.float32)
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    z = rng.uniform(-3, 3, size=(m, 2)).astype(np.float32)
+    mv = (0.5 * rng.normal(size=m)).astype(np.float32)
+    raw = (np.eye(m) * np.log(np.expm1(0.5)) + 0.05 * np.tril(rng.normal(size=(m, m)), -1)).astype(np.float32)
+    return [np.array([2.0, 1.0], np.float32), z, mv, raw, x[:batch], y[:batch]]
+
+
+def _svgp_elbo(n_total):
+    """The bound of bench_svgp_step at one K_zz jitter for both dtypes:
+    float32's default, 1e-4 (``svgp.default_jitter``), since float64's
+    default of 1e-6 would make the f64 reference another function."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+    from bayesianinference_tpu_torch.ops import gp_laplace as gl
+    from bayesianinference_tpu_torch.ops import svgp
+
+    lik = gl.bernoulli_logit_likelihood()
+    jitter = svgp.default_jitter(torch.float32)
+
+    def elbo(th, z, m, raw, x, y):
+        return svgp.svgp_elbo(gk.se_kernel(th[0], th[1]), x, y, z, lik, svgp.SVGPVariational(m, raw), jitter=jitter,
+                              data_scale=n_total / x.shape[0])
+
+    return elbo
+
+
+_SVGP_QUANTITIES = ("value", "theta", "z", "m", "raw")
+
+
+def _per_quantity(vec, sizes):
+    return dict(zip(_SVGP_QUANTITIES, torch.split(vec, sizes)))
+
+
+def _phase15_elbo(smi, watch, dev, n=SVGP_N, m=SVGP_M, batch=SVGP_B, seeds=SVGP_SEEDS):
+    """15a: the SVGP ELBO and its gradient in (theta, z, m, raw) at
+    bench_svgp_step's width, f32 through the kernels and plain against
+    plain f64, each quantity gated on its own over the seeds' data."""
+    elbo = _svgp_elbo(n)
+    sizes = [1, 2, 2 * m, m, m * m]
+    errs = {q: ([], []) for q in _SVGP_QUANTITIES}
+    watch.zero()
+    for seed in seeds:
+        args = _args(_svgp_bench_values(seed, n, m, batch), dev, grad=4)
+        got, plain, ref, _, _ = _accuracy(elbo, args[torch.float32], args[torch.float64])
+        got, plain, ref = (_per_quantity(v, sizes) for v in (got, plain, ref))
+        for q in _SVGP_QUANTITIES:
+            scale = float(ref[q].norm()) or 1e-30
+            errs[q][0].append(float((got[q] - ref[q]).norm()) / scale)
+            errs[q][1].append(float((plain[q] - ref[q]).norm()) / scale)
+        if seed == seeds[0]:
+            bench = (got["value"].item(), ref["value"].item(), args)
+    launches = watch.counts()
+    if not (launches["se_covariance"] > 0 and launches["cholesky"] > 0):
+        raise AssertionError(f"15a: launches {launches}")
+    value, value64, args = bench
+    step = lambda: _vg(elbo, *args[torch.float32])  # noqa: E731
+    wall = _wall_ms(step, reps=7)
+    device_ms, kernels = _profile_call(step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    step()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    lines, failed = [], []
+    for q in _SVGP_QUANTITIES:
+        ek = math.sqrt(float(np.mean(np.square(errs[q][0]))))
+        ep = math.sqrt(float(np.mean(np.square(errs[q][1]))))
+        ok = _within_rule(ek, ep)
+        failed += [] if ok else [q]
+        lines.append(f"{q} {ek:.2e} (plain f32 {ep:.2e}, {'within' if ok else 'ABOVE'})")
+    log(f"[15a SVGP ELBO+grad] n={n} M={m} batch={batch} d=2 f32, Bernoulli logit, se_kernel(2, 1), data of "
+        f"bench_svgp_step's generator at seeds {seeds[0]}-{seeds[-1]}: ELBO {value:.4f} (f64 {value64:.4f}); "
+        f"normalized error, root mean square over {len(seeds)} seeds, kernel path against plain f32 (rule 2x + "
+        f"1e-6): {'; '.join(lines)}; per step: wall {wall:.2f} ms (median of 7), device {device_ms:.3f} ms, "
+        f"{kernels} CUDA kernels, busy share {device_ms / wall:.3f}, peak device memory {peak:.0f} MiB above what "
+        f"was held; launches {launches}; {watch.check('15a')} | {smi}")
+    if failed:
+        raise AssertionError(f"15a: the kernel path's normalized error is above twice the plain f32 path's plus "
+                             f"1e-6 for {', '.join(failed)}")
+    return launches
+
+
+_AMP_LS = [("amp", 0.05, 10.0), ("ls", 0.1, 5.0)]  # tests/test_svgp.py
+
+
+def _amp_ls_kernel(th):
+    from bayesianinference_tpu_torch.ops.gp_kernels import se_kernel
+
+    return se_kernel(th[0] ** 2, th[1])
+
+
+def _fit_fields(fit, names):
+    return torch.cat([getattr(fit, k).detach().double().reshape(-1).cpu() for k in names])
+
+
+def _three_class_data(n, seed=7):
+    """tests/test_svgp.py:231's three angular sectors with 5 % label noise."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-3, 3, size=(n, 2))
+    y = np.digitize(np.arctan2(x[:, 1], x[:, 0]), [-np.pi / 3, np.pi / 3])
+    flip = rng.uniform(size=n) < 0.05
+    y[flip] = rng.integers(0, 3, size=int(flip.sum()))
+    return x, y
+
+
+def _hetero_data(n, seed=10):
+    """tests/test_svgp.py:329's noise profile, rising left to right."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(-3, 3, size=(n, 1)), axis=0)
+    sd = 0.05 + 0.5 * (1 + np.tanh(x[:, 0]))
+    return x, np.sin(1.2 * x[:, 0]) + sd * rng.normal(size=n)
+
+
+FIT_WITNESS_FACTOR = 10.0  # 15b-c's gate over its witness (PERF.md: the readings of sound runs and of the control)
+
+
+class _f32_factor:
+    """15b-c's control: the SVGP modules factor K_zz in float32 (the
+    ``cholesky`` op on K_zz rounded to float32, the factor cast back), a
+    lower-precision float64 path that the gate must reject."""
+
+    def __enter__(self):
+        from bayesianinference_tpu_torch.ops import svgp
+
+        self.svgp, self.orig = svgp, svgp.cholesky
+        self.svgp.cholesky = lambda k: self.orig(k.float()).to(k.dtype)
+        return self
+
+    def __exit__(self, *exc):
+        self.svgp.cholesky = self.orig
+        return False
+
+
+def _card_against_cpu(what, run, dev, watch):
+    """``run(device, jitter)`` -> (fit, compared vector), all on the same
+    draws: through the kernels on the card, through plain PyTorch on the
+    card (cuSOLVER's factor, printed) and on CPU tensors.  These Adam runs
+    carry K_zz's condition number (a 1e-6 relative jitter) into every step,
+    so the gate is their own sensitivity: the card's run within
+    ``FIT_WITNESS_FACTOR`` times the difference that a jitter 1e-10 larger
+    (an eps-sized change of K_zz) makes to the CPU run, or 1e-6 of the
+    largest entry, whichever is larger.  A control, the card's run with
+    K_zz factored in float32 (``_f32_factor``), must fail that gate (NaN,
+    where the float32 factor fails, fails it).
+    Returns (card fit, the card run's launches, card difference,
+    cuSOLVER's, the witness's, the control's, card seconds)."""
+    watch.zero()
+    t0 = time.perf_counter()
+    fit, got = run(dev, None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = watch.counts()
+    with _plain_ops():
+        _, plain = run(dev, None)
+    _, want = run(torch.device("cpu"), None)
+    _, nudged = run(torch.device("cpu"), 1e-6 * (1.0 + 1e-10))
+    with _f32_factor():
+        _, control = run(dev, None)
+    diff, diff_plain, witness = _rel_max(got, want), _rel_max(plain, want), _rel_max(nudged, want)
+    diff_control, gate = _rel_max(control, want), max(1e-6, FIT_WITNESS_FACTOR * witness)
+    if not diff <= gate:
+        raise AssertionError(f"{what}: the card against CPU tensors differ by {diff:.3e} of the largest entry, "
+                             f"an eps-sized change of K_zz by {witness:.3e}")
+    if diff_control <= gate:  # a NaN control (the f32 factor failed) is rejected too
+        raise AssertionError(f"{what}: the gate {gate:.3e} does not reject K_zz factored in float32 "
+                             f"({diff_control:.3e})")
+    return fit, launches, diff, diff_plain, witness, diff_control, seconds
+
+
+def _phase15_fits(smi, watch, dev, n=SVGP_N, m=SVGP_M, batch=SVGP_B, steps=SVGP_FIT_STEPS, small_n=16384,
+                  small_m=64, small_batch=1024, small_steps=100, class_n=8192):
+    """15b and 15c: fit_svgp at the bench's width, float32, with its
+    full-data bound and its predictions against the truth; the f64 fits
+    (binary, multiclass, heteroscedastic) against the same on CPU tensors
+    with the same draws."""
+    from bayesianinference_tpu_torch.engines import svgp as sv
+
+    x_np, y_np = _class_data(n)
+    x, y = (torch.as_tensor(a, device=dev) for a in (x_np, y_np))
+    watch.zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = sv.fit_svgp(x, y, _amp_ls_kernel, _AMP_LS, inducing=m, minibatch=batch, steps=steps,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = watch.counts()
+    xq = torch.linspace(-3, 3, 41, device=dev)[:, None]
+    p, _, _ = sv.predict_from_svgp(fit, xq)
+    truth = torch.sigmoid(3.0 * torch.sin(1.5 * xq[:, 0]))
+    worst = float((p - truth).abs().max())
+    trace = fit.elbo_trace
+    if not (launches["se_covariance"] > 0 and launches["cholesky"] > 0 and bool(torch.isfinite(fit.elbo))
+            and worst <= SVGP_MARGIN):
+        raise AssertionError(f"15b: launches {launches}, full ELBO {float(fit.elbo)}, predictions off the truth "
+                             f"by up to {worst:.3f} (margin {SVGP_MARGIN})")
+    log(f"[15b fit_svgp] n={n} (benchmarks/latent_gp.py::_class_data), f32, {m} inducing by farthest, minibatch "
+        f"{batch}, {steps} Adam steps (the JAX default of 500 cut to fit the time limit): {seconds:.1f} s, "
+        f"{seconds / steps * 1e3:.1f} ms per step with the inducing selection; theta {fit.theta.tolist()}; "
+        f"minibatch ELBO {float(trace[:10].mean()):.1f} (first 10) -> {float(trace[-10:].mean()):.1f} (last 10); "
+        f"full-data ELBO {float(fit.elbo):.2f} (K_zx [{m}, {n}]); predict_from_svgp at 41 points of [-3, 3] "
+        f"against sigmoid(3 sin 1.5x): max |error| {worst:.4f} (margin {SVGP_MARGIN}); launches {launches}; "
+        f"{watch.check('15b')} | {smi}")
+    total = dict(launches)
+
+    def add(launches):
+        for key, v in launches.items():
+            total[key] += v
+
+    rng = np.random.default_rng(3)
+    xs = rng.uniform(-3, 3, size=(small_n, 1))
+    ys = (rng.uniform(size=small_n) < 1 / (1 + np.exp(-3.0 * np.sin(1.5 * xs[:, 0])))).astype(float)
+    draws = sv.svgp_draws(torch.Generator().manual_seed(1), small_steps, small_n, small_batch)
+
+    def binary(d, jitter):
+        f = sv.fit_svgp(torch.as_tensor(xs, device=d), torch.as_tensor(ys, device=d), _amp_ls_kernel, _AMP_LS,
+                        inducing=small_m, minibatch=small_batch, steps=small_steps, draws=draws, jitter=jitter)
+        return f, torch.cat([_fit_fields(f, ("elbo_trace", "theta", "z")), f.elbo.double().reshape(1).cpu()])
+
+    _, launches_b, diff_b, plain_b, wit_b, ctl_b, sec_b = _card_against_cpu("15b f64 fit", binary, dev, watch)
+    add(launches_b)
+    log(f"[15b f64 fit] n={small_n} M={small_m} minibatch {small_batch}, {small_steps} steps, f64: the card "
+        f"against CPU tensors on the same draws, trace, theta, z and full ELBO within {diff_b:.2e} of the largest "
+        f"entry (gate max(1e-6, {FIT_WITNESS_FACTOR:g} x {wit_b:.2e}, the CPU run's change under an eps-sized "
+        f"change of K_zz); cuSOLVER's run {plain_b:.2e}; control, K_zz factored in f32, {ctl_b:.2e}, rejected); "
+        f"{sec_b:.2f} s on the card | {smi}")
+
+    xc, yc = _three_class_data(class_n)
+    mc = sv.svgp_draws(torch.Generator().manual_seed(2), small_steps, class_n, small_batch, num_mc=8, num_classes=3,
+                       dtype=torch.float64)
+
+    def multiclass(d, jitter):
+        f = sv.fit_svgp_multiclass(torch.as_tensor(xc, device=d), torch.as_tensor(yc, device=d), _amp_ls_kernel,
+                                   _AMP_LS, inducing=small_m, minibatch=small_batch, steps=small_steps, draws=mc,
+                                   jitter=jitter)
+        return f, torch.cat([_fit_fields(f, ("elbo_trace", "theta", "m")), f.elbo.double().reshape(1).cpu()])
+
+    fit_c, launches_c, diff_c, plain_c, wit_c, ctl_c, sec_c = _card_against_cpu("15c multiclass", multiclass, dev,
+                                                                                 watch)
+    add(launches_c)
+    probs, _, _ = sv.predict_from_svgp_multiclass(fit_c, torch.as_tensor(xc, device=dev),
+                                                  generator=torch.Generator(device=dev).manual_seed(0))
+    acc = float((probs.argmax(dim=-1).cpu().numpy() == yc).mean())
+    xh, yh = _hetero_data(class_n)
+    hb = (_amp_ls_kernel, lambda th: _amp_ls_kernel(th[2:]))
+    hparams = [("amp_f", 0.05, 10.0), ("ls_f", 0.1, 5.0), ("amp_g", 0.05, 5.0), ("ls_g", 0.3, 5.0)]
+    hd = sv.svgp_draws(torch.Generator().manual_seed(3), small_steps, class_n, small_batch)
+
+    def hetero(d, jitter):
+        f = sv.fit_svgp_heteroscedastic(torch.as_tensor(xh, device=d), torch.as_tensor(yh, device=d), *hb, hparams,
+                                        inducing=small_m, minibatch=small_batch, steps=small_steps,
+                                        learning_rate=0.03, draws=hd, jitter=jitter)
+        return f, torch.cat([_fit_fields(f, ("elbo_trace", "theta", "noise_bias")), f.elbo.double().reshape(1).cpu()])
+
+    fit_h, launches_h, diff_h, plain_h, wit_h, ctl_h, sec_h = _card_against_cpu("15c heteroscedastic", hetero, dev,
+                                                                                 watch)
+    add(launches_h)
+    _, _, noise_sd, _ = sv.predict_from_svgp_heteroscedastic(fit_h, torch.as_tensor(xh, device=dev))
+    noise_sd = noise_sd.cpu().numpy()
+    corr = float(np.corrcoef(noise_sd, 0.05 + 0.5 * (1 + np.tanh(xh[:, 0])))[0, 1])
+    log(f"[15c multiclass and heteroscedastic] n={class_n} M={small_m} minibatch {small_batch}, {small_steps} steps, "
+        f"f64, data of tests/test_svgp.py's generators, against CPU tensors on the same draws (gate max(1e-6, "
+        f"{FIT_WITNESS_FACTOR:g} x the eps-sized K_zz change's)): C = 3 softmax (8 MC draws per step) {diff_c:.2e} "
+        f"(witness {wit_c:.2e}, cuSOLVER's run {plain_c:.2e}, f32-factor control {ctl_c:.2e} rejected), "
+        f"{sec_c:.2f} s on the card, training accuracy {acc:.3f}; heteroscedastic {diff_h:.2e} (witness "
+        f"{wit_h:.2e}, cuSOLVER's {plain_h:.2e}, control {ctl_h:.2e} rejected), {sec_h:.2f} s, noise sd against "
+        f"the true profile corr {corr:.3f}; launches "
+        f"{total}; {watch.check('15c')} | {smi}")
+    return total
+
+
+def _branin_torch(x):
+    a, b, c = 1.0, 5.1 / (4 * math.pi**2), 5 / math.pi
+    r, s, t = 6.0, 10.0, 1 / (8 * math.pi)
+    return a * (x[1] - b * x[0] ** 2 + c * x[0] - r) ** 2 + s * (1 - t) * torch.cos(x[0]) + s
+
+
+def _camel_torch(x):
+    x1, x2 = x[0], x[1]
+    return (4.0 - 2.1 * x1**2 + x1**4 / 3.0) * x1**2 + x1 * x2 + (-4.0 + 4.0 * x2**2) * x2**2
+
+
+def _bo_final_check(state, dev):
+    """The final state's masked logML and moments at 16 probe points through
+    the kernels, through plain PyTorch in the same dtype, and plain f64:
+    (kernel error, plain error) as max |error| / max |f64 value|.  Printed,
+    not gated: K carries the condition number of a nugget of 1e-6 or a
+    learned one."""
+    from bayesianinference_tpu_torch.engines import bayesopt as bo
+
+    span = state.upper - state.lower
+    x01 = (state.x - state.lower) / span
+    mu, sd = bo._standardized(state.y, state.mask)
+    ys = torch.where(state.mask, (state.y - mu) / sd, 0.0)
+    probe = torch.rand((16, state.x.shape[1]), generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+
+    def values(dt):
+        h = [t.to(dt) for t in (state.log_var, state.log_ell, state.log_nugget)]
+        args = (x01.to(dt), ys.to(dt), state.mask)
+        with torch.no_grad():
+            logml = bo.masked_gp_log_marginal(*args, *h)
+            mean, std = bo.masked_gp_moments(*args, probe.to(device=dev, dtype=dt), *h)
+        return torch.cat([logml.reshape(1), mean, std]).double().cpu()
+
+    got = values(state.x.dtype)
+    with _plain_ops():
+        plain, ref = values(state.x.dtype), values(torch.float64)
+    return _rel_max(got, ref), _rel_max(plain, ref)
+
+
+def _bo_step_profile(state, draws, cfg):
+    """(wall ms, device ms, CUDA kernels, SE and Cholesky launches) of one
+    suggestion from ``state``."""
+    from bayesianinference_tpu_torch.engines import bayesopt as bo
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    step = lambda: bo.bo_suggest(state, draws, cfg)  # noqa: E731
+    wall = _wall_ms(step, reps=5)
+    device_ms, kernels = _profile_call(step)
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+    step()
+    return wall, device_ms, kernels, gk.se_covariance_cuda.launches - before[0], gk.cholesky_cuda.launches - before[1]
+
+
+def _phase15_bo(smi, watch, dev, camel_steps=56):
+    """15d: Bayesian optimization through both kernels: Branin's ask/tell run
+    on the JAX test's draws, the Six-Hump Camel at the default configuration
+    (f32), the same in f64 on the card and on CPU tensors."""
+    from bayesianinference_tpu_torch.engines import bayesopt as bo
+
+    total = {"se_covariance": 0, "cholesky": 0}
+    lines = []
+    # Branin, exactly tests/test_bayesopt.py::test_ask_tell_agrees_and_improves on its own random numbers
+    with np.load(BRANIN_DRAWS) as f:
+        stored = {k: torch.as_tensor(v) for k, v in f.items()}
+    lower, upper = torch.tensor([-5.0, 0.0], device=dev), torch.tensor([10.0, 15.0], device=dev)
+    cfg = bo.BayesOptConfig(num_candidates=256, hyper_steps=6)
+    watch.zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, x_init = bo.bo_init(lower, upper, 26, num_init=6,
+                               draws=bo.DesignDraws(stored["design_jitter"], stored["design_order"]))
+    for x in x_init:
+        state = bo.bo_observe(state, x, _branin_torch(x))
+    step_draws = [bo.BODraws(*(stored[k][i] for k in bo.BODraws._fields)) for i in range(20)]
+    for dr in step_draws:
+        state, x_next = bo.bo_suggest(state, dr, cfg)
+        if not bool(((x_next >= lower - 1e-6) & (x_next <= upper + 1e-6)).all()):
+            raise AssertionError(f"15d Branin: suggestion {x_next.tolist()} outside the box")
+        state = bo.bo_observe(state, x_next, _branin_torch(x_next))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = watch.counts()
+    _, y_best = state.best()
+    errs = _bo_final_check(state, dev)
+    prof = _bo_step_profile(state, step_draws[-1], cfg)
+    if not (float(y_best) < 0.3979 + 0.7 and state.n == 26 and counts["se_covariance"] > 0 and counts["cholesky"] > 0):
+        raise AssertionError(f"15d Branin: y_best {float(y_best)}, n {state.n}, launches {counts}")
+    lines.append(f"Branin ask/tell (6 + 20, 256 candidates, 6 hyper steps, f32, the JAX test's draws from "
+                 f"{BRANIN_DRAWS.name}): y_best {float(y_best):.4f} (gate < 1.0979), {wall:.2f} s, per suggestion "
+                 f"wall {prof[0]:.1f} ms, device {prof[1]:.2f} ms, {prof[2]} CUDA kernels, {prof[3]} SE and {prof[4]} "
+                 f"Cholesky launches; final logML+moments error kernel {errs[0]:.1e} plain f32 {errs[1]:.1e}")
+    for key in total:
+        total[key] += counts[key]
+    # Six-Hump Camel at the default configuration, nugget pinned at 1e-6
+    cfg = bo.BayesOptConfig(nugget=1e-6)
+    box = (torch.tensor([-2.0, -1.0]), torch.tensor([2.0, 1.0]))
+    runs = {}
+    for tag, dt, d in (("f32", torch.float32, dev), ("f64", torch.float64, dev), ("f64 cpu", torch.float64, "cpu")):
+        g = torch.Generator().manual_seed(0)
+        draws = (bo.design_draws(g, 8, 2, dt), bo.bo_draws(g, 2, cfg, steps=camel_steps, dtype=dt))
+        watch.zero()
+        t0 = time.perf_counter()
+        res = bo.bayes_optimize(_camel_torch, *(b.to(device=d, dtype=dt) for b in box), num_steps=camel_steps,
+                                num_init=8, config=cfg, dtype=dt, draws=draws)
+        if d != "cpu":
+            torch.cuda.synchronize()
+        runs[tag] = (res, time.perf_counter() - t0, watch.counts())
+    for tag in ("f32", "f64"):
+        res, seconds, counts = runs[tag]
+        errs = _bo_final_check(res.state, dev)
+        prof = _bo_step_profile(res.state, bo.bo_draws(torch.Generator().manual_seed(1), 2, cfg,
+                                                       dtype=res.state.x.dtype), cfg)
+        if not (float(res.y_best) < -1.0316 + 0.05 and counts["se_covariance"] > 0 and counts["cholesky"] > 0):
+            raise AssertionError(f"15d Camel {tag}: y_best {float(res.y_best)}, launches {counts}")
+        for key in total:
+            total[key] += counts[key]
+        lines.append(f"Camel {tag} (8 + {camel_steps}, capacity {8 + camel_steps}, 512 candidates, 8 hyper and 12 "
+                     f"refine steps): y_best {float(res.y_best):.4f} (gate < -0.9816), {seconds:.2f} s, per "
+                     f"suggestion at the final state wall {prof[0]:.1f} ms, device {prof[1]:.2f} ms, {prof[2]} CUDA "
+                     f"kernels, {prof[3]} SE and {prof[4]} Cholesky launches; launches over the run {counts}; final "
+                     f"logML+moments error kernel {errs[0]:.1e} plain {errs[1]:.1e}")
+    card, cpu = runs["f64"][0], runs["f64 cpu"][0]
+    hist = max(_rel_max(card.x_history, cpu.x_history), _rel_max(card.y_history, cpu.y_history))
+    if not hist <= 1e-8:
+        raise AssertionError(f"15d Camel f64: the card's history against CPU tensors' on the same draws {hist:.3e}")
+    lines.append(f"Camel f64 card against CPU tensors on the same draws: history within {hist:.1e} of the largest "
+                 f"entry (gate 1e-8), {runs['f64 cpu'][1]:.2f} s on the host")
+    log(f"[15d Bayesian optimization] {'; '.join(lines)}; launches {total}; {watch.check('15d')} | {smi}")
+    return total
+
+
+def _logistic_data(n: int, seed: int = 0):
+    """tests/test_torch_generative.py::logistic_data: four standardized
+    normal covariates, Bernoulli labels of sigmoid(0.5 + x @ [1.5, -2, 0.7, 0])."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 4))
+    x = (x - x.mean(0)) / x.std(0)
+    p = 1.0 / (1.0 + np.exp(-(0.5 + x @ np.array([1.5, -2.0, 0.7, 0.0]))))
+    return x, (rng.uniform(size=n) < p).astype(float)
+
+
+def _phase15_models(smi, dev, n=4096, groups=256, batch=64):
+    """15e: the generative front end and Laplace-marginalized latents (no
+    hand-written kernel runs here)."""
+    from bayesianinference_tpu_torch import dists as td
+    from bayesianinference_tpu_torch.dists.combinators import ConditionalProduct
+    from bayesianinference_tpu_torch.engines import direct_posterior_distribution
+    from bayesianinference_tpu_torch.engines.laplace import laplace_posterior_fit
+    from bayesianinference_tpu_torch.models import define_inference_problem, generative_model_problem
+    from bayesianinference_tpu_torch.models import marginalize_latents
+
+    x_np, y_np = _logistic_data(n)
+    x, y = (torch.as_tensor(a, device=dev) for a in (x_np, y_np))
+    model = ConditionalProduct([
+        ("b0", lambda v: td.Normal(0.0, 10.0)),
+        ("w", lambda v: td.Normal(torch.zeros(4, dtype=torch.float64, device=dev), 10.0)),
+        ("y", lambda v: td.BernoulliLogits(logits=v["b0"] + v["x"] @ v["w"])),
+    ])
+    params = [("b0", -50.0, 50.0), ("w", -50.0, 50.0, (4,))]
+    t0 = time.perf_counter()
+    fit = laplace_posterior_fit(model=model, data={"y": y}, parameters=params, model_inputs={"x": x},
+                                generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    problem = generative_model_problem(model, data={"y": y}, parameters=params, inputs={"x": x})
+    ref = laplace_posterior_fit(problem=problem, generator=torch.Generator(device=dev).manual_seed(0))
+    d_mean = float((fit.mean - ref.mean).abs().max())
+    d_logz = abs(float(fit.log_evidence) - float(ref.log_evidence)) / abs(float(ref.log_evidence))
+    if not (d_mean <= 1e-8 and d_logz <= 1e-10 and fit.mean.device.type == dev.type):
+        raise AssertionError(f"15e model=: mean {d_mean:.3e}, logZ {d_logz:.3e} against problem=")
+    # eight schools, collapsed, by direct quadrature against the exact marginal
+    y8 = torch.tensor([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0], device=dev, dtype=torch.float64)
+    s8 = torch.tensor([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0], device=dev, dtype=torch.float64)
+
+    def joint8(theta, z):
+        return torch.sum(td.Normal(z, s8).log_prob(y8)) + torch.sum(td.Normal(theta[0], torch.exp(theta[1])).log_prob(z))
+
+    def exact8(theta):
+        return torch.sum(td.Normal(theta[0], torch.sqrt(s8**2 + torch.exp(2.0 * theta[1]))).log_prob(y8))
+
+    def schools(loglike, batched):
+        return define_inference_problem(
+            parameters=[("mu", -15.0, 25.0), ("log_tau", -2.0, 3.5)], log_likelihood=loglike,
+            prior_distribution=[td.Uniform(-15.0, 25.0), td.Uniform(-2.0, 3.5)], validate=False,
+            batched_likelihood=batched, device=dev, dtype=torch.float64)
+
+    marg8 = marginalize_latents(joint8, latent_dim=8)
+    t1 = time.perf_counter()
+    post_c = direct_posterior_distribution(problem=schools(marg8.log_density, True), num_points=48)
+    torch.cuda.synchronize()
+    sec8 = time.perf_counter() - t1
+    post_e = direct_posterior_distribution(problem=schools(exact8, False), num_points=48)
+    d8 = abs(float(post_c.log_evidence) - float(post_e.log_evidence)) / abs(float(post_e.log_evidence))
+    if not d8 <= 1e-6:
+        raise AssertionError(f"15e eight schools: collapsed logZ {float(post_c.log_evidence)} against the exact "
+                             f"{float(post_e.log_evidence)}")
+    # random effects: y_j ~ N(z_j, s_j^2), z_j ~ N(mu, tau^2), j < groups
+    rng = np.random.default_rng(5)
+    s_re = torch.as_tensor(rng.uniform(0.5, 2.0, size=groups), device=dev)
+    y_re = torch.as_tensor(1.0 + 0.8 * rng.normal(size=groups) + s_re.cpu().numpy() * rng.normal(size=groups),
+                           device=dev)
+
+    def joint_re(theta, z):
+        return (torch.sum(td.Normal(z, s_re).log_prob(y_re))
+                + torch.sum(td.Normal(theta[0], torch.exp(theta[1])).log_prob(z)))
+
+    def exact_re(theta):
+        return torch.sum(td.Normal(theta[:, :1], torch.sqrt(s_re**2 + torch.exp(2.0 * theta[:, 1:]))).log_prob(y_re),
+                         dim=-1)
+
+    thetas = torch.as_tensor(np.stack([rng.uniform(-1.0, 3.0, batch), rng.uniform(-1.5, 1.0, batch)], axis=1),
+                             device=dev).requires_grad_(True)
+    marg = marginalize_latents(joint_re, latent_dim=groups)
+    t2 = time.perf_counter()
+    got = marg.log_density(thetas)
+    (g_got,) = torch.autograd.grad(got.sum(), thetas)
+    torch.cuda.synchronize()
+    sec_re = time.perf_counter() - t2
+    want = exact_re(thetas)
+    (g_want,) = torch.autograd.grad(want.sum(), thetas)
+    d_val, d_grad = _rel_max(got.detach(), want.detach()), _rel_max(g_got, g_want)
+    if not (d_val <= 1e-8 and d_grad <= 1e-8):
+        raise AssertionError(f"15e random effects: value {d_val:.3e}, gradient {d_grad:.3e} against the closed form")
+    iters = marg.newton_iterations
+    log(f"[15e generative front end and marginalized latents] no hand-written kernel runs here. "
+        f"laplace_posterior_fit(model=...) on the logistic model (b0 + 4 weights, BernoulliLogits) at n={n} f64 "
+        f"(numpy-seeded covariates; the JAX test's Iris needs scikit-learn): {seconds:.1f} s, against problem= mean "
+        f"{d_mean:.1e} (gate 1e-8), logZ {d_logz:.1e} (gate 1e-10), logZ {float(fit.log_evidence):.4f}; eight "
+        f"schools collapsed through direct_posterior_distribution (48 x 48, batched likelihood) logZ "
+        f"{float(post_c.log_evidence):.6f} against the exact marginal's {float(post_e.log_evidence):.6f} (rel "
+        f"{d8:.1e}, gate 1e-6), {sec8:.2f} s; random effects, {groups} groups, at {batch} thetas: log density "
+        f"{d_val:.1e} and gradient {d_grad:.1e} of the largest entry against the closed form (gate 1e-8), Newton "
+        f"steps per lane {int(iters.min())}-{int(iters.max())} ({marg.newton_loop_steps} host steps for the batch), "
+        f"{sec_re:.2f} s for value and gradient | {smi}")
+
+
+def _phase15_times(smi, dev):
+    """The kernels at this slice's new shapes against their plain versions,
+    their bounds and cholesky_ex (device ms in turns)."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    lines = []
+    one32 = torch.full((1,), 2.0, device=dev)
+    z = 6.0 * torch.rand((1, SVGP_M, 2), generator=g, device=dev) - 3.0
+    for what, x2, n2 in (("K_zz", None, SVGP_M), ("K_zx", 6.0 * torch.rand((1, SVGP_B, 2), generator=g, device=dev)
+                                                  - 3.0, SVGP_B),
+                         ("K_zx full data", 6.0 * torch.rand((1, SVGP_N, 2), generator=g, device=dev) - 3.0, SVGP_N)):
+        kw = dict(reps=5, groups=3, per_group=10 if n2 <= SVGP_B else 3)
+        ms, plain_ms, _, _ = _in_turns(lambda: gk.se_covariance_cuda(z, x2, one32),
+                                       lambda: gk.se_covariance_plain(z, x2, one32), **kw)
+        bound, by = _se_bound(z, x2, one32, None, None)
+        lines.append(f"SE {what} [{SVGP_M}, {n2}] f32: {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound:.2e} by {by})")
+    lines.append(_chol_turns(SVGP_M, torch.float32, dev))
+    for dt in (torch.float32, torch.float64):
+        x = torch.rand((1, 64, 2), generator=g, device=dev, dtype=dt)
+        q = torch.rand((1, 512, 2), generator=g, device=dev, dtype=dt)
+        var = torch.ones(1, device=dev, dtype=dt)
+        ell = torch.full((1, 2), 0.3, device=dev, dtype=dt)
+        for what, x2 in (("capacity [64, 64]", None), ("cross [64, 512]", q)):
+            ms, plain_ms, _, _ = _in_turns(lambda: gk.se_covariance_cuda(x, x2, var, ell),
+                                           lambda: gk.se_covariance_plain(x, x2, var, ell), reps=5, groups=3,
+                                           per_group=10)
+            bound, by = _se_bound(x, x2, var, ell, None)
+            lines.append(f"SE BO {what} ARD {str(dt).split('.')[-1]}: {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+                         f"{bound:.2e} by {by})")
+        lines.append(_chol_turns(64, dt, dev))
+    log(f"[15 kernel times] device ms in turns: {'; '.join(lines)} | {smi}")
+
+
+def phase_svgp_bo(smi: str, dev="cuda", **sizes):
+    """Phase 15: the stochastic variational GP and Bayesian optimization
+    through both kernels, the generative front end and marginalized
+    latents (module docstring).  ``sizes`` shrink 15a-e for a rehearsal
+    (``elbo``, ``fits``, ``bo``, ``models``: keyword arguments of each
+    sub-phase); the defaults are the run."""
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    total = {"se_covariance": 0, "cholesky": 0}
+    seconds = []
+    with _KernelWatch() as watch:
+        for name, run in (("15a", lambda: _phase15_elbo(smi, watch, dev, **sizes.get("elbo", {}))),
+                          ("15b-c", lambda: _phase15_fits(smi, watch, dev, **sizes.get("fits", {}))),
+                          ("15d", lambda: _phase15_bo(smi, watch, dev, **sizes.get("bo", {})))):
+            t = time.perf_counter()
+            for key, v in run().items():
+                total[key] += v
+            seconds.append(f"{name} {time.perf_counter() - t:.1f}")
+        t = time.perf_counter()
+        _phase15_models(smi, dev, **sizes.get("models", {}))
+        seconds.append(f"15e {time.perf_counter() - t:.1f}")
+        if not (total["se_covariance"] > 0 and total["cholesky"] > 0):
+            raise AssertionError(f"15: launches {total}")
+        if sizes.get("times", True):
+            _phase15_times(smi, dev)
+        log(f"[15 SVGP and BO] {time.perf_counter() - t0:.1f} s ({', '.join(seconds)}); launches {total}; "
+            f"{watch.check('15')}")
+    return total
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -2482,8 +3110,9 @@ def main():
     log(f"[seconds] phases 11 and 12 took {time.perf_counter() - t11:.0f} s")
     sampler_launches = timed(phase_samplers, smi, problem, gp_posterior)
     latent_launches = timed(phase_latent_gp, smi)
+    svgp_launches = timed(phase_svgp_bo, smi)
     launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] + par_launches[k]
-                + conj_launches[k] + sampler_launches[k] + latent_launches[k] for k in launches}
+                + conj_launches[k] + sampler_launches[k] + latent_launches[k] + svgp_launches[k] for k in launches}
     # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
     # at bench.py's width (B = 1, n = 16384, f32)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")

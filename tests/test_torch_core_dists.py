@@ -383,3 +383,18 @@ def test_with_metadata_returns_an_updated_copy():
     bare = tproblem.define_inference_problem(parameters=[("a", -1.0, 1.0)], log_likelihood=lambda th: -th[0] ** 2,
                                              prior_distribution=["location"], device="cpu")
     assert bare.metadata is None and bare.with_metadata(k=2).metadata == {"k": 2}
+
+
+def test_normal_cdf_keeps_the_lower_tail():
+    """``core.numerics.ndtr`` (erfc form) keeps the standard normal CDF's
+    lower tail, as ``jax.scipy.special.ndtr`` does: the Normal and
+    LogNormal CDFs, the probit link and log EI use it (``torch.special.ndtr``
+    returned 0 for 7.6e-24 at -10 and was 1.3e-10 off at -6)."""
+    from jax.scipy.special import ndtr as j_ndtr
+
+    z = np.array([-37.0, -10.0, -6.0, -4.71, -1.0, 0.0, 0.5, 3.0, 8.0])
+    close(tnum.ndtr(T(z)), np.asarray(j_ndtr(jnp.asarray(z))), rtol=RTOL)
+    close(tscalar.Normal(1.0, 2.0).cdf(T(1.0 + 2.0 * z)), np.asarray(jscalar.Normal(1.0, 2.0).cdf(1.0 + 2.0 * z)),
+          rtol=RTOL)
+    x = np.exp(0.3 + 0.5 * z)
+    close(tscalar.LogNormal(0.3, 0.5).cdf(T(x)), np.asarray(jscalar.LogNormal(0.3, 0.5).cdf(x)), rtol=RTOL)

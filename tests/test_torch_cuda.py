@@ -21,9 +21,15 @@ and sweeps equal lane by lane) and its Hessian, 1e-8; ESS draws on the same
 draws, 1e-10 of the largest or ten times the two prior factors' relative
 difference, whichever is larger (the factor of a kernel matrix with a 1e-6
 jitter carries its condition number); the SGPR bound and gradient, the TP
-and MOGP logML and gradients, 1e-8.
+and MOGP logML and gradients, 1e-8.  The variational GP, Bayesian
+optimization and marginalized latents (float64, against CPU tensors): the
+SVGP ELBO and its gradient in (theta, z, m, raw) through both
+kernels, a BO suggestion on the same draws, and Laplace-marginalized
+latents whose joint reaches both ops, 1e-8 of the largest entry; numpy
+bounds of ``gauss_legendre_grid`` land on the card.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -480,3 +486,81 @@ def test_sgpr_tp_and_mogp_on_the_card_match_the_cpu(cuda):
     for gpu, cpu in zip(problems(cuda), problems("cpu")):
         for got, want in zip(_value_and_grad(gpu, theta.to(cuda)), _value_and_grad(cpu, theta)):
             assert torch.allclose(got, want, rtol=0, atol=1e-8 * want.abs().max())
+
+
+def test_gauss_legendre_grid_puts_numpy_bounds_on_the_card(cuda):
+    from bayesianinference_tpu_torch.engines.direct import gauss_legendre_grid
+
+    nodes, log_w = gauss_legendre_grid(np.array([0.0, -1.0]), np.array([1.0, 1.0]), 5)
+    assert nodes.is_cuda and log_w.is_cuda and nodes.shape == (25, 2)
+    nodes, _ = gauss_legendre_grid(np.array([0.0]), np.array([1.0]), 5, device="cpu")
+    assert nodes.device.type == "cpu"
+
+
+def test_svgp_elbo_and_gradient_on_the_card_match_the_cpu(cuda):
+    from bayesianinference_tpu_torch.ops import gp_laplace, svgp
+
+    rng = np.random.default_rng(5)
+    vals = [np.array([2.0, 0.9]), rng.uniform(-3, 3, (16, 2)), rng.normal(size=16), 0.2 * rng.normal(size=(16, 16)),
+            rng.uniform(-3, 3, (300, 2)), (rng.uniform(size=300) < 0.5).astype(float)]
+
+    def value_and_grad(d):
+        args = [torch.tensor(v, device=d).requires_grad_(i < 4) for i, v in enumerate(vals)]
+        th, z, m, raw, x, y = args
+        out = svgp.svgp_elbo(gk.se_kernel(th[0], th[1]), x, y, z, gp_laplace.bernoulli_logit_likelihood(),
+                             svgp.SVGPVariational(m, raw), data_scale=3.0)
+        return [out.detach().reshape(1)] + [g.detach() for g in torch.autograd.grad(out, args[:4])]
+
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+    got = value_and_grad(cuda)
+    assert gk.se_covariance_cuda.launches >= before[0] + 2 and gk.cholesky_cuda.launches > before[1]
+    for a, b in zip(got, value_and_grad("cpu")):
+        assert torch.allclose(a.cpu(), b, rtol=0, atol=1e-8 * b.abs().max())
+
+
+def test_bo_suggestion_on_the_card_matches_the_cpu_on_the_same_draws(cuda):
+    from bayesianinference_tpu_torch.engines import bayesopt as bo
+
+    cfg = bo.BayesOptConfig(num_candidates=64, hyper_steps=3, refine_steps=3)
+    draws = bo.bo_draws(torch.Generator().manual_seed(1), 2, cfg, dtype=torch.float64)
+    out = []
+    for d in (cuda, torch.device("cpu")):
+        state, x_init = bo.bo_init(torch.tensor([-1.0, 0.0], device=d, dtype=torch.float64),
+                                   torch.tensor([1.0, 2.0], device=d, dtype=torch.float64), 12, num_init=5,
+                                   dtype=torch.float64, draws=bo.design_draws(torch.Generator().manual_seed(0), 5, 2,
+                                                                              torch.float64))
+        for x in x_init:
+            state = bo.bo_observe(state, x, torch.sum(x**2) + torch.sin(3 * x[0]))
+        before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+        state, x_next = bo.bo_suggest(state, draws, cfg)
+        if d.type == "cuda":
+            assert gk.se_covariance_cuda.launches > before[0] and gk.cholesky_cuda.launches > before[1]
+        out.append(torch.cat([x_next, state.log_ell, state.log_var[None]]).cpu())
+    assert torch.allclose(out[0], out[1], rtol=0, atol=1e-8 * out[1].abs().max())
+
+
+def test_marginalized_latents_through_the_kernels_match_the_cpu(cuda):
+    from bayesianinference_tpu_torch.models import marginalize_latents
+
+    rng = np.random.default_rng(4)
+    xs, ys = np.sort(rng.uniform(-2, 2, size=(6, 1)), axis=0), rng.normal(size=6)
+
+    def marginal(d):
+        x, y = torch.tensor(xs, device=d), torch.tensor(ys, device=d)
+
+        def joint(theta, z):
+            k = gk.covariance_matrix(gk.se_kernel(torch.exp(theta[0]), torch.exp(theta[1])), x, 1e-6)
+            factor = gk.cholesky(k)
+            w = torch.linalg.solve_triangular(factor, z[:, None], upper=False)[:, 0]
+            return -0.5 * torch.sum(w * w) - torch.sum(torch.log(torch.diagonal(factor))) - 0.5 * torch.sum(
+                (y - z) ** 2) / 0.09
+
+        th = torch.tensor([[0.2, -0.3], [-0.5, 0.4]], dtype=torch.float64, device=d).requires_grad_(True)
+        out = marginalize_latents(joint, latent_dim=6).log_density(th)
+        return [out.detach(), torch.autograd.grad(out.sum(), th)[0]]
+
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+    got = marginal(cuda)
+    assert gk.se_covariance_cuda.launches > before[0] and gk.cholesky_cuda.launches > before[1]
+    for a, b in zip(got, marginal("cpu")):
+        assert torch.allclose(a.cpu(), b, rtol=0, atol=1e-8 * b.abs().max())

@@ -98,3 +98,17 @@ def test_direct_needs_finite_bounds():
                                               log_likelihood=lambda th: -th[0] ** 2,
                                               log_prior=lambda th: torch.zeros(()), device="cpu",
                                               dtype=torch.float64)
+
+
+def test_gauss_legendre_grid_stays_on_the_host_when_asked():
+    """The grid goes where a tensor ``lower`` lies, or to ``device``; numpy
+    bounds without ``device`` go to the card (``test_torch_cuda.py``), and
+    raise where there is none."""
+    nodes, log_w = tdirect.gauss_legendre_grid(torch.tensor([0.0, -1.0], dtype=torch.float64), [1.0, 1.0], 4)
+    assert nodes.device.type == "cpu" and log_w.device.type == "cpu" and nodes.shape == (16, 2)
+    nodes, log_w = tdirect.gauss_legendre_grid(np.array([0.0]), np.array([1.0]), 4, device="cpu",
+                                               dtype=torch.float32)
+    assert nodes.device.type == "cpu" and nodes.dtype == torch.float32
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tdirect.gauss_legendre_grid(np.array([0.0]), np.array([1.0]), 4)

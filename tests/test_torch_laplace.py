@@ -249,8 +249,12 @@ def test_log_evidence_non_pd_and_unported_front_end():
     close(tl.laplace_log_evidence(1.0, T([[4.0]])), jl.laplace_log_evidence(1.0, jnp.asarray([[4.0]])), rtol=1e-12)
     assert tl._default_tol(torch.float64) == jl._default_tol(jnp.float64)
     assert tl._default_tol(torch.float32) == jl._default_tol(jnp.float32)
-    with pytest.raises(NotImplementedError, match="generative"):
-        tl.laplace_posterior_fit(model=object(), data={"y": T([0.0])}, parameters=["mu"])
+    # the model= front end is ported (tests/test_torch_generative.py); it
+    # refuses a problem beside a model, as the JAX function does
+    problem = define_inference_problem(parameters=[("mu", -1.0, 1.0)], log_likelihood=lambda th: -th[0] ** 2,
+                                       device="cpu", dtype=torch.float64, validate=False)
+    with pytest.raises(ValueError, match="either model"):
+        tl.laplace_posterior_fit(model=object(), problem=problem, data={"y": T([0.0])}, parameters=["mu"])
 
 
 def test_random_starts_from_generator():
