@@ -3,7 +3,8 @@ checkpoints, evidence resampling, the Markov-chain API, GP regression
 (dense, sparse, Student-t, multi-output) and latent-GP classification,
 the stochastic variational GP, Bayesian optimization, the Laplace
 approximation, the conjugate models, direct quadrature, HMC,
-tempered SMC and the affine-invariant ensemble.  ``nested_sampling`` stays in its module
+tempered SMC, the affine-invariant ensemble, ADVI, Pathfinder and
+bridge-sampling evidence.  ``nested_sampling`` stays in its module
 (``engines.nested_sampling``): a package attribute of that name would hide
 the module."""
 
@@ -20,6 +21,7 @@ from .bayesopt import (
     bo_suggest,
     design_draws,
 )
+from .bridge import BridgeResult, bridge_sampling_evidence
 from .checkpoint import load_ns_run, load_result, resume_nested_sampling_loop, save_ns_run, save_result
 from .conjugate import (
     BLRParameters,
@@ -71,6 +73,7 @@ from .laplace import (
 )
 from .mcmc import MCMCChain, create_mcmc_chain, iterate_mcmc
 from .mogp import MOGPModel, define_multi_output_gp, predict_from_multi_output_gp
+from .pathfinder import PathfinderDraws, PathfinderResult, pathfinder_draws, pathfinder_fit
 from .smc import SMCConfig, SMCResult, smc_log_evidence, smc_sampler, thermodynamic_log_evidence
 from .sparse_gp import (
     SGPRModel,
@@ -93,3 +96,4 @@ from .svgp import (
     svgp_draws,
 )
 from .t_process import TPModel, define_t_process, predict_from_t_process
+from .vi import VIDraws, VIResult, advi_fit, vi_draws

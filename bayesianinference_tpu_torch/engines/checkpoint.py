@@ -33,7 +33,9 @@ from .evidence import MeanAndError, NestedSamplingResult
 from .hmc import HMCResult
 from .laplace import LaplaceFit
 from .nested_sampling import NSRunData, make_loop_config, run_loop_from_state
+from .pathfinder import PathfinderResult
 from .smc import SMCResult
+from .vi import VIResult
 
 __all__ = [
     "save_ns_run",
@@ -144,12 +146,7 @@ def resume_nested_sampling_loop(
 # ---------------------------------------------------------------------------
 
 _RESULT_CLASSES = {"NestedSamplingResult": NestedSamplingResult, "LaplaceFit": LaplaceFit, "SMCResult": SMCResult,
-                   "HMCResult": HMCResult}
-# result types of the JAX package whose engines the port does not have yet
-_WAITING = {
-    "VIResult": "engines/vi.py",
-    "PathfinderResult": "engines/pathfinder.py",
-}
+                   "HMCResult": HMCResult, "VIResult": VIResult, "PathfinderResult": PathfinderResult}
 
 
 def _np(t) -> np.ndarray:
@@ -158,18 +155,17 @@ def _np(t) -> np.ndarray:
 
 def save_result(path, result) -> None:
     """Write a :class:`~.evidence.NestedSamplingResult`, a
-    :class:`~.laplace.LaplaceFit`, an :class:`~.hmc.HMCResult` or an
-    :class:`~.smc.SMCResult` to one ``.npz`` in the JAX package's layout.
+    :class:`~.laplace.LaplaceFit`, an :class:`~.hmc.HMCResult`, an
+    :class:`~.smc.SMCResult`, a :class:`~.vi.VIResult` or a
+    :class:`~.pathfinder.PathfinderResult` to one ``.npz`` in the JAX
+    package's layout.
     Tensors, ``MeanAndError`` pairs and ``WeightedSamples`` pools round-trip
     exactly and static fields go to a JSON header; callables
     (``predictive_builder``) and tuples that are not all strings
     (``hyper_path``) are dropped."""
     name = type(result).__name__
     if name not in _RESULT_CLASSES:
-        raise NotImplementedError(
-            f"save_result: {name} is not a result type of the port"
-            + (f" (it waits for the port of {_WAITING[name]})" if name in _WAITING else "")
-        )
+        raise NotImplementedError(f"save_result: {name} is not a result type of the port")
     arrays = {}
     meta = {"__class__": name}
     for f in dataclasses.fields(result):
@@ -203,9 +199,7 @@ def load_result(path, *, device=None):
         meta = json.loads(bytes(z["__meta__"]).decode())
         name = meta.pop("__class__")
         if name not in _RESULT_CLASSES:
-            raise NotImplementedError(
-                f"load_result: {name} waits for the port of {_WAITING.get(name, 'its engine')}"
-            )
+            raise NotImplementedError(f"load_result: {name} is not a result type of the port")
         cls = _RESULT_CLASSES[name]
         kwargs = {}
         for f in dataclasses.fields(cls):

@@ -133,9 +133,10 @@ def hmc_sample(
     ``num_leapfrog`` is the fixed trajectory length in steps, or
     ``"auto"`` to learn it by ChEES (capped at ``max_leapfrog`` steps).
     ``dense_mass=True`` adapts the full posterior covariance as the inverse
-    mass.  ``starting_points="pathfinder"`` and ``"flow"`` need the
-    Pathfinder and flow-VI engines, which are not ported yet (ROADMAP.md
-    queue 1, item 6): they raise ``NotImplementedError``."""
+    mass.  ``starting_points="pathfinder"`` starts the chains at draws of a
+    Pathfinder fit (``min(max(num_chains, 4), 8)`` paths, 128 draws per
+    path) made from ``generator`` first; ``"flow"`` needs the flow-VI
+    engine, which is not ported yet, and raises ``NotImplementedError``."""
     if num_leapfrog != "auto" and (not isinstance(num_leapfrog, int) or num_leapfrog < 1):
         raise ValueError(f'num_leapfrog must be a positive int or "auto", got {num_leapfrog!r}')
     if isinstance(starting_points, str):
@@ -143,9 +144,15 @@ def hmc_sample(
             raise ValueError(f'unknown starting_points {starting_points!r}; expected an array, "pathfinder", or "flow"')
         if not isinstance(target, InferenceProblem):
             raise ValueError(f'starting_points="{starting_points}" needs an InferenceProblem target')
-        raise NotImplementedError(
-            f'starting_points="{starting_points}" needs the {starting_points} engine, which the port does not have '
-            "yet (ROADMAP.md queue 1, item 6)")
+        if starting_points == "flow":
+            raise NotImplementedError(
+                'starting_points="flow" needs the flow-VI engine (engines/flow_vi.py), which the port does not have '
+                "yet (ROADMAP.md queue 1)")
+        from .pathfinder import pathfinder_fit
+
+        generator = torch.Generator(device=target.device).manual_seed(0) if generator is None else generator
+        pf = pathfinder_fit(target, generator, num_paths=min(max(num_chains, 4), 8), num_draws_per_path=128)
+        starting_points = pf.posterior_samples(generator, num_chains).points
     kw = dict(num_warmup=num_warmup, num_samples=num_samples, num_leapfrog=num_leapfrog, thinning=thinning,
               target_accept=float(target_accept), initial_step_size=float(initial_step_size),
               dense_mass=bool(dense_mass), max_leapfrog=int(max_leapfrog))

@@ -10,7 +10,8 @@ or as the object itself, read by attribute.  A type-II maximum-likelihood fit
 of the latent-GP classifier or of the sparse GP, and the coregionalization
 parameters of the multi-output GP, carry over the same way, and so do the
 stochastic variational GP's parameter sets (``SVGPVariational`` and the
-three fits) and Bayesian optimization's ``BayesOptState``.  Without
+three fits), Bayesian optimization's ``BayesOptState``, and the fitted
+``VIResult`` and ``PathfinderResult``.  Without
 ``device=`` the tensors go to the CUDA card,
 and the call raises where there is none: ``device="cpu"`` asks for the
 host.  Nothing here imports JAX.
@@ -31,7 +32,10 @@ from .engines.bayesopt import BayesOptState
 from .engines.gp_classify import _NAMED_LIKELIHOODS, GPClassifierOptimization
 from .engines.sparse_gp import SGPROptimization, with_inducing
 from .engines.svgp import SVGPFit, SVGPHeteroFit, SVGPMulticlassFit
+from .core.containers import WeightedSamples
 from .engines.nested_sampling import NSState
+from .engines.pathfinder import PathfinderResult
+from .engines.vi import VIResult
 from .ops.chmc import CHMCState
 from .ops.metropolis import AMState
 from .ops.slice import SliceState
@@ -59,6 +63,8 @@ __all__ = [
     "svgp_hetero_fit_from_numpy",
     "bayes_opt_state_from_numpy",
     "bayes_opt_state_to_numpy",
+    "vi_result_from_numpy",
+    "pathfinder_result_from_numpy",
 ]
 
 _EVAL_BASE = 1 << 30  # radix of the JAX package's (hi, lo) int32 eval counter
@@ -296,3 +302,29 @@ def bayes_opt_state_from_numpy(fields, *, device=None, dtype: Optional[torch.dty
 def bayes_opt_state_to_numpy(state: BayesOptState) -> dict:
     out = {k: getattr(state, k).detach().cpu().numpy() for k in _BO_FLOATS}
     return {**out, "mask": state.mask.cpu().numpy(), "n": state.n}
+
+
+def _names(fields) -> tuple:
+    return tuple(fields.get("param_names", ()) if isinstance(fields, dict) else getattr(fields, "param_names", ()))
+
+
+def vi_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> VIResult:
+    """A :class:`~.engines.vi.VIResult` from the JAX package's fit (``loc``,
+    ``scale_tril``, ``elbo``, ``elbo_history``, ``lower``, ``upper``,
+    ``param_names``, ``family``)."""
+    out = _params_from(fields, ("loc", "scale_tril", "elbo", "elbo_history", "lower", "upper"), device, dtype)
+    return VIResult(**out, param_names=_names(fields), family=str(_field(fields, "family")))
+
+
+def pathfinder_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> PathfinderResult:
+    """A :class:`~.engines.pathfinder.PathfinderResult` from the JAX
+    package's (its pooled ``samples``, a ``WeightedSamples`` or a dict of
+    ``points`` and ``log_weights``; ``elbo_per_path``, ``best_iteration``,
+    ``log_evidence_is``, ``pareto_k``, ``path_loc``, ``lower``, ``upper``,
+    ``param_names``)."""
+    out = _params_from(fields, ("elbo_per_path", "log_evidence_is", "pareto_k", "path_loc", "lower", "upper"),
+                       device, dtype)
+    pool = _params_from(_field(fields, "samples"), ("points", "log_weights"), device, dtype)
+    best = torch.as_tensor(np.array(_field(fields, "best_iteration")), device=out["lower"].device)
+    return PathfinderResult(samples=WeightedSamples(**pool), best_iteration=best, **out,
+                            param_names=_names(fields))

@@ -130,7 +130,37 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     kernel runs in 15e).  Then the kernels at the slice's new shapes
     against their plain versions, bounds and cholesky_ex.
 
-Each of phases 4, 6, 7, 9, 11b, 12, 13c, 13e, 14 and 15 (and 13b the Cholesky's)
+16. ADVI, Pathfinder, bridge sampling and the results layer: (a) ADVI at
+    its defaults (3000 steps, 32 draws) on tests/test_vi.py's conjugate
+    oracle under its gates, fullrank on its rho = 0.9 Gaussian; (b) ADVI
+    on phase 4's GP problem, both families, 500 steps (3000 cut), each
+    step's value and gradient through both kernels and both reverse rules
+    at B = 32, the ELBO under phase 4's grid logZ plus 4 MC standard
+    errors, and a 20-step f64 fit on the card against the same fit on CPU
+    tensors on the same draws (1e-8); (c) Pathfinder at its defaults on
+    the conjugate oracle (tests/test_pathfinder.py's gates), the GP
+    (logZ_IS within 0.1 of the grid logZ when pareto k < 0.7, the ELBO
+    under it) and phase 9's ARD GP (22 hyperparameters, d > 2J; the ELBO
+    under a logZ from bridge sampling of 32 HMC chains, and logZ_IS within
+    4 max(relative error, 0.2) of it when k < 0.7), with the ELBO block's
+    chunk and peak memory, and the factor at d = 22 > 2J and d = 3 against
+    the BFGS inverse Hessian built pair by pair in numpy; (d) hmc_sample(starting_points="pathfinder") on the
+    GP at 13c's sizes against phase 4's NS posterior (13c's gate); (e)
+    bridge sampling on the conjugate oracle (4000 draws, 5e-3) and on the
+    GP from (d)'s and (c)'s draws (3 relative errors + 0.05 of the grid
+    logZ); (f) PSIS-LOO and WAIC on a quantile grid of a conjugate Normal
+    model's exact posterior against its exact leave-one-out elpd (three
+    times the CPU's readings, tests/loo_gate_study.py) and against the same
+    on CPU tensors (1e-10), model weights by all three methods, an SBC
+    study of the conjugate Normal engine (200 replications) and the
+    summary and calculation report of phase 4's NS result, on card
+    tensors; (g) the kernels at the slice's new shapes (B = 32, the ELBO
+    chunk, the ARD try at B = 8, n = 512 f64) against their plain
+    versions, bounds and cholesky_ex, with per ADVI step and per Pathfinder
+    iteration (by difference of fits of 1 and 3 steps or iterations) wall
+    ms, device ms, CUDA kernels and busy share.
+
+Each of phases 4, 6, 7, 9, 11b, 12, 13c, 13e, 14, 15 and 16 (and 13b the Cholesky's)
 zeroes the kernels' launch counters before it drives its path and fails if
 a kernel of that path was not launched; the ``launches`` of the JSON line
 are their sum.  Phase 5 fails
@@ -201,11 +231,21 @@ def phase_device():
 
 def _se_plain_in_row_blocks(gk, x1, x2, var, scale, nugget):
     """``se_covariance_plain`` on row blocks small enough for its accurate
-    direct-difference form (at most 2^24 elements of [rows, n2, d])."""
+    direct-difference form (at most 2^24 elements of [rows, n2, d] per
+    matrix, and of [matrices, rows, n2, d] per call: the batches of
+    thousands of matrices of the ELBO blocks go a few matrices at a time)."""
     other = x1 if x2 is None else x2
-    step = max(1, gk._DIRECT_SQDIST_MAX_ELEMS // (other.shape[1] * other.shape[2]))
-    k = torch.cat([gk.se_covariance_plain(x1[:, i:i + step], other, var, scale)
-                   for i in range(0, x1.shape[1], step)], dim=1)
+    per_row = other.shape[1] * other.shape[2]
+    step = max(1, gk._DIRECT_SQDIST_MAX_ELEMS // per_row)
+    b = max(x1.shape[0], var.shape[0])
+    b_step = max(1, gk._DIRECT_SQDIST_MAX_ELEMS // (per_row * min(step, x1.shape[1])))
+
+    def part(t, j):
+        return t if t is None or t.shape[0] == 1 else t[j:j + b_step]
+
+    k = torch.cat([torch.cat([gk.se_covariance_plain(part(x1, j)[:, i:i + step], part(other, j), part(var, j),
+                                                     part(scale, j))
+                              for i in range(0, x1.shape[1], step)], dim=1) for j in range(0, b, b_step)], dim=0)
     return k if nugget is None else k + torch.diag_embed(nugget)
 
 
@@ -3085,6 +3125,557 @@ def phase_svgp_bo(smi: str, dev="cuda", **sizes):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 16: ADVI, Pathfinder, bridge sampling, HMC's Pathfinder start and the
+# model-comparison results layer
+# ---------------------------------------------------------------------------
+
+ADVI_GP_STEPS = 500  # the JAX default is 3000, cut to fit the time limit
+PATHFINDER_DRAWS = Path(__file__).resolve().parent / "tests" / "data" / "pathfinder_conjugate_jax_draws.npz"
+ADVI_CPU_STEPS = 20  # the card-vs-CPU fit: a step on CPU tensors takes about 0.6 s at B = 32, n = 512, f64
+# the ARD GP's reference logZ: HMC chains and steps (warmup and samples
+# each); at n = 64 on the CPU 50 + 50 steps read within 0.2 of 150 + 150
+# (tests/ard_reference_study.py)
+ARD_REF_CHAINS, ARD_REF_STEPS = 32, 50
+# 16f: draws of the exact posterior (a quantile grid), and three times the
+# largest error against the exact LOO elpd that the CPU reads on that grid
+# (PSIS-LOO 1.202e-3, WAIC 9.04e-4: tests/loo_gate_study.py)
+LOO_DRAWS, LOO_TOL, WAIC_TOL = 4000, 3.7e-3, 2.8e-3
+
+
+def _normal_model(dev, n_obs=40, seed=1, tau0=3.0, mu0=0.0):
+    """tests/test_vi.py's conjugate oracle: y_i ~ N(mu, 1), mu ~ N(mu0, tau0^2);
+    (problem, data, posterior mean, posterior sd, exact logZ)."""
+    from bayesianinference_tpu_torch.dists.scalar import Normal
+    from bayesianinference_tpu_torch.models.problem import define_inference_problem
+
+    data = np.random.default_rng(seed).normal(1.2, 1.0, n_obs)
+    problem = define_inference_problem(parameters=[("mu", -10.0, 10.0)], likelihood=lambda th: Normal(th[0], 1.0),
+                                       data=torch.as_tensor(data, device=dev), prior_distribution=[Normal(mu0, tau0)],
+                                       validate=False)
+    prec = 1 / tau0**2 + n_obs
+    r = data - mu0
+    # y ~ N(mu0 1, tau0^2 J + I): determinant and inverse by the rank-one update
+    log_z = (-0.5 * n_obs * math.log(2 * math.pi) - 0.5 * math.log(1 + n_obs * tau0**2)
+             - 0.5 * (r @ r - tau0**2 * r.sum() ** 2 / (1 + n_obs * tau0**2)))
+    return problem, data, (mu0 / tau0**2 + data.sum()) / prec, prec**-0.5, log_z
+
+
+def _phase16_advi_oracles(smi, dev, steps=3000):
+    """16a: ADVI at its defaults on the conjugate oracle (tests/test_vi.py's
+    gates) and fullrank on the rho = 0.9 Gaussian."""
+    from bayesianinference_tpu_torch.engines.vi import advi_fit
+    from bayesianinference_tpu_torch.models.problem import define_inference_problem
+
+    problem, _, pm, psd, log_z = _normal_model(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    r = advi_fit(problem, g, num_steps=steps)
+    s = r.sample(g, 20000)[:, 0]
+    elbo = float(r.elbo)
+    wall = time.perf_counter() - t0
+    mean, sd = float(s.mean()), float(s.std())
+    if not (abs(mean - pm) <= 0.02 and abs(sd / psd - 1) <= 0.1 and log_z - 0.1 < elbo < log_z + 0.02):
+        raise AssertionError(f"16a ADVI: mean {mean} (exact {pm}), sd {sd} ({psd}), ELBO {elbo} (logZ {log_z})")
+    rho = 0.9
+    prec = torch.as_tensor(np.linalg.inv([[1.0, rho], [rho, 1.0]]), device=dev)
+    corr_problem = define_inference_problem(parameters=[("a", -8.0, 8.0), ("b", -8.0, 8.0)],
+                                            log_likelihood=lambda th: -0.5 * th @ prec @ th,
+                                            prior_distribution=["location", "location"], validate=False, device=dev,
+                                            dtype=torch.float64)
+    t1 = time.perf_counter()
+    fr = advi_fit(corr_problem, g, family="fullrank", num_steps=steps)
+    got_rho = float(np.corrcoef(fr.sample(g, 20000).cpu().numpy().T)[0, 1])
+    wall_fr = time.perf_counter() - t1
+    if not abs(got_rho - rho) <= 0.06:
+        raise AssertionError(f"16a ADVI fullrank: correlation {got_rho} (0.9)")
+    log(f"[16a ADVI oracles] conjugate Normal, meanfield, {steps} steps, 32 draws: mean {mean:.4f} (exact {pm:.4f}), "
+        f"sd {sd:.4f} ({psd:.4f}), ELBO {elbo:.4f} vs logZ {log_z:.4f}, {wall:.1f} s = "
+        f"{1e3 * wall / steps:.2f} ms a step; fullrank on the rho = 0.9 Gaussian: correlation {got_rho:.4f}, "
+        f"{wall_fr:.1f} s | {smi}")
+
+
+def _elbo_se(problem, fit, final) -> float:
+    """Monte-Carlo standard error of a fit's final ELBO estimate, from the
+    same draws: sd of log p(x(z)) + log|J| over them / sqrt(count)."""
+    from bayesianinference_tpu_torch.core.transforms import box_bijection
+    from bayesianinference_tpu_torch.engines.vi import in_chunks, z_log_target
+
+    with torch.no_grad():
+        z = fit.loc + final @ fit.scale_tril.T
+        vals = in_chunks(z_log_target(problem, box_bijection(problem.lower, problem.upper)), z)
+    return float(vals.std() / math.sqrt(vals.shape[0]))
+
+
+def _phase16_advi_gp(smi, watch, dev, problem, cpu_problem, grid_logz, steps=ADVI_GP_STEPS, cpu_steps=ADVI_CPU_STEPS):
+    """16b: ADVI on phase 4's GP problem through both kernels (the step's
+    value and gradient at B = 32), both families; a short f64 fit on the
+    card against the same fit on CPU tensors on the same draws."""
+    from bayesianinference_tpu_torch.engines import vi
+
+    out = {}
+    for family in ("meanfield", "fullrank"):
+        draws = vi.vi_draws(torch.Generator(device=dev).manual_seed(1), steps, 32, 4096, problem.dim)
+        watch.zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = vi.advi_fit(problem, None, family=family, num_steps=steps, draws=draws)
+        elbo = float(fit.elbo)
+        wall = time.perf_counter() - t0
+        launches = watch.counts()
+        if min(launches.values()) < steps:
+            raise AssertionError(f"16b ADVI {family}: launches {launches} for {steps} steps")
+        se = _elbo_se(problem, fit, draws.final)
+        if not elbo <= grid_logz + 4 * se:
+            raise AssertionError(f"16b ADVI {family}: ELBO {elbo} above the grid logZ {grid_logz} + 4 x {se}")
+        out[family] = (fit, launches, wall, elbo, se)
+    draws = vi.vi_draws(torch.Generator().manual_seed(2), cpu_steps, 32, 64, problem.dim)
+    kw = dict(num_steps=cpu_steps, final_elbo_samples=64)
+    t0 = time.perf_counter()
+    card = vi.advi_fit(problem, None, draws=vi.VIDraws(*(a.to(dev) for a in draws)), **kw)
+    cpu = vi.advi_fit(cpu_problem, None, draws=draws, **kw)
+    wall_cpu = time.perf_counter() - t0
+    rel = max(_rel_max(a.cpu(), b) for a, b in ((card.elbo_history, cpu.elbo_history), (card.loc, cpu.loc),
+                                                (card.scale_tril, cpu.scale_tril), (card.elbo, cpu.elbo)))
+    if not rel <= 1e-8:
+        raise AssertionError(f"16b ADVI: the card's {cpu_steps}-step fit vs the CPU's on the same draws: {rel:.3e}")
+    lines = [f"{fam} ELBO {e:.4f} (grid logZ {grid_logz:.4f}, gap {grid_logz - e:.4f}, MC se {se:.4f}), "
+             f"{w:.1f} s = {1e3 * w / steps:.2f} ms a step, launches {ln}" for fam, (_, ln, w, e, se) in out.items()]
+    log(f"[16b ADVI GP] phase 4's problem (n={SLICE_N} d={SLICE_D} f64), {steps} steps (3000 cut to fit the time "
+        f"limit), 32 draws a step through both kernels and both reverse rules, final bound on 4096 draws: "
+        f"{'; '.join(lines)}; a {cpu_steps}-step meanfield fit (cut from 100 for the CPU's 0.6 s a step) on the "
+        f"card vs CPU tensors on the same draws: max rel diff {rel:.3e} ({wall_cpu:.1f} s) | "
+        f"{smi}")
+    return {k: sum(v[1][k] for v in out.values()) for k in ("se_covariance", "cholesky")}, out
+
+
+def _pathfinder_gates(r, ref, what, tol, ref_sd=0.0, slack_sd=4.0):
+    """(log_evidence_is - ref, best ELBO - ref, the best ELBO's MC se) with
+    the IS gate applied when pareto_k < 0.7; the ELBO must not exceed the
+    logZ ``ref`` by more than ``slack_sd`` of its Monte-Carlo standard error
+    and ``ref``'s, ``ref_sd``, together."""
+    pk, lz = float(r.pareto_k), float(r.log_evidence_is)
+    best = int(torch.argmax(r.elbo_per_path))
+    m = r.samples.n // r.num_paths
+    # the per-path ELBO is the mean of the path's raw log-weights; their sd from the smoothed ones is close
+    se = float(r.samples.log_weights[best * m:(best + 1) * m].std()) / math.sqrt(m)
+    if pk < 0.7 and not abs(lz - ref) <= tol:
+        raise AssertionError(f"{what}: log_evidence_is {lz} vs {ref} (pareto k {pk:.3f})")
+    if not (bool(torch.isfinite(r.samples.log_weights).all()) and math.isfinite(lz)):
+        raise AssertionError(f"{what}: non-finite log weights or evidence {lz}")
+    slack = slack_sd * max(math.hypot(se, ref_sd), 1e-3)
+    if not float(r.elbo) <= ref + slack:
+        raise AssertionError(f"{what}: ELBO {float(r.elbo)} above {ref} + {slack}")
+    return lz - ref, float(r.elbo) - ref, se
+
+
+def _phase16_pathfinder(smi, watch, dev, problem, grid_logz):
+    """16c: Pathfinder at its defaults on the conjugate oracle, phase 4's GP
+    problem and phase 9's ARD GP (d = 22 > 2J = 12)."""
+    from bayesianinference_tpu_torch.engines import pathfinder as pf
+    from bayesianinference_tpu_torch.engines.vi import EVAL_CHUNK
+    from bayesianinference_tpu_torch.interop import problem_data_from_numpy
+
+    conj, _, pm, psd, log_z = _normal_model(dev)
+    # the JAX test's own draws: its k-hat gate fails at 4 of 40 JAX keys (tests/test_torch_pathfinder.py)
+    with np.load(PATHFINDER_DRAWS) as f:
+        draws = pf.PathfinderDraws(*(torch.as_tensor(f[k], device=dev) for k in pf.PathfinderDraws._fields))
+    r = pf.pathfinder_fit(conj, None, draws=draws)
+    w = r.samples.normalized_weights()
+    pts = r.samples.points[:, 0]
+    m = float(w @ pts)
+    sd = float(torch.sqrt(w @ (pts - m) ** 2))
+    if not (abs(float(r.log_evidence_is) - log_z) <= 0.02 and log_z - 0.2 < float(r.elbo) < log_z + 0.05
+            and abs(m - pm) <= 0.03 and abs(sd / psd - 1) <= 0.15 and float(r.pareto_k) < 0.7):
+        raise AssertionError(f"16c Pathfinder conjugate: logZ_IS {float(r.log_evidence_is)} (exact {log_z}), ELBO "
+                             f"{float(r.elbo)}, mean {m} ({pm}), sd {sd} ({psd}), pareto k {float(r.pareto_k)}")
+    lines = [f"conjugate on the JAX test's draws ({PATHFINDER_DRAWS.name}): logZ_IS {float(r.log_evidence_is):.4f} "
+             f"(exact {log_z:.4f}), ELBO {float(r.elbo):.4f}, "
+             f"mean {m:.4f} ({pm:.4f}), sd {sd:.4f} ({psd:.4f}), pareto k {float(r.pareto_k):.3f}"]
+    rng = np.random.default_rng(0)
+    x_np = rng.normal(size=(ARD_N, ARD_D))
+    y_np = np.sin(x_np[:, 0]) + 0.5 * x_np[:, 1] + 0.1 * rng.normal(size=ARD_N)
+    ard = _ard_gp_problem(*problem_data_from_numpy(x_np, y_np, device=dev, dtype=torch.float64))
+    fits, total = {}, {"se_covariance": 0, "cholesky": 0}
+    for name, prob in (("GP", problem), ("ARD GP", ard)):
+        watch.zero()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = pf.pathfinder_fit(prob, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        launches = watch.counts()
+        if min(launches.values()) == 0:
+            raise AssertionError(f"16c Pathfinder {name}: launches {launches}")
+        for k in total:
+            total[k] += launches[k]
+        if name == "GP":
+            ref, ref_sd, ref_note = grid_logz, 0.0, "grid logZ"
+        else:
+            ref, re, ref_note, ref_launches = _ard_reference(watch, dev, prob, r)
+            ref_sd = max(re, 0.2)
+            for k in total:
+                total[k] += ref_launches[k]
+        tol = 0.1 if name == "GP" else 4 * ref_sd
+        d_is, d_elbo, se = _pathfinder_gates(r, ref, f"16c Pathfinder {name}", tol, ref_sd)
+        fits[name] = r
+        lines.append(f"{name} (d={prob.dim}): logZ_IS - {ref_note} {d_is:+.4f} (gate {tol:.2f} when k < 0.7), "
+                     f"ELBO - it {d_elbo:+.4f} (MC se {se:.4f}, gate 4 x hypot(se, {ref_sd:.3f})), pareto k "
+                     f"{float(r.pareto_k):.3f}, best iterations {r.best_iteration.tolist()}, {wall:.2f} s, launches "
+                     f"{launches}, ELBO block in chunks of {EVAL_CHUNK}, peak {peak:.0f} MiB")
+    # the factor's 1e-10 jitter on its small block reads 1e-10 (covariance)
+    # and 8e-10 (log det) on the CPU; a wrong factor is off by O(0.1)
+    worst = _pathfinder_factor_check(dev)
+    if not worst <= 1e-8:
+        raise AssertionError(f"16c Pathfinder factor against the BFGS inverse Hessian: {worst:.3e}")
+    log(f"[16c Pathfinder] 8 paths, 60 iterations, 30 ELBO draws, 256 draws a path, f64: {'; '.join(lines)}; the "
+        f"factor at d = 22 > 2J = 12 and d = 3 against the BFGS inverse Hessian built pair by pair in numpy: "
+        f"covariance and half log det within {worst:.3e} relative | {smi}")
+    return total, fits, ard
+
+
+def _ard_reference(watch, dev, problem, fit, chains=ARD_REF_CHAINS, steps=ARD_REF_STEPS):
+    """A logZ of the ARD GP that Pathfinder's pool does not enter: bridge
+    sampling (its own moment-matched proposal) of HMC draws, ``chains``
+    chains started at the fit's draws, ``steps`` warmup and ``steps``
+    samples of 8 leapfrog steps; (logZ, relative error, note, launches)."""
+    from bayesianinference_tpu_torch.engines.bridge import bridge_sampling_evidence
+    from bayesianinference_tpu_torch.engines.hmc import hmc_sample
+    from bayesianinference_tpu_torch.results import gelman_rubin
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    watch.zero()
+    t0 = time.perf_counter()
+    h = hmc_sample(problem, g, num_chains=chains, num_samples=steps, num_warmup=steps, num_leapfrog=8,
+                   starting_points=fit.posterior_samples(g, chains).points)
+    br = bridge_sampling_evidence(problem, h, g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = watch.counts()
+    rhat = max(float(gelman_rubin(h.per_parameter_chains(i))) for i in range(problem.dim))
+    if not (rhat < 1.2 and br.converged and min(launches.values()) >= 2 * steps * 8):
+        raise AssertionError(f"16c ARD reference: split R-hat {rhat}, bridge converged {br.converged}, launches "
+                             f"{launches}")
+    note = (f"bridge logZ of {chains} HMC chains x {steps} ({float(br.log_evidence):.4f}, re "
+            f"{float(br.relative_error):.4f}, R-hat {rhat:.3f}, {wall:.2f} s, launches {launches})")
+    return float(br.log_evidence), float(br.relative_error), note, launches
+
+
+def _bfgs_inverse_hessian(alpha, S, Y, ok):
+    """diag(alpha) updated by BFGS's inverse-Hessian rule once per kept
+    (s, y) pair, oldest first: the matrix Pathfinder's factor represents."""
+    H = np.diag(alpha)
+    eye = np.eye(len(alpha))
+    for s, y, keep in zip(S, Y, ok):
+        if keep:
+            rho = 1.0 / (s @ y)
+            V = eye - rho * np.outer(y, s)
+            H = V.T @ H @ V + rho * np.outer(s, s)
+    return H
+
+
+def _pathfinder_factor_check(dev, cases=((22, 6), (3, 6)), batch=4, seed=0) -> float:
+    """``pathfinder.factor`` and ``draw`` on ``dev`` (d > 2J, the thin QR's
+    m = 2J branch, and d < 2J): the covariance of the draws' linear map and
+    the half log determinant against :func:`_bfgs_inverse_hessian`, on
+    windows with masked pairs; the largest relative error."""
+    from bayesianinference_tpu_torch.engines import pathfinder as pf
+
+    rng = np.random.default_rng(seed)
+    worst = 0.0
+    for d, J in cases:
+        a = rng.normal(size=(d, d))
+        A = a @ a.T / d + 0.5 * np.eye(d)
+        S = rng.normal(size=(batch, J, d))
+        Y = S @ A  # y = A s: positive curvature
+        ok = rng.random((batch, J)) < 0.7
+        alpha = 0.5 + rng.random((batch, d))
+
+        def t(v):
+            return torch.as_tensor(v, device=dev)
+
+        sqrt_a, Q, Lm, half_logdet = pf.factor(t(alpha), t(S), t(Y), t(ok))
+        eye = torch.eye(d, dtype=torch.float64, device=dev).expand(batch, d, d)
+        Wt = pf.draw(torch.zeros((batch, d), dtype=torch.float64, device=dev), sqrt_a, Q, Lm, eye).cpu().numpy()
+        for b in range(batch):
+            H = _bfgs_inverse_hessian(alpha[b], S[b], Y[b], ok[b])
+            cov = Wt[b].T @ Wt[b]  # draws are W eps; row i of Wt is W e_i
+            worst = max(worst, float(np.abs(cov - H).max() / np.abs(H).max()),
+                        abs(float(half_logdet[b]) - 0.5 * np.linalg.slogdet(H)[1]) / max(1.0, abs(float(half_logdet[b]))))
+    return worst
+
+
+def _phase16_hmc_pathfinder(smi, watch, dev, problem, ns_res, chains=16, warmup=60, samples=60, leapfrog=8):
+    """16d: hmc_sample(starting_points="pathfinder") on phase 4's GP problem
+    at 13c's sizes, its moments against phase 4's NS posterior (13c's gate)."""
+    from bayesianinference_tpu_torch.engines.hmc import hmc_sample
+    from bayesianinference_tpu_torch.results import gelman_rubin
+
+    watch.zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = hmc_sample(problem, torch.Generator(device=dev).manual_seed(4), num_chains=chains, num_samples=samples,
+                   num_warmup=warmup, num_leapfrog=leapfrog, starting_points="pathfinder")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = watch.counts()
+    w = torch.exp(ns_res.crude_log_posterior_weights)
+    w = w / w.sum()
+    u = torch.log(ns_res.points)
+    ns_mean = (w[:, None] * u).sum(dim=0)
+    ns_sd = torch.sqrt((w[:, None] * (u - ns_mean) ** 2).sum(dim=0))
+    off = ((torch.log(r.samples).reshape(-1, r.samples.shape[-1]).mean(dim=0) - ns_mean).abs() / ns_sd).max().item()
+    rhat = max(float(gelman_rubin(r.per_parameter_chains(i))) for i in range(r.samples.shape[-1]))
+    if not (off <= 0.3 and rhat < 1.1 and min(launches.values()) >= (warmup + samples) * leapfrog):
+        raise AssertionError(f"16d HMC from Pathfinder: means {off:.3f} NS sds off, split R-hat {rhat:.4f}, launches "
+                             f"{launches}")
+    log(f"[16d HMC from Pathfinder] phase 4's problem, {chains} chains started at draws of a Pathfinder fit (8 paths, "
+        f"128 draws a path), {warmup} warmup, {samples} samples, {leapfrog} leapfrog: {wall:.2f} s; log-hyperparameter "
+        f"means within {off:.3f} posterior sds of phase 4's NS posterior, split R-hat at most {rhat:.4f}, acceptance "
+        f"{float(r.acceptance_rates.mean()):.3f}; launches {launches} | {smi}")
+    return launches, r
+
+
+def _phase16_bridge(smi, watch, dev, problem, grid_logz, hmc, pf_fit):
+    """16e: bridge sampling on the conjugate oracle (4000 exact draws) and on
+    the GP from 16d's HMC draws and 16c's Pathfinder fit."""
+    from bayesianinference_tpu_torch.engines.bridge import bridge_sampling_evidence
+
+    conj, _, pm, psd, log_z = _normal_model(dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    draws = pm + psd * torch.randn((4000, 1), generator=g, device=dev, dtype=torch.float64)
+    r = bridge_sampling_evidence(conj, draws, g)
+    if not (r.converged and r.num_iterations < 20 and abs(float(r.log_evidence) - log_z) <= 5e-3):
+        raise AssertionError(f"16e bridge conjugate: logZ {float(r.log_evidence)} (exact {log_z}), "
+                             f"{r.num_iterations} iterations, converged {r.converged}")
+    lines = [f"conjugate: logZ {float(r.log_evidence):.5f} (exact {log_z:.5f}), {r.num_iterations} iterations, "
+             f"re {float(r.relative_error):.2e}"]
+    watch.zero()
+    for name, draws in (("GP from 16d's HMC draws", hmc), ("GP from 16c's Pathfinder fit", pf_fit)):
+        t0 = time.perf_counter()
+        r = bridge_sampling_evidence(problem, draws, g)
+        wall = time.perf_counter() - t0
+        err = float(r.log_evidence) - grid_logz
+        if not abs(err) <= 3 * float(r.relative_error) + 0.05:
+            raise AssertionError(f"16e bridge {name}: logZ {float(r.log_evidence)} vs grid {grid_logz}, re "
+                                 f"{float(r.relative_error)}")
+        lines.append(f"{name}: logZ - grid {err:+.4f} (re {float(r.relative_error):.4f}), {r.num_iterations} "
+                     f"iterations, {r.num_posterior_draws} + {r.num_proposal_draws} draws, {wall:.2f} s")
+    launches = watch.counts()
+    if min(launches.values()) == 0:
+        raise AssertionError(f"16e bridge: launches {launches}")
+    log(f"[16e bridge] {'; '.join(lines)}; launches {launches} | {smi}")
+    return launches
+
+
+LOO_MODELS = ((0.0, 3.0), (-1.0, 0.3))  # 16f's conjugate Normal models, (mu0, tau0)
+
+
+def _loo_case(dev, mu0, tau0, draws=None):
+    """PSIS-LOO and WAIC of y_i ~ N(mu, 1), mu ~ N(mu0, tau0^2) (40
+    observations) from ``draws`` [S] standard normals mapped onto its exact
+    posterior, by default a quantile grid of LOO_DRAWS points (no Monte-Carlo
+    noise); (psis_loo, waic, exact leave-one-out elpd)."""
+    from bayesianinference_tpu_torch.core.containers import WeightedSamples
+    from bayesianinference_tpu_torch.results import psis_loo, waic
+
+    _, data, pm, psd, _ = _normal_model(dev, n_obs=40, tau0=tau0, mu0=mu0)
+    y = torch.as_tensor(data, device=dev)
+    n = len(data)
+    # exact LOO: the posterior without y_i, N(m_-i, v_-i), predicts y_i ~ N(m_-i, 1 + v_-i)
+    prec_i = 1 / tau0**2 + (n - 1)
+    m_i = (mu0 / tau0**2 + (data.sum() - data)) / prec_i
+    v_i = 1 / prec_i
+    exact = float(np.sum(-0.5 * np.log(2 * np.pi * (1 + v_i)) - 0.5 * (data - m_i) ** 2 / (1 + v_i)))
+    if draws is None:
+        u = (torch.arange(LOO_DRAWS, device=dev, dtype=torch.float64) + 0.5) / LOO_DRAWS
+        draws = torch.special.ndtri(u)
+    pts = (pm + psd * draws)[:, None]
+    ws = WeightedSamples(points=pts, log_weights=torch.zeros(pts.shape[0], device=dev, dtype=torch.float64))
+
+    def pointwise(th):
+        return -0.5 * math.log(2 * math.pi) - 0.5 * (y - th[0]) ** 2
+
+    return psis_loo(ws, pointwise), waic(ws, pointwise), exact
+
+
+def _phase16_results(smi, dev, ns_res, reps=200):
+    """16f: the results layer on card tensors: WAIC and PSIS-LOO on the
+    conjugate Normal model against its exact leave-one-out elpd and against
+    the same on CPU tensors, model weights, an SBC study of the conjugate
+    engine, and the summary and calculation report of phase 4's NS
+    result."""
+    from bayesianinference_tpu_torch.dists.conjugate_structs import NormalInverseGamma
+    from bayesianinference_tpu_torch.engines.conjugate import normal_conjugate_model
+    from bayesianinference_tpu_torch.results import calculation_report, model_weights, sbc_ranks, summary
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(3)
+    lines = []
+    elpds = []
+    for mu0, tau0 in LOO_MODELS:
+        loo, wa, exact = _loo_case(dev, mu0, tau0)
+        loo_cpu, wa_cpu, _ = _loo_case(torch.device("cpu"), mu0, tau0)
+        rel = max(_rel_max(loo.pointwise_elpd.cpu(), loo_cpu.pointwise_elpd),
+                  _rel_max(wa.pointwise_elpd.cpu(), wa_cpu.pointwise_elpd),
+                  float((loo.pareto_k.cpu() - loo_cpu.pareto_k).abs().max()))
+        if not (loo.pointwise_elpd.device.type == dev.type and abs(loo.elpd_loo - exact) <= LOO_TOL
+                and abs(wa.elpd - exact) <= WAIC_TOL and bool((loo.pareto_k < 0.7).all()) and rel <= 1e-10):
+            raise AssertionError(f"16f LOO (mu0 {mu0}, tau0 {tau0}): PSIS {loo.elpd_loo}, WAIC {wa.elpd}, exact "
+                                 f"{exact}, max k {float(loo.pareto_k.max())}, card vs CPU {rel:.3e}")
+        elpds.append(loo)
+        lines.append(f"N(mu0={mu0}, tau0={tau0}): elpd PSIS-LOO - exact LOO {loo.elpd_loo - exact:+.3e} (gate "
+                     f"{LOO_TOL}), WAIC - it {wa.elpd - exact:+.3e} ({WAIC_TOL}), exact LOO {exact:.4f}, max k "
+                     f"{float(loo.pareto_k.max()):.3f}, card vs CPU {rel:.2e}")
+    weights = {}
+    for method in ("stacking", "pseudo-bma", "pseudo-bma+"):
+        w = model_weights(elpds, method=method, generator=g)
+        if not (w.device.type == dev.type and bool((w >= 0).all()) and abs(float(w.sum()) - 1) < 1e-12):
+            raise AssertionError(f"16f model_weights {method}: {w.tolist()}")
+        weights[method] = [round(v, 4) for v in w.tolist()]
+    prior = NormalInverseGamma(mu0=0.5, lam=2.0, beta=1.5, nu=3.0)
+
+    def prior_sample(gen):
+        return torch.stack(prior.sample(gen))
+
+    def simulate(gen, theta):
+        return theta[0] + torch.sqrt(theta[1]) * torch.randn((10,), generator=gen, device=dev, dtype=theta.dtype)
+
+    def posterior_draws(gen, data):
+        m, v = normal_conjugate_model(data, prior=prior).posterior.sample(gen, (9,))
+        return torch.stack([m, v], dim=-1)
+
+    sbc = sbc_ranks(g, prior_sample=prior_sample, simulate=simulate, posterior_draws=posterior_draws,
+                    num_replications=reps, param_names=("mean", "var"))
+    p = sbc.uniformity_pvalues()
+    if not (sbc.ranks.device.type == dev.type and float(p.min()) > 1e-3):
+        raise AssertionError(f"16f SBC of the conjugate Normal engine: p-values {p.tolist()}")
+    table = summary(ns_res)
+    rep = calculation_report(ns_res)
+    log(f"[16f results layer] {LOO_DRAWS} draws on a quantile grid of the exact posterior: {'; '.join(lines)}; "
+        f"model weights {weights}; SBC of the conjugate Normal engine, {reps} "
+        f"replications of 9 draws: uniformity p-values {[round(v, 4) for v in p.tolist()]}; "
+        f"{time.perf_counter() - t0:.1f} s | {smi}")
+    log("[16f summary of phase 4's NS result]\n" + str(table))
+    log(f"[16f calculation report of phase 4's NS result] {len(rep.skilling_log_x)} samples, final log evidence "
+        f"{rep.evidence_progression[-1]:.4f}, concentration fit {rep.concentration_fit_coefficients}, mean "
+        f"acceptance {np.nanmean(rep.acceptance_rates):.3f}")
+
+
+def _phase16_times(smi, dev, problem, pf_problem):
+    """16g: the kernels at the slice's new shapes against their plain
+    versions, their bounds and cholesky_ex; per ADVI step and per
+    Pathfinder iteration wall ms, device ms, CUDA kernels and busy share."""
+    from bayesianinference_tpu_torch.engines import pathfinder as pf
+    from bayesianinference_tpu_torch.engines import vi
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    lines = []
+    # the times do not depend on the values
+    x = torch.randn((1, SLICE_N, SLICE_D), generator=g, device=dev, dtype=torch.float64)
+    for what, b, data, d in (("ADVI step", 32, x, SLICE_D), ("ELBO chunk", vi.EVAL_CHUNK, x, SLICE_D),
+                             ("ARD try", 8, torch.randn((1, ARD_N, ARD_D), generator=g, device=dev,
+                                                        dtype=torch.float64), ARD_D)):
+        var = 0.5 + torch.rand((b,), generator=g, device=dev, dtype=torch.float64)
+        scale = 0.5 + torch.rand((b, d), generator=g, device=dev, dtype=torch.float64)
+        if what != "ARD try":
+            scale = scale[:, :1].expand(b, d)
+        nug = (0.01 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, data.shape[1])
+        per = 3 if b > 64 else 10
+        ms, plain_ms, _, _ = _in_turns(lambda: gk.se_covariance_cuda(data, None, var, scale, nug),
+                                       lambda: gk.se_covariance_plain(data, None, var, scale, nug), reps=3, groups=3,
+                                       per_group=per)
+        bound, by = _se_bound(data, None, var, scale, nug)
+        k = gk.se_covariance_cuda(data, None, var, scale, nug)
+        c_ms, c_lib, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), reps=3, groups=3,
+                                      per_group=per)
+        c_plain, _ = _time_ms(lambda: gk.cholesky_plain(k), reps=3, groups=3, per_group=per)
+        c_bound, c_by = _chol_bound(b, data.shape[1], 8)
+        lines.append(f"{what} B={b} n={data.shape[1]} f64: SE {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound:.3g} by "
+                     f"{by}); Cholesky {c_ms:.4f} ms (plain {c_plain:.4f}, cholesky_ex {c_lib:.4f}, bound "
+                     f"{c_bound:.3g} by {c_by})")
+        del k
+    pr9 = []
+    for n, dt in ((256, torch.float32), (64, torch.float32), (64, torch.float64)):
+        a = torch.randn((1, n, n), generator=g, device=dev, dtype=dt)
+        k = a @ a.mT / n + torch.eye(n, device=dev, dtype=dt)
+        c_ms, c_lib, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), reps=3, groups=3,
+                                      per_group=10)
+        c_plain, _ = _time_ms(lambda: gk.cholesky_plain(k), reps=3, groups=3, per_group=10)
+        pr9.append(f"n={n} {str(dt).split('.')[-1]} {c_ms:.4f} (plain {c_plain:.4f}, cholesky_ex {c_lib:.4f})")
+    # per ADVI step and per Pathfinder iteration (its L-BFGS step and its
+    # share of the ELBO block), by difference of fits
+    draws = vi.vi_draws(g, 3, 32, 32, problem.dim)
+    pf_draws = pf.pathfinder_draws(g, 8, pf_problem.dim, 30, 32)
+    units = {}
+    for name, run, count in (
+            ("ADVI step (B = 32)", lambda s: vi.advi_fit(problem, None, num_steps=s, final_elbo_samples=32,
+                                                         draws=vi.VIDraws(draws.steps[:s], draws.final)), (1, 3)),
+            ("Pathfinder iteration (ARD, 8 paths)", lambda s: pf.pathfinder_fit(pf_problem, None, maxiter=s,
+                                                                                 num_draws_per_path=32,
+                                                                                 draws=pf_draws), (1, 3))):
+        lo, hi = count
+        w_lo, w_hi = _wall_ms(lambda: run(lo), reps=3), _wall_ms(lambda: run(hi), reps=3)
+        (d_lo, k_lo), (d_hi, k_hi) = _profile_call(lambda: run(lo)), _profile_call(lambda: run(hi))
+        wall, devm, kern = (w_hi - w_lo) / (hi - lo), (d_hi - d_lo) / (hi - lo), (k_hi - k_lo) / (hi - lo)
+        units[name] = (wall, devm, kern)
+        lines.append(f"{name}: wall {wall:.2f} ms, device {devm:.3f} ms, {kern:.0f} CUDA kernels, busy share "
+                     f"{devm / wall if wall > 0 else math.nan:.3f}")
+    log(f"[16g kernel times] device ms in turns: {'; '.join(lines)}; the SVGP and BO Cholesky shapes at B = 1, "
+        f"kernel ms {'; '.join(pr9)} | {smi}")
+    return units
+
+
+def phase_vi_pathfinder(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes):
+    """Phase 16: ADVI, Pathfinder, bridge sampling, HMC's Pathfinder start
+    and the results layer (module docstring).  ``sizes`` shrink 16a-f for a
+    rehearsal (``oracles``, ``advi``, ``hmc``, ``results``: keyword
+    arguments of each sub-phase; ``times=False`` skips 16g)."""
+    dev = torch.device(dev)
+    ns_res, grid_logz, cpu_problem = gp_posterior
+    t0 = time.perf_counter()
+    seconds, total = [], {"se_covariance": 0, "cholesky": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    with _KernelWatch() as watch:
+        t = time.perf_counter()
+        _phase16_advi_oracles(smi, dev, **sizes.get("oracles", {}))
+        seconds.append(f"16a {time.perf_counter() - t:.1f}")
+        t = time.perf_counter()
+        launches, _ = _phase16_advi_gp(smi, watch, dev, gp_problem, cpu_problem, grid_logz, **sizes.get("advi", {}))
+        add(launches)
+        seconds.append(f"16b {time.perf_counter() - t:.1f}")
+        t = time.perf_counter()
+        launches, fits, ard = _phase16_pathfinder(smi, watch, dev, gp_problem, grid_logz)
+        add(launches)
+        seconds.append(f"16c {time.perf_counter() - t:.1f}")
+        t = time.perf_counter()
+        launches, hmc = _phase16_hmc_pathfinder(smi, watch, dev, gp_problem, ns_res, **sizes.get("hmc", {}))
+        add(launches)
+        seconds.append(f"16d {time.perf_counter() - t:.1f}")
+        t = time.perf_counter()
+        add(_phase16_bridge(smi, watch, dev, gp_problem, grid_logz, hmc, fits["GP"]))
+        seconds.append(f"16e {time.perf_counter() - t:.1f}")
+        if not (total["se_covariance"] > 0 and total["cholesky"] > 0):
+            raise AssertionError(f"16: launches {total}")
+        t = time.perf_counter()
+        _phase16_results(smi, dev, ns_res, **sizes.get("results", {}))
+        seconds.append(f"16f {time.perf_counter() - t:.1f}")
+        if sizes.get("times", True):
+            t = time.perf_counter()
+            _phase16_times(smi, dev, gp_problem, ard)
+            seconds.append(f"16g {time.perf_counter() - t:.1f}")
+        log(f"[16 VI, Pathfinder, bridge, results] {time.perf_counter() - t0:.1f} s ({', '.join(seconds)}); launches "
+            f"{total}; {watch.check('16')}")
+    return total
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -3111,8 +3702,10 @@ def main():
     sampler_launches = timed(phase_samplers, smi, problem, gp_posterior)
     latent_launches = timed(phase_latent_gp, smi)
     svgp_launches = timed(phase_svgp_bo, smi)
+    vi_launches = timed(phase_vi_pathfinder, smi, problem, gp_posterior)
     launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] + par_launches[k]
-                + conj_launches[k] + sampler_launches[k] + latent_launches[k] + svgp_launches[k] for k in launches}
+                + conj_launches[k] + sampler_launches[k] + latent_launches[k] + svgp_launches[k] + vi_launches[k]
+                for k in launches}
     # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
     # at bench.py's width (B = 1, n = 16384, f32)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")

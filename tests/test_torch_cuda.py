@@ -26,7 +26,10 @@ optimization and marginalized latents (float64, against CPU tensors): the
 SVGP ELBO and its gradient in (theta, z, m, raw) through both
 kernels, a BO suggestion on the same draws, and Laplace-marginalized
 latents whose joint reaches both ops, 1e-8 of the largest entry; numpy
-bounds of ``gauss_legendre_grid`` land on the card.
+bounds of ``gauss_legendre_grid`` land on the card.  ADVI, Pathfinder and
+bridge sampling on the ARD GP, and WAIC / PSIS-LOO / model weights on card
+tensors (float64, against CPU tensors on the same draws): 1e-8 of the
+largest entry.
 """
 
 import numpy as np
@@ -564,3 +567,95 @@ def test_marginalized_latents_through_the_kernels_match_the_cpu(cuda):
     assert gk.se_covariance_cuda.launches > before[0] and gk.cholesky_cuda.launches > before[1]
     for a, b in zip(got, marginal("cpu")):
         assert torch.allclose(a.cpu(), b, rtol=0, atol=1e-8 * b.abs().max())
+
+
+def _rel_to(a, b):
+    return (a.cpu() - b).abs().max().item() / max(b.abs().max().item(), 1.0)
+
+
+def test_advi_and_pathfinder_on_the_card_match_the_cpu_on_the_same_draws(cuda, monkeypatch):
+    """Five ADVI steps of both families (value and gradient through both
+    kernels and both reverse rules at B = 32) and a short Pathfinder fit (a
+    line-search try at B = 4, the ELBO block and final draws in chunks) on
+    the ARD GP against the same on CPU tensors, 1e-8."""
+    from bayesianinference_tpu_torch.engines import pathfinder as pf
+    from bayesianinference_tpu_torch.engines import vi
+
+    problem, plain = _ard_problem(cuda), _ard_problem("cpu")
+    g = torch.Generator().manual_seed(3)
+    draws = vi.vi_draws(g, 5, 32, 64, problem.dim)
+    for family in ("meanfield", "fullrank"):
+        before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+        kw = dict(family=family, num_steps=5, final_elbo_samples=64, learning_rate=0.1)
+        got = vi.advi_fit(problem, None, draws=vi.VIDraws(*(a.to(cuda) for a in draws)), **kw)
+        want = vi.advi_fit(plain, None, draws=draws, **kw)
+        assert gk.se_covariance_cuda.launches - before[0] >= 6 and gk.cholesky_cuda.launches - before[1] >= 6
+        for a, b in ((got.elbo_history, want.elbo_history), (got.loc, want.loc), (got.scale_tril, want.scale_tril),
+                     (got.elbo, want.elbo)):
+            assert _rel_to(a, b) <= 1e-8
+    pd = pf.pathfinder_draws(g, 4, problem.dim, 5, 16)
+    kw = dict(num_paths=4, maxiter=3, num_elbo_draws=5, num_draws_per_path=16)
+    monkeypatch.setattr(vi, "EVAL_CHUNK", 24)
+    got = pf.pathfinder_fit(problem, None, draws=pf.PathfinderDraws(*(a.to(cuda) for a in pd)), **kw)
+    want = pf.pathfinder_fit(plain, None, draws=pd, **kw)
+    assert torch.equal(got.best_iteration.cpu(), want.best_iteration)
+    for a, b in ((got.elbo_per_path, want.elbo_per_path), (got.samples.log_weights, want.samples.log_weights),
+                 (got.samples.points, want.samples.points)):
+        assert _rel_to(a, b) <= 1e-8
+
+
+def test_pathfinder_factor_above_2j_on_the_card_matches_the_cpu(cuda):
+    """Pathfinder's factor and draws at d = 22 > 2J = 12 (the thin QR's
+    m = 2J branch) over a [4, 3] batch of windows with masked pairs, on the
+    card against the same on CPU tensors, 1e-10."""
+    from bayesianinference_tpu_torch.engines import pathfinder as pf
+
+    rng = np.random.default_rng(1)
+    d, J = 22, 6
+    a = rng.normal(size=(d, d))
+    S = rng.normal(size=(4, 3, J, d))
+    Y = S @ (a @ a.T / d + np.eye(d))
+    ok = rng.random((4, 3, J)) < 0.7
+    alpha = rng.uniform(0.3, 2.0, size=(4, 3, d))
+    eps = rng.normal(size=(4, 3, 5, d))
+    mu = rng.normal(size=(4, 3, d))
+    out = {}
+    for dev in (cuda, "cpu"):
+        t = [torch.as_tensor(v, device=dev) for v in (alpha, S, Y, ok, mu, eps)]
+        sqrt_a, Q, Lm, half = pf.factor(*t[:4])
+        assert Q.shape[-1] == 2 * J
+        out[dev] = (pf.draw(t[4], sqrt_a, Q, Lm, t[5]).cpu(), half.cpu())
+    for a, b in zip(out[cuda], out["cpu"]):
+        assert _rel_to(a, b) <= 1e-10
+
+
+def test_bridge_and_information_on_the_card_match_the_cpu(cuda):
+    """Bridge sampling of the ARD GP from 64 draws (both sweeps through the
+    kernels) and WAIC / PSIS-LOO / stacking on card tensors, against the
+    same on CPU tensors, 1e-8."""
+    from bayesianinference_tpu_torch.core.containers import WeightedSamples
+    from bayesianinference_tpu_torch.engines.bridge import bridge_sampling_evidence
+    from bayesianinference_tpu_torch.results import model_weights, psis_loo, waic
+
+    problem, plain = _ard_problem(cuda), _ard_problem("cpu")
+    g = torch.Generator().manual_seed(4)
+    draws = 0.3 * torch.randn((64, problem.dim), generator=g, dtype=torch.float64)
+    normals = torch.randn((32, problem.dim), generator=g, dtype=torch.float64)
+    got = bridge_sampling_evidence(problem, draws.to(cuda), proposal_normals=normals.to(cuda))
+    want = bridge_sampling_evidence(plain, draws, proposal_normals=normals)
+    assert got.num_iterations == want.num_iterations
+    assert _rel_to(got.log_evidence, want.log_evidence) <= 1e-8
+    y = torch.randn(30, generator=g, dtype=torch.float64)
+    pts = torch.stack([0.3 * torch.randn(500, generator=g, dtype=torch.float64) + 0.5,
+                       0.1 * torch.randn(500, generator=g, dtype=torch.float64)], dim=1)
+
+    def pointwise(th):
+        return -0.5 * (y.to(th.device) - th[0]) ** 2 * torch.exp(-2 * th[1]) - th[1]
+
+    ws = WeightedSamples(points=pts, log_weights=torch.zeros(500, dtype=torch.float64))
+    ws_card = WeightedSamples(points=pts.to(cuda), log_weights=ws.log_weights.to(cuda))
+    for fn in (waic, psis_loo):
+        a, b = fn(ws_card, pointwise), fn(ws, pointwise)
+        assert a.pointwise_elpd.device.type == "cuda" and _rel_to(a.pointwise_elpd, b.pointwise_elpd) <= 1e-8
+    w = model_weights([a.pointwise_elpd, a.pointwise_elpd - 0.1])
+    assert w.device.type == "cuda" and abs(float(w.sum()) - 1.0) < 1e-12

@@ -366,8 +366,9 @@ def test_chees_learns_long_trajectories_on_correlated_gaussian():
 
 def test_hmc_sample_dense_mass_and_validation():
     """The dense-mass path gives a [d, d] inverse mass; the JAX engine's
-    argument checks hold; Pathfinder and flow starts say where they wait;
-    numpy starts go to the card, which is absent here."""
+    argument checks hold; a Pathfinder start meets the JAX test's gates and
+    a flow start says which engine it waits for; numpy starts go to the
+    card, which is absent here."""
     cov = np.array([[1.0, 1.8], [1.8, 4.0]])
     prec = T(np.linalg.inv(cov))
 
@@ -387,9 +388,22 @@ def test_hmc_sample_dense_mass_and_validation():
         with pytest.raises(ValueError, match="num_leapfrog"):
             hmc_sample(logdens, None, num_chains=2, num_leapfrog=bad, starting_points=x0[:2])
     problem = _conjugate_problem(np.zeros(3))
-    for start in ("pathfinder", "flow"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            hmc_sample(problem, None, starting_points=start)
+    with pytest.raises(NotImplementedError, match="engines/flow_vi.py"):
+        hmc_sample(problem, None, starting_points="flow")
+    with pytest.raises(ValueError):
+        hmc_sample(problem, None, starting_points="bogus")
+    with pytest.raises(ValueError, match="InferenceProblem"):
+        hmc_sample(logdens, None, starting_points="pathfinder")
+    # tests/test_pathfinder.py::test_hmc_pathfinder_init: chains started at
+    # Pathfinder draws give calibrated moments after a short warmup
+    rng = np.random.default_rng(1)
+    data, tau0, n = rng.normal(1.2, 1.0, 40), 3.0, 40
+    post_prec = 1 / tau0**2 + n
+    r = hmc_sample(_conjugate_problem(data, tau0), torch.Generator().manual_seed(0), num_chains=4, num_samples=250,
+                   num_warmup=100, num_leapfrog=8, starting_points="pathfinder")
+    draws = r.samples.reshape(-1).numpy()
+    np.testing.assert_allclose(draws.mean(), data.sum() / post_prec, atol=0.05)
+    np.testing.assert_allclose(draws.std(), post_prec**-0.5, rtol=0.25)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             hmc_sample(logdens, None, num_chains=8, starting_points=x0.numpy())
