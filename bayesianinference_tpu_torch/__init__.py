@@ -19,3 +19,25 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+# importing builds no kernel: csrc compiles them at their first launch
+from . import core, dists, engines, models, ops, parallel, results  # noqa: E402
+
+_LAZY = ("utils",)
+_NOT_PORTED = ("bnn", "viz")
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    if name in _NOT_PORTED:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}: the JAX package's {name} is not "
+                             "ported yet (ROADMAP.md, queue 1: slice 12, the neural engines and plots)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["core", "dists", "engines", "models", "ops", "parallel", "results", "utils", "__version__"]

@@ -5,10 +5,12 @@ from .device import resolve_device
 from .linalg import inverse_matrix_block_inverse, matrix_block_inverse
 from .numerics import (
     LOG2PI,
+    betainc,
     exp_neg_precise,
     gammaln_precise,
     guard_log_density,
     is_log_zero,
+    log1mexp,
     log1p_precise,
     log_precise,
     log_zero,

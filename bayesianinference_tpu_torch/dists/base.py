@@ -23,7 +23,8 @@ import torch
 
 from ..core.numerics import log_zero
 
-__all__ = ["Distribution", "dist_dataclass", "bisect_icdf", "as_param", "param_dtype"]
+__all__ = ["Distribution", "dist_dataclass", "bisect_icdf", "as_param", "param_dtype", "tensor_leaves",
+           "with_leaves"]
 
 
 def dist_dataclass(cls):
@@ -54,6 +55,39 @@ def param_shape(*params) -> torch.Size:
     return torch.broadcast_shapes(
         *(p.shape if isinstance(p, torch.Tensor) else () for p in params)
     )
+
+
+def tensor_leaves(obj, path=()):
+    """(path, tensor) of every tensor in a distribution: its dataclass
+    fields, nested distributions and tuples of them, in field order.  The
+    port's distributions are frozen dataclasses, not pytrees; this walk and
+    :func:`with_leaves` stand in for ``jax.tree_util``'s flatten and
+    unflatten."""
+    if isinstance(obj, torch.Tensor):
+        yield path, obj
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from tensor_leaves(getattr(obj, f.name), path + (f.name,))
+    elif isinstance(obj, (tuple, list)):
+        for i, v in enumerate(obj):
+            yield from tensor_leaves(v, path + (i,))
+
+
+def with_leaves(obj, values: dict):
+    """``obj`` with the tensor at each path of ``values`` replaced."""
+    if () in values:
+        return values[()]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        changed = {}
+        for f in dataclasses.fields(obj):
+            sub = {p[1:]: v for p, v in values.items() if p[0] == f.name}
+            if sub:
+                changed[f.name] = with_leaves(getattr(obj, f.name), sub)
+        return dataclasses.replace(obj, **changed)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(with_leaves(v, {p[1:]: w for p, w in values.items() if p[0] == i})
+                         if any(p[0] == i for p in values) else v for i, v in enumerate(obj))
+    return obj
 
 
 class Distribution:

@@ -1,19 +1,27 @@
-"""Distribution combinators (port of the part of
-``bayesianinference_tpu.dists.combinators`` that ``models/problem.py`` and
-the conjugate engines use: ``Product``, ``Truncated``, ``ImproperUniform``
-and ``ConditionalProduct``)."""
+"""Distribution combinators (port of
+``bayesianinference_tpu.dists.combinators``): ``Product``, ``Truncated``,
+``Censored``, ``Mixture``, ``HeterogeneousMixture``, ``ImproperUniform``
+and ``ConditionalProduct``.
+
+The mixtures' ``sample`` takes its random numbers as inputs where a run
+must replay another's: the component indices, and the draws of the picked
+components (``Mixture``: keyword draws of the component's own ``sample``;
+``HeterogeneousMixture``: every component's draws, which it picks from)."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Sequence, Tuple
 
 import torch
 
-from ..core.numerics import as_float, log_zero
+from ..core.numerics import as_float, log_zero, logsumexp, safe_log
 from .base import Distribution, as_param, dist_dataclass, param_dtype
+from .pointwise import _tensor_fields
 
-__all__ = ["Product", "Truncated", "ImproperUniform", "ConditionalProduct"]
+__all__ = ["Product", "Truncated", "Censored", "Mixture", "HeterogeneousMixture", "ImproperUniform",
+           "ConditionalProduct"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +140,199 @@ class Truncated(Distribution):
         q = as_float(q)
         _, c_lo, c_hi = self._log_z(q)
         return self.base.icdf(c_lo + q * (c_hi - c_lo))
+
+
+@dist_dataclass
+class Censored(Distribution):
+    """Interval-censored observation of a scalar base distribution:
+    Y = clip(X, low, high) with X ~ base (the Tobit observation model).
+    The tail mass piles onto the bounds:
+
+        log p(y) = log F(low)          at y == low
+                   base.log_prob(y)    for low < y < high
+                   log (1 - F(high))   at y == high
+
+    and points outside [low, high] get the sentinel.  Observations at a
+    bound must be passed as the bound's value."""
+
+    base: Distribution
+    low: object = -float("inf")
+    high: object = float("inf")
+
+    def support(self):
+        return (self.low, self.high)
+
+    def log_prob(self, x):
+        x = as_float(x)
+        lo, hi = as_param(self.low, x), as_param(self.high, x)
+        interior = self.base.log_prob(x)
+        # the CDF probes at infinite bounds would give NaN: probe 0 there
+        lo_safe = torch.where(torch.isfinite(lo), lo, torch.zeros_like(lo))
+        hi_safe = torch.where(torch.isfinite(hi), hi, torch.zeros_like(hi))
+        log_mass_lo = safe_log(self.base.cdf(lo_safe))
+        log_mass_hi = safe_log(1.0 - self.base.cdf(hi_safe))
+        logp = torch.where(torch.isfinite(lo) & (x <= lo), log_mass_lo,
+                           torch.where(torch.isfinite(hi) & (x >= hi), log_mass_hi, interior))
+        return self._mask_support(x, logp)
+
+    def sample(self, generator, shape=()):
+        s = self.base.sample(generator, shape)
+        return torch.minimum(torch.maximum(s, as_param(self.low, s)), as_param(self.high, s))
+
+    def cdf(self, x):
+        x = as_float(x)
+        c = self.base.cdf(x)
+        c = torch.where(x < as_param(self.low, x), torch.zeros_like(c), c)
+        return torch.where(x >= as_param(self.high, x), torch.ones_like(c), c)
+
+
+def _categorical_indices(generator, log_weights, n: int) -> torch.Tensor:
+    """``n`` component indices drawn by normalized weight."""
+    return torch.multinomial(torch.exp(log_weights), n, replacement=True, generator=generator)
+
+
+@dist_dataclass
+class Mixture(Distribution):
+    """Mixture with stacked same-family components: ``component`` is a
+    distribution whose tensor parameters carry a leading mixture axis of
+    size S, ``log_weights`` has shape [S].  The posterior-predictive object
+    of ``results.posterior.predictive_distribution``."""
+
+    log_weights: torch.Tensor  # [S]
+    component: Distribution  # parameters [S, ...]
+
+    @property
+    def num_components(self) -> int:
+        return self.log_weights.shape[-1]
+
+    @property
+    def event_shape(self):
+        return self.component.event_shape
+
+    def _norm_logw(self) -> torch.Tensor:
+        lw = as_float(self.log_weights)
+        return lw - logsumexp(lw)
+
+    def log_prob(self, x):
+        x = as_float(x)
+        comp_lp = self.component.log_prob(x.unsqueeze(-1 - len(self.event_shape)))  # [..., S]
+        return logsumexp(self._norm_logw() + comp_lp, dim=-1)
+
+    def sample(self, generator, shape=(), *, indices=None, draws=None):
+        """``indices`` [n] (n the size of ``shape``, 1 for ``()``) replace
+        the weighted choice of components; ``draws`` is a dict of keyword
+        draws for the picked components' ``sample`` (one per index, e.g.
+        ``{"uniforms": u}`` for a ``Laplace`` component)."""
+        shape = tuple(shape)
+        n = math.prod(shape) if shape else 1
+        if indices is None:
+            indices = _categorical_indices(generator, self._norm_logw(), n)
+        comp = self.component
+        idx = torch.as_tensor(indices, device=getattr(comp, _tensor_fields(comp)[0]).device)
+        picked = dataclasses.replace(comp, **{f: getattr(comp, f)[idx] for f in _tensor_fields(comp)
+                                             if getattr(comp, f).dim() > 0})
+        out = picked.sample(generator, **(draws or {}))
+        return out.reshape(shape + tuple(self.event_shape)) if shape else out[0]
+
+    def cdf(self, x):
+        x = as_float(x)
+        w = torch.exp(self._norm_logw())
+        return torch.sum(w * self.component.cdf(x.unsqueeze(-1)), dim=-1)
+
+    def _weights_over_events(self):
+        w = torch.exp(self._norm_logw())
+        return w.reshape(w.shape + (1,) * len(self.event_shape))
+
+    def mean(self):
+        m = torch.as_tensor(self.component.mean())
+        if self.event_shape:
+            return torch.sum(self._weights_over_events() * m, dim=0)
+        return torch.sum(torch.exp(self._norm_logw()) * m, dim=-1)
+
+    def variance(self):
+        m = as_float(self.component.mean())
+        v = as_float(self.component.variance())
+        if self.event_shape:
+            w = self._weights_over_events()
+            return torch.sum(w * (v + m**2), dim=0) - torch.sum(w * m, dim=0) ** 2
+        w = torch.exp(self._norm_logw())
+        return torch.sum(w * (v + m**2), dim=-1) - torch.sum(w * m, dim=-1) ** 2
+
+
+@dist_dataclass
+class HeterogeneousMixture(Distribution):
+    """Finite mixture over a tuple of components of any families (a
+    Student-t and a Normal, say) that share one event shape; ``log_weights``
+    [S] match ``len(components)`` and are normalized here.  ``Mixture`` is
+    the batched same-family form."""
+
+    log_weights: torch.Tensor  # [S]
+    components: Tuple[Distribution, ...]
+
+    def __post_init__(self):
+        comps = tuple(self.components)
+        object.__setattr__(self, "components", comps)
+        if not comps:
+            raise ValueError("HeterogeneousMixture needs >= 1 component")
+        shapes = {c.event_shape for c in comps}
+        if len(shapes) > 1:
+            raise ValueError(f"components must share an event shape; got {shapes}")
+
+    @property
+    def num_components(self) -> int:
+        return len(self.components)
+
+    @property
+    def event_shape(self):
+        return self.components[0].event_shape
+
+    def _norm_logw(self) -> torch.Tensor:
+        lw = as_float(self.log_weights)
+        return lw - logsumexp(lw)
+
+    def log_prob(self, x):
+        x = as_float(x)
+        lp = torch.stack([c.log_prob(x) for c in self.components], dim=-1)
+        return logsumexp(self._norm_logw() + lp, dim=-1)
+
+    def sample(self, generator, shape=(), *, indices=None, draws=None):
+        """Every component draws n points (n the size of ``shape``, 1 for
+        ``()``), then each point takes the draw of its picked component:
+        ``indices`` [n] and ``draws`` [S, n, *event] replace the generator's."""
+        shape = tuple(shape)
+        n = math.prod(shape) if shape else 1
+        if indices is None:
+            indices = _categorical_indices(generator, self._norm_logw(), n)
+        if draws is None:
+            draws = torch.stack([c.sample(generator, (n,)) for c in self.components])
+        draws = as_float(draws)
+        idx = torch.as_tensor(indices, device=draws.device)
+        out = draws[idx, torch.arange(n, device=draws.device)]
+        return out.reshape(shape + tuple(self.event_shape)) if shape else out[0]
+
+    def cdf(self, x):
+        x = as_float(x)
+        w = torch.exp(self._norm_logw())
+        return torch.sum(w * torch.stack([c.cdf(x) for c in self.components], dim=-1), dim=-1)
+
+    def _stacked(self, what, like):
+        return torch.stack([as_float(getattr(c, what)()).to(like) for c in self.components])
+
+    def mean(self):
+        w = torch.exp(self._norm_logw())
+        return torch.tensordot(w, self._stacked("mean", w), dims=([0], [0]))
+
+    def variance(self):
+        w = torch.exp(self._norm_logw())
+        means, variances = self._stacked("mean", w), self._stacked("variance", w)
+        mu = torch.tensordot(w, means, dims=([0], [0]))
+        return torch.tensordot(w, variances + means**2, dims=([0], [0])) - mu**2
+
+    def support(self):
+        lows, highs = zip(*(c.support() for c in self.components))
+        dt = param_dtype(*lows, *highs)
+        return (torch.amin(torch.stack([torch.as_tensor(lo, dtype=dt) for lo in lows]), dim=0),
+                torch.amax(torch.stack([torch.as_tensor(hi, dtype=dt) for hi in highs]), dim=0))
 
 
 class ConditionalProduct:

@@ -1,7 +1,8 @@
-"""Weighted empirical distribution and continuous parameter mixture (port
-of ``Empirical`` and ``ParameterMixture`` from
+"""Weighted empirical distribution, Gaussian kernel density estimate and
+continuous parameter mixture (port of
 ``bayesianinference_tpu.dists.empirical``): the posterior object of a
-nested-sampling result and the predictive of a Laplace fit."""
+nested-sampling result, its smoothed density, and the predictive of a
+Laplace fit."""
 
 from __future__ import annotations
 
@@ -12,10 +13,10 @@ from typing import Callable
 import torch
 
 from ..core.containers import WeightedSamples
-from ..core.numerics import as_float, logsumexp
+from ..core.numerics import LOG2PI, as_float, logsumexp
 from .base import Distribution, dist_dataclass
 
-__all__ = ["Empirical", "ParameterMixture"]
+__all__ = ["Empirical", "GaussianKDE", "ParameterMixture", "silverman_bandwidth"]
 
 
 @dist_dataclass
@@ -67,6 +68,72 @@ class Empirical(Distribution):
         p = as_float(self.points)
         le = p <= as_float(x).unsqueeze(-2)  # [..., n, d]
         return torch.einsum("n,...nd->...d", self._weights(), le.to(p.dtype))
+
+
+def silverman_bandwidth(points, weights=None) -> torch.Tensor:
+    """Silverman's rule per dimension for weighted samples [n, d]:
+    sd (4 / ((d + 2) n_eff))^(1 / (d + 4)), n_eff = 1 / sum w^2."""
+    p = as_float(points)
+    n, d = p.shape
+    w = torch.full((n,), 1.0 / n, dtype=p.dtype, device=p.device) if weights is None else as_float(weights)
+    w = w / torch.sum(w)
+    n_eff = 1.0 / torch.sum(w**2)
+    mu = w @ p
+    sd = torch.sqrt(w @ (p - mu) ** 2)
+    return sd * (4.0 / ((d + 2.0) * n_eff)) ** (1.0 / (d + 4.0))
+
+
+@dist_dataclass
+class GaussianKDE(Distribution):
+    """Weighted Gaussian kernel density estimate over points [n, d] with a
+    diagonal bandwidth [d]."""
+
+    points: torch.Tensor  # [n, d]
+    log_weights: torch.Tensor  # [n]
+    bandwidth: torch.Tensor  # [d]
+
+    @staticmethod
+    def fit(points, log_weights=None) -> "GaussianKDE":
+        """Silverman's bandwidth for ``points`` [n, d]; a 1-D [n] input is
+        n samples of one dimension ([n, 1]), not one n-dimensional point."""
+        p = as_float(points)
+        if p.dim() == 1:
+            p = p[:, None]
+        lw = torch.zeros(p.shape[0], dtype=p.dtype, device=p.device) if log_weights is None else \
+            as_float(log_weights).to(p.device)
+        return GaussianKDE(points=p, log_weights=lw, bandwidth=silverman_bandwidth(p, torch.exp(lw - logsumexp(lw))))
+
+    @property
+    def event_shape(self):
+        return (self.points.shape[-1],)
+
+    def _norm_logw(self) -> torch.Tensor:
+        lw = as_float(self.log_weights)
+        return lw - logsumexp(lw)
+
+    def log_prob(self, x):
+        x = as_float(x)
+        p, h = as_float(self.points), as_float(self.bandwidth)
+        z = (x.unsqueeze(-2) - p) / h  # [..., n, d]
+        ker = -0.5 * torch.sum(z * z, dim=-1) - 0.5 * p.shape[-1] * LOG2PI - torch.sum(torch.log(h))
+        return logsumexp(self._norm_logw() + ker, dim=-1)
+
+    def sample(self, generator, shape=(), *, indices=None, normals=None):
+        """``indices`` (``shape``) and ``normals`` (``shape`` + [d])
+        replace the generator's choice of points and kernel noise."""
+        shape = tuple(shape)
+        if indices is None:
+            num = math.prod(shape) if shape else 1
+            indices = torch.multinomial(torch.exp(self._norm_logw()), num, replacement=True,
+                                        generator=generator).reshape(shape)
+        p = as_float(self.points)
+        base = p[torch.as_tensor(indices, device=p.device)]
+        if normals is None:
+            normals = torch.randn(base.shape, generator=generator, dtype=base.dtype, device=base.device)
+        return base + as_float(normals).to(base) * as_float(self.bandwidth)
+
+    def mean(self):
+        return torch.exp(self._norm_logw()) @ as_float(self.points)
 
 
 @dataclasses.dataclass(frozen=True)

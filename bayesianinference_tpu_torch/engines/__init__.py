@@ -37,6 +37,7 @@ from .conjugate import (
     update_conjugate_model,
 )
 from .ensemble import EnsembleResult, ensemble_sample
+from .evidence import MeanAndError, NestedSamplingResult, combine_runs, evidence_sampling, log_bayes_factor
 from .direct import DirectPosterior, direct_posterior_distribution, gauss_legendre_grid
 from .dynamic_ns import (
     NSSegment,
@@ -46,7 +47,7 @@ from .dynamic_ns import (
     segment_from_run,
 )
 from .hmc import HMCResult, hmc_sample
-from .gp import coordinate_bounds_grid, define_gaussian_process, predict_from_gaussian_process
+from .gp import GPModel, coordinate_bounds_grid, define_gaussian_process, predict_from_gaussian_process
 from .gp_classify import (
     GPClassifierModel,
     GPClassifierOptimization,
@@ -72,6 +73,7 @@ from .laplace import (
     mackay_update_2,
 )
 from .mcmc import MCMCChain, create_mcmc_chain, iterate_mcmc
+from .nested_sampling import NSState, generate_starting_points, nested_sampling_loop
 from .mogp import MOGPModel, define_multi_output_gp, predict_from_multi_output_gp
 from .pathfinder import PathfinderDraws, PathfinderResult, pathfinder_draws, pathfinder_fit
 from .smc import SMCConfig, SMCResult, smc_log_evidence, smc_sampler, thermodynamic_log_evidence

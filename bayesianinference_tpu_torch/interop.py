@@ -11,7 +11,11 @@ of the latent-GP classifier or of the sparse GP, and the coregionalization
 parameters of the multi-output GP, carry over the same way, and so do the
 stochastic variational GP's parameter sets (``SVGPVariational`` and the
 three fits), Bayesian optimization's ``BayesOptState``, and the fitted
-``VIResult`` and ``PathfinderResult``.  Without
+``VIResult`` and ``PathfinderResult``; so do the predictive laws, a
+``Mixture``, ``PointwiseMixture`` or ``GaussianKDE`` (their component
+taken as the port's family of the same name, its parameters by field
+name), so that both packages' scores and quantiles can be computed on one
+object.  Without
 ``device=`` the tensors go to the CUDA card,
 and the call raises where there is none: ``device="cpu"`` asks for the
 host.  Nothing here imports JAX.
@@ -24,6 +28,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+import dataclasses
+
+from . import dists
 from .core.device import resolve_device
 from .dists.conjugate_structs import NormalInverseGamma, NormalInverseWishart
 from .engines.conjugate import BLRParameters
@@ -65,6 +72,9 @@ __all__ = [
     "bayes_opt_state_to_numpy",
     "vi_result_from_numpy",
     "pathfinder_result_from_numpy",
+    "mixture_from_numpy",
+    "pointwise_mixture_from_numpy",
+    "gaussian_kde_from_numpy",
 ]
 
 _EVAL_BASE = 1 << 30  # radix of the JAX package's (hi, lo) int32 eval counter
@@ -328,3 +338,35 @@ def pathfinder_result_from_numpy(fields, *, device=None, dtype: Optional[torch.d
     best = torch.as_tensor(np.array(_field(fields, "best_iteration")), device=out["lower"].device)
     return PathfinderResult(samples=WeightedSamples(**pool), best_iteration=best, **out,
                             param_names=_names(fields))
+
+
+def _distribution_from(obj, device, dtype: Optional[torch.dtype]):
+    """The port's family of ``obj``'s class name, its fields read from
+    ``obj`` by name (a dict needs ``family`` beside the fields)."""
+    name = obj["family"] if isinstance(obj, dict) else type(obj).__name__
+    cls = getattr(dists, name, None)
+    if cls is None or not dataclasses.is_dataclass(cls):
+        raise ValueError(f"no port family named {name!r}")
+    names = [f.name for f in dataclasses.fields(cls)]
+    return cls(**_params_from(obj, names, device, dtype))
+
+
+def mixture_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> dists.Mixture:
+    """A :class:`~.dists.combinators.Mixture` from the JAX package's
+    (``log_weights`` [S] and a ``component`` with [S, ...] parameters)."""
+    lw = _params_from(fields, ("log_weights",), device, dtype)["log_weights"]
+    return dists.Mixture(log_weights=lw, component=_distribution_from(_field(fields, "component"), device, dtype))
+
+
+def pointwise_mixture_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> dists.PointwiseMixture:
+    """A :class:`~.dists.pointwise.PointwiseMixture` from the JAX package's
+    (``log_weights`` [S] and a ``component`` with [S, m, ...] parameters)."""
+    lw = _params_from(fields, ("log_weights",), device, dtype)["log_weights"]
+    return dists.PointwiseMixture(log_weights=lw,
+                                  component=_distribution_from(_field(fields, "component"), device, dtype))
+
+
+def gaussian_kde_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> dists.GaussianKDE:
+    """A :class:`~.dists.empirical.GaussianKDE` from the JAX package's
+    (``points`` [n, d], ``log_weights`` [n], ``bandwidth`` [d])."""
+    return dists.GaussianKDE(**_params_from(fields, ("points", "log_weights", "bandwidth"), device, dtype))

@@ -8,6 +8,22 @@ from .chees import ChEESDraws, chees_draws, chees_warmup_and_sample, halton_base
 from .chmc import CHMCDraws, CHMCState, chmc_draws, run_chmc_chain
 from .ess import ESSDraws, EllipticalState, ess_draws, ess_init, ess_sample, ess_update, run_ess_chain
 from .ensemble import DEDraws, EnsembleState, StretchDraws, ensemble_draws, ensemble_init, ensemble_sweep
+from .gp_kernels import (
+    Kernel,
+    constant_kernel,
+    covariance_matrix,
+    gp_log_marginal_likelihood,
+    gp_posterior_moments,
+    linear_kernel,
+    matern12_kernel,
+    matern32_kernel,
+    matern52_kernel,
+    periodic_kernel,
+    rational_quadratic_kernel,
+    se_kernel,
+    squared_distances,
+    white_kernel,
+)
 from .gp_ep import EPState, gp_ep_latent_moments, gp_ep_log_marginal, gp_ep_state
 from .gp_laplace import (
     LatentLikelihood,
@@ -74,6 +90,17 @@ from .sgpr import (
     sgpr_predict,
     sgpr_state,
     sgpr_state_from_stats,
+)
+from .svgp import (
+    SVGPVariational,
+    svgp_elbo,
+    svgp_expected_loglik,
+    svgp_hetero_elbo,
+    svgp_init_variational,
+    svgp_kl,
+    svgp_latent_moments,
+    svgp_multiclass_elbo,
+    svgp_multiclass_latent_moments,
 )
 from .slice import SliceDraws, SliceState, run_slice_chain, slice_draws, slice_init, slice_update
 from .t_process import tp_log_marginal_likelihood, tp_posterior_moments

@@ -160,7 +160,34 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     iteration (by difference of fits of 1 and 3 steps or iterations) wall
     ms, device ms, CUDA kernels and busy share.
 
-Each of phases 4, 6, 7, 9, 11b, 12, 13c, 13e, 14, 15 and 16 (and 13b the Cholesky's)
+17. the consumption layer: (a) the 24 scalar families' log_prob, cdf and
+    icdf on tests/test_dists_scalar.py's grids on the card against CPU
+    tensors (1e-12) and scipy (that test's tolerances), the sampling moments
+    of 2^20 card draws each under its moment gates, and the port's betainc
+    on its 7 x 7 x 29 grid against scipy, per (a, b) cell at most
+    max(2 x JAX's error, 1e-13) in float64 and 2 x JAX's + 1e-6 in float32
+    (JAX's errors from tests/data/betainc_jax_error.json); (b) phase 4's
+    GP predictive at its defaults (S <= 512 posterior samples, n = 512 f64)
+    on 512 held-out points of phase 4's data law (seed 1), scored by CRPS,
+    log score, PIT, interval coverage (0.5, 0.9) and Dawid-Sebastiani: each
+    against the same predictive on CPU tensors (1e-10), the closed-form CRPS
+    against the ensemble CRPS of 2^14 draws (4 standard errors), the mean
+    CRPS and log score below a constant Normal's, one call under
+    utils.profiling.trace and timed; (c) regression_predictive_distribution
+    of the GP's posterior moments over every NS point against
+    predict_from_gaussian_process(max_samples=None) (1e-10); (d) the
+    Student-t process predictive's 0.05 and 0.95 quantiles through
+    StudentT.cdf at phase 4's data, at one theta against scipy's t.ppf
+    (1e-9) and at 16 against CPU tensors (1e-10), with wall ms and CUDA
+    kernels per quantile call; (e) predictive_distribution and
+    posterior_predictive_check (2000 replicates) on NS of a conjugate
+    Normal model against its exact predictive (4 NS standard errors), the
+    Normal exponential family against the conjugate Normal engine (1e-12),
+    the mixtures, censoring and a KDE of phase 4's posterior on card
+    against CPU tensors (1e-12); (f) the kernels at the predictive's B = S
+    and (c)'s B against their plain versions, bounds and cholesky_ex.
+
+Each of phases 4, 6, 7, 9, 11b, 12, 13c, 13e, 14, 15, 16 and 17 (and 13b the Cholesky's)
 zeroes the kernels' launch counters before it drives its path and fails if
 a kernel of that path was not launched; the ``launches`` of the JSON line
 are their sum.  Phase 5 fails
@@ -389,15 +416,17 @@ def _chol_bound(b, n, itemsize):
     return _bound(b * (n * (n + 1) // 2 + n * n) * itemsize, b * n**3 / 3)
 
 
-def _time_ms(fn, reps: int = 20, groups: int = 5, per_group: int = 20):
+def _time_ms(fn, reps: int = 10, groups: int = 3, per_group: int = 20):
     """(device ms per call, wall ms per call) of ``fn``, each a median after
     a warm-up, timed with CUDA events.
 
-    Device time: ``per_group`` calls enqueued back to back behind a ~50 ms
-    ``torch.cuda._sleep``, so the host's dispatch overlaps the sleep and
-    the events see only device work; median of ``groups``.  Wall time: one
-    call between the events with an idle device, host dispatch included;
-    median of ``reps``."""
+    Device time: ``per_group`` calls enqueued back to back behind a ~20 ms
+    ``torch.cuda._sleep``, longer than the host's dispatch of 20 calls of
+    the costliest function timed here (the unfused assembly: 160 launches
+    at 20-50 us), so the host's dispatch overlaps the sleep and the events
+    see only device work; median of ``groups``.  Wall time: one call between the
+    events with an idle device, host dispatch included; median of
+    ``reps``."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -413,7 +442,7 @@ def _time_ms(fn, reps: int = 20, groups: int = 5, per_group: int = 20):
     for _ in range(groups):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)
+        torch.cuda._sleep(40_000_000)
         start.record()
         for _ in range(per_group):
             fn()
@@ -2054,14 +2083,16 @@ def _classifier(x, y, method: str = "laplace"):
                                 prior_distribution=["scale", "scale"], validate=False)
 
 
-def _profile_call(fn):
+def _profile_call(fn, cpu: bool = True):
     """(device ms, CUDA kernels) of one call of ``fn`` under torch.profiler,
-    the window opened with a traced warm-up step that is dropped."""
+    the window opened with a traced warm-up step that is dropped.
+    ``cpu=False`` records the CUDA activity alone: for a call of tens of
+    thousands of kernels the host-side events take seconds to build."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         for _ in range(10):
             torch.zeros(8, device="cuda").add_(1.0)
@@ -3618,7 +3649,7 @@ def _phase16_times(smi, dev, problem, pf_problem):
                                                                                  num_draws_per_path=32,
                                                                                  draws=pf_draws), (1, 3))):
         lo, hi = count
-        w_lo, w_hi = _wall_ms(lambda: run(lo), reps=3), _wall_ms(lambda: run(hi), reps=3)
+        w_lo, w_hi = _wall_ms(lambda: run(lo), reps=1), _wall_ms(lambda: run(hi), reps=1)
         (d_lo, k_lo), (d_hi, k_hi) = _profile_call(lambda: run(lo)), _profile_call(lambda: run(hi))
         wall, devm, kern = (w_hi - w_lo) / (hi - lo), (d_hi - d_lo) / (hi - lo), (k_hi - k_lo) / (hi - lo)
         units[name] = (wall, devm, kern)
@@ -3676,6 +3707,444 @@ def phase_vi_pathfinder(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes)
     return total
 
 
+# --------------------------------------------------------------------------
+# Phase 17: the consumption layer
+# --------------------------------------------------------------------------
+
+MOMENT_DRAWS = 2**20  # 17a's card draws per family
+HOLDOUT_N = 512  # 17b's held-out points, phase 4's data law under seed 1
+CRPS_DRAWS, CRPS_BATCHES = 2**14, 16  # 17b's ensemble CRPS and its batches for a standard error
+TP_THETAS = 16  # 17d's hyperparameter draws
+BETAINC_ERRORS = Path(__file__).resolve().parent / "tests" / "data" / "betainc_jax_error.json"
+# tests/test_dists_scalar.py:10-27 and :70-147: family, parameters, scipy's law, grid
+SCALAR_CASES = [
+    ("Normal", dict(loc=1.5, scale=2.0), ("norm", (1.5, 2.0), {}), (-5, 8)),
+    ("Uniform", dict(low=-1.0, high=3.0), ("uniform", (-1.0, 4.0), {}), (-0.9, 2.9)),
+    ("Exponential", dict(rate=2.5), ("expon", (), {"scale": 1 / 2.5}), (0.01, 4)),
+    ("Gamma", dict(a=3.0, rate=2.0), ("gamma", (3.0,), {"scale": 1 / 2.0}), (0.05, 6)),
+    ("InverseGamma", dict(a=3.0, b=2.0), ("invgamma", (3.0,), {"scale": 2.0}), (0.05, 6)),
+    ("Beta", dict(a=2.0, b=5.0), ("beta", (2.0, 5.0), {}), (0.01, 0.99)),
+    ("StudentT", dict(df=4.0, loc=1.0, scale=2.0), ("t", (4.0, 1.0, 2.0), {}), (-8, 10)),
+    ("Cauchy", dict(loc=0.5, scale=1.5), ("cauchy", (0.5, 1.5), {}), (-10, 10)),
+    ("HalfCauchy", dict(scale=2.0), ("halfcauchy", (), {"scale": 2.0}), (0.01, 10)),
+    ("LogNormal", dict(loc=0.3, scale=0.8), ("lognorm", (0.8,), {"scale": math.exp(0.3)}), (0.05, 8)),
+    ("Laplace", dict(loc=-1.0, scale=2.0), ("laplace", (-1.0, 2.0), {}), (-8, 6)),
+    ("Weibull", dict(k=1.7, scale=2.0), ("weibull_min", (1.7,), {"scale": 2.0}), (0.05, 7)),
+    ("Logistic", dict(loc=0.5, scale=1.2), ("logistic", (0.5, 1.2), {}), (-7, 8)),
+    ("ChiSquared", dict(df=5.0), ("chi2", (5.0,), {}), (0.1, 18)),
+    ("Gumbel", dict(loc=1.0, scale=2.0), ("gumbel_r", (1.0, 2.0), {}), (-5, 12)),
+    ("Pareto", dict(xmin=1.5, alpha=5.0), ("pareto", (5.0,), {"scale": 1.5}), (1.55, 12)),
+    ("LogUniform", dict(low=0.1, high=10.0), ("loguniform", (0.1, 10.0), {}), (0.2, 9.0)),
+    ("Poisson", dict(rate=3.5), ("poisson", (3.5,), {}), (0, 14)),
+    ("Binomial", dict(n=10.0, p=0.3), ("binom", (10, 0.3), {}), (0, 10)),
+    ("NegativeBinomial", dict(r=4.0, p=0.35), ("nbinom", (4, 0.35), {}), (0, 24)),
+    ("Geometric", dict(p=0.3), ("geom", (0.3,), {"loc": -1}), (0, 24)),
+    ("Bernoulli", dict(p=0.2), ("bernoulli", (0.2,), {}), (0, 1)),
+    ("BernoulliLogits", dict(logits=0.7), ("bernoulli", (1 / (1 + math.exp(-0.7)),), {}), (0, 1)),
+    ("Categorical", dict(logits=[0.1, -0.4, 1.2]), None, (0, 2)),
+]
+_DISCRETE = ("Poisson", "Binomial", "NegativeBinomial", "Geometric", "Bernoulli", "BernoulliLogits", "Categorical")
+
+
+def _scalar_pair(name, params, dev):
+    from bayesianinference_tpu_torch import dists
+
+    build = lambda d: getattr(dists, name)(**{k: torch.tensor(v, dtype=torch.float64, device=d)  # noqa: E731
+                                              for k, v in params.items()})
+    return build(dev), build("cpu")
+
+
+def _categorical_law(logits):
+    from scipy import stats
+
+    p = np.exp(np.asarray(logits) - np.logaddexp.reduce(logits))
+    return stats.rv_discrete(values=(np.arange(len(p)), p))
+
+
+def _optional(fn, *args):
+    """``fn(*args)``, or None where the family does not define it."""
+    try:
+        return fn(*args)
+    except NotImplementedError:
+        return None
+
+
+def _phase17_families(smi, dev, draws=MOMENT_DRAWS):
+    """17a: the 24 scalar families' log_prob, cdf and icdf on the JAX
+    tests' grids, on the card against CPU tensors (1e-12 relative) and
+    against scipy at those tests' tolerances; their sampling moments at
+    ``draws`` card draws under the tests' moment gates; the regularized
+    incomplete beta on its grid under its gates (tests/test_torch_scalar_families.py)."""
+    from scipy import special as sps
+    from scipy import stats
+
+    from bayesianinference_tpu_torch.core.numerics import betainc
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(17)
+    worst, lines = {"log_prob": 0.0, "cdf": 0.0, "icdf": 0.0}, []
+    q = np.linspace(0.05, 0.95, 10)
+    for name, params, law, rng_ in SCALAR_CASES:
+        card, cpu = _scalar_pair(name, params, dev)
+        ref = _categorical_law(params["logits"]) if law is None else getattr(stats, law[0])(*law[1], **law[2])
+        discrete = name in _DISCRETE
+        x = np.arange(rng_[0], rng_[1] + 1, dtype=float) if discrete else np.linspace(*rng_, 41)
+        xt = torch.tensor(x, dtype=torch.float64)
+        lp = card.log_prob(xt.to(dev)).cpu()
+        worst["log_prob"] = max(worst["log_prob"], _rel_max(lp, cpu.log_prob(xt)))
+        want = ref.logpmf(x.astype(int)) if discrete else ref.logpdf(x)
+        tol = dict(rtol=1e-7, atol=1e-9) if discrete else dict(rtol=1e-8, atol=1e-10)
+        if not np.allclose(lp.numpy(), want, **tol):
+            raise AssertionError(f"17a {name}: log_prob against scipy, max diff {np.abs(lp.numpy() - want).max():.3e}")
+        c = _optional(card.cdf, xt[::2].to(dev))
+        if c is not None:
+            worst["cdf"] = max(worst["cdf"], _rel_max(c.cpu(), cpu.cdf(xt[::2])))
+            if not np.allclose(c.cpu().numpy(), ref.cdf(x[::2]), rtol=1e-6, atol=1e-9):
+                raise AssertionError(f"17a {name}: cdf against scipy")
+            qi = _optional(card.icdf, torch.tensor(q, dtype=torch.float64, device=dev))
+            if qi is not None:
+                worst["icdf"] = max(worst["icdf"], _rel_max(qi.cpu(), cpu.icdf(torch.tensor(q, dtype=torch.float64))))
+                if not np.allclose(card.cdf(qi).cpu().numpy(), q, rtol=1e-5, atol=1e-6):
+                    raise AssertionError(f"17a {name}: cdf(icdf(q)) against q")
+        if name not in ("Cauchy", "HalfCauchy"):
+            s = card.sample(g, (draws,)).double()
+            m, v = float(s.mean()), float(s.var(correction=0))
+            m_ref, v_ref = (float(u) for u in ref.stats())
+            tol_m, tol_v = (dict(rtol=0.05), dict(rtol=0.1)) if discrete else (dict(rtol=0.05, atol=0.02),
+                                                                              dict(rtol=0.1, atol=0.05))
+            if not (s.device.type == dev.type and np.isclose(m, m_ref, **tol_m) and np.isclose(v, v_ref, **tol_v)):
+                raise AssertionError(f"17a {name}: {draws} card draws mean {m} var {v}, scipy {m_ref} {v_ref}")
+            lines.append(f"{name} {m:.4f}/{v:.4f}")
+    if not all(v <= 1e-12 for v in worst.values()):
+        raise AssertionError(f"17a: card against CPU tensors {worst}")
+    # betainc on its grid, against scipy, per (a, b) cell under its gates
+    errors = json.loads(BETAINC_ERRORS.read_text())
+    ab, xs = errors["a_b"], errors["x"]
+    cells = {}
+    for dtype, key in ((torch.float64, "float64"), (torch.float32, "float32")):
+        a, b, x = (torch.tensor(v.ravel(), dtype=dtype) for v in np.meshgrid(ab, ab, xs, indexing="ij"))
+        ref = sps.betainc(a.double().numpy(), b.double().numpy(), x.double().numpy())
+        got = betainc(a.to(dev), b.to(dev), x.to(dev)).cpu()
+        err = np.abs(got.double().numpy() - ref).reshape(len(ab), len(ab), -1).max(axis=-1)
+        jax_err = np.asarray(errors[key])
+        gate = np.maximum(2 * jax_err, 1e-13) if dtype == torch.float64 else 2 * jax_err + 1e-6
+        if not (got.dtype == dtype and np.all(err <= gate)):
+            raise AssertionError(f"17a betainc {key}: worst error over its gate {(err / gate).max():.3f}")
+        cells[key] = (float(err.max()), float((err / gate).max()), float(jax_err.max()))
+        if dtype == torch.float64:
+            cpu_rel = _rel_max(got, betainc(a, b, x))
+    log(f"[17a scalar families] 24 families on the card (f64): log_prob, cdf, icdf vs CPU tensors max rel "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in worst.items())}, vs scipy at tests/test_dists_scalar.py's "
+        f"tolerances; sampling moments of {draws} card draws (mean/var): {'; '.join(lines)}; betainc on its "
+        f"{len(ab)}x{len(ab)}x{len(xs)} grid vs scipy: f64 max err {cells['float64'][0]:.2e} (JAX {cells['float64'][2]:.2e}), "
+        f"worst cell at {cells['float64'][1]:.3f} of its gate, card vs CPU {cpu_rel:.2e}; f32 max err "
+        f"{cells['float32'][0]:.2e} (JAX {cells['float32'][2]:.2e}), worst cell at {cells['float32'][1]:.3f} of its "
+        f"gate; {time.perf_counter() - t0:.1f} s | {smi}")
+
+
+def _holdout(dev, n=HOLDOUT_N):
+    """Phase 4's data law (x ~ N(0, I_3), y = sin x_0 + 0.1 e) under seed 1."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(n, SLICE_D))
+    y = np.sin(x[:, 0]) + 0.1 * rng.normal(size=n)
+    return (torch.as_tensor(x, dtype=torch.float64, device=dev), torch.as_tensor(y, dtype=torch.float64, device=dev))
+
+
+def _scores(pred, y):
+    from bayesianinference_tpu_torch.results import scoring
+
+    return ({"crps": scoring.crps(pred, y), "log_score": scoring.log_score(pred, y), "pit": scoring.pit(pred, y),
+             "dss": scoring.dawid_sebastiani_score(pred, y)},
+            scoring.interval_coverage(pred, y, levels=(0.5, 0.9)))
+
+
+def _phase17_gp_scores(smi, watch, dev, problem, gp_posterior, holdout=HOLDOUT_N, crps_draws=CRPS_DRAWS):
+    """17b: phase 4's GP predictive at its defaults on held-out points,
+    scored: every score against the same predictive on CPU tensors, the
+    closed-form CRPS against the ensemble CRPS of its draws, the scores
+    against a constant Normal's; one scoring call traced and timed."""
+    from bayesianinference_tpu_torch.core.containers import WeightedSamples
+    from bayesianinference_tpu_torch.dists import Normal, PointwiseMixture
+    from bayesianinference_tpu_torch.engines.gp import predict_from_gaussian_process
+    from bayesianinference_tpu_torch.results import scoring
+    from bayesianinference_tpu_torch.utils import profiling
+
+    res, _, cpu_problem = gp_posterior
+    t0 = time.perf_counter()
+    xq, yq = _holdout(dev, holdout)
+    watch.zero()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the truncation to max_samples
+        pred = predict_from_gaussian_process(res, problem, xq)
+        pred_cpu = predict_from_gaussian_process(
+            WeightedSamples(points=res.points.cpu(), log_weights=res.crude_log_posterior_weights.cpu()), cpu_problem,
+            xq.cpu())
+    launches = watch.counts()
+    if not (launches["se_covariance"] > 0 and launches["cholesky"] > 0):
+        raise AssertionError(f"17b: launches {launches}")
+    s_count = pred.log_weights.shape[0]
+    got, cover = _scores(pred, yq)
+    want, cover_cpu = _scores(pred_cpu, yq.cpu())
+    rel = {k: _rel_max(got[k], want[k]) for k in got}
+    widths = max(_rel_max(cover[k][1], cover_cpu[k][1]) for k in cover)
+    same_cover = all(float(cover[k][0]) == float(cover_cpu[k][0]) for k in cover)
+    if not (all(v <= 1e-10 for v in rel.values()) and widths <= 1e-10 and same_cover):
+        raise AssertionError(f"17b: scores on the card vs CPU tensors {rel}, widths {widths:.2e}, coverage "
+                             f"{cover} vs {cover_cpu}")
+    closed = float(got["crps"].mean())
+    draws = pred.sample(torch.Generator(device=dev).manual_seed(4), (crps_draws,))
+    ens = float(scoring.crps_ensemble(draws, yq).mean())
+    batch_means = torch.stack([scoring.crps_ensemble(part, yq).mean()
+                               for part in draws.chunk(CRPS_BATCHES)]).double()
+    se = float(batch_means.std() / math.sqrt(CRPS_BATCHES))
+    if not abs(closed - ens) <= 4 * se:
+        raise AssertionError(f"17b: closed-form CRPS {closed} vs ensemble {ens} (se {se})")
+    y_train = problem.metadata["gaussian_process"].y
+    m = yq.shape[0]
+    const = PointwiseMixture(log_weights=torch.zeros(1, dtype=torch.float64, device=dev),
+                             component=Normal(y_train.mean().expand(1, m), y_train.std(correction=0).expand(1, m)))
+    c_crps, c_log = float(scoring.crps(const, yq).mean()), float(scoring.log_score(const, yq).mean())
+    gp_log = float(got["log_score"].mean())
+    if not (closed < c_crps and gp_log < c_log):
+        raise AssertionError(f"17b: GP CRPS {closed} log score {gp_log}; constant Normal {c_crps}, {c_log}")
+    trace_dir = Path(__file__).resolve().parent / "build" / "trace17"
+    with profiling.timed() as box, profiling.trace(str(trace_dir)) as path:
+        box["sync"] = scoring.crps(pred, yq)
+    size = Path(path).stat().st_size if Path(path).exists() else 0
+    if size == 0:
+        raise AssertionError(f"17b: profiling.trace wrote no trace at {path}")
+    log(f"[17b GP predictive scored] phase 4's NS posterior, predict_from_gaussian_process at its defaults: S = "
+        f"{s_count} of {res.points.shape[0]} samples at n = {SLICE_N}, {m} held-out points (seed 1): mean CRPS "
+        f"{closed:.6f} (ensemble of {crps_draws} draws {ens:.6f}, se {se:.2e}), log score {gp_log:.6f}, DSS "
+        f"{float(got['dss'].mean()):.6f}, PIT mean {float(got['pit'].mean()):.4f}; coverage "
+        f"{ {k: round(float(v[0]), 4) for k, v in cover.items()} }, widths "
+        f"{ {k: round(float(v[1]), 4) for k, v in cover.items()} }; constant Normal CRPS {c_crps:.4f}, log score "
+        f"{c_log:.4f}; card vs CPU tensors max rel {', '.join(f'{k} {v:.2e}' for k, v in rel.items())}, widths "
+        f"{widths:.2e}; launches {launches}; one CRPS call under trace and timed {box['seconds'] * 1e3:.1f} ms, "
+        f"trace {size} bytes; {time.perf_counter() - t0:.1f} s | {smi}")
+    return launches, xq, s_count
+
+
+def _phase17_regression(smi, watch, dev, problem, res, xq):
+    """17c: regression_predictive_distribution of the GP's posterior
+    moments over every NS point against predict_from_gaussian_process
+    (max_samples=None): the same function by two routes."""
+    from bayesianinference_tpu_torch.dists import Normal
+    from bayesianinference_tpu_torch.engines.gp import predict_from_gaussian_process
+    from bayesianinference_tpu_torch.results import regression_predictive_distribution
+
+    model = problem.metadata["gaussian_process"]
+
+    def builder(theta, x):
+        mean, sd = model.posterior_moments(theta, x)
+        return Normal(mean, torch.clamp(sd, min=1e-12))
+
+    t0 = time.perf_counter()
+    watch.zero()
+    got = regression_predictive_distribution(res, builder, xq)
+    want = predict_from_gaussian_process(res, problem, xq, max_samples=None)
+    launches = watch.counts()
+    rel = (_rel_max(got.mean(), want.mean()), _rel_max(got.variance(), want.variance()))
+    if not (max(rel) <= 1e-10 and launches["se_covariance"] > 0 and launches["cholesky"] > 0):
+        raise AssertionError(f"17c: mean and variance rel diff {rel}, launches {launches}")
+    log(f"[17c regression predictive] every NS point (B = {res.points.shape[0]}, n = {SLICE_N} f64) at "
+        f"{xq.shape[0]} points: mean and variance vs predict_from_gaussian_process(max_samples=None) rel diff "
+        f"{rel[0]:.2e}, {rel[1]:.2e}; launches {launches}; {time.perf_counter() - t0:.1f} s | {smi}")
+    return launches
+
+
+def _phase17_tp_quantiles(smi, watch, dev, res, xq, thetas_n=TP_THETAS):
+    """17d: the Student-t process predictive's 0.05 and 0.95 quantiles at
+    phase 4's data (n = 512 f64) through StudentT.cdf: at one theta
+    against scipy.stats.t.ppf, at ``thetas_n`` against CPU tensors; wall ms
+    and CUDA kernels per quantile call."""
+    from scipy import stats
+
+    from bayesianinference_tpu_torch.engines.t_process import predict_from_t_process
+    from bayesianinference_tpu_torch.interop import problem_data_from_numpy
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    x_np = rng.normal(size=(SLICE_N, SLICE_D))
+    y_np = np.sin(x_np[:, 0]) + 0.1 * rng.normal(size=SLICE_N)
+    x, y = problem_data_from_numpy(x_np, y_np, device=dev, dtype=torch.float64)
+    problem, cpu_problem = _tp_problem(x, y), _tp_problem(x.cpu(), y.cpu())
+    thetas = res.points[torch.argsort(-res.crude_log_posterior_weights, stable=True)[:thetas_n]]
+    q = torch.tensor([0.05, 0.95], dtype=torch.float64, device=dev)
+    watch.zero()
+    one = predict_from_t_process(thetas[:1], problem, xq)
+    got_one = one.quantile(q).cpu()
+    c = one.component
+    want_one = stats.t.ppf(q.cpu().numpy()[:, None], c.df[0].cpu().numpy(), c.loc[0].cpu().numpy(),
+                           c.scale[0].cpu().numpy())
+    many = predict_from_t_process(thetas, problem, xq)
+    got_many = many.quantile(q).cpu()
+    launches = watch.counts()
+    want_many = predict_from_t_process(thetas.cpu(), cpu_problem, xq.cpu()).quantile(q.cpu())
+    rel_one, rel_many = _rel_max(got_one, want_one), _rel_max(got_many, want_many)
+    if not (rel_one <= 1e-9 and rel_many <= 1e-10 and bool((got_many[1] > got_many[0]).all())):
+        raise AssertionError(f"17d: TP quantiles vs scipy {rel_one:.3e}, card vs CPU {rel_many:.3e}")
+    wall = _wall_ms(lambda: many.quantile(q), reps=1)
+    dev_ms, kernels = _profile_call(lambda: many.quantile(q), cpu=False)
+    log(f"[17d Student-t process quantiles] n = {SLICE_N} f64, nu = 4, {xq.shape[0]} points, q = 0.05 and 0.95: at "
+        f"one theta vs scipy.stats.t.ppf max rel {rel_one:.2e}; at {thetas_n} thetas card vs CPU tensors "
+        f"{rel_many:.2e}; a quantile call at {thetas_n} thetas: wall {wall:.1f} ms, device {dev_ms:.2f} ms, "
+        f"{kernels} CUDA kernels (80 bisection steps of the betainc CDF, {kernels / 80:.0f} a step); launches "
+        f"{launches}; {time.perf_counter() - t0:.1f} s | {smi}")
+    return launches
+
+
+def _phase17_rest(smi, dev, gp_res, ns_pool=400, ns_delete=40, ns_steps=20, replicates=2000):
+    """17e: predictive_distribution and posterior_predictive_check on an NS
+    run of the conjugate Normal model (known sigma) against its exact
+    predictive; the Normal exponential family against the conjugate Normal
+    engine; the mixtures, censoring and the KDE (fitted to phase 4's NS
+    posterior) on card tensors against CPU tensors."""
+    from bayesianinference_tpu_torch import dists
+    from bayesianinference_tpu_torch.dists.conjugate_structs import NormalInverseGamma
+    from bayesianinference_tpu_torch.engines.conjugate import normal_conjugate_model
+    from bayesianinference_tpu_torch.engines.nested_sampling import nested_sampling
+    from bayesianinference_tpu_torch.results import posterior_predictive_check, predictive_distribution
+
+    t0 = time.perf_counter()
+    f64 = dict(dtype=torch.float64, device=dev)
+    problem, data, post_mean, post_sd, _ = _normal_model(dev)
+    res = nested_sampling(problem, torch.Generator(device=dev).manual_seed(5), sample_pool_size=ns_pool,
+                          num_delete=ns_delete, monte_carlo_steps=ns_steps)
+    pred = predictive_distribution(res, lambda th: dists.Normal(th[0], 1.0))
+    ess = float(res.posterior_samples().effective_sample_size())
+    v = post_sd**2
+    m_err, v_err = float(pred.mean()) - post_mean, float(pred.variance()) - (1.0 + v)
+    if not (abs(m_err) <= 4 * math.sqrt(v / ess) and abs(v_err) <= 4 * v * math.sqrt(2 / ess)):
+        raise AssertionError(f"17e: predictive mean {float(pred.mean())} var {float(pred.variance())}, exact "
+                             f"{post_mean} {1 + v}, ESS {ess}")
+    data_t = torch.as_tensor(data, **f64)
+    t_obs, t_rep, p = posterior_predictive_check(res, lambda th: dists.Normal(th[0], 1.0), data_t, torch.mean,
+                                                 torch.Generator(device=dev).manual_seed(6), num_replicates=replicates)
+    if not (t_rep.shape == (replicates,) and t_rep.device.type == dev.type and 0.001 < float(p) < 0.999):
+        raise AssertionError(f"17e: predictive check p {float(p)}")
+    # the Normal family's (chi, nu) prior is NIG(chi1 / nu, nu, (chi2 - chi1^2 / nu) / 2, nu / 2 + 3 / 2)
+    chi0, nu0 = torch.tensor([1.5, 6.0], **f64), 2.0
+    prior = NormalInverseGamma(mu0=chi0[0] / nu0, lam=torch.tensor(nu0, **f64),
+                               beta=(chi0[1] - chi0[0] ** 2 / nu0) / 2, nu=torch.tensor(nu0 / 2 + 1.5, **f64))
+    fit = normal_conjugate_model(data_t, prior=prior)
+    chi, nu = dists.conjugate_update(dists.NORMAL, chi0, nu0, data_t)
+    grid = torch.linspace(-3, 5, 17, **f64)
+    ef = _rel_max(dists.NORMAL.log_predictive_pdf(grid, chi, nu), fit.posterior_predictive.log_prob(grid))
+    if not ef <= 1e-12:
+        raise AssertionError(f"17e: expfam NORMAL predictive vs the conjugate engine {ef:.3e}")
+    # the combinators and the KDE, card against CPU tensors
+    rel = {}
+    pts = gp_res.points
+    for name, make, x in (
+            ("Mixture", lambda d: dists.Mixture(torch.log(torch.tensor([0.3, 0.5, 0.2], dtype=torch.float64, device=d)),
+                                                dists.Normal(torch.tensor([-2.0, 3.0, 0.5], dtype=torch.float64, device=d),
+                                                             torch.tensor([1.0, 0.5, 2.0], dtype=torch.float64, device=d))),
+             torch.linspace(-6, 9, 31, dtype=torch.float64)),
+            ("HeterogeneousMixture", lambda d: dists.HeterogeneousMixture(
+                torch.log(torch.tensor([0.3, 0.7], dtype=torch.float64, device=d)),
+                (dists.StudentT(torch.tensor(4.0, dtype=torch.float64, device=d), 1.0, 2.0),
+                 dists.Normal(torch.tensor(-1.0, dtype=torch.float64, device=d), 0.5))),
+             torch.linspace(-5, 8, 41, dtype=torch.float64)),
+            ("Censored", lambda d: dists.Censored(dists.Normal(torch.tensor(0.5, dtype=torch.float64, device=d), 1.2),
+                                                  low=-1.0, high=2.0),
+             torch.tensor([-1.0, -0.5, 0.3, 1.9, 2.0], dtype=torch.float64)),
+            ("GaussianKDE", lambda d: dists.GaussianKDE.fit(torch.log(pts).to(d),
+                                                            gp_res.crude_log_posterior_weights.to(d)),
+             torch.log(pts[:64]).cpu())):
+        card, cpu = make(dev), make("cpu")
+        vals = [_rel_max(card.log_prob(x.to(dev)).cpu(), cpu.log_prob(x))]
+        if name != "GaussianKDE":
+            vals.append(_rel_max(card.cdf(x.to(dev)).cpu(), cpu.cdf(x)))
+        if name != "Censored":  # no moments, as in the JAX package
+            vals.append(_rel_max(torch.as_tensor(card.mean()).cpu(), torch.as_tensor(cpu.mean())))
+        rel[name] = max(vals)
+    if not all(v <= 1e-12 for v in rel.values()):
+        raise AssertionError(f"17e: card vs CPU tensors {rel}")
+    log(f"[17e predictive, check, expfam, mixtures] NS of tests/test_vi.py's conjugate Normal model (known sigma 1; "
+        f"pool {ns_pool}, {ns_delete} deletions, ESS {ess:.0f}): predictive mean - exact {m_err:+.2e}, variance - "
+        f"exact {v_err:+.2e} (4 NS se {4 * math.sqrt(v / ess):.2e}, {4 * v * math.sqrt(2 / ess):.2e}); predictive "
+        f"check of the mean, {replicates} replicates: p {float(p):.4f}; expfam NORMAL vs the conjugate engine's "
+        f"predictive {ef:.2e}; card vs CPU tensors {', '.join(f'{k} {v:.2e}' for k, v in rel.items())}; "
+        f"{time.perf_counter() - t0:.1f} s | {smi}")
+
+
+def _phase17_times(smi, dev, shapes):
+    """17f: the kernels at the slice's new shapes (the predictive's
+    symmetric K and cross-covariance, and K's factor, at each B of
+    ``shapes``) against their plain versions, bounds and cholesky_ex."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    lines = []
+    x = torch.randn((1, SLICE_N, SLICE_D), generator=g, device=dev, dtype=torch.float64)
+    xq = torch.randn((1, HOLDOUT_N, SLICE_D), generator=g, device=dev, dtype=torch.float64)
+    for what, b in shapes:
+        var = 0.5 + torch.rand((b,), generator=g, device=dev, dtype=torch.float64)
+        scale = (0.5 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, SLICE_D)
+        nug = (0.01 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, SLICE_N)
+        kw = dict(reps=2, groups=2, per_group=3 if b > 64 else 10)
+        ms, plain_ms, _, _ = _in_turns(lambda: gk.se_covariance_cuda(x, None, var, scale, nug),
+                                       lambda: gk.se_covariance_plain(x, None, var, scale, nug), **kw)
+        bound, by = _se_bound(x, None, var, scale, nug)
+        x_ms, x_plain, _, _ = _in_turns(lambda: gk.se_covariance_cuda(x, xq, var, scale),
+                                        lambda: gk.se_covariance_plain(x, xq, var, scale), **kw)
+        x_bound, x_by = _se_bound(x, xq, var, scale, None)
+        k = gk.se_covariance_cuda(x, None, var, scale, nug)
+        c_ms, c_lib, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), **kw)
+        c_plain, _ = _time_ms(lambda: gk.cholesky_plain(k), **kw)
+        c_bound, c_by = _chol_bound(b, SLICE_N, 8)
+        lines.append(f"{what} B={b} n={SLICE_N} f64: SE {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound:.3g} by "
+                     f"{by}); cross SE [{SLICE_N}, {HOLDOUT_N}] {x_ms:.4f} ms (plain {x_plain:.4f}, bound "
+                     f"{x_bound:.3g} by {x_by}); Cholesky {c_ms:.4f} ms (plain {c_plain:.4f}, cholesky_ex "
+                     f"{c_lib:.4f}, bound {c_bound:.3g} by {c_by})")
+        del k
+    log(f"[17f kernel times] device ms in turns: {'; '.join(lines)} | {smi}")
+
+
+def phase_consumption(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes):
+    """Phase 17: the consumption layer (module docstring).  ``sizes``
+    shrink 17a-e for a rehearsal (``families``, ``scores``, ``tp``,
+    ``rest``: keyword arguments of each sub-phase; ``times=False`` skips
+    17f)."""
+    dev = torch.device(dev)
+    res = gp_posterior[0]
+    t0 = time.perf_counter()
+    seconds, total = [], {"se_covariance": 0, "cholesky": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    with _KernelWatch() as watch:
+        t = time.perf_counter()
+        _phase17_families(smi, dev, **sizes.get("families", {}))
+        seconds.append(f"17a {time.perf_counter() - t:.1f}")
+        t = time.perf_counter()
+        launches, xq, s_count = _phase17_gp_scores(smi, watch, dev, gp_problem, gp_posterior,
+                                                   **sizes.get("scores", {}))
+        add(launches)
+        seconds.append(f"17b {time.perf_counter() - t:.1f}")
+        t = time.perf_counter()
+        add(_phase17_regression(smi, watch, dev, gp_problem, res, xq))
+        seconds.append(f"17c {time.perf_counter() - t:.1f}")
+        t = time.perf_counter()
+        add(_phase17_tp_quantiles(smi, watch, dev, res, xq, **sizes.get("tp", {})))
+        seconds.append(f"17d {time.perf_counter() - t:.1f}")
+        if not (total["se_covariance"] > 0 and total["cholesky"] > 0):
+            raise AssertionError(f"17: launches {total}")
+        t = time.perf_counter()
+        _phase17_rest(smi, dev, res, **sizes.get("rest", {}))
+        seconds.append(f"17e {time.perf_counter() - t:.1f}")
+        if sizes.get("times", True):
+            t = time.perf_counter()
+            _phase17_times(smi, dev, (("predictive", s_count), ("regression", res.points.shape[0])))
+            seconds.append(f"17f {time.perf_counter() - t:.1f}")
+        log(f"[17 consumption layer] {time.perf_counter() - t0:.1f} s ({', '.join(seconds)}); launches {total}; "
+            f"{watch.check('17')}")
+    return total
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -3703,9 +4172,10 @@ def main():
     latent_launches = timed(phase_latent_gp, smi)
     svgp_launches = timed(phase_svgp_bo, smi)
     vi_launches = timed(phase_vi_pathfinder, smi, problem, gp_posterior)
+    consumption_launches = timed(phase_consumption, smi, problem, gp_posterior)
     launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] + par_launches[k]
                 + conj_launches[k] + sampler_launches[k] + latent_launches[k] + svgp_launches[k] + vi_launches[k]
-                for k in launches}
+                + consumption_launches[k] for k in launches}
     # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
     # at bench.py's width (B = 1, n = 16384, f32)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")

@@ -29,7 +29,10 @@ latents whose joint reaches both ops, 1e-8 of the largest entry; numpy
 bounds of ``gauss_legendre_grid`` land on the card.  ADVI, Pathfinder and
 bridge sampling on the ARD GP, and WAIC / PSIS-LOO / model weights on card
 tensors (float64, against CPU tensors on the same draws): 1e-8 of the
-largest entry.
+largest entry.  The consumption layer (float64, against CPU tensors): the
+regularized incomplete beta and the new scalar families, 1e-12; a GP
+predictive's scores and its regression-predictive route through both
+kernels, 1e-10.
 """
 
 import numpy as np
@@ -659,3 +662,64 @@ def test_bridge_and_information_on_the_card_match_the_cpu(cuda):
         assert a.pointwise_elpd.device.type == "cuda" and _rel_to(a.pointwise_elpd, b.pointwise_elpd) <= 1e-8
     w = model_weights([a.pointwise_elpd, a.pointwise_elpd - 0.1])
     assert w.device.type == "cuda" and abs(float(w.sum()) - 1.0) < 1e-12
+
+
+def test_betainc_and_the_new_families_on_the_card_match_the_cpu(cuda):
+    """The regularized incomplete beta on its grid and the twelve new
+    families' densities, CDFs and quantiles, card against CPU, 1e-12."""
+    from bayesianinference_tpu_torch import dists
+    from bayesianinference_tpu_torch.core.numerics import betainc
+
+    a, b, x = (t.reshape(-1) for t in torch.meshgrid(
+        torch.tensor([0.05, 0.5, 5.0, 500.0], dtype=torch.float64),
+        torch.tensor([0.05, 1.0, 50.0, 5000.0], dtype=torch.float64),
+        torch.tensor([1e-12, 1e-3, 0.3, 0.7, 0.999, 1 - 1e-12], dtype=torch.float64), indexing="ij"))
+    assert _rel_to(betainc(a.to(cuda), b.to(cuda), x.to(cuda)), betainc(a, b, x)) <= 1e-12
+    q = torch.linspace(0.05, 0.95, 7, dtype=torch.float64)
+    for name, params in (("StudentT", dict(df=4.0, loc=1.0, scale=2.0)), ("Beta", dict(a=2.0, b=5.0)),
+                         ("Laplace", dict(loc=-1.0, scale=2.0)), ("Weibull", dict(k=1.7, scale=2.0)),
+                         ("Gumbel", dict(loc=1.0, scale=2.0)), ("Pareto", dict(xmin=1.5, alpha=5.0))):
+        make = lambda d: getattr(dists, name)(**{k: torch.tensor(v, dtype=torch.float64, device=d)  # noqa: E731
+                                                 for k, v in params.items()})
+        card, cpu = make(cuda), make("cpu")
+        xs = cpu.icdf(q)
+        assert _rel_to(card.icdf(q.to(cuda)), xs) <= 1e-12
+        assert _rel_to(card.cdf(xs.to(cuda)), cpu.cdf(xs)) <= 1e-12
+        assert _rel_to(card.log_prob(xs.to(cuda)), cpu.log_prob(xs)) <= 1e-12
+
+
+def test_gp_predictive_scores_and_regression_route_on_the_card_match_the_cpu(cuda):
+    """A GP predictive built through both kernels, scored on the card against
+    the same on CPU tensors (1e-10), and its regression-predictive route
+    against predict_from_gaussian_process (1e-10)."""
+    from bayesianinference_tpu_torch.core.containers import WeightedSamples
+    from bayesianinference_tpu_torch.dists import Normal
+    from bayesianinference_tpu_torch.engines.gp import define_gaussian_process, predict_from_gaussian_process
+    from bayesianinference_tpu_torch.ops.gp_kernels import se_kernel
+    from bayesianinference_tpu_torch.results import regression_predictive_distribution, scoring
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((128, 3), generator=g, dtype=torch.float64)
+    y = torch.sin(x[:, 0]) + 0.1 * torch.randn(128, generator=g, dtype=torch.float64)
+    draws = WeightedSamples(points=torch.rand((40, 3), generator=g, dtype=torch.float64) * 0.8 + 0.2,
+                            log_weights=torch.randn(40, generator=g, dtype=torch.float64))
+    xq = torch.randn((32, 3), generator=g, dtype=torch.float64)
+    yq = torch.sin(xq[:, 0])
+
+    def problem(d):
+        return define_gaussian_process(x.to(d), y.to(d), kernel_builder=lambda th: se_kernel(th[0] ** 2, th[1]),
+                                       nugget_builder=lambda th: th[2] ** 2,
+                                       parameters=[("amp", 0.05, 5.0), ("length", 0.05, 5.0), ("noise", 0.01, 1.0)])
+
+    card, cpu = problem(cuda), problem("cpu")
+    draws_card = WeightedSamples(points=draws.points.to(cuda), log_weights=draws.log_weights.to(cuda))
+    pred, pred_cpu = predict_from_gaussian_process(draws_card, card, xq.to(cuda)), \
+        predict_from_gaussian_process(draws, cpu, xq)
+    for fn in (scoring.crps, scoring.log_score, scoring.pit, scoring.dawid_sebastiani_score):
+        assert _rel_to(fn(pred, yq.to(cuda)), fn(pred_cpu, yq)) <= 1e-10
+    model = card.metadata["gaussian_process"]
+    route = regression_predictive_distribution(
+        draws_card, lambda th, xx: Normal(*(lambda m, s: (m, torch.clamp(s, min=1e-12)))(*model.posterior_moments(th, xx))),
+        xq.to(cuda))
+    assert _rel_to(route.mean(), pred.mean().cpu()) <= 1e-10
+    assert _rel_to(route.variance(), pred.variance().cpu()) <= 1e-10

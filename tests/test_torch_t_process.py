@@ -9,11 +9,12 @@ one counterpart each.  Parity tolerances:
   rtol 1e-10 (gradients: of their largest entry);
 * the problem's Hessian in theta against ``jax.hessian``: 1e-8 of its
   largest entry;
-* the Laplace fit of a TP problem: ``test_torch_laplace.py``'s bounds.
+* the Laplace fit of a TP problem: ``test_torch_laplace.py``'s bounds;
+* the predictive mixture's quantiles (the bisection on ``StudentT.cdf``,
+  through the port's own ``betainc``): 1e-12 relative, 1e-13 absolute.
 
-The predictive mixture's ``quantile`` needs ``StudentT.cdf``, which the
-port does not have yet (ROADMAP queue 1, item 3); the end-to-end test
-checks the predictive spread through ``variance`` instead.
+The end-to-end test reads the predictive's 0.95 quantile, as the JAX test
+does, and its spread through ``variance`` as well.
 """
 
 import jax
@@ -209,11 +210,26 @@ def test_end_to_end_problem_and_prediction():
     mu = pred.mean().numpy()
     assert mu.shape == (25,)
     assert np.corrcoef(mu, np.sin(1.3 * xq[:, 0]))[0, 1] > 0.95
-    # the spread is there (the JAX test reads the 0.95 quantile; see the module docstring)
+    # quantiles available (StudentT mixture), and the spread is there
+    q = pred.quantile(0.95).numpy()
+    assert q.shape == (25,) and np.all(q > mu)
     var = pred.variance().numpy()
     assert var.shape == (25,) and np.all(np.isfinite(var)) and np.all(var > 0)
     pred2 = ttp.predict_from_t_process(fit.mean[None, :].repeat(3, 1), problem, 11)
     assert pred2.mean().shape == (11,)
+
+
+def test_predictive_quantiles_match_jax():
+    x, y = _e2e_data()
+    jp, tp = _problems(x, y)
+    thetas = np.array([[1.5, 1.0], [0.7, 0.5], [1.1, 1.4]])
+    xq = np.linspace(-3, 3, 7)[:, None]
+    want = jtp.predict_from_t_process(jnp.asarray(thetas), jp, jnp.asarray(xq))
+    got = ttp.predict_from_t_process(T(thetas), tp, T(xq))
+    q = np.array([0.05, 0.5, 0.95])
+    close(got.quantile(T(q)).numpy(), np.asarray(want.quantile(jnp.asarray(q))), rtol=1e-12, atol=1e-13)
+    close(got.cdf(T(np.linspace(-2, 2, 7))).numpy(), np.asarray(want.cdf(jnp.asarray(np.linspace(-2, 2, 7)))),
+          rtol=1e-12, atol=1e-15)
 
 
 def test_variance_inflation_tracks_surprise():
