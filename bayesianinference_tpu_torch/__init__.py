@@ -23,8 +23,9 @@ __version__ = "0.1.0"
 # importing builds no kernel: csrc compiles them at their first launch
 from . import core, dists, engines, models, ops, parallel, results  # noqa: E402
 
-_LAZY = ("utils",)
-_NOT_PORTED = ("bnn", "viz")
+# loaded at first use: utils and viz (whose plots import matplotlib only
+# when they draw) and bnn
+_LAZY = ("bnn", "utils", "viz")
 
 
 def __getattr__(name):
@@ -34,10 +35,7 @@ def __getattr__(name):
         mod = importlib.import_module(f".{name}", __name__)
         globals()[name] = mod
         return mod
-    if name in _NOT_PORTED:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}: the JAX package's {name} is not "
-                             "ported yet (ROADMAP.md, queue 1: slice 12, the neural engines and plots)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["core", "dists", "engines", "models", "ops", "parallel", "results", "utils", "__version__"]
+__all__ = ["bnn", "core", "dists", "engines", "models", "ops", "parallel", "results", "utils", "viz", "__version__"]

@@ -43,10 +43,17 @@ def adam_step(params, grads, state: AdamState, learning_rate: float, b1: float =
     """(new params, new state) after one Adam step on ``grads``."""
     t = state.count + 1
     c1, c2 = 1.0 - b1**t, 1.0 - b2**t
-    mu = {k: (1.0 - b1) * grads[k] + b1 * state.mu[k] for k in params}
-    nu = {k: (1.0 - b2) * grads[k] ** 2 + b2 * state.nu[k] for k in params}
-    new = {k: params[k] + (-learning_rate) * ((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps)) for k in params}
-    return new, AdamState(mu=mu, nu=nu, count=t)
+    keys = list(params)
+    g = [grads[k] for k in keys]
+    # each _foreach op is one elementwise op over every tensor (one CUDA
+    # launch for all of them), in the order of operations above
+    mu = torch._foreach_add(torch._foreach_mul(g, 1.0 - b1), torch._foreach_mul([state.mu[k] for k in keys], b1))
+    nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - b2),
+                            torch._foreach_mul([state.nu[k] for k in keys], b2))
+    den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, c2)), eps)
+    step = torch._foreach_mul(torch._foreach_div(torch._foreach_div(mu, c1), den), -learning_rate)
+    new = torch._foreach_add([params[k] for k in keys], step)
+    return dict(zip(keys, new)), AdamState(mu=dict(zip(keys, mu)), nu=dict(zip(keys, nu)), count=t)
 
 
 def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0):

@@ -3,8 +3,8 @@ checkpoints, evidence resampling, the Markov-chain API, GP regression
 (dense, sparse, Student-t, multi-output) and latent-GP classification,
 the stochastic variational GP, Bayesian optimization, the Laplace
 approximation, the conjugate models, direct quadrature, HMC,
-tempered SMC, the affine-invariant ensemble, ADVI, Pathfinder and
-bridge-sampling evidence.  ``nested_sampling`` stays in its module
+tempered SMC, the affine-invariant ensemble, ADVI, RealNVP flow VI,
+Pathfinder and bridge-sampling evidence.  ``nested_sampling`` stays in its module
 (``engines.nested_sampling``): a package attribute of that name would hide
 the module."""
 
@@ -37,6 +37,7 @@ from .conjugate import (
     update_conjugate_model,
 )
 from .ensemble import EnsembleResult, ensemble_sample
+from .flow_vi import FlowVIResult, flow_vi_fit
 from .evidence import MeanAndError, NestedSamplingResult, combine_runs, evidence_sampling, log_bayes_factor
 from .direct import DirectPosterior, direct_posterior_distribution, gauss_legendre_grid
 from .dynamic_ns import (

@@ -15,7 +15,11 @@ three fits), Bayesian optimization's ``BayesOptState``, and the fitted
 ``Mixture``, ``PointwiseMixture`` or ``GaussianKDE`` (their component
 taken as the port's family of the same name, its parameters by field
 name), so that both packages' scores and quantiles can be computed on one
-object.  Without
+object.  A flax ``RegressionNet``'s variables dict becomes the port net's
+state dict (flax kernels are [in, out], the port's weights [out, in]),
+and a ``TrainedRegressionNet``, the flow VI's parameter tree and
+``FlowVIResult``, and the ``NestedSamplingResult``, ``SMCResult`` and
+``SBCResult`` that the plots read carry over too.  Without
 ``device=`` the tensors go to the CUDA card,
 and the call raises where there is none: ``device="cpu"`` asks for the
 host.  Nothing here imports JAX.
@@ -34,7 +38,12 @@ from . import dists
 from .core.device import resolve_device
 from .dists.conjugate_structs import NormalInverseGamma, NormalInverseWishart
 from .engines.conjugate import BLRParameters
+from .bnn.predict import TrainedRegressionNet
 from .engines.dynamic_ns import NSSegment
+from .engines.evidence import MeanAndError, NestedSamplingResult
+from .engines.flow_vi import FlowVIResult
+from .engines.smc import SMCResult
+from .results.sbc import SBCResult
 from .engines.bayesopt import BayesOptState
 from .engines.gp_classify import _NAMED_LIKELIHOODS, GPClassifierOptimization
 from .engines.sparse_gp import SGPROptimization, with_inducing
@@ -75,6 +84,13 @@ __all__ = [
     "mixture_from_numpy",
     "pointwise_mixture_from_numpy",
     "gaussian_kde_from_numpy",
+    "regression_net_state_from_numpy",
+    "trained_regression_net_from_numpy",
+    "flow_params_from_numpy",
+    "flow_vi_result_from_numpy",
+    "nested_sampling_result_from_numpy",
+    "smc_result_from_numpy",
+    "sbc_result_from_numpy",
 ]
 
 _EVAL_BASE = 1 << 30  # radix of the JAX package's (hi, lo) int32 eval counter
@@ -370,3 +386,93 @@ def gaussian_kde_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype]
     """A :class:`~.dists.empirical.GaussianKDE` from the JAX package's
     (``points`` [n, d], ``log_weights`` [n], ``bandwidth`` [d])."""
     return dists.GaussianKDE(**_params_from(fields, ("points", "log_weights", "bandwidth"), device, dtype))
+
+
+def regression_net_state_from_numpy(variables, *, device=None, dtype: Optional[torch.dtype] = None) -> dict:
+    """A :class:`~.bnn.nets.RegressionNet` state dict from a flax
+    ``RegressionNet``'s variables dict (``{"params": {"Dense_i": {"kernel",
+    "bias"}, "BatchNorm_i": {"scale", "bias"}, "log_precision"}, "batch_stats":
+    {"BatchNorm_i": {"mean", "var"}}}``): ``Dense_i`` for i < depth is
+    block i, the last ``Dense`` the head."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    device = resolve_device(device)
+
+    def tensor(a):
+        out = torch.as_tensor(np.array(a), device=device)
+        return out.to(dtype or out.dtype)
+
+    dense = sorted((k for k in params if k.startswith("Dense_")), key=lambda k: int(k.split("_")[1]))
+    state = {}
+    for i, name in enumerate(dense[:-1]):
+        state[f"dense{i}_weight"] = tensor(params[name]["kernel"]).T.contiguous()
+        state[f"dense{i}_bias"] = tensor(params[name]["bias"])
+        if f"BatchNorm_{i}" in params:
+            state[f"norm{i}_weight"] = tensor(params[f"BatchNorm_{i}"]["scale"])
+            state[f"norm{i}_bias"] = tensor(params[f"BatchNorm_{i}"]["bias"])
+            state[f"norm{i}_mean"] = tensor(stats[f"BatchNorm_{i}"]["mean"])
+            state[f"norm{i}_var"] = tensor(stats[f"BatchNorm_{i}"]["var"])
+    state["head_weight"] = tensor(params[dense[-1]]["kernel"]).T.contiguous()
+    state["head_bias"] = tensor(params[dense[-1]]["bias"])
+    if "log_precision" in params:
+        state["log_precision"] = tensor(params["log_precision"])
+    return state
+
+
+def trained_regression_net_from_numpy(trained, net, *, device=None,
+                                      dtype: Optional[torch.dtype] = None) -> TrainedRegressionNet:
+    """A :class:`~.bnn.predict.TrainedRegressionNet` from the JAX package's
+    bundle, around the port's ``net`` of the same architecture."""
+    history = _params_from(trained, ("history",), device, dtype)["history"]
+    return TrainedRegressionNet(params=regression_net_state_from_numpy(trained.params, device=device, dtype=dtype),
+                                history=history, net=net, alpha=trained.alpha, sample_number=trained.sample_number,
+                                weight_decay=trained.weight_decay)
+
+
+def flow_params_from_numpy(tree, *, device=None, dtype: Optional[torch.dtype] = None) -> dict:
+    """The flow VI's parameter tree (``{"couplings": [{"w1", "b1", "w2",
+    "b2", "w3", "b3"}], "affine": {"log_diag", "off", "loc"}}``) as tensors."""
+    return {"couplings": [_params_from(c, ("w1", "b1", "w2", "b2", "w3", "b3"), device, dtype)
+                          for c in tree["couplings"]],
+            "affine": _params_from(tree["affine"], ("log_diag", "off", "loc"), device, dtype)}
+
+
+def flow_vi_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> FlowVIResult:
+    """A :class:`~.engines.flow_vi.FlowVIResult` from the JAX package's fit."""
+    out = _params_from(fields, ("elbo", "elbo_history", "log_evidence", "pareto_k", "lower", "upper"), device, dtype)
+    return FlowVIResult(params=flow_params_from_numpy(_field(fields, "params"), device=device, dtype=dtype), **out,
+                        param_names=_names(fields))
+
+
+def _result_from(cls, fields, device, dtype: Optional[torch.dtype]):
+    """A result dataclass of the port from the JAX package's namesake, field
+    by field: arrays as tensors (floats in ``dtype``, integers as int64),
+    ``MeanAndError`` pairs alike, everything else as it is."""
+    device = resolve_device(device)
+
+    def convert(v):
+        if v is None or isinstance(v, (int, float, str, tuple, bool)):
+            return v
+        if hasattr(v, "mean") and hasattr(v, "standard_error") and not isinstance(v, np.ndarray):
+            return MeanAndError(convert(v.mean), convert(v.standard_error))
+        t = torch.as_tensor(np.array(v), device=device)
+        return t.to(dtype or t.dtype) if t.is_floating_point() else t.to(torch.int64)
+
+    return cls(**{f.name: convert(_field(fields, f.name)) for f in dataclasses.fields(cls)
+                  if (f.name in fields if isinstance(fields, dict) else hasattr(fields, f.name))})
+
+
+def nested_sampling_result_from_numpy(fields, *, device=None,
+                                      dtype: Optional[torch.dtype] = None) -> NestedSamplingResult:
+    """A :class:`~.engines.evidence.NestedSamplingResult` from the JAX
+    package's (the object, or a dict of its fields)."""
+    return _result_from(NestedSamplingResult, fields, device, dtype)
+
+
+def smc_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> SMCResult:
+    """A :class:`~.engines.smc.SMCResult` from the JAX package's."""
+    return _result_from(SMCResult, fields, device, dtype)
+
+
+def sbc_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> SBCResult:
+    """A :class:`~.results.sbc.SBCResult` from the JAX package's."""
+    return _result_from(SBCResult, fields, device, dtype)

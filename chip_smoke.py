@@ -187,7 +187,32 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     against CPU tensors (1e-12); (f) the kernels at the predictive's B = S
     and (c)'s B against their plain versions, bounds and cholesky_ex.
 
-Each of phases 4, 6, 7, 9, 11b, 12, 13c, 13e, 14, 15, 16 and 17 (and 13b the Cholesky's)
+18. the quasi-Bayesian networks and RealNVP flow VI: (a) the MC-dropout
+    net trained on the card in float32 on tests/test_bnn.py's data
+    (n = 256) at the reference's defaults (depth 4, width 100, p 0.25,
+    alpha 0.5, k 10, 2000 Adam steps at 1e-3) and at the JAX test's
+    configuration (depth 2, width 48, p 0.1, k 5, 1500 steps at 3e-3),
+    each under test_bnn_end_to_end's gates (mean |error| < 0.2, sd > 0.03,
+    3-sigma coverage > 0.9, the trained network log evidence above the
+    initial one), its forward pass, loss and gradient on the card against
+    CPU tensors on the same masks (float64 1e-12, float32 1e-5), and per
+    training step and per sample_trained_net call (200 samples) wall and
+    device ms, CUDA kernels and busy share; (b) tests/test_flow_vi.py's
+    oracles: the conjugate posterior and evidence (2000 steps), the box and
+    scale test (1500 steps), the banana against fullrank ADVI (4000 flow steps at 2e-3, 3000 ADVI steps; the
+    slow test's gates) and hmc_sample(starting_points="flow") on the
+    banana; (c) flow VI on phase 4's GP problem through both kernels and
+    both reverse rules (64 draws a step, 1000 steps, the final 8192 in
+    chunks of 1024): pareto k < 0.7, the PSIS logZ within 0.05 of phase
+    4's grid logZ and the ELBO at most 0.02 above it; (d) the kernels at
+    B = 64, n = 512 f64 against their plain versions, bounds and
+    cholesky_ex, and per flow step and per fullrank ADVI step at B = 64
+    wall and device ms, CUDA kernels and busy share.  (b)'s five fits (no
+    hand-written kernel in them) run in five worker processes while (a) and
+    (c) run, so (a)'s and (c)'s wall times are taken under that load; the
+    per-unit rows are taken after the workers end.
+
+Each of phases 4, 6, 7, 9, 11b, 12, 13c, 13e, 14, 15, 16, 17 and 18 (and 13b the Cholesky's)
 zeroes the kernels' launch counters before it drives its path and fails if
 a kernel of that path was not launched; the ``launches`` of the JSON line
 are their sum.  Phase 5 fails
@@ -204,6 +229,7 @@ from __future__ import annotations
 import collections
 import json
 import math
+import multiprocessing
 import statistics
 import subprocess
 import time
@@ -2104,6 +2130,34 @@ def _profile_call(fn, cpu: bool = True):
     return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
 
 
+def _unit_costs(runs, reps=3) -> list:
+    """Per unit (wall ms, device ms, CUDA kernels) of each ``(name, run,
+    least)``: ``run(s)`` does ``s`` units, each of at least ``least`` CUDA
+    kernels; by difference of 3 units and 1.  A trace can lose the records
+    of its first kernels, so a window that holds fewer than its bound (1
+    unit's ``least``; 1 unit's count plus 2 ``least`` for 3) is taken again;
+    the differenced device ms must be positive."""
+    def profiled(fn, bound, what):
+        for _ in range(5):
+            dev_ms, kernels = _profile_call(fn)
+            if kernels >= bound:
+                return dev_ms, kernels
+        raise AssertionError(f"{what}: torch.profiler kept losing kernel records ({kernels} seen, at least "
+                             f"{bound} expected)")
+
+    out = []
+    for name, run, least in runs:
+        w_lo, w_hi = _wall_ms(lambda: run(1), reps=reps), _wall_ms(lambda: run(3), reps=reps)
+        d_lo, k_lo = profiled(lambda: run(1), least, name)
+        d_hi, k_hi = profiled(lambda: run(3), k_lo + 2 * least, name)
+        wall, devm, kern = (w_hi - w_lo) / 2, (d_hi - d_lo) / 2, (k_hi - k_lo) / 2
+        if not (devm > 0 and kern > 0):
+            raise AssertionError(f"{name}: per unit device {devm} ms, {kern} CUDA kernels")
+        out.append(f"{name}: wall {wall:.2f} ms, device {devm:.3f} ms, {kern:.0f} CUDA kernels, busy share "
+                   f"{devm / wall if wall > 0 else math.nan:.3f}")
+    return out
+
+
 def _vg(fn, *args):
     """[value, gradient...] of ``fn(*args)``, the gradient in those of
     ``args`` that require one, as one detached vector."""
@@ -3641,23 +3695,17 @@ def _phase16_times(smi, dev, problem, pf_problem):
     # share of the ELBO block), by difference of fits
     draws = vi.vi_draws(g, 3, 32, 32, problem.dim)
     pf_draws = pf.pathfinder_draws(g, 8, pf_problem.dim, 30, 32)
-    units = {}
-    for name, run, count in (
-            ("ADVI step (B = 32)", lambda s: vi.advi_fit(problem, None, num_steps=s, final_elbo_samples=32,
-                                                         draws=vi.VIDraws(draws.steps[:s], draws.final)), (1, 3)),
-            ("Pathfinder iteration (ARD, 8 paths)", lambda s: pf.pathfinder_fit(pf_problem, None, maxiter=s,
-                                                                                 num_draws_per_path=32,
-                                                                                 draws=pf_draws), (1, 3))):
-        lo, hi = count
-        w_lo, w_hi = _wall_ms(lambda: run(lo), reps=1), _wall_ms(lambda: run(hi), reps=1)
-        (d_lo, k_lo), (d_hi, k_hi) = _profile_call(lambda: run(lo)), _profile_call(lambda: run(hi))
-        wall, devm, kern = (w_hi - w_lo) / (hi - lo), (d_hi - d_lo) / (hi - lo), (k_hi - k_lo) / (hi - lo)
-        units[name] = (wall, devm, kern)
-        lines.append(f"{name}: wall {wall:.2f} ms, device {devm:.3f} ms, {kern:.0f} CUDA kernels, busy share "
-                     f"{devm / wall if wall > 0 else math.nan:.3f}")
+    # the bounds: about two thirds of the CUDA kernels a complete trace of
+    # one unit counts on an H100 (425 and 2113)
+    lines += _unit_costs((
+        ("ADVI step (B = 32)", lambda s: vi.advi_fit(problem, None, num_steps=s, final_elbo_samples=32,
+                                                     draws=vi.VIDraws(draws.steps[:s], draws.final)), 280),
+        ("Pathfinder iteration (ARD, 8 paths)", lambda s: pf.pathfinder_fit(pf_problem, None, maxiter=s,
+                                                                             num_draws_per_path=32, draws=pf_draws),
+         1400)),
+        reps=1)
     log(f"[16g kernel times] device ms in turns: {'; '.join(lines)}; the SVGP and BO Cholesky shapes at B = 1, "
         f"kernel ms {'; '.join(pr9)} | {smi}")
-    return units
 
 
 def phase_vi_pathfinder(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes):
@@ -4145,6 +4193,346 @@ def phase_consumption(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes):
     return total
 
 
+# --------------------------------------------------------------------------
+# Phase 18: the quasi-Bayesian networks and RealNVP flow VI
+# --------------------------------------------------------------------------
+
+BNN_N = 256  # tests/test_bnn.py::test_bnn_end_to_end's data
+# 18a's configurations: (name, net keywords, training keywords); the first is
+# the reference's defaults (bnn/nets.py, bnn/predict.py), the second the JAX
+# test's own
+BNN_CONFIGS = (
+    ("defaults (depth 4, width 100, p 0.25, k 10, lr 1e-3)", {},
+     dict(alpha=0.5, sample_number=10, num_steps=2000, learning_rate=1e-3)),
+    ("tests/test_bnn.py (depth 2, width 48, p 0.1, k 5, lr 3e-3)",
+     dict(depth=2, layer_size=48, dropout_probability=0.1),
+     dict(alpha=0.5, sample_number=5, num_steps=1500, learning_rate=3e-3)),
+)
+FLOW_GP_STEPS = 1000  # hmc_sample's flow start; the JAX default is 3000
+FLOW_GP_B = 64  # flow_vi_fit's num_elbo_samples
+FLOW_GP_FINAL = 8192  # flow_vi_fit's final_evidence_samples, in chunks of vi.EVAL_CHUNK
+
+
+def _sine_data(n=BNN_N):
+    """tests/test_bnn.py::test_bnn_end_to_end's x on [-2, 2] and y = sin 2x + 0.1 noise (float32)."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-2, 2, size=(n, 1)).astype(np.float32)
+    return x, np.sin(2 * x[:, 0]) + 0.1 * rng.normal(size=n).astype(np.float32)
+
+
+def _bnn_gates(net, trained, init, x, y, g, what):
+    """tests/test_bnn.py::test_bnn_end_to_end's gates on a trained net:
+    (mean |error|, min sd, 3-sigma coverage, lz_init, lz_trained)."""
+    from bayesianinference_tpu_torch import bnn
+
+    xq = torch.linspace(-1.8, 1.8, 31, device=x.device, dtype=torch.float32)[:, None]
+    pred = bnn.sample_trained_net(net, trained.params, g, xq, num_samples=200)
+    mean, sd = pred.mean(), pred.std()
+    err = (mean - torch.sin(2 * xq[:, 0])).abs()
+    mae, min_sd, cover = float(err.mean()), float(sd.min()), float((err < 3 * sd).float().mean())
+    lz = [float(bnn.network_log_evidence(net, p, g, x, y, lambda2=0.0, alpha=0.5, sample_number=20))
+          for p in (init, trained.params)]
+    first, last = float(trained.history[:100].mean()), float(trained.history[-100:].mean())
+    if not (last < first and mae < 0.2 and min_sd > 0.03 and cover > 0.9 and math.isfinite(lz[1]) and lz[1] > lz[0]):
+        raise AssertionError(f"18a BNN {what}: loss {first} -> {last}, mean |error| {mae}, min sd {min_sd}, "
+                             f"coverage {cover}, log evidence {lz[0]} -> {lz[1]}")
+    return mae, min_sd, cover, lz[0], lz[1], first, last
+
+
+def _bnn_card_vs_cpu(dev):
+    """The default net's forward pass, alpha-divergence loss (k = 10) and
+    gradient on the card against CPU tensors on the same masks and
+    parameters: (float64 worst relative error, float32 worst)."""
+    from bayesianinference_tpu_torch import bnn
+
+    out = {}
+    x_np, y_np = _sine_data()
+    for dtype in (torch.float64, torch.float32):
+        g = torch.Generator().manual_seed(5)
+        x, y = torch.as_tensor(x_np, dtype=dtype), torch.as_tensor(y_np, dtype=dtype)
+        net = bnn.regression_net()
+        params = net.init(g, x[:1])
+        masks = net.draw_masks(g, BNN_N, 10, dtype=dtype)
+        vals = []
+        for d in (dev, torch.device("cpu")):
+            p = {k: v.to(d).requires_grad_(True) for k, v in params.items()}
+            fwd = net(x.to(d), [m.to(d) for m in masks], params=p)
+            loss = bnn.regression_loss(net, p, None, x.to(d), y.to(d), alpha=0.5, sample_number=10,
+                                       masks=[m.to(d) for m in masks])
+            vals.append([fwd.detach(), loss.detach(), *torch.autograd.grad(loss, list(p.values()))])
+        out[dtype] = max(_rel_max(a.cpu(), b) for a, b in zip(*vals))
+    if not (out[torch.float64] <= 1e-12 and out[torch.float32] <= 1e-5):
+        raise AssertionError(f"18a BNN card vs CPU: {out}")
+    return out[torch.float64], out[torch.float32]
+
+
+def _phase18_bnn(smi, dev, configs=BNN_CONFIGS):
+    """18a: the quasi-Bayesian net trained on the card in float32 at the
+    reference's defaults and at the JAX test's configuration, each under
+    test_bnn_end_to_end's gates; card against CPU tensors."""
+    from bayesianinference_tpu_torch import bnn
+
+    x_np, y_np = _sine_data()
+    x, y = torch.as_tensor(x_np, device=dev), torch.as_tensor(y_np, device=dev)
+    lines = []
+    for what, net_kw, train_kw in configs:
+        g = torch.Generator(device=dev).manual_seed(0)
+        net = bnn.regression_net(**net_kw)
+        init = net.init(g, x[:1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trained = bnn.train_regression_net(net, g, x, y, initial_params=init, **train_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mae, min_sd, cover, lz0, lz1, first, last = _bnn_gates(net, trained, init, x, y, g, what)
+        lines.append(f"{what}, {train_kw['num_steps']} steps: {wall:.1f} s = {1e3 * wall / train_kw['num_steps']:.2f} "
+                     f"ms a step; loss {first:.4f} -> {last:.4f}; mean |error| {mae:.4f} (< 0.2), min sd {min_sd:.4f} "
+                     f"(> 0.03), 3-sigma coverage {cover:.3f} (> 0.9), log evidence {lz0:.4f} -> {lz1:.4f}")
+    e64, e32 = _bnn_card_vs_cpu(dev)
+    log(f"[18a BNN] f32 on the card, n = {BNN_N} of test_bnn_end_to_end's data, alpha 0.5 (beside 18b's "
+        f"workers): {'; '.join(lines)}; card vs CPU tensors on the same masks (forward, loss, gradient at the "
+        f"defaults): f64 {e64:.2e} (1e-12), f32 {e32:.2e} (1e-5) | {smi}")
+
+
+def _phase18_bnn_units(smi, dev):
+    """18a's per-unit rows at the defaults (f32, n = 256): a training step
+    and a sample_trained_net call (200 samples, 31 points)."""
+    from bayesianinference_tpu_torch import bnn
+
+    x_np, y_np = _sine_data()
+    x, y = torch.as_tensor(x_np, device=dev), torch.as_tensor(y_np, device=dev)
+    net = bnn.regression_net()
+    g = torch.Generator(device=dev).manual_seed(1)
+    init = net.init(g, x[:1])
+    draws = [bnn.BNNStepDraws(None, net.draw_masks(g, BNN_N, 10, dtype=torch.float32)) for _ in range(3)]
+    # the bounds: about two thirds of the CUDA kernels a complete trace of
+    # one unit counts on an H100 (214 and 54-67)
+    rows = _unit_costs((
+        ("training step", lambda s: bnn.train_regression_net(net, None, x, y, initial_params=init, num_steps=s,
+                                                             draws=draws[:s]), 140),
+        ("sample_trained_net (200 samples, 31 points)",
+         lambda s: [bnn.sample_trained_net(net, init, g, x[:31], num_samples=200).std() for _ in range(s)], 44)))
+    log(f"[18a BNN units] at the defaults (f32, n = {BNN_N}), alone on the card: {'; '.join(rows)} | {smi}")
+
+
+def _banana_problem(dev):
+    """tests/test_flow_vi.py's banana and its grid-quadrature logZ."""
+    from bayesianinference_tpu_torch.models.problem import define_inference_problem
+
+    problem = define_inference_problem(
+        parameters=[("a", -6.0, 6.0), ("b", -4.0, 12.0)],
+        log_likelihood=lambda th: -0.5 * (th[0] ** 2 / 4.0 + 4.0 * (th[1] - th[0] ** 2 / 2.0) ** 2),
+        prior_distribution=["location", "location"], validate=False, device=dev, dtype=torch.float64)
+    xs, ys = np.linspace(-6, 6, 2001), np.linspace(-4, 12, 2001)
+    xx, yy = np.meshgrid(xs, ys, indexing="ij")
+    f = np.exp(-0.5 * (xx**2 / 4.0 + 4.0 * (yy - xx**2 / 2.0) ** 2))
+    return problem, float(np.log(np.trapezoid(np.trapezoid(f, ys, axis=1), xs)) - np.log(12.0 * 16.0))
+
+
+def _phase18b_job(job: str, dev: str, steps: dict) -> dict:
+    """One of 18b's independent fits, in a worker process of its own (the
+    fits are host-bound loops of eager steps; processes run them on separate
+    cores): the readings its gates need, as Python numbers.  None of these
+    problems reaches a hand-written kernel, and the worker fails if one
+    launched: kernel work belongs in the main process, under the watch and
+    the launch counters."""
+    from bayesianinference_tpu_torch.engines.flow_vi import flow_vi_fit
+    from bayesianinference_tpu_torch.engines.hmc import hmc_sample
+    from bayesianinference_tpu_torch.engines.vi import advi_fit
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    if job == "conjugate":
+        problem, _, pm, psd, log_z = _normal_model(dev)
+        g = torch.Generator(device=dev).manual_seed(0)
+        r = flow_vi_fit(problem, g, num_steps=steps["conj"])
+        s = r.sample(g, 20000)[:, 0]
+        peak = float(r.log_prob(torch.tensor([pm], device=dev))) > float(
+            r.log_prob(torch.tensor([pm + 2 * psd], device=dev)))
+        out = dict(mean=float(s.mean()), sd=float(s.std()), elbo=float(r.elbo), lz=float(r.log_evidence),
+                   k=float(r.pareto_k), peak_over_tail=peak, pm=pm, psd=psd, log_z=log_z)
+    elif job == "box":
+        from bayesianinference_tpu_torch.dists.scalar import Normal
+        from bayesianinference_tpu_torch.models.problem import define_inference_problem
+
+        data = np.random.default_rng(0).normal(0.0, 0.7, 60)
+        problem = define_inference_problem(parameters=[("sigma", 0.05, 5.0)], likelihood=lambda th: Normal(0.0, th[0]),
+                                           data=torch.as_tensor(data, device=dev), prior_distribution=["scale"],
+                                           validate=False)
+        r = flow_vi_fit(problem, torch.Generator(device=dev).manual_seed(0), num_steps=steps["box"])
+        s = r.sample(torch.Generator(device=dev).manual_seed(1), 5000)[:, 0]
+        out = dict(lo=float(s.min()), hi=float(s.max()), mean=float(s.mean()))
+    elif job == "banana_flow":
+        banana, z = _banana_problem(dev)
+        fl = flow_vi_fit(banana, torch.Generator(device=dev).manual_seed(0), num_steps=steps["banana"],
+                         learning_rate=2e-3)
+        sb = fl.sample(torch.Generator(device=dev).manual_seed(3), 20000)
+        out = dict(elbo=float(fl.elbo), lz=float(fl.log_evidence), k=float(fl.pareto_k), grid_z=z,
+                   resid_sd=float((sb[:, 1] - sb[:, 0] ** 2 / 2.0).std()), a_sd=float(sb[:, 0].std()))
+    elif job == "banana_advi":
+        banana, _ = _banana_problem(dev)
+        fr = advi_fit(banana, torch.Generator(device=dev).manual_seed(0), family="fullrank", num_steps=steps["advi"])
+        out = dict(elbo=float(fr.elbo))
+    else:  # "hmc_flow"
+        banana, _ = _banana_problem(dev)
+        h = hmc_sample(banana, torch.Generator(device=dev).manual_seed(0), num_chains=8, num_samples=50,
+                       num_warmup=steps["hmc_warmup"], num_leapfrog=16, starting_points="flow")
+        draws = h.samples.reshape(-1, 2)
+        out = dict(finite=bool(torch.isfinite(draws).all()), resid=float((draws[:, 1] - draws[:, 0] ** 2 / 2.0).mean()))
+    if gk.se_covariance_cuda.launches or gk.cholesky_cuda.launches:
+        raise AssertionError(f"18b {job}: a hand-written kernel launched in a worker process")
+    return {**out, "seconds": time.perf_counter() - t0}
+
+
+def _phase18b_start(dev, conj_steps=2000, box_steps=1500, banana_steps=4000, advi_steps=3000, hmc_warmup=100):
+    """Starts 18b: tests/test_flow_vi.py's oracles on the card (the
+    conjugate posterior and evidence, the box-and-scale test, the banana
+    against full-rank ADVI with the slow test's gates, HMC from a flow start
+    on the banana), the five fits at once in five worker processes: (pool,
+    pending result, sizes)."""
+    steps = dict(conj=conj_steps, box=box_steps, banana=banana_steps, advi=advi_steps, hmc_warmup=hmc_warmup)
+    pool = multiprocessing.get_context("spawn").Pool(5)
+    jobs = ("banana_flow", "conjugate", "box", "banana_advi", "hmc_flow")  # the longest first
+    return pool, pool.starmap_async(_phase18b_job, [(job, str(dev), steps) for job in jobs]), steps
+
+
+def _phase18b_finish(smi, pool, pending, steps):
+    """18b's gates on the workers' readings."""
+    try:
+        bf, c, box, ba, h = pending.get()
+    finally:
+        pool.close()
+        pool.join()
+    if not (abs(c["mean"] - c["pm"]) <= 0.02 and abs(c["sd"] / c["psd"] - 1) <= 0.1
+            and c["log_z"] - 0.1 < c["elbo"] < c["log_z"] + 0.02 and c["k"] < 0.7
+            and abs(c["lz"] - c["log_z"]) <= 0.03 and c["peak_over_tail"]):
+        raise AssertionError(f"18b flow conjugate: {c}")
+    if not (box["lo"] > 0.05 and box["hi"] < 5.0 and abs(box["mean"] - 0.7) <= 0.1):
+        raise AssertionError(f"18b flow box and scale: {box}")
+    if not (bf["elbo"] > ba["elbo"] + 0.2 and bf["k"] < 0.7 and abs(bf["lz"] - bf["grid_z"]) <= 0.05
+            and abs(bf["resid_sd"] / 0.5 - 1) <= 0.2 and abs(bf["a_sd"] / 2.0 - 1) <= 0.2):
+        raise AssertionError(f"18b flow banana: {bf}; fullrank ADVI {ba}")
+    if not (h["finite"] and abs(h["resid"]) < 0.3):
+        raise AssertionError(f"18b HMC from a flow start: {h}")
+    log(f"[18b flow VI oracles] five fits at once in worker processes (seconds each include the others' load): "
+        f"conjugate Normal, {steps['conj']} steps: mean {c['mean']:.4f} (exact {c['pm']:.4f}), sd {c['sd']:.4f} "
+        f"({c['psd']:.4f}), ELBO {c['elbo']:.4f}, PSIS logZ {c['lz']:.4f} (exact {c['log_z']:.4f}), k {c['k']:.3f}, "
+        f"{c['seconds']:.1f} s; box and scale, {steps['box']} steps: draws in [{box['lo']:.4f}, {box['hi']:.4f}] "
+        f"(inside [0.05, 5]), mean {box['mean']:.4f} (0.7 +- 0.1), {box['seconds']:.1f} s; banana, {steps['banana']} "
+        f"steps at lr 2e-3: ELBO {bf['elbo']:.4f} against fullrank ADVI's {ba['elbo']:.4f} ({steps['advi']} steps, "
+        f"{ba['seconds']:.1f} s), PSIS logZ {bf['lz']:.4f} (grid {bf['grid_z']:.4f}), k {bf['k']:.3f}, residual sd "
+        f"{bf['resid_sd']:.4f} (0.5), a sd {bf['a_sd']:.4f} (2.0), {bf['seconds']:.1f} s; HMC from a flow start (8 "
+        f"chains, {steps['hmc_warmup']} warmup, 50 samples, 16 leapfrog): residual mean {h['resid']:+.4f} (|.| < 0.3), "
+        f"{h['seconds']:.1f} s | {smi}")
+
+
+def _phase18_flow_gp(smi, watch, dev, problem, grid_logz, steps=FLOW_GP_STEPS, batch=FLOW_GP_B,
+                     final=FLOW_GP_FINAL):
+    """18c: flow VI on phase 4's GP problem through both kernels and both
+    reverse rules (B = 64 a step, the final batch in chunks of
+    vi.EVAL_CHUNK), under its PSIS and ELBO gates against phase 4's grid
+    logZ."""
+    from bayesianinference_tpu_torch.engines.flow_vi import flow_vi_fit
+    from bayesianinference_tpu_torch.engines.vi import EVAL_CHUNK
+
+    watch.zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = flow_vi_fit(problem, torch.Generator(device=dev).manual_seed(0), num_steps=steps, num_elbo_samples=batch,
+                    final_evidence_samples=final)
+    elbo, lz, pk = float(r.elbo), float(r.log_evidence), float(r.pareto_k)
+    wall = time.perf_counter() - t0
+    launches = watch.counts()
+    if min(launches.values()) < steps + final // EVAL_CHUNK:
+        raise AssertionError(f"18c flow VI GP: launches {launches} for {steps} steps")
+    if not (pk < 0.7 and abs(lz - grid_logz) <= 0.05 and elbo <= grid_logz + 0.02):
+        raise AssertionError(f"18c flow VI GP: PSIS logZ {lz}, ELBO {elbo} against the grid logZ {grid_logz}, k {pk}")
+    log(f"[18c flow VI GP] phase 4's problem (n={SLICE_N} d={SLICE_D} f64), {steps} steps (the JAX default 3000 cut "
+        f"to hmc_sample's flow start), {batch} draws a step through both kernels and both reverse rules, the final "
+        f"{final} in chunks of {EVAL_CHUNK}: PSIS logZ {lz:.4f} against the grid logZ {grid_logz:.4f} (off by "
+        f"{lz - grid_logz:+.4f}, gate 0.05), k {pk:.3f} (< 0.7), ELBO {elbo:.4f} (gap {grid_logz - elbo:.4f}); "
+        f"{wall:.1f} s = {1e3 * wall / steps:.2f} ms a step beside 18b's workers; launches {launches} | {smi}")
+    return launches
+
+
+def _phase18_times(smi, dev, problem):
+    """18d: the kernels at the flow step's B = 64 (n = 512 f64) against their
+    plain versions, bounds and cholesky_ex; per flow step and per ADVI step
+    at the same B wall ms, device ms, CUDA kernels and busy share."""
+    from bayesianinference_tpu_torch.engines import vi
+    from bayesianinference_tpu_torch.engines.flow_vi import flow_vi_fit
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    b = FLOW_GP_B
+    x = torch.randn((1, SLICE_N, SLICE_D), generator=g, device=dev, dtype=torch.float64)
+    var = 0.5 + torch.rand((b,), generator=g, device=dev, dtype=torch.float64)
+    scale = (0.5 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, SLICE_D)
+    nug = (0.01 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, SLICE_N)
+    kw = dict(reps=2, groups=2, per_group=10)
+    ms, plain_ms, _, _ = _in_turns(lambda: gk.se_covariance_cuda(x, None, var, scale, nug),
+                                   lambda: gk.se_covariance_plain(x, None, var, scale, nug), **kw)
+    bound, by = _se_bound(x, None, var, scale, nug)
+    k = gk.se_covariance_cuda(x, None, var, scale, nug)
+    c_ms, c_lib, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), **kw)
+    c_plain, _ = _time_ms(lambda: gk.cholesky_plain(k), **kw)
+    c_bound, c_by = _chol_bound(b, SLICE_N, 8)
+    del k
+    draws = vi.vi_draws(g, 3, b, 64, problem.dim)
+    # the bounds: about two thirds of the CUDA kernels a complete trace of
+    # one unit counts on an H100 (696-742 and 436)
+    parts = _unit_costs((
+        (f"flow step at B = {b}", lambda s: flow_vi_fit(problem, g, num_steps=s, num_elbo_samples=b,
+                                                        final_evidence_samples=64,
+                                                        draws=vi.VIDraws(draws.steps[:s], draws.final)), 490),
+        (f"ADVI step (fullrank) at B = {b}", lambda s: vi.advi_fit(problem, None, family="fullrank", num_steps=s,
+                                                                   num_elbo_samples=b, final_elbo_samples=64,
+                                                                   draws=vi.VIDraws(draws.steps[:s], draws.final)),
+         290)),
+        reps=1)
+    log(f"[18d kernel times] device ms in turns: B={b} n={SLICE_N} f64: SE {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+        f"{bound:.3g} by {by}); Cholesky {c_ms:.4f} ms (plain {c_plain:.4f}, cholesky_ex {c_lib:.4f}, bound "
+        f"{c_bound:.3g} by {c_by}); {'; '.join(parts)} | {smi}")
+
+
+def phase_flow_bnn(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes):
+    """Phase 18: the quasi-Bayesian networks and flow VI (module
+    docstring).  18b's five fits run in worker processes while 18a and 18c
+    run here; the per-unit rows (18a's, 18d) are taken after the workers
+    end.  ``sizes`` shrink 18a-c for a rehearsal (``bnn`` (``configs=``),
+    ``oracles``, ``gp``: keyword arguments of each sub-phase;
+    ``times=False`` skips 18d and 18a's per-unit rows)."""
+    dev = torch.device(dev)
+    grid_logz = gp_posterior[1]
+    t0 = time.perf_counter()
+    seconds = []
+    pool, pending, steps = _phase18b_start(dev, **sizes.get("oracles", {}))
+    try:
+        with _KernelWatch() as watch:
+            t = time.perf_counter()
+            _phase18_bnn(smi, dev, **sizes.get("bnn", {}))
+            seconds.append(f"18a {time.perf_counter() - t:.1f}")
+            t = time.perf_counter()
+            total = _phase18_flow_gp(smi, watch, dev, gp_problem, grid_logz, **sizes.get("gp", {}))
+            seconds.append(f"18c {time.perf_counter() - t:.1f}")
+            if not (total["se_covariance"] > 0 and total["cholesky"] > 0):
+                raise AssertionError(f"18: launches {total}")
+            t = time.perf_counter()
+            _phase18b_finish(smi, pool, pending, steps)
+            seconds.append(f"18b waited {time.perf_counter() - t:.1f}")
+            if sizes.get("times", True):
+                t = time.perf_counter()
+                _phase18_bnn_units(smi, dev)
+                _phase18_times(smi, dev, gp_problem)
+                seconds.append(f"18a units and 18d {time.perf_counter() - t:.1f}")
+            log(f"[18 BNN and flow VI] {time.perf_counter() - t0:.1f} s ({', '.join(seconds)}); launches {total}; "
+                f"{watch.check('18')}")
+    finally:
+        pool.terminate()
+        pool.join()
+    return total
+
 def main():
     t0 = time.perf_counter()
 
@@ -4173,9 +4561,10 @@ def main():
     svgp_launches = timed(phase_svgp_bo, smi)
     vi_launches = timed(phase_vi_pathfinder, smi, problem, gp_posterior)
     consumption_launches = timed(phase_consumption, smi, problem, gp_posterior)
+    flow_launches = timed(phase_flow_bnn, smi, problem, gp_posterior)
     launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] + par_launches[k]
                 + conj_launches[k] + sampler_launches[k] + latent_launches[k] + svgp_launches[k] + vi_launches[k]
-                + consumption_launches[k] for k in launches}
+                + consumption_launches[k] + flow_launches[k] for k in launches}
     # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
     # at bench.py's width (B = 1, n = 16384, f32)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")

@@ -32,7 +32,11 @@ tensors (float64, against CPU tensors on the same draws): 1e-8 of the
 largest entry.  The consumption layer (float64, against CPU tensors): the
 regularized incomplete beta and the new scalar families, 1e-12; a GP
 predictive's scores and its regression-predictive route through both
-kernels, 1e-10.
+kernels, 1e-10.  The quasi-Bayesian net at the reference's defaults (its
+forward pass, alpha-divergence loss and two training steps on the same
+masks: float64 1e-12, float32 1e-5, gradients and steps at 100 x) and
+three flow-VI steps on the ARD GP through both kernels (float64, against
+CPU tensors on the same draws, 1e-8).
 """
 
 import numpy as np
@@ -723,3 +727,63 @@ def test_gp_predictive_scores_and_regression_route_on_the_card_match_the_cpu(cud
         xq.to(cuda))
     assert _rel_to(route.mean(), pred.mean().cpu()) <= 1e-10
     assert _rel_to(route.variance(), pred.variance().cpu()) <= 1e-10
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_bnn_forward_and_training_steps_on_the_card_match_the_cpu(cuda, dtype, tol):
+    """The reference's default net (depth 4, width 100, p = 0.25) on the same
+    masks: its forward pass, the alpha-divergence loss (k = 10) and its
+    gradient, and two Adam steps on the card against CPU tensors (gradient
+    and steps at 100 x the tolerance)."""
+    from bayesianinference_tpu_torch import bnn
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((64, 1), generator=g, dtype=dtype) * 4 - 2
+    y = torch.sin(2 * x[:, 0]) + 0.1 * torch.randn(64, generator=g, dtype=dtype)
+    net = bnn.regression_net()
+    params = net.init(g, x[:1])
+    masks = net.draw_masks(g, 64, 10, dtype=dtype)
+    dev = {k: v.to(cuda) for k, v in params.items()}
+    card_masks = [m.to(cuda) for m in masks]
+
+    def rel(a, b):
+        return ((a.detach().cpu() - b.detach()).abs().max() / b.detach().abs().max().clamp(min=1.0)).item()
+
+    assert rel(net(x.to(cuda), card_masks, params=dev), net(x, masks, params=params)) <= tol
+    vals = []
+    for p, xx, yy, mm in ((dev, x.to(cuda), y.to(cuda), card_masks), (params, x, y, masks)):
+        p = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        loss = bnn.regression_loss(net, p, None, xx, yy, alpha=0.5, sample_number=10, masks=mm)
+        vals.append([loss, *torch.autograd.grad(loss, list(p.values()))])
+    assert rel(vals[0][0], vals[1][0]) <= tol
+    assert max(rel(a, b) for a, b in zip(vals[0][1:], vals[1][1:])) <= 100 * tol
+    draws = [bnn.BNNStepDraws(None, net.draw_masks(g, 64, 10, dtype=dtype)) for _ in range(2)]
+    kw = dict(num_steps=2, initial_params=params, learning_rate=1e-3)
+    got = bnn.train_regression_net(net, None, x.to(cuda), y.to(cuda), draws=[
+        bnn.BNNStepDraws(None, [m.to(cuda) for m in d.masks]) for d in draws], **{**kw, "initial_params": dev})
+    want = bnn.train_regression_net(net, None, x, y, draws=draws, **kw)
+    assert max(rel(got.params[k], want.params[k]) for k in want.params) <= 100 * tol
+
+
+def test_flow_steps_on_the_gp_on_the_card_match_the_cpu(cuda, monkeypatch):
+    """Three flow-VI steps on the ARD GP (each a value and gradient through
+    both kernels and both reverse rules at B = 16) and the final PSIS batch
+    in chunks, against the same on CPU tensors on the same draws, 1e-8."""
+    from bayesianinference_tpu_torch.engines import flow_vi, vi
+
+    problem, plain = _ard_problem(cuda), _ard_problem("cpu")
+    g = torch.Generator().manual_seed(4)
+    init = flow_vi._init_flow(g, problem.dim, 6, 32, torch.float64, "cpu")
+    draws = vi.vi_draws(g, 3, 16, 64, problem.dim)
+    monkeypatch.setattr(vi, "EVAL_CHUNK", 24)
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+    kw = dict(num_steps=3, num_elbo_samples=16, final_evidence_samples=64)
+    card_init = {"couplings": [{k: v.to(cuda) for k, v in c.items()} for c in init["couplings"]],
+                 "affine": {k: v.to(cuda) for k, v in init["affine"].items()}}
+    got = flow_vi.flow_vi_fit(problem, None, initial_params=card_init,
+                              draws=vi.VIDraws(*(a.to(cuda) for a in draws)), **kw)
+    want = flow_vi.flow_vi_fit(plain, None, initial_params=init, draws=draws, **kw)
+    assert gk.se_covariance_cuda.launches - before[0] >= 6 and gk.cholesky_cuda.launches - before[1] >= 6
+    for a, b in ((got.elbo_history, want.elbo_history), (got.elbo, want.elbo), (got.log_evidence, want.log_evidence),
+                 *zip(flow_vi._leaves(got.params), flow_vi._leaves(want.params))):
+        assert _rel_to(a, b) <= 1e-8

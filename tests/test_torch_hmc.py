@@ -366,9 +366,8 @@ def test_chees_learns_long_trajectories_on_correlated_gaussian():
 
 def test_hmc_sample_dense_mass_and_validation():
     """The dense-mass path gives a [d, d] inverse mass; the JAX engine's
-    argument checks hold; a Pathfinder start meets the JAX test's gates and
-    a flow start says which engine it waits for; numpy starts go to the
-    card, which is absent here."""
+    argument checks hold; a Pathfinder start and a flow start meet the JAX
+    tests' gates; numpy starts go to the card, which is absent here."""
     cov = np.array([[1.0, 1.8], [1.8, 4.0]])
     prec = T(np.linalg.inv(cov))
 
@@ -388,8 +387,17 @@ def test_hmc_sample_dense_mass_and_validation():
         with pytest.raises(ValueError, match="num_leapfrog"):
             hmc_sample(logdens, None, num_chains=2, num_leapfrog=bad, starting_points=x0[:2])
     problem = _conjugate_problem(np.zeros(3))
-    with pytest.raises(NotImplementedError, match="engines/flow_vi.py"):
-        hmc_sample(problem, None, starting_points="flow")
+    # tests/test_flow_vi.py::test_hmc_flow_seeding: chains started at draws
+    # of a flow-VI fit sit on the banana's curve
+    banana = define_inference_problem(
+        parameters=[("a", -6.0, 6.0), ("b", -4.0, 12.0)],
+        log_likelihood=lambda th: -0.5 * (th[0] ** 2 / 4.0 + 4.0 * (th[1] - th[0] ** 2 / 2.0) ** 2),
+        prior_distribution=["location", "location"], validate=False, device="cpu", dtype=torch.float64)
+    res = hmc_sample(banana, torch.Generator().manual_seed(0), num_chains=8, num_samples=50, num_warmup=100,
+                     num_leapfrog=16, starting_points="flow")
+    draws = res.samples.reshape(-1, 2).numpy()
+    assert np.isfinite(draws).all()
+    assert abs((draws[:, 1] - draws[:, 0] ** 2 / 2.0).mean()) < 0.3
     with pytest.raises(ValueError):
         hmc_sample(problem, None, starting_points="bogus")
     with pytest.raises(ValueError, match="InferenceProblem"):

@@ -13,7 +13,8 @@ module in the port (the function in JAX, whose ``engines/__init__.py``
 rebinds the name); ``core.numerics.logsumexp`` and ``logmeanexp`` take
 ``dim``/``keepdim`` (JAX ``axis``/``keepdims``) and
 ``ops.metropolis.chol_rank1_update`` takes ``chol`` (JAX ``L``).
-Importing the port builds no kernel, and ``bnn``/``viz`` name their slice.
+Importing the port builds no kernel; ``bnn``, ``utils`` and ``viz`` load at
+first use.
 """
 
 import importlib
@@ -27,14 +28,12 @@ import pytest
 
 import bayesianinference_tpu_torch as bi
 
-SLICE_12 = "queue 1 item 3: slice 12, the neural engines and plots"
 SLICE_13 = "queue 1 item 4: slice 13, the closed-form time-series engines"
 SLICE_14 = "queue 1 item 5: slice 14, the particle family and IBIS"
 PARALLEL = "queue 1 item 6: single-card counterparts of parallel/"
 MULTI_CARD = "queue 1 item 7: the multi-card engines"
 
 UNPORTED = {
-    "": {"bnn": SLICE_12, "viz": SLICE_12},
     "engines": {
         **dict.fromkeys(["changepoint_probability", "define_changepoint_model", "run_length_posterior",
                          "define_hidden_markov_model", "forecast_regime_probabilities", "most_likely_states",
@@ -43,7 +42,6 @@ UNPORTED = {
                          "seasonal_component", "sample_state_paths", "smoothed_states", "structural_lgssm",
                          "trend_component"], SLICE_13),
         **dict.fromkeys(["IBISResult", "ibis_sampler", "PMMHResult", "pmmh_sample"], SLICE_14),
-        **dict.fromkeys(["FlowVIResult", "flow_vi_fit"], SLICE_12),
     },
     "ops": {
         **dict.fromkeys(["LGSSM", "FilterResult", "SmootherResult", "kalman_filter", "kalman_forecast",
@@ -71,8 +69,8 @@ WORKAROUNDS = {
     "parallel": dict.fromkeys(["Mesh", "NamedSharding", "P", "make_mesh", "replicated", "shard_data"],
                               "jax.sharding's mesh helpers"),
 }
-SUBPACKAGES = ["", "core", "dists", "engines", "models", "ops", "parallel", "results", "utils"]
-THIS_SLICE = ["dists", "results", "utils"]  # and core's betainc
+SUBPACKAGES = ["", "bnn", "core", "dists", "engines", "models", "ops", "parallel", "results", "utils", "viz"]
+THIS_SLICE = ["bnn", "dists", "results", "utils", "viz"]  # and core's betainc
 
 
 def _modules(sub):
@@ -100,7 +98,8 @@ def test_this_slices_subpackages_export_everything(sub):
 
 
 SLICE_MODULES = ["dists.scalar", "dists.combinators", "dists.empirical", "dists.expfam", "results.posterior",
-                 "results.scoring", "utils.config", "utils.validation", "utils.profiling"]
+                 "results.scoring", "utils.config", "utils.validation", "utils.profiling", "bnn.nets", "bnn.losses",
+                 "bnn.predict", "engines.flow_vi", "viz.plots"]
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
@@ -111,16 +110,16 @@ def test_this_slices_modules_export_every_name_of_their_jax_module(module):
 
 
 def test_the_package_imports_its_subpackages_and_loads_utils_lazily():
-    for name in ("core", "dists", "engines", "models", "ops", "parallel", "results", "utils"):
+    for name in ("bnn", "core", "dists", "engines", "models", "ops", "parallel", "results", "utils", "viz"):
         assert isinstance(getattr(bi, name), types.ModuleType)
-    for name in ("bnn", "viz"):
-        with pytest.raises(AttributeError, match="slice 12"):
-            getattr(bi, name)
+    assert set(bi.__all__) >= set(importlib.import_module("bayesianinference_tpu").__all__)
+    with pytest.raises(AttributeError, match="no attribute"):
+        getattr(bi, "nnets")
 
 
 def test_importing_the_port_builds_no_kernel():
     code = ("import bayesianinference_tpu_torch as bi; from bayesianinference_tpu_torch import csrc; "
-            "bi.engines, bi.ops, bi.dists, bi.results, bi.utils; "
+            "bi.engines, bi.ops, bi.dists, bi.results, bi.utils, bi.bnn, bi.viz; "
             "assert csrc.load_library.cache_info().currsize == 0; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent.parent,
                          capture_output=True, text=True, timeout=300)

@@ -192,3 +192,29 @@ def test_advi_rejects_unknown_family_and_bad_draws():
         tvi.advi_fit(problem, None, family="flow")
     with pytest.raises(ValueError, match="draws must be"):
         tvi.advi_fit(problem, None, num_steps=3, draws=tvi.vi_draws(torch.Generator(), 4, 32, 4096, 1))
+
+
+def test_adam_step_is_the_per_tensor_formula_bit_for_bit():
+    """``adam_step`` runs ``torch._foreach`` ops over every tensor at once;
+    each tensor takes the per-tensor formula's values to the bit."""
+    from bayesianinference_tpu_torch.core.optim import adam_init, adam_step
+
+    def per_tensor(params, grads, state, lr, b1=0.9, b2=0.999, eps=1e-8):
+        t = state.count + 1
+        c1, c2 = 1.0 - b1**t, 1.0 - b2**t
+        mu = {k: (1.0 - b1) * grads[k] + b1 * state.mu[k] for k in params}
+        nu = {k: (1.0 - b2) * grads[k] ** 2 + b2 * state.nu[k] for k in params}
+        new = {k: params[k] + (-lr) * ((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps)) for k in params}
+        return new, type(state)(mu=mu, nu=nu, count=t)
+
+    for dtype in (torch.float64, torch.float32):
+        g = torch.Generator().manual_seed(0)
+        params = {"a": torch.randn(5, 3, generator=g, dtype=dtype), "b": torch.randn(7, generator=g, dtype=dtype),
+                  "c": torch.randn((), generator=g, dtype=dtype)}
+        got, want = (params, adam_init(params)), (params, adam_init(params))
+        for i in range(20):
+            grads = {k: torch.randn(v.shape, generator=g, dtype=dtype) * 10.0 ** (i % 5 - 2) for k, v in params.items()}
+            got, want = adam_step(*got[:1], grads, got[1], 0.01), per_tensor(*want[:1], grads, want[1], 0.01)
+        for k in params:
+            assert torch.equal(got[0][k], want[0][k]) and torch.equal(got[1].mu[k], want[1].mu[k])
+            assert torch.equal(got[1].nu[k], want[1].nu[k]) and got[1].count == want[1].count == 20
