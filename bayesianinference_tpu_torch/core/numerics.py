@@ -121,6 +121,19 @@ def logsumexp(a, dim=None, b=None, keepdim: bool = False, return_sign: bool = Fa
     return out
 
 
+def filter_logsumexp(a, dim: int = -1) -> torch.Tensor:
+    """:func:`logsumexp` over one axis in half the kernels, for the
+    time-series filters' host loops (three or four a step): NaN and -inf
+    become the sentinel and ``torch.logsumexp`` takes the same max-shifted
+    sum.  The values are :func:`logsumexp`'s (a slice of sentinels sums to
+    lz + log n, which rounds to lz); the gradient is ``torch.logsumexp``'s
+    softmax rule, which rounds apart from the ``where`` chain's in the
+    last bits."""
+    a = as_float(a)
+    lz = log_zero(a.dtype)
+    return torch.logsumexp(torch.nan_to_num(a, nan=lz, posinf=math.inf, neginf=lz), dim=dim)
+
+
 def logaddexp(x, y) -> torch.Tensor:
     """log(e^x + e^y), log-zero aware."""
     x, y = _pair(x, y)

@@ -4,7 +4,8 @@ checkpoints, evidence resampling, the Markov-chain API, GP regression
 the stochastic variational GP, Bayesian optimization, the Laplace
 approximation, the conjugate models, direct quadrature, HMC,
 tempered SMC, the affine-invariant ensemble, ADVI, RealNVP flow VI,
-Pathfinder and bridge-sampling evidence.  ``nested_sampling`` stays in its module
+Pathfinder and bridge-sampling evidence; the time-series engines (state-space
+models, hidden Markov models, changepoints, PMMH and IBIS).  ``nested_sampling`` stays in its module
 (``engines.nested_sampling``): a package attribute of that name would hide
 the module."""
 
@@ -100,3 +101,25 @@ from .svgp import (
 )
 from .t_process import TPModel, define_t_process, predict_from_t_process
 from .vi import VIDraws, VIResult, advi_fit, vi_draws
+from .changepoint import changepoint_probability, define_changepoint_model, run_length_posterior
+from .hmm import (
+    define_hidden_markov_model,
+    forecast_regime_probabilities,
+    most_likely_states,
+    regime_probabilities,
+    sample_hidden_paths,
+)
+from .ibis import IBISResult, IBISStageDraws, ibis_sampler, ibis_stage_draws
+from .particle import PMMHDraws, PMMHResult, pmmh_draws, pmmh_sample
+from .ssm import (
+    SSMComponent,
+    ar_component,
+    define_state_space_model,
+    forecast_observations,
+    level_component,
+    sample_state_paths,
+    seasonal_component,
+    smoothed_states,
+    structural_lgssm,
+    trend_component,
+)

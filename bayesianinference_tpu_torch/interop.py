@@ -19,7 +19,9 @@ object.  A flax ``RegressionNet``'s variables dict becomes the port net's
 state dict (flax kernels are [in, out], the port's weights [out, in]),
 and a ``TrainedRegressionNet``, the flow VI's parameter tree and
 ``FlowVIResult``, and the ``NestedSamplingResult``, ``SMCResult`` and
-``SBCResult`` that the plots read carry over too.  Without
+``SBCResult`` that the plots read carry over too, and so do the time-series
+models and results (``LGSSM``, ``HMM``, the Kalman, HMM, BOCPD and RBPF
+results, ``PMMHResult``, ``IBISResult``).  Without
 ``device=`` the tensors go to the CUDA card,
 and the call raises where there is none: ``device="cpu"`` asks for the
 host.  Nothing here imports JAX.
@@ -52,7 +54,13 @@ from .core.containers import WeightedSamples
 from .engines.nested_sampling import NSState
 from .engines.pathfinder import PathfinderResult
 from .engines.vi import VIResult
+from .engines.ibis import IBISResult
+from .engines.particle import PMMHResult
+from .ops.bocpd import BOCPDResult
 from .ops.chmc import CHMCState
+from .ops.hmm import HMM, HMMFilterResult
+from .ops.kalman import LGSSM, FilterResult, SmootherResult
+from .ops.rbpf import RBPFResult
 from .ops.metropolis import AMState
 from .ops.slice import SliceState
 from .ops.svgp import SVGPVariational
@@ -91,6 +99,15 @@ __all__ = [
     "nested_sampling_result_from_numpy",
     "smc_result_from_numpy",
     "sbc_result_from_numpy",
+    "lgssm_from_numpy",
+    "filter_result_from_numpy",
+    "smoother_result_from_numpy",
+    "hmm_from_numpy",
+    "hmm_filter_result_from_numpy",
+    "bocpd_result_from_numpy",
+    "rbpf_result_from_numpy",
+    "pmmh_result_from_numpy",
+    "ibis_result_from_numpy",
 ]
 
 _EVAL_BASE = 1 << 30  # radix of the JAX package's (hi, lo) int32 eval counter
@@ -444,9 +461,10 @@ def flow_vi_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtyp
 
 
 def _result_from(cls, fields, device, dtype: Optional[torch.dtype]):
-    """A result dataclass of the port from the JAX package's namesake, field
-    by field: arrays as tensors (floats in ``dtype``, integers as int64),
-    ``MeanAndError`` pairs alike, everything else as it is."""
+    """A result dataclass or named tuple of the port from the JAX package's
+    namesake, field by field: arrays as tensors (floats in ``dtype``,
+    integers as int64, booleans as bool), ``MeanAndError`` pairs alike,
+    everything else as it is."""
     device = resolve_device(device)
 
     def convert(v):
@@ -455,10 +473,13 @@ def _result_from(cls, fields, device, dtype: Optional[torch.dtype]):
         if hasattr(v, "mean") and hasattr(v, "standard_error") and not isinstance(v, np.ndarray):
             return MeanAndError(convert(v.mean), convert(v.standard_error))
         t = torch.as_tensor(np.array(v), device=device)
-        return t.to(dtype or t.dtype) if t.is_floating_point() else t.to(torch.int64)
+        if t.is_floating_point():
+            return t.to(dtype or t.dtype)
+        return t if t.dtype == torch.bool else t.to(torch.int64)
 
-    return cls(**{f.name: convert(_field(fields, f.name)) for f in dataclasses.fields(cls)
-                  if (f.name in fields if isinstance(fields, dict) else hasattr(fields, f.name))})
+    names = getattr(cls, "_fields", None) or [f.name for f in dataclasses.fields(cls)]
+    return cls(**{n: convert(_field(fields, n)) for n in names
+                  if (n in fields if isinstance(fields, dict) else hasattr(fields, n))})
 
 
 def nested_sampling_result_from_numpy(fields, *, device=None,
@@ -476,3 +497,55 @@ def smc_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] =
 def sbc_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> SBCResult:
     """A :class:`~.results.sbc.SBCResult` from the JAX package's."""
     return _result_from(SBCResult, fields, device, dtype)
+
+
+# the time-series results and models (named tuples, and PMMH's and IBIS's
+# dataclasses), field by field
+
+def lgssm_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> LGSSM:
+    """An :class:`~.ops.kalman.LGSSM` from the JAX package's (absent offsets
+    stay None)."""
+    return _result_from(LGSSM, fields, device, dtype)
+
+
+def filter_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> FilterResult:
+    """A Kalman :class:`~.ops.kalman.FilterResult` from the JAX package's."""
+    return _result_from(FilterResult, fields, device, dtype)
+
+
+def smoother_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> SmootherResult:
+    """A Kalman :class:`~.ops.kalman.SmootherResult` from the JAX package's."""
+    return _result_from(SmootherResult, fields, device, dtype)
+
+
+def hmm_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> HMM:
+    """An :class:`~.ops.hmm.HMM` from the JAX package's."""
+    return _result_from(HMM, fields, device, dtype)
+
+
+def hmm_filter_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> HMMFilterResult:
+    """An :class:`~.ops.hmm.HMMFilterResult` from the JAX package's."""
+    return _result_from(HMMFilterResult, fields, device, dtype)
+
+
+def bocpd_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> BOCPDResult:
+    """A :class:`~.ops.bocpd.BOCPDResult` from the JAX package's.  A UPM is a
+    triple of closures and is not converted: rebuild it from its
+    hyperparameters with :func:`~.ops.bocpd.gaussian_upm` or
+    :func:`~.ops.bocpd.poisson_upm`."""
+    return _result_from(BOCPDResult, fields, device, dtype)
+
+
+def rbpf_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> RBPFResult:
+    """An :class:`~.ops.rbpf.RBPFResult` from the JAX package's."""
+    return _result_from(RBPFResult, fields, device, dtype)
+
+
+def pmmh_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> PMMHResult:
+    """A :class:`~.engines.particle.PMMHResult` from the JAX package's."""
+    return _result_from(PMMHResult, fields, device, dtype)
+
+
+def ibis_result_from_numpy(fields, *, device=None, dtype: Optional[torch.dtype] = None) -> IBISResult:
+    """An :class:`~.engines.ibis.IBISResult` from the JAX package's."""
+    return _result_from(IBISResult, fields, device, dtype)

@@ -2,7 +2,10 @@
 Metropolis, slice, constrained HMC, HMC with fixed and ChEES trajectories,
 the ensemble moves, elliptical slice), the GP kernels (two of them
 hand-written CUDA) and the latent-GP, sparse-GP, Student-t-process and
-multi-output GP numerics built on them."""
+multi-output GP numerics built on them; the time-series filters (Kalman,
+HMM, BOCPD, the bootstrap and Rao-Blackwellized particle filters).  As in
+the JAX package, ``ops.bocpd`` is the function (the name hides the
+module)."""
 
 from .chees import ChEESDraws, chees_draws, chees_warmup_and_sample, halton_base2
 from .chmc import CHMCDraws, CHMCState, chmc_draws, run_chmc_chain
@@ -104,3 +107,32 @@ from .svgp import (
 )
 from .slice import SliceDraws, SliceState, run_slice_chain, slice_draws, slice_init, slice_update
 from .t_process import tp_log_marginal_likelihood, tp_posterior_moments
+from .bocpd import UPM, BOCPDResult, bocpd, changepoint_probabilities, gaussian_upm, poisson_upm
+from .hmm import (
+    HMM,
+    HMMFilterResult,
+    hmm_filter,
+    hmm_forecast,
+    hmm_gumbels,
+    hmm_log_likelihood,
+    hmm_posterior_sample,
+    hmm_sample_states,
+    hmm_smoother,
+    hmm_viterbi,
+    row_stochastic,
+)
+from .kalman import (
+    LGSSM,
+    FilterResult,
+    KalmanSampleDraws,
+    SmootherResult,
+    kalman_filter,
+    kalman_forecast,
+    kalman_log_likelihood,
+    kalman_sample,
+    kalman_sample_draws,
+    kalman_smoother,
+    simulation_smoother,
+)
+from .particle import ParticleFilterResult, ParticleModel, particle_filter, particle_forecast, particle_log_likelihood
+from .rbpf import RBPFModel, RBPFResult, rbpf_filter, rbpf_log_likelihood

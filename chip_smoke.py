@@ -38,9 +38,9 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
    of phase 4;
 8. nested sampling above d = 16 on the analytic oracle (float64, no
    kernel): d = 32 through ``monte_carlo_method="auto"`` (the slice
-   chains; pool 400, 200 deletions, 40 updates) and d = 72 through ``auto``
-   (the constrained-HMC chains: 72 four-step trajectories per replacement,
-   d where the law takes 1.5 d, at eps = 0.8 / sqrt(72); pool 512, 384
+   chains; pool 400, 300 deletions, 40 updates) and d = 72 through ``auto``
+   (the constrained-HMC chains: 36 four-step trajectories per replacement,
+   d / 2 where the law takes 1.5 d, at eps = 0.8 / sqrt(72); pool 512, 448
    deletions), each within 4 max(sigma, 0.2) of the analytic logZ;
 9. a GP with ARD lengthscales (n = 512, d = 20: 22 hyperparameters, so
    ``auto`` takes the slice chains) by slice and by constrained-HMC nested
@@ -55,8 +55,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
 10. a run of phase 3's problem (pool 500) cut after 10 iterations, saved,
     loaded and resumed, bit-equal to the uncut run; the same in segments
     through ``nested_sampling(checkpoint_every=15)``; ``dynamic_nested_sampling``
-    with its default chain length against the analytic logZ and the static
-    run's posterior ESS;
+    (20 deletions, chains of 50 steps) against the analytic logZ and the
+    static run's posterior ESS;
 11. ``parallel_nested_sampling``: (a) four runs of phase 3's problem at its
     per-run settings, the merged logZ within 3 sigma of the analytic one
     and its error bar below phase 3's, one host read of the termination
@@ -92,8 +92,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
 
 14. the slice of the latent-GP, sparse, Student-t and multi-output engines:
     (a) the main path, GP classification (Bernoulli logit, Laplace) by
-    nested sampling over (amp, ls) at n = 512 (f64, pool 100, 10 deletions,
-    20 AM steps), logZ within 3 sigma of a grid quadrature, every launch at
+    nested sampling over (amp, ls) at n = 512 (f64, pool 100, 50 deletions,
+    at least 20 iterations, 20 AM steps), logZ within 3 sigma of a grid quadrature, every launch at
     the chains' batch, logML and Newton steps at the live points against
     the plain path, its Laplace fit against CPU tensors, predictions at 41
     points; (b) Laplace and EP logML + gradient at n = 512-4096 f32 against
@@ -133,10 +133,10 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
 16. ADVI, Pathfinder, bridge sampling and the results layer: (a) ADVI at
     its defaults (3000 steps, 32 draws) on tests/test_vi.py's conjugate
     oracle under its gates, fullrank on its rho = 0.9 Gaussian; (b) ADVI
-    on phase 4's GP problem, both families, 500 steps (3000 cut), each
+    on phase 4's GP problem, both families, 250 steps (3000 cut), each
     step's value and gradient through both kernels and both reverse rules
     at B = 32, the ELBO under phase 4's grid logZ plus 4 MC standard
-    errors, and a 20-step f64 fit on the card against the same fit on CPU
+    errors, and a 5-step f64 fit on the card against the same fit on CPU
     tensors on the same draws (1e-8); (c) Pathfinder at its defaults on
     the conjugate oracle (tests/test_pathfinder.py's gates), the GP
     (logZ_IS within 0.1 of the grid logZ when pareto k < 0.7, the ELBO
@@ -210,12 +210,40 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     wall and device ms, CUDA kernels and busy share.  (b)'s five fits (no
     hand-written kernel in them) run in five worker processes while (a) and
     (c) run, so (a)'s and (c)'s wall times are taken under that load; the
-    per-unit rows are taken after the workers end.
+    per-unit rows are taken after the fits end, beside 19c's PMMH oracle,
+    which the same pool runs first and which goes on into phase 19.
+19. the time-series engines (no hand-written kernel: the watch holds both
+    counters at 0): (a) the Kalman filter, smoother, forecast and
+    simulation smoother (both methods, masked steps; the latter on
+    diagonal noise, where LAPACK's and cuSOLVER's eigh give one factor)
+    against CPU tensors, float64, 1e-12; the parallel filter against the
+    sequential one at T = 4097 (1e-10); benchmarks/kalman_throughput.py's
+    engine width (level plus period-4 seasonal, 8192 chains, T = 256,
+    float32) by both methods and its long series (T = 131072) by the
+    parallel method, each float32 run within twice the CPU's float32 error
+    of the CPU's float64 plus 1e-6 relative (on 256 chains); Laplace on
+    tests/test_ssm.py's local level (T = 400, parallel) against the same
+    fit on CPU tensors (1e-6) and the JAX test's gates; (b) the HMM and
+    BOCPD enumeration oracles on the card (1e-12); benchmarks/
+    hmm_throughput.py's widths (K = 4, 8192 chains, T = 256, both methods;
+    K = 8, T = 131072 parallel; BOCPD T = 8192, r_max = 512) under the same
+    float32 gate; Laplace on tests/test_bocpd.py's hazard problem against
+    CPU tensors; (c) the bootstrap filter against the Kalman likelihood on
+    tests/test_particle.py's AR(1) (T = 150, P = 4096, 8 seeds), the
+    degenerate RBPF against Kalman (1e-10), PMMH against the exact grid
+    posterior (512 particles, 250 + 250 steps, 8 chains; the JAX test's
+    gates; a host-bound run with no hand-written kernel, in a worker
+    process of 18b's pool from phase 18 on, so (a)'s and (b)'s wall times
+    are taken beside it); (d) IBIS against the exact evidence and posterior (4096
+    particles, batch 5, 20 steps).  Kernels, wall and device ms and busy
+    share per density call, PMMH step and IBIS stage with a move.
 
 Each of phases 4, 6, 7, 9, 11b, 12, 13c, 13e, 14, 15, 16, 17 and 18 (and 13b the Cholesky's)
 zeroes the kernels' launch counters before it drives its path and fails if
 a kernel of that path was not launched; the ``launches`` of the JSON line
-are their sum.  Phase 5 fails
+are their sum.  Phase 19 zeroes them too and fails if either kernel
+launched: no hand-written kernel lies on the time-series path, and it adds
+0 to the sum.  Phase 5 fails
 unless each kernel is one CUDA kernel launch per call at the slice's shape,
 and unless ``covariance_matrix(se_kernel(...), x, nugget)`` is one CUDA
 kernel in all.
@@ -227,6 +255,8 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import collections
+import functools
+import itertools
 import json
 import math
 import multiprocessing
@@ -442,7 +472,28 @@ def _chol_bound(b, n, itemsize):
     return _bound(b * (n * (n + 1) // 2 + n * n) * itemsize, b * n**3 / 3)
 
 
-def _time_ms(fn, reps: int = 10, groups: int = 3, per_group: int = 20):
+_MEASURING = {"seconds": 0.0, "depth": 0}
+
+
+def _measuring(fn):
+    """Adds the seconds of ``fn``'s outermost calls to ``_MEASURING``: the
+    script's time in its timing and profiling helpers, which no gate
+    reads; the ``[seconds]`` lines print it beside each phase's time."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        _MEASURING["depth"] += 1
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _MEASURING["depth"] -= 1
+            if _MEASURING["depth"] == 0:
+                _MEASURING["seconds"] += time.perf_counter() - t
+    return wrapped
+
+
+@_measuring
+def _time_ms(fn, reps: int = 5, groups: int = 3, per_group: int = 20):
     """(device ms per call, wall ms per call) of ``fn``, each a median after
     a warm-up, timed with CUDA events.
 
@@ -453,7 +504,7 @@ def _time_ms(fn, reps: int = 10, groups: int = 3, per_group: int = 20):
     see only device work; median of ``groups``.  Wall time: one call between the
     events with an idle device, host dispatch included; median of
     ``reps``."""
-    for _ in range(3):
+    for _ in range(2):
         fn()
     torch.cuda.synchronize()
     device, wall = [], []
@@ -478,6 +529,7 @@ def _time_ms(fn, reps: int = 10, groups: int = 3, per_group: int = 20):
     return statistics.median(device), statistics.median(wall)
 
 
+@_measuring
 def _in_turns(kern, plain, **kw):
     """plain, kernel, kernel, plain; each pair's median of
     (device ms, wall ms): (kernel device, plain device, kernel wall, plain wall)."""
@@ -485,6 +537,7 @@ def _in_turns(kern, plain, **kw):
     return tuple(statistics.median(pair) for pair in ((k1[0], k2[0]), (p1[0], p2[0]), (k1[1], k2[1]), (p1[1], p2[1])))
 
 
+@_measuring
 def _launches_per_call(fn, calls: int = 5) -> float:
     """CUDA kernels per call of ``fn``, counted by torch.profiler.
 
@@ -814,6 +867,7 @@ def _value_and_grad(fn, th, x, y):
     return value.detach(), grad
 
 
+@_measuring
 def _wall_ms(fn, reps: int = 5) -> float:
     """Median host wall ms of ``fn`` ending in a synchronize, after one
     warm-up call."""
@@ -972,20 +1026,22 @@ def _gaussian_box_problem(dim: int, device="cuda"):
 def phase_ns_highdim(smi: str):
     """Nested sampling above d = 16 on the analytic oracle, float64, through
     ``monte_carlo_method="auto"``: (a) d = 32 takes the slice chains, (b)
-    d = 72 the constrained-HMC chains, at d trajectories per replacement."""
+    d = 72 the constrained-HMC chains, at d / 2 trajectories per replacement."""
     from bayesianinference_tpu_torch.engines.nested_sampling import nested_sampling, resolve_monte_carlo_method
 
     dev = torch.device("cuda")
     cases = (
         # the JAX tests' runs (tests/test_nested_sampling.py) with more deletions per iteration, which cuts the
-        # iterations to a fifth and a half: each run is host-bound, minutes long otherwise
-        ("a", 32, "slice", 50, dict(sample_pool_size=400, max_iterations=400, min_iterations=40, monte_carlo_steps=40,
-                                    num_delete=200)),
-        # 8b's chains at d trajectories per replacement (288 leapfrog steps), not the law's 1.5 d (432), for
+        # iterations (each run is host-bound, minutes long otherwise): 8a three quarters of the pool, as 8b had
+        # before; 8b seven eighths, for the script's time limit
+        ("a", 32, "slice", 50, dict(sample_pool_size=400, max_iterations=400, min_iterations=20, monte_carlo_steps=40,
+                                    num_delete=300)),
+        # 8b's chains at d / 2 trajectories per replacement (144 leapfrog steps), not the law's 1.5 d (432), for
         # the script's time limit: 218 s at 432 steps, 69-70 s at 288 with logZ +0.83 and -0.33 sigma at
-        # seeds 0 and 1 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
-        ("b", 72, "chmc", 256, dict(sample_pool_size=512, max_iterations=150, min_iterations=20, num_delete=384,
-                                    post_process_sampling_runs=20, monte_carlo_steps=288)),
+        # seeds 0 and 1 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md); at 144 steps and 448 deletions +0.08 to
+        # +0.96 sigma over seeds 0-3 on CPU tensors (PERF.md)
+        ("b", 72, "chmc", 256, dict(sample_pool_size=512, max_iterations=150, min_iterations=20, num_delete=448,
+                                    post_process_sampling_runs=20, monte_carlo_steps=144)),
     )
     for tag, dim, expect, jax_delete, kw in cases:
         problem, analytic = _gaussian_box_problem(dim)
@@ -1003,7 +1059,7 @@ def phase_ns_highdim(smi: str):
             raise AssertionError(f"NS d={dim} ({method}): logZ {logz} +- {err}, analytic {analytic:.3f}")
         log(f"[8{tag} NS d={dim}] auto -> {method}, pool {kw['sample_pool_size']}, num_delete {kw['num_delete']} "
             f"({jax_delete} in the JAX test's run; more here to fit the script's time)"
-            f"{', 72 four-step chmc trajectories per replacement (the law 108; cut to fit the time)' if tag == 'b' else ''}: "
+            f"{', 36 four-step chmc trajectories per replacement (the law 108; cut to fit the time)' if tag == 'b' else ''}: "
             f"logZ {logz:.3f} +- {err:.3f} (analytic {analytic:.3f}), {res.iterations} iterations, "
             f"{res.num_likelihood_evals} evals in {wall:.2f} s = {res.num_likelihood_evals / wall:.4g} evals/s, "
             f"mean recorded acceptance {acc:.3f} | {smi}")
@@ -1181,11 +1237,12 @@ def phase_checkpoint_dynamic(smi: str):
         raise AssertionError(f"checkpoint: segmented logZ {logz} +- {err}, analytic {analytic:.3f}")
     wall_ckpt = time.perf_counter() - t0
 
-    # dynamic NS with its defaults (pool 100, 4 batches, chains of 200 steps) but for 20 deletions per iteration
-    # instead of 1: one chain per iteration is host-bound for minutes.  The static run beside it ends by the
-    # evidence criterion; the dynamic run's base goes on to the loop's default of 100 iterations.
+    # dynamic NS with its defaults (pool 100, 4 batches) but for 20 deletions per iteration instead of 1 and
+    # chains of 50 steps (the checkpoint runs') instead of 200: its defaults are host-bound for minutes.  The
+    # static run beside it ends by the evidence criterion; the dynamic run's base goes on to the loop's default
+    # of 100 iterations.
     ess = lambda r: float(1.0 / torch.sum(torch.exp(r.crude_log_posterior_weights) ** 2))  # noqa: E731
-    dkw = dict(sample_pool_size=100, num_delete=20)
+    dkw = dict(sample_pool_size=100, num_delete=20, monte_carlo_steps=50)
     t0 = time.perf_counter()
     base = nested_sampling(problem, torch.Generator(device=dev).manual_seed(0), min_iterations=20, **dkw)
     dyn = dynamic_nested_sampling(problem, torch.Generator(device=dev).manual_seed(0), **dkw)
@@ -1199,8 +1256,10 @@ def phase_checkpoint_dynamic(smi: str):
         f"{kw['monte_carlo_steps']} steps: cut after 10 iterations, saved, loaded, resumed: n_dead "
         f"{done.state.n_dead} and crude logZ {float(done.state.log_z):.4f}, bit-equal to the uncut run's; in segments "
         f"of 15 through nested_sampling: n_dead {res.generated_nested_samples}, logZ {logz:.4f} +- {err:.4f} "
-        f"(analytic {analytic:.4f}); {wall_ckpt:.2f} s. dynamic_nested_sampling (its defaults: pool 100, 200 steps, "
-        f"4 batches; num_delete {dkw['num_delete']}, not its default 1, to fit the script's time): logZ {dz:.4f} +- {derr:.4f}, {dyn.total_samples} samples, {dyn.num_likelihood_evals} evals, "
+        f"(analytic {analytic:.4f}); {wall_ckpt:.2f} s. dynamic_nested_sampling (its defaults: pool 100, 4 batches; "
+        f"num_delete {dkw['num_delete']}, not its default 1, and {dkw['monte_carlo_steps']} steps, not 200, to fit "
+        f"the script's time): logZ {dz:.4f} +- {derr:.4f}, {dyn.total_samples} samples, "
+        f"{dyn.num_likelihood_evals} evals, "
         f"posterior ESS {ess(dyn):.1f} against the static run's {ess(base):.1f} ({base.total_samples} samples, "
         f"{base.iterations} iterations); "
         f"{wall_dyn:.2f} s | {smi}")
@@ -2074,6 +2133,7 @@ class _plain_ops:
         return False
 
 
+@_measuring
 def _chol_turns(n: int, dtype, dev, b: int = 1) -> str:
     """The Cholesky at [b, n, n] against ``cholesky_ex`` in turns (device ms)
     beside its bound, on a well-conditioned matrix (the time does not
@@ -2083,7 +2143,7 @@ def _chol_turns(n: int, dtype, dev, b: int = 1) -> str:
     g = torch.Generator(device=dev).manual_seed(n)
     a = torch.randn((b, n, n), generator=g, device=dev, dtype=dtype)
     k = a @ a.mT / n + torch.eye(n, device=dev, dtype=dtype)
-    kw = dict(reps=3, groups=3, per_group=3) if n >= 4096 else dict(reps=5, groups=3, per_group=10)
+    kw = dict(reps=3, groups=3, per_group=3) if n >= 4096 else dict(reps=3, groups=3, per_group=5)
     ms, lib_ms, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), **kw)
     bound, by = _chol_bound(b, n, k.element_size())
     return (f"B={b} n={n} {str(dtype).split('.')[-1]} {gk._cholesky_route(n)[0]}: {ms:.3f} ms (cholesky_ex "
@@ -2109,14 +2169,18 @@ def _classifier(x, y, method: str = "laplace"):
                                 prior_distribution=["scale", "scale"], validate=False)
 
 
-def _profile_call(fn, cpu: bool = True):
+@_measuring
+def _profile_call(fn, cpu: bool = True, warm: bool = True):
     """(device ms, CUDA kernels) of one call of ``fn`` under torch.profiler,
     the window opened with a traced warm-up step that is dropped.
     ``cpu=False`` records the CUDA activity alone: for a call of tens of
-    thousands of kernels the host-side events take seconds to build."""
+    thousands of kernels the host-side events take seconds to build.
+    ``warm=False`` skips the untraced call before it, for a ``fn`` that was
+    just timed."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
@@ -2130,7 +2194,8 @@ def _profile_call(fn, cpu: bool = True):
     return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
 
 
-def _unit_costs(runs, reps=3) -> list:
+@_measuring
+def _unit_costs(runs, reps=1) -> list:
     """Per unit (wall ms, device ms, CUDA kernels) of each ``(name, run,
     least)``: ``run(s)`` does ``s`` units, each of at least ``least`` CUDA
     kernels; by difference of 3 units and 1.  A trace can lose the records
@@ -2138,8 +2203,8 @@ def _unit_costs(runs, reps=3) -> list:
     unit's ``least``; 1 unit's count plus 2 ``least`` for 3) is taken again;
     the differenced device ms must be positive."""
     def profiled(fn, bound, what):
-        for _ in range(5):
-            dev_ms, kernels = _profile_call(fn)
+        for attempt in range(5):
+            dev_ms, kernels = _profile_call(fn, cpu=False, warm=attempt > 0)
             if kernels >= bound:
                 return dev_ms, kernels
         raise AssertionError(f"{what}: torch.profiler kept losing kernel records ({kernels} seen, at least "
@@ -2214,9 +2279,10 @@ def _accuracy_gate(what: str, errs_kernel, errs_plain) -> str:
     return f"normalized error kernel {ek:.2e} plain f32 {ep:.2e}"
 
 
-def _phase14_classifier(smi, watch, dev, pool, k, steps, starts, n=CLASS_N):
+def _phase14_classifier(smi, watch, dev, pool, k, steps, starts, min_iterations, n=CLASS_N, unit=10):
     """14a: the main path (NS over (amp, ls) of the logit classifier at
-    n = 512, f64, Laplace), its Laplace fit and its predictions."""
+    n = 512, f64, Laplace), its Laplace fit and its predictions; one
+    density call at B = ``unit`` timed."""
     from bayesianinference_tpu_torch import csrc
     from bayesianinference_tpu_torch.engines.gp_classify import predict_from_gp_classifier
     from bayesianinference_tpu_torch.engines.laplace import laplace_posterior_fit
@@ -2235,7 +2301,7 @@ def _phase14_classifier(smi, watch, dev, pool, k, steps, starts, n=CLASS_N):
     t0 = time.perf_counter()
     try:
         res = nested_sampling(problem, torch.Generator(device=dev).manual_seed(0), sample_pool_size=pool,
-                              num_delete=k, monte_carlo_steps=steps)
+                              num_delete=k, monte_carlo_steps=steps, min_iterations=min_iterations)
         torch.cuda.synchronize()
     finally:
         csrc.load_library = default
@@ -2290,18 +2356,19 @@ def _phase14_classifier(smi, watch, dev, pool, k, steps, starts, n=CLASS_N):
     corr = float(np.corrcoef(p, p_true)[0, 1])
     if not (p.shape == (41,) and np.all((p >= 0) & (p <= 1)) and corr > 0.85):
         raise AssertionError(f"14a: predictions {p.tolist()} (correlation with the generating p {corr:.3f})")
-    # per density call at the chains' batch: CUDA kernels, Newton steps, wall and device time
-    th = live[-k:]
+    # per density call at B = unit, the batch of PERF.md's row: CUDA kernels, Newton steps, wall and device time
+    th = live[-unit:]
     one = lambda: problem.guarded_log_likelihood(th)  # noqa: E731
     c0 = watch.counts()["cholesky"]
     one()
     steps_here = watch.counts()["cholesky"] - c0 - 1
     kernels = _launches_per_call(one, calls=3)
-    dev_ms, _ = _profile_call(one)
+    dev_ms, _ = _profile_call(one, warm=False)
     wall_ms = _wall_ms(one)
-    chol = _chol_turns(n, torch.float64, dev, b=k)
+    chol = _chol_turns(n, torch.float64, dev, b=unit)
     log(f"[14a GP classifier] logit, Laplace, n={n} f64 (benchmarks/latent_gp.py::_class_data), NS pool {pool}, "
-        f"{k} deletions, {steps} AM steps (cut from phase 4's 100 to fit the time limit): logZ {logz:.4f} +- "
+        f"{k} deletions and at least {min_iterations} iterations, {steps} AM steps (cut from phase 4's 100), to fit "
+        f"the time limit: logZ {logz:.4f} +- "
         f"{err:.4f}, grid quadrature {z_fine:.4f} (40^2 vs 30^2 differ by {grid_err:.1e}); {res.iterations} "
         f"iterations, {res.num_likelihood_evals} evals in {wall:.2f} s = {res.num_likelihood_evals / wall:.4g} "
         f"evals/s; {calls} density calls, {newton} batched Newton steps = {newton / calls:.2f} per call; launches "
@@ -2309,7 +2376,7 @@ def _phase14_classifier(smi, watch, dev, pool, k, steps, starts, n=CLASS_N):
         f"rel diff {rel:.3e} at the {pool} live points, Newton steps equal ({int(it_gpu.min())}-{int(it_gpu.max())}); "
         f"Laplace fit ({starts} starts) {fit_wall:.2f} s, mode {[round(v, 6) for v in mode.tolist()]}, logZ "
         f"{float(fit.log_evidence):.6f}, vs CPU tensors rel err {', '.join(f'{a} {b:.2e}' for a, b in errs.items())}; "
-        f"predictions at 41 points, correlation with the generating p {corr:.3f}; one density call at B = {k}: "
+        f"predictions at 41 points, correlation with the generating p {corr:.3f}; one density call at B = {unit}: "
         f"{steps_here} Newton steps, {kernels:.1f} CUDA kernels, wall {wall_ms:.2f} ms, device {dev_ms:.3f} ms, "
         f"busy share {dev_ms / wall_ms:.3f}; the Cholesky of B, device ms in turns: {chol} | {smi}")
     return launches, problem, cpu_problem, fit.mean
@@ -2583,8 +2650,8 @@ def _phase14_ess(smi, watch, dev, problem, cpu_problem, theta, chains, burn_in, 
     return launches
 
 
-def phase_latent_gp(smi: str, dev="cuda", pool=100, k=10, steps=20, starts=4, bridge_sizes=BRIDGE_NS,
-                    sgpr_n=SGPR_N, sgpr_m=SGPR_M, mogp_n=MOGP_N, ess=(16, 200, 200, 2)):
+def phase_latent_gp(smi: str, dev="cuda", pool=100, k=50, steps=20, starts=4, min_iterations=20,
+                    bridge_sizes=BRIDGE_NS, sgpr_n=SGPR_N, sgpr_m=SGPR_M, mogp_n=MOGP_N, ess=(16, 200, 200, 2)):
     """Phase 14: the slice's engines on the card (module docstring).  The
     keyword arguments shrink it for a rehearsal; the defaults are the run."""
     dev = torch.device(dev)
@@ -2595,7 +2662,8 @@ def phase_latent_gp(smi: str, dev="cuda", pool=100, k=10, steps=20, starts=4, br
             for key in total:
                 total[key] += launches[key]
 
-        launches, problem, cpu_problem, mode = _phase14_classifier(smi, watch, dev, pool, k, steps, starts)
+        launches, problem, cpu_problem, mode = _phase14_classifier(smi, watch, dev, pool, k, steps, starts,
+                                                                   min_iterations)
         add(launches)
         log(f"[14a check] {watch.check('14a')}")
         seconds = [f"14a {time.perf_counter() - t0:.1f}"]
@@ -2694,8 +2762,8 @@ def _phase15_elbo(smi, watch, dev, n=SVGP_N, m=SVGP_M, batch=SVGP_B, seeds=SVGP_
         raise AssertionError(f"15a: launches {launches}")
     value, value64, args = bench
     step = lambda: _vg(elbo, *args[torch.float32])  # noqa: E731
-    wall = _wall_ms(step, reps=7)
-    device_ms, kernels = _profile_call(step)
+    wall = _wall_ms(step, reps=3)
+    device_ms, kernels = _profile_call(step, cpu=False, warm=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -2712,7 +2780,7 @@ def _phase15_elbo(smi, watch, dev, n=SVGP_N, m=SVGP_M, batch=SVGP_B, seeds=SVGP_
     log(f"[15a SVGP ELBO+grad] n={n} M={m} batch={batch} d=2 f32, Bernoulli logit, se_kernel(2, 1), data of "
         f"bench_svgp_step's generator at seeds {seeds[0]}-{seeds[-1]}: ELBO {value:.4f} (f64 {value64:.4f}); "
         f"normalized error, root mean square over {len(seeds)} seeds, kernel path against plain f32 (rule 2x + "
-        f"1e-6): {'; '.join(lines)}; per step: wall {wall:.2f} ms (median of 7), device {device_ms:.3f} ms, "
+        f"1e-6): {'; '.join(lines)}; per step: wall {wall:.2f} ms (median of 3), device {device_ms:.3f} ms, "
         f"{kernels} CUDA kernels, busy share {device_ms / wall:.3f}, peak device memory {peak:.0f} MiB above what "
         f"was held; launches {launches}; {watch.check('15a')} | {smi}")
     if failed:
@@ -2956,8 +3024,8 @@ def _bo_step_profile(state, draws, cfg):
     from bayesianinference_tpu_torch.ops import gp_kernels as gk
 
     step = lambda: bo.bo_suggest(state, draws, cfg)  # noqa: E731
-    wall = _wall_ms(step, reps=5)
-    device_ms, kernels = _profile_call(step)
+    wall = _wall_ms(step, reps=3)
+    device_ms, kernels = _profile_call(step, cpu=False, warm=False)
     before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
     step()
     return wall, device_ms, kernels, gk.se_covariance_cuda.launches - before[0], gk.cholesky_cuda.launches - before[1]
@@ -3146,6 +3214,7 @@ def _phase15_models(smi, dev, n=4096, groups=256, batch=64):
         f"{sec_re:.2f} s for value and gradient | {smi}")
 
 
+@_measuring
 def _phase15_times(smi, dev):
     """The kernels at this slice's new shapes against their plain versions,
     their bounds and cholesky_ex (device ms in turns)."""
@@ -3158,7 +3227,7 @@ def _phase15_times(smi, dev):
     for what, x2, n2 in (("K_zz", None, SVGP_M), ("K_zx", 6.0 * torch.rand((1, SVGP_B, 2), generator=g, device=dev)
                                                   - 3.0, SVGP_B),
                          ("K_zx full data", 6.0 * torch.rand((1, SVGP_N, 2), generator=g, device=dev) - 3.0, SVGP_N)):
-        kw = dict(reps=5, groups=3, per_group=10 if n2 <= SVGP_B else 3)
+        kw = dict(reps=3, groups=3, per_group=5 if n2 <= SVGP_B else 3)
         ms, plain_ms, _, _ = _in_turns(lambda: gk.se_covariance_cuda(z, x2, one32),
                                        lambda: gk.se_covariance_plain(z, x2, one32), **kw)
         bound, by = _se_bound(z, x2, one32, None, None)
@@ -3171,8 +3240,8 @@ def _phase15_times(smi, dev):
         ell = torch.full((1, 2), 0.3, device=dev, dtype=dt)
         for what, x2 in (("capacity [64, 64]", None), ("cross [64, 512]", q)):
             ms, plain_ms, _, _ = _in_turns(lambda: gk.se_covariance_cuda(x, x2, var, ell),
-                                           lambda: gk.se_covariance_plain(x, x2, var, ell), reps=5, groups=3,
-                                           per_group=10)
+                                           lambda: gk.se_covariance_plain(x, x2, var, ell), reps=3, groups=3,
+                                           per_group=5)
             bound, by = _se_bound(x, x2, var, ell, None)
             lines.append(f"SE BO {what} ARD {str(dt).split('.')[-1]}: {ms:.4f} ms (plain {plain_ms:.4f}, bound "
                          f"{bound:.2e} by {by})")
@@ -3215,9 +3284,9 @@ def phase_svgp_bo(smi: str, dev="cuda", **sizes):
 # model-comparison results layer
 # ---------------------------------------------------------------------------
 
-ADVI_GP_STEPS = 500  # the JAX default is 3000, cut to fit the time limit
+ADVI_GP_STEPS = 250  # the JAX default is 3000, cut to fit the time limit (the gate is an upper bound)
 PATHFINDER_DRAWS = Path(__file__).resolve().parent / "tests" / "data" / "pathfinder_conjugate_jax_draws.npz"
-ADVI_CPU_STEPS = 20  # the card-vs-CPU fit: a step on CPU tensors takes about 0.6 s at B = 32, n = 512, f64
+ADVI_CPU_STEPS = 5  # the card-vs-CPU fit: a step on CPU tensors takes about 0.6 s at B = 32, n = 512, f64
 # the ARD GP's reference logZ: HMC chains and steps (warmup and samples
 # each); at n = 64 on the CPU 50 + 50 steps read within 0.2 of 150 + 150
 # (tests/ard_reference_study.py)
@@ -3649,6 +3718,7 @@ def _phase16_results(smi, dev, ns_res, reps=200):
         f"acceptance {np.nanmean(rep.acceptance_rates):.3f}")
 
 
+@_measuring
 def _phase16_times(smi, dev, problem, pf_problem):
     """16g: the kernels at the slice's new shapes against their plain
     versions, their bounds and cholesky_ex; per ADVI step and per
@@ -3669,7 +3739,7 @@ def _phase16_times(smi, dev, problem, pf_problem):
         if what != "ARD try":
             scale = scale[:, :1].expand(b, d)
         nug = (0.01 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, data.shape[1])
-        per = 3 if b > 64 else 10
+        per = 3 if b > 64 else 5
         ms, plain_ms, _, _ = _in_turns(lambda: gk.se_covariance_cuda(data, None, var, scale, nug),
                                        lambda: gk.se_covariance_plain(data, None, var, scale, nug), reps=3, groups=3,
                                        per_group=per)
@@ -3688,8 +3758,8 @@ def _phase16_times(smi, dev, problem, pf_problem):
         a = torch.randn((1, n, n), generator=g, device=dev, dtype=dt)
         k = a @ a.mT / n + torch.eye(n, device=dev, dtype=dt)
         c_ms, c_lib, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), reps=3, groups=3,
-                                      per_group=10)
-        c_plain, _ = _time_ms(lambda: gk.cholesky_plain(k), reps=3, groups=3, per_group=10)
+                                      per_group=5)
+        c_plain, _ = _time_ms(lambda: gk.cholesky_plain(k), reps=3, groups=3, per_group=5)
         pr9.append(f"n={n} {str(dt).split('.')[-1]} {c_ms:.4f} (plain {c_plain:.4f}, cholesky_ex {c_lib:.4f})")
     # per ADVI step and per Pathfinder iteration (its L-BFGS step and its
     # share of the ELBO block), by difference of fits
@@ -4033,7 +4103,7 @@ def _phase17_tp_quantiles(smi, watch, dev, res, xq, thetas_n=TP_THETAS):
     if not (rel_one <= 1e-9 and rel_many <= 1e-10 and bool((got_many[1] > got_many[0]).all())):
         raise AssertionError(f"17d: TP quantiles vs scipy {rel_one:.3e}, card vs CPU {rel_many:.3e}")
     wall = _wall_ms(lambda: many.quantile(q), reps=1)
-    dev_ms, kernels = _profile_call(lambda: many.quantile(q), cpu=False)
+    dev_ms, kernels = _profile_call(lambda: many.quantile(q), cpu=False, warm=False)
     log(f"[17d Student-t process quantiles] n = {SLICE_N} f64, nu = 4, {xq.shape[0]} points, q = 0.05 and 0.95: at "
         f"one theta vs scipy.stats.t.ppf max rel {rel_one:.2e}; at {thetas_n} thetas card vs CPU tensors "
         f"{rel_many:.2e}; a quantile call at {thetas_n} thetas: wall {wall:.1f} ms, device {dev_ms:.2f} ms, "
@@ -4117,6 +4187,7 @@ def _phase17_rest(smi, dev, gp_res, ns_pool=400, ns_delete=40, ns_steps=20, repl
         f"{time.perf_counter() - t0:.1f} s | {smi}")
 
 
+@_measuring
 def _phase17_times(smi, dev, shapes):
     """17f: the kernels at the slice's new shapes (the predictive's
     symmetric K and cross-covariance, and K's factor, at each B of
@@ -4294,9 +4365,10 @@ def _phase18_bnn(smi, dev, configs=BNN_CONFIGS):
         f"defaults): f64 {e64:.2e} (1e-12), f32 {e32:.2e} (1e-5) | {smi}")
 
 
-def _phase18_bnn_units(smi, dev):
+def _phase18_bnn_units(smi, dev, beside="alone on the card"):
     """18a's per-unit rows at the defaults (f32, n = 256): a training step
-    and a sample_trained_net call (200 samples, 31 points)."""
+    and a sample_trained_net call (200 samples, 31 points); ``beside``
+    says what else ran."""
     from bayesianinference_tpu_torch import bnn
 
     x_np, y_np = _sine_data()
@@ -4312,7 +4384,7 @@ def _phase18_bnn_units(smi, dev):
                                                              draws=draws[:s]), 140),
         ("sample_trained_net (200 samples, 31 points)",
          lambda s: [bnn.sample_trained_net(net, init, g, x[:31], num_samples=200).std() for _ in range(s)], 44)))
-    log(f"[18a BNN units] at the defaults (f32, n = {BNN_N}), alone on the card: {'; '.join(rows)} | {smi}")
+    log(f"[18a BNN units] at the defaults (f32, n = {BNN_N}), {beside}: {'; '.join(rows)} | {smi}")
 
 
 def _banana_problem(dev):
@@ -4385,25 +4457,25 @@ def _phase18b_job(job: str, dev: str, steps: dict) -> dict:
     return {**out, "seconds": time.perf_counter() - t0}
 
 
-def _phase18b_start(dev, conj_steps=2000, box_steps=1500, banana_steps=4000, advi_steps=3000, hmc_warmup=100):
+def _phase18b_start(dev, pmmh=None, conj_steps=2000, box_steps=1500, banana_steps=4000, advi_steps=3000,
+                    hmc_warmup=100):
     """Starts 18b: tests/test_flow_vi.py's oracles on the card (the
     conjugate posterior and evidence, the box-and-scale test, the banana
     against full-rank ADVI with the slow test's gates, HMC from a flow start
-    on the banana), the five fits at once in five worker processes: (pool,
-    pending result, sizes)."""
+    on the banana), the five fits in five worker processes; before them, in
+    the same pool, 19c's PMMH oracle (:func:`_pmmh_oracle`, keyword
+    arguments ``pmmh``) unless ``pmmh`` is None: (pool, pending result,
+    sizes, the PMMH oracle's pending result or None)."""
     steps = dict(conj=conj_steps, box=box_steps, banana=banana_steps, advi=advi_steps, hmc_warmup=hmc_warmup)
     pool = multiprocessing.get_context("spawn").Pool(5)
+    pmmh_pending = None if pmmh is None else pool.apply_async(_pmmh_oracle, (str(dev),), pmmh)
     jobs = ("banana_flow", "conjugate", "box", "banana_advi", "hmc_flow")  # the longest first
-    return pool, pool.starmap_async(_phase18b_job, [(job, str(dev), steps) for job in jobs]), steps
+    return pool, pool.starmap_async(_phase18b_job, [(job, str(dev), steps) for job in jobs]), steps, pmmh_pending
 
 
-def _phase18b_finish(smi, pool, pending, steps):
+def _phase18b_finish(smi, pending, steps):
     """18b's gates on the workers' readings."""
-    try:
-        bf, c, box, ba, h = pending.get()
-    finally:
-        pool.close()
-        pool.join()
+    bf, c, box, ba, h = pending.get()
     if not (abs(c["mean"] - c["pm"]) <= 0.02 and abs(c["sd"] / c["psd"] - 1) <= 0.1
             and c["log_z"] - 0.1 < c["elbo"] < c["log_z"] + 0.02 and c["k"] < 0.7
             and abs(c["lz"] - c["log_z"]) <= 0.03 and c["peak_over_tail"]):
@@ -4456,6 +4528,7 @@ def _phase18_flow_gp(smi, watch, dev, problem, grid_logz, steps=FLOW_GP_STEPS, b
     return launches
 
 
+@_measuring
 def _phase18_times(smi, dev, problem):
     """18d: the kernels at the flow step's B = 64 (n = 512 f64) against their
     plain versions, bounds and cholesky_ex; per flow step and per ADVI step
@@ -4496,18 +4569,22 @@ def _phase18_times(smi, dev, problem):
         f"{c_bound:.3g} by {c_by}); {'; '.join(parts)} | {smi}")
 
 
-def phase_flow_bnn(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes):
+def phase_flow_bnn(smi: str, gp_problem, gp_posterior, dev="cuda", pmmh=None, **sizes):
     """Phase 18: the quasi-Bayesian networks and flow VI (module
     docstring).  18b's five fits run in worker processes while 18a and 18c
-    run here; the per-unit rows (18a's, 18d) are taken after the workers
-    end.  ``sizes`` shrink 18a-c for a rehearsal (``bnn`` (``configs=``),
-    ``oracles``, ``gp``: keyword arguments of each sub-phase;
-    ``times=False`` skips 18d and 18a's per-unit rows)."""
+    run here; the per-unit rows (18a's, 18d) are taken after the fits end.
+    ``pmmh`` (keyword arguments of :func:`_pmmh_oracle`, or None) puts 19c's
+    PMMH oracle in the same pool first.  ``sizes`` shrink 18a-c for a
+    rehearsal (``bnn`` (``configs=``), ``oracles``, ``gp``: keyword
+    arguments of each sub-phase; ``times=False`` skips 18d and 18a's
+    per-unit rows).  Returns (launches, None), or with the PMMH oracle
+    (launches, (pool, its pending result)): the pool stays open for phase
+    19, which closes it."""
     dev = torch.device(dev)
     grid_logz = gp_posterior[1]
     t0 = time.perf_counter()
     seconds = []
-    pool, pending, steps = _phase18b_start(dev, **sizes.get("oracles", {}))
+    pool, pending, steps, pmmh_pending = _phase18b_start(dev, pmmh, **sizes.get("oracles", {}))
     try:
         with _KernelWatch() as watch:
             t = time.perf_counter()
@@ -4519,27 +4596,643 @@ def phase_flow_bnn(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes):
             if not (total["se_covariance"] > 0 and total["cholesky"] > 0):
                 raise AssertionError(f"18: launches {total}")
             t = time.perf_counter()
-            _phase18b_finish(smi, pool, pending, steps)
+            _phase18b_finish(smi, pending, steps)
             seconds.append(f"18b waited {time.perf_counter() - t:.1f}")
             if sizes.get("times", True):
                 t = time.perf_counter()
-                _phase18_bnn_units(smi, dev)
+                _phase18_bnn_units(smi, dev, "alone on the card" if pmmh_pending is None
+                                   else "beside 19c's PMMH oracle in a worker process")
                 _phase18_times(smi, dev, gp_problem)
-                seconds.append(f"18a units and 18d {time.perf_counter() - t:.1f}")
+                seconds.append(f"18a units and 18d {time.perf_counter() - t:.1f}"
+                               + ("" if pmmh_pending is None else " beside 19c's PMMH oracle"))
             log(f"[18 BNN and flow VI] {time.perf_counter() - t0:.1f} s ({', '.join(seconds)}); launches {total}; "
                 f"{watch.check('18')}")
-    finally:
+    except BaseException:
         pool.terminate()
         pool.join()
+        raise
+    if pmmh_pending is None:
+        pool.close()
+        pool.join()
+        return total, None
+    return total, (pool, pmmh_pending)
+
+# ---------------------------------------------------------------------------
+# Phase 19: the time-series engines (no hand-written kernel on this path)
+
+TS_THETA = (0.1, 0.05, 0.3)  # benchmarks/kalman_throughput.py::bench_vmapped's generating values
+TS_FIT = (0.12, 0.04, 0.35)  # and its long series' model
+F32_FLOOR = 1e-6  # PERF.md section 2: an f32 case may err at most twice the CPU f32 path plus this, relative
+
+
+def _ts_builder(th):
+    """Level plus period-4 seasonal (ds = 4): benchmarks/kalman_throughput.py::_builder."""
+    from bayesianinference_tpu_torch.engines import ssm
+
+    return ssm.structural_lgssm([ssm.level_component(th[0]), ssm.seasonal_component(4, th[1])], obs_var=th[2])
+
+
+def _f32_gate(what, card32, cpu32, cpu64) -> str:
+    """The card's float32 error against the CPU's float64 at most twice the
+    CPU's float32 error plus F32_FLOOR, each relative to max |float64|."""
+    e_card, e_cpu = _rel_max(card32, cpu64), _rel_max(cpu32, cpu64)
+    if not e_card <= 2.0 * e_cpu + F32_FLOOR:
+        raise AssertionError(f"{what}: card f32 error {e_card:.2e} against CPU f32 {e_cpu:.2e}")
+    return f"f32 err card {e_card:.2e} (CPU {e_cpu:.2e})"
+
+
+def _card_cpu_gate(what, pairs, tol=1e-12) -> float:
+    """Each (card, cpu) pair within ``tol`` of max(|cpu|, 1); the worst."""
+    worst = 0.0
+    for i, (got, want) in enumerate(pairs):
+        got, want = got.detach().double().cpu(), want.detach().double().cpu()
+        err = float((got - want).abs().max() / want.abs().max().clamp(min=1.0))
+        if not err <= tol:
+            raise AssertionError(f"{what}: card against CPU {err:.2e} > {tol} at output {i}")
+        worst = max(worst, err)
+    return worst
+
+
+@_measuring
+def _call_row(name, fn, units: int, unit: str) -> str:
+    """Wall ms (one call after a warm-up), device ms and CUDA kernels of one
+    call (torch.profiler, CUDA activity only), busy share and units/s."""
+    wall = _wall_ms(fn, reps=1)
+    dev_ms, kernels = _profile_call(fn, cpu=False, warm=False)
+    return (f"{name}: wall {wall:.2f} ms, device {dev_ms:.2f} ms, {kernels} CUDA kernels, busy share "
+            f"{dev_ms / wall:.3f}, {units / wall * 1e3:.0f} {unit}/s")
+
+
+@_measuring
+def _unit_row(name, run, wall_ms=None) -> str:
+    """One unit's device ms and CUDA kernels by difference of ``run(2)`` and
+    ``run(1)`` under torch.profiler (CUDA activity only: the host events of
+    tens of thousands of kernels take seconds to build); its wall ms by the
+    same difference (``wall_ms``: taken already), and the busy share."""
+    d1, k1 = _profile_call(lambda: run(1), cpu=False)
+    d2, k2 = _profile_call(lambda: run(2), cpu=False)
+    if wall_ms is None:
+        wall_ms = _wall_ms(lambda: run(2), reps=1) - _wall_ms(lambda: run(1), reps=1)
+    if not (d2 > d1 and k2 > k1):
+        raise AssertionError(f"{name}: per unit device {d2 - d1} ms, {k2 - k1} CUDA kernels")
+    busy = (d2 - d1) / wall_ms if wall_ms > 0 else math.nan  # a wall difference lost in the host's noise
+    return (f"{name}: wall {wall_ms:.2f} ms, device {d2 - d1:.3f} ms, {k2 - k1} CUDA kernels, busy share "
+            f"{busy:.3f}")
+
+
+class _Lines(list):
+    """A sub-phase's report lines, each ending in the seconds it took since
+    the line before."""
+
+    def __init__(self):
+        super().__init__()
+        self.t = time.perf_counter()
+
+    def append(self, line: str) -> None:
+        t, self.t = self.t, time.perf_counter()
+        super().append(f"{line} [{self.t - t:.1f} s]")
+
+
+def _ts_random_model(dev, seed=0):
+    from bayesianinference_tpu_torch.ops import kalman
+
+    rng = np.random.default_rng(seed)
+    ds, do = 3, 2
+    f = 0.6 * np.eye(ds) + 0.1 * rng.normal(size=(ds, ds))
+    qh, rh, ph = rng.normal(size=(ds, ds)), rng.normal(size=(do, do)), rng.normal(size=(ds, ds))
+    arrays = (f, qh @ qh.T / ds + 0.3 * np.eye(ds), rng.normal(size=(do, ds)), rh @ rh.T / do + 0.2 * np.eye(do),
+              rng.normal(size=ds), ph @ ph.T / ds + 0.5 * np.eye(ds), 0.1 * rng.normal(size=ds),
+              0.2 * rng.normal(size=do))
+    return kalman.LGSSM(*(torch.as_tensor(a, device=dev) for a in arrays))
+
+
+def _phase19a_kalman(smi, dev, chains=8192, t_bench=256, t_long=131072, t_par=4097, ref_chains=256,
+                     level_t=400, times=True):
+    from bayesianinference_tpu_torch.engines import ssm
+    from bayesianinference_tpu_torch.engines.laplace import laplace_posterior_fit
+    from bayesianinference_tpu_torch.ops import kalman
+
+    cpu = torch.device("cpu")
+    lines = _Lines()
+    # card against CPU, f64, on the same inputs
+    models = {d: _ts_random_model(d) for d in (dev, cpu)}
+    y = torch.as_tensor(np.random.default_rng(1).normal(size=(64, 2)))
+    mask = torch.ones(64, dtype=torch.bool)
+    mask[[3, 17, 63]] = False
+    draws = kalman.kalman_sample_draws(torch.Generator().manual_seed(2), models[cpu], 64, (16,))
+    res = {}
+    for d, m in models.items():
+        out = []
+        # the simulation smoother's factors come from eigh, whose eigenvector
+        # signs LAPACK and cuSOLVER may pick apart: it runs on a model with
+        # distinct diagonal noise, where both return the same factor
+        diag = m._replace(transition_noise=torch.diag(torch.diagonal(m.transition_noise)),
+                          observation_noise=torch.diag(torch.diagonal(m.observation_noise)),
+                          initial_cov=torch.diag(torch.diagonal(m.initial_cov)))
+        for method in ("sequential", "parallel"):
+            out += list(kalman.kalman_filter(m, y.to(d), mask.to(d), method))
+            out += list(kalman.kalman_smoother(m, y.to(d), mask.to(d), method))
+            out.append(kalman.simulation_smoother(None, diag, y.to(d), 16, mask.to(d), method,
+                                                  kalman.KalmanSampleDraws(*(a.to(d) for a in draws))))
+        out += list(kalman.kalman_forecast(m, kalman.kalman_filter(m, y.to(d)), 6))
+        res[d] = out
+    worst = _card_cpu_gate("19a card against CPU", zip(res[dev], res[cpu]))
+    lines.append(f"filter, smoother, simulation smoother (both methods, 3 masked steps; the latter with diagonal "
+                 f"noise) and forecast, card against CPU f64 {worst:.1e} (1e-12)")
+    # parallel against sequential at T = t_par, on the card in f64
+    gen = torch.Generator(device=dev).manual_seed(3)
+    model = _ts_builder(torch.tensor(TS_FIT, dtype=torch.float64, device=dev))
+    _, yp = kalman.kalman_sample(gen, model, t_par)
+    seq, par = kalman.kalman_filter(model, yp), kalman.kalman_filter(model, yp, method="parallel")
+    e_ll = abs(float(par.log_likelihood - seq.log_likelihood)) / abs(float(seq.log_likelihood))
+    e_m = _rel_max(par.filtered_means, seq.filtered_means)
+    e_v = _rel_max(par.filtered_covs, seq.filtered_covs)
+    if not max(e_ll, e_m, e_v) <= 1e-10:
+        raise AssertionError(f"19a parallel against sequential at T = {t_par}: {e_ll:.1e} {e_m:.1e} {e_v:.1e}")
+    lines.append(f"parallel against sequential at T = {t_par} f64: logL {e_ll:.1e}, means {e_m:.1e}, covs {e_v:.1e}"
+                 " (1e-10)")
+
+    # benchmarks/kalman_throughput.py's engine width, f32
+    g = torch.Generator().manual_seed(0)
+    gen_model = _ts_builder(torch.tensor(TS_THETA, dtype=torch.float64))
+    y64 = kalman.kalman_sample(g, gen_model, t_bench)[1][:, 0]
+    th64 = torch.exp(0.3 * torch.randn((chains, 3), generator=g, dtype=torch.float64)
+                     + torch.log(torch.tensor(TS_THETA, dtype=torch.float64)))
+    params = [("level_var", 1e-6, 10.0), ("seasonal_var", 1e-6, 10.0), ("obs_var", 1e-6, 10.0)]
+    for method in ("sequential", "parallel"):
+        def problem(d, dtype):
+            return ssm.define_state_space_model(y64.to(d, dtype), _ts_builder, params, method=method,
+                                                prior_distribution=["scale"] * 3, validate=False)
+
+        card = problem(dev, torch.float32)
+        th_card = th64.to(dev, torch.float32)
+        got = card.log_posterior_density(th_card)
+        refs = [problem(cpu, dt).log_posterior_density(th64[:ref_chains].to(dt)) for dt in (torch.float32,
+                                                                                            torch.float64)]
+        gate = _f32_gate(f"19a {method} at the engine width", got[:ref_chains], *refs)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"19a {method}: non-finite density at the engine width")
+        row = _call_row(f"{method} density call, {chains} chains, T = {t_bench}, ds = 4 f32",
+                        lambda: card.log_posterior_density(th_card), chains, "evals") if times else method
+        lines.append(f"{row}; {gate} on {ref_chains} chains")
+    # the long series, parallel only
+    yl64 = kalman.kalman_sample(torch.Generator().manual_seed(4), gen_model, t_long)[1][:, 0]
+    fit_model = _ts_builder(torch.tensor(TS_FIT, dtype=torch.float64))
+    long = {}
+    for d, dt in ((dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64)):
+        m = kalman.LGSSM(*(None if a is None else a.to(d, dt) for a in fit_model))
+        long[(d.type, dt)] = (m, yl64.to(d, dt), kalman.kalman_log_likelihood(m, yl64.to(d, dt), method="parallel"))
+    gate = _f32_gate("19a long series", long[(dev.type, torch.float32)][2], long[("cpu", torch.float32)][2],
+                     long[("cpu", torch.float64)][2])
+    m32, y32, _ = long[(dev.type, torch.float32)]
+    wall = _wall_ms(lambda: kalman.kalman_log_likelihood(m32, y32, method="parallel"), reps=1) if times else math.nan
+    lines.append(f"long series T = {t_long} f32, parallel: {wall:.1f} ms, {t_long / wall * 1e3:.3g} steps/s; {gate}")
+
+    # the local-level problem of tests/test_ssm.py:249-282, Laplace through the parallel method
+    truth = ssm.structural_lgssm([ssm.level_component(torch.tensor(0.3, dtype=torch.float64))], obs_var=0.8)
+    yll = kalman.kalman_sample(torch.Generator().manual_seed(7), truth, level_t)[1][:, 0]
+    fits = {}
+    for d in (dev, cpu):
+        p = ssm.define_state_space_model(
+            yll.to(d), lambda th: ssm.structural_lgssm([ssm.level_component(th[0])], obs_var=th[1]),
+            [("level_var", 1e-4, 10.0), ("obs_var", 1e-4, 10.0)], method="parallel",
+            prior_distribution=["scale", "scale"], validate=False)
+        t = time.perf_counter()
+        fits[d.type] = (laplace_posterior_fit(problem=p, initial_guess=torch.tensor([[0.5, 0.5]], dtype=torch.float64,
+                                                                                    device=d)),
+                        time.perf_counter() - t, p)
+    (fc, tc, pc), (fh, th_, _) = fits[dev.type], fits["cpu"]
+    e_mode, e_z = _rel_max(fc.mean, fh.mean), abs(float(fc.log_evidence) - float(fh.log_evidence))
+    lv, ov = fc.mean.tolist()
+    if not (e_mode <= 1e-6 and e_z <= 1e-6 and 0.09 < lv < 0.9 and 0.4 < ov < 1.6):
+        raise AssertionError(f"19a Laplace: mode {fc.mean.tolist()} ({e_mode:.1e} from the CPU), logZ {e_z:.1e}")
+    sm = ssm.smoothed_states(pc, fc.mean)
+    fm, fv = ssm.forecast_observations(pc, fc.mean, 5)
+    if not (sm.means.shape == (level_t, 1) and bool((sm.covs[:, 0, 0] > 0).all()) and float(fv[-1, 0, 0])
+            > float(fv[0, 0, 0])):
+        raise AssertionError("19a: smoothed states or forecast of the local level")
+    lines.append(f"Laplace on the local level (T = {level_t}, parallel, 1 start): mode {lv:.4f}, {ov:.4f}, logZ "
+                 f"{float(fc.log_evidence):.4f}; card against CPU mode {e_mode:.1e}, logZ {e_z:.1e} (1e-6); "
+                 f"{tc:.1f} s on the card, {th_:.1f} s on the CPU")
+    for line in lines:
+        log(f"  19a {line}")
+
+
+def _hmm_enumeration(pi, log_a, b):
+    """Exact (ll, filtered, smoothed, MAP path) over all K^T paths
+    (tests/test_hmm.py::_enumerate)."""
+    t, k = b.shape
+    joint = {}
+    for path in itertools.product(range(k), repeat=t):
+        joint[path] = pi[path[0]] + b[0, path[0]] + sum(log_a[path[s - 1], path[s]] + b[s, path[s]]
+                                                        for s in range(1, t))
+    ll = np.logaddexp.reduce(np.array(list(joint.values())))
+    smoothed, filtered = np.zeros((t, k)), np.zeros((t, k))
+    for p, lp in joint.items():
+        for s in range(t):
+            smoothed[s, p[s]] += np.exp(lp - ll)
+    for s in range(t):
+        pref = {}
+        for p, lp in joint.items():  # prefix probabilities: sum the suffixes out
+            pref.setdefault(p[:s + 1], pi[p[0]] + b[0, p[0]] + sum(log_a[p[u - 1], p[u]] + b[u, p[u]]
+                                                                  for u in range(1, s + 1)))
+        tot = np.logaddexp.reduce(np.array(list(pref.values())))
+        for p, lp in pref.items():
+            filtered[s, p[-1]] += np.exp(lp - tot)
+    return ll, filtered, smoothed, np.array(max(joint, key=joint.get))
+
+
+def _bocpd_enumeration(y, h, segment):
+    """Exact (ll, run-length posteriors [T, T]) over all 2^(T-1)
+    segmentations (tests/test_bocpd.py::_enumerate)."""
+    rl = np.zeros((y.size, y.size))
+    for t in range(1, y.size + 1):
+        scores = {}
+        for cfg in itertools.product([0, 1], repeat=t - 1):
+            bounds = [0] + [s + 1 for s in range(t - 1) if cfg[s]] + [t]
+            scores[cfg] = sum(c * np.log(h) + (1 - c) * np.log1p(-h) for c in cfg) + sum(
+                segment(y[a:b]) for a, b in zip(bounds[:-1], bounds[1:]))
+        tot = np.logaddexp.reduce(np.array(list(scores.values())))
+        for cfg, lp in scores.items():
+            rl[t - 1, t - 1 - max([0] + [s + 1 for s in range(t - 1) if cfg[s]])] += np.exp(lp - tot)
+    return tot, rl
+
+
+def _nig_segment(y, mu0=0.3, kappa0=2.0, alpha0=1.5, beta0=0.8):
+    from math import lgamma
+
+    n = y.size
+    if n == 0:
+        return 0.0
+    kn, an, ybar = kappa0 + n, alpha0 + 0.5 * n, y.mean()
+    bn = beta0 + 0.5 * np.sum((y - ybar) ** 2) + 0.5 * kappa0 * n * (ybar - mu0) ** 2 / kn
+    return (lgamma(an) - lgamma(alpha0) + alpha0 * math.log(beta0) - an * math.log(bn)
+            + 0.5 * (math.log(kappa0) - math.log(kn)) - 0.5 * n * math.log(2 * math.pi))
+
+
+def _phase19b_hmm_bocpd(smi, dev, chains=8192, t_bench=256, k=4, t_long=131072, k_long=8, bocpd_t=8192,
+                        r_max=512, ref_chains=256, times=True):
+    import importlib
+
+    from bayesianinference_tpu_torch.engines import changepoint, hmm
+    from bayesianinference_tpu_torch.engines.laplace import laplace_posterior_fit
+    from bayesianinference_tpu_torch.ops import hmm as ohmm
+
+    ob = importlib.import_module("bayesianinference_tpu_torch.ops.bocpd")  # ops.bocpd is the function
+    cpu = torch.device("cpu")
+    lines = _Lines()
+    # the enumeration oracles (tests/test_hmm.py:95-143, tests/test_bocpd.py:117-171) on the card, f64
+    rng = np.random.default_rng(0)
+    logits = rng.normal(size=(3, 2))
+    log_a = ohmm.row_stochastic(torch.as_tensor(logits)).numpy()
+    pi, b = np.log(rng.dirichlet(np.ones(3))), rng.normal(size=(6, 3))
+    ll, filtered, smoothed, best = _hmm_enumeration(pi, log_a, b)
+    chain = ohmm.HMM(torch.as_tensor(pi, device=dev), torch.as_tensor(log_a, device=dev))
+    bt = torch.as_tensor(b, device=dev)
+    errs = []
+    for method in ("sequential", "parallel"):
+        fr = ohmm.hmm_filter(chain, bt, method=method)
+        errs += [abs(float(fr.log_likelihood) - ll) / abs(ll), _rel_max(torch.exp(fr.log_filtered), filtered)]
+    errs.append(_rel_max(torch.exp(ohmm.hmm_smoother(chain, bt)), smoothed))
+    if not (max(errs) <= 1e-12 and np.array_equal(ohmm.hmm_viterbi(chain, bt).cpu().numpy(), best)):
+        raise AssertionError(f"19b HMM enumeration: {errs}")
+    rng = np.random.default_rng(0)
+    y8 = np.concatenate([rng.normal(0.0, 1.0, 4), rng.normal(3.0, 0.5, 4)])
+    ll_b, rl_b = _bocpd_enumeration(y8, 0.15, _nig_segment)
+    res = ob.bocpd(torch.as_tensor(y8, device=dev), ob.gaussian_upm(0.3, 2.0, 1.5, 0.8), 0.15)
+    e_b = max(abs(float(res.log_likelihood) - ll_b) / abs(ll_b), _rel_max(torch.exp(res.log_run_length), rl_b))
+    if not e_b <= 1e-12:
+        raise AssertionError(f"19b BOCPD enumeration: {e_b:.1e}")
+    lines.append(f"enumeration oracles on the card f64: HMM (K = 3, T = 6, both methods) {max(errs):.1e}, Viterbi "
+                 f"equal; BOCPD (T = 8) {e_b:.1e} (1e-12)")
+
+    # benchmarks/hmm_throughput.py's widths, f32
+    def hmm_data(kk, t, seed=0):
+        g = torch.Generator().manual_seed(seed)
+        gen = ohmm.HMM(torch.full((kk,), -math.log(kk), dtype=torch.float64),
+                       ohmm.row_stochastic(0.5 * torch.randn((kk, kk - 1), generator=g, dtype=torch.float64)))
+        z = ohmm.hmm_sample_states(g, gen, t)
+        mus = torch.linspace(-2.0, 2.0, kk, dtype=torch.float64)
+        yy = mus[z] + 0.7 * torch.randn(t, generator=g, dtype=torch.float64)
+        return -0.5 * ((yy[:, None] - mus) / 0.7) ** 2
+
+    def chain_of(th, kk):
+        return ohmm.HMM(torch.full((kk,), -math.log(kk), dtype=th.dtype, device=th.device),
+                        ohmm.row_stochastic(th.reshape(kk, kk - 1)))
+
+    lo64 = hmm_data(k, t_bench)
+    th64 = 0.3 * torch.randn((chains, k * (k - 1)), generator=torch.Generator().manual_seed(2), dtype=torch.float64)
+    params = [(f"l{i}", -6.0, 6.0) for i in range(k * (k - 1))]
+    for method in ("sequential", "parallel"):
+        def problem(d, dt):
+            lo = lo64.to(d, dt)
+            return hmm.define_hidden_markov_model(lambda th: (chain_of(th, k), lo), params, method=method,
+                                                  prior_distribution=["location"] * len(params), validate=False,
+                                                  device=d, dtype=dt)
+
+        card, th_card = problem(dev, torch.float32), th64.to(dev, torch.float32)
+        got = card.log_posterior_density(th_card)
+        refs = [problem(cpu, dt).log_posterior_density(th64[:ref_chains].to(dt)) for dt in (torch.float32,
+                                                                                            torch.float64)]
+        gate = _f32_gate(f"19b HMM {method}", got[:ref_chains], *refs)
+        row = _call_row(f"HMM {method} density call, K = {k}, {chains} chains, T = {t_bench} f32",
+                        lambda: card.log_posterior_density(th_card), chains, "evals") if times else method
+        lines.append(f"{row}; {gate} on {ref_chains} chains")
+    # the long series, parallel only
+    lol = hmm_data(k_long, t_long, seed=3)
+    gen_l = chain_of(0.4 * torch.randn(k_long * (k_long - 1), generator=torch.Generator().manual_seed(3),
+                                       dtype=torch.float64), k_long)
+    long = {}
+    for d, dt in ((dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64)):
+        m = ohmm.HMM(*(a.to(d, dt) for a in gen_l))
+        long[(d.type, dt)] = (m, lol.to(d, dt), ohmm.hmm_log_likelihood(m, lol.to(d, dt), method="parallel"))
+    gate = _f32_gate("19b HMM long series", *(long[key][2] for key in ((dev.type, torch.float32),
+                                                                       ("cpu", torch.float32),
+                                                                       ("cpu", torch.float64))))
+    m32, l32, _ = long[(dev.type, torch.float32)]
+    wall = _wall_ms(lambda: ohmm.hmm_log_likelihood(m32, l32, method="parallel"), reps=1) if times else math.nan
+    lines.append(f"HMM long series T = {t_long}, K = {k_long} f32, parallel: {wall:.1f} ms; {gate}")
+    # BOCPD at benchmarks/hmm_throughput.py::bench_bocpd's width
+    yb = torch.randn(bocpd_t, generator=torch.Generator().manual_seed(4), dtype=torch.float64)
+    runs = {}
+    for d, dt in ((dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64)):
+        t = time.perf_counter()
+        runs[(d.type, dt)] = ob.bocpd(yb.to(d, dt), ob.gaussian_upm(), 0.01, r_max=r_max)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        runs[(d.type, dt, "s")] = time.perf_counter() - t
+    keys = ((dev.type, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64))
+    gate_ll = _f32_gate("19b BOCPD logL", *(runs[key].log_likelihood for key in keys))
+    gate_rl = _f32_gate("19b BOCPD run lengths", *(torch.exp(runs[key].log_run_length) for key in keys))
+    lines.append(f"BOCPD T = {bocpd_t}, r_max = {r_max} f32: card {runs[(dev.type, torch.float32, 's')]:.2f} s "
+                 f"(one call, {bocpd_t / runs[(dev.type, torch.float32, 's')]:.0f} steps/s); logL {gate_ll}; "
+                 f"run-length probabilities {gate_rl}")
+    # Laplace on the hazard problem of tests/test_bocpd.py:200-225
+    rng = np.random.default_rng(3)
+    yh = np.concatenate([rng.normal(m, 1.0, 25) for m in rng.normal(0, 3, 8)])
+    fits = {}
+    for d in (dev, cpu):
+        p = changepoint.define_changepoint_model(torch.as_tensor(yh, device=d),
+                                                 lambda th: (ob.gaussian_upm(0.0, 0.2, 2.0, 2.0), th[0]),
+                                                 [("hazard", 1e-3, 0.5)], prior_distribution=["scale"],
+                                                 validate=False)
+        t = time.perf_counter()
+        fits[d.type] = (laplace_posterior_fit(problem=p, initial_guess=torch.tensor([[0.05]], dtype=torch.float64,
+                                                                                    device=d)),
+                        time.perf_counter() - t)
+    (fc, tc), (fh, th_) = fits[dev.type], fits["cpu"]
+    e_mode, e_z = _rel_max(fc.mean, fh.mean), abs(float(fc.log_evidence) - float(fh.log_evidence))
+    h = float(fc.mean[0])
+    if not (0.01 < h < 0.15 and e_mode <= 1e-6 and e_z <= 1e-6):
+        raise AssertionError(f"19b Laplace hazard {h} ({e_mode:.1e} from the CPU), logZ {e_z:.1e}")
+    lines.append(f"Laplace on the hazard problem (T = 200, 1 start): hazard {h:.4f} (0.01-0.15), logZ "
+                 f"{float(fc.log_evidence):.4f}; card against CPU mode {e_mode:.1e}, logZ {e_z:.1e} (1e-6); "
+                 f"{tc:.1f} s on the card, {th_:.1f} s on the CPU")
+    for line in lines:
+        log(f"  19b {line}")
+
+
+def _ar1_particle_model(phi, dev, q=0.3, r=0.4):
+    """tests/test_particle.py::_ar1_particle_model on ``dev``, drawing from
+    the generator it is handed."""
+    from bayesianinference_tpu_torch.ops import particle as opf
+
+    norm = -math.log(r) - 0.5 * math.log(2 * math.pi)
+
+    def init(g, p):  # PMMH builds the model at every step: the stationary sd is computed here only
+        return (q**2 / (1 - phi**2)) ** 0.5 * torch.randn((p, 1), generator=g, dtype=torch.float64, device=dev)
+
+    def trans(g, x, t):
+        return torch.add(phi * x, torch.randn(x.shape, generator=g, dtype=x.dtype, device=dev), alpha=q)
+
+    def obs(x, y_t, t):
+        return norm - (0.5 / r**2) * (y_t[0] - x[:, 0]) ** 2
+
+    return opf.ParticleModel(init, trans, obs)
+
+
+def _ar1_lgssm(phi, dev, q=0.3, r=0.4):
+    from bayesianinference_tpu_torch.ops import kalman
+
+    phi = torch.as_tensor(phi, dtype=torch.float64, device=dev).reshape(-1, 1, 1)
+    one = torch.ones_like(phi)
+    return kalman.LGSSM(phi, q**2 * one, one, r**2 * one, torch.zeros(phi.shape[:-1], dtype=torch.float64,
+                                                                        device=dev), q**2 / (1 - phi**2))
+
+
+def _ar1_data(dev):
+    """tests/test_particle.py's AR(1) model (phi = 0.85) and its T = 150
+    series [150, 1], drawn on ``dev`` from seed 0."""
+    from bayesianinference_tpu_torch.ops import kalman
+
+    truth = _ar1_lgssm(0.85, dev)
+    return truth, kalman.kalman_sample(torch.Generator(device=dev).manual_seed(0), truth, 150)[1][0]
+
+
+def _pmmh_run(dev, y, warmup, samples, generator, particles=512, chains=8):
+    from bayesianinference_tpu_torch.engines import particle
+
+    return particle.pmmh_sample(lambda th: _ar1_particle_model(th[0], dev), y, [("phi", 0.3, 0.99)], generator,
+                                num_particles=particles, num_samples=samples, num_warmup=warmup, num_chains=chains)
+
+
+def _pmmh_oracle(dev: str, pm_particles=512, pm_warmup=250, pm_samples=250, pm_chains=8) -> dict:
+    """19c's PMMH run for the exact grid posterior (tests/test_particle.py:163-200):
+    a host-bound loop of eager filter steps that reaches no hand-written
+    kernel, so it runs in a worker process of 18b's pool beside phases 18
+    and 19a-b (it fails if a kernel launched there).  Its series, draws,
+    acceptance rates, sizes and seconds."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    dev = torch.device(dev)
+    _, y = _ar1_data(dev)
+    t0 = time.perf_counter()
+    res = _pmmh_run(dev, y, pm_warmup, pm_samples, torch.Generator(device=dev).manual_seed(4), pm_particles,
+                    pm_chains)
+    draws = res.points[:, 0].cpu().numpy()
+    seconds = time.perf_counter() - t0
+    if gk.se_covariance_cuda.launches or gk.cholesky_cuda.launches:
+        raise AssertionError("19c PMMH: a hand-written kernel launched in the worker process")
+    return dict(y=y.cpu().numpy(), draws=draws, acc=res.acceptance_rate.cpu().numpy(), seconds=seconds,
+                sizes=(pm_chains, pm_particles, pm_warmup, pm_samples))
+
+
+def _phase19c_particle(smi, dev, particles=4096, seeds=8, pmmh=None, times=True, **pm):
+    """19c; ``pmmh`` is (pool, pending result) of :func:`_pmmh_oracle` run in
+    18b's pool, or None to run it here with the keyword arguments ``pm``."""
+    from bayesianinference_tpu_torch.ops import kalman
+    from bayesianinference_tpu_torch.ops import particle as opf
+    from bayesianinference_tpu_torch.ops import rbpf
+
+    lines = _Lines()
+    truth, y = _ar1_data(dev)
+    exact = float(kalman.kalman_log_likelihood(truth, y[:, 0])[0])
+    g = torch.Generator(device=dev).manual_seed(1)
+    # the seeds' filters as one batch of independent filters of one model
+    ests = opf.batched_log_likelihood(lambda th: _ar1_particle_model(0.85, dev), torch.zeros((seeds, 1), device=dev),
+                                      y, particles, g, 0.5, None).cpu().numpy()
+    if not (abs(ests.mean() - exact) < 0.25 and ests.std() < 0.3):
+        raise AssertionError(f"19c bootstrap filter: {ests} against Kalman {exact}")
+    lines.append(f"bootstrap filter at P = {particles} over {seeds} seeds: mean {ests.mean():.4f} against Kalman "
+                 f"{exact:.4f} (0.25), sd {ests.std():.4f} (0.3)")
+    # the degenerate RBPF is one Kalman filter (tests/test_rbpf.py:55)
+    a2 = torch.tensor([[1.0, 1.0], [0.0, 1.0]], dtype=torch.float64, device=dev)
+    q2 = torch.diag(torch.tensor([0.05, 0.01], dtype=torch.float64, device=dev))
+    h2 = torch.tensor([[1.0, 0.0]], dtype=torch.float64, device=dev)
+    r1, z2 = torch.tensor([[0.4]], dtype=torch.float64, device=dev), torch.zeros(2, dtype=torch.float64, device=dev)
+    eye2 = torch.eye(2, dtype=torch.float64, device=dev)
+    yr = torch.as_tensor(np.random.default_rng(0).normal(size=30), device=dev)
+    exact_r = float(kalman.kalman_log_likelihood(kalman.LGSSM(a2, q2, h2, r1, z2, eye2), yr))
+    degen = rbpf.RBPFModel(lambda gg, p: torch.zeros((p, 1), dtype=torch.float64, device=dev), lambda gg, u, t: u,
+                           lambda u: (z2, eye2), lambda u, t: (a2, z2, q2), lambda u, t: (h2, z2[:1], r1))
+    lls = [float(rbpf.rbpf_log_likelihood(degen, yr, 64, g)) for _ in range(4)]
+    e_r = max(abs(v - exact_r) for v in lls) / abs(exact_r)
+    if not e_r <= 1e-10:
+        raise AssertionError(f"19c degenerate RBPF: {lls} against {exact_r}")
+    lines.append(f"degenerate RBPF against Kalman: {e_r:.1e} (1e-10)")
+
+    # PMMH against the exact grid posterior (tests/test_particle.py:163-200)
+    if pmmh is None:
+        out, where = _pmmh_oracle(str(dev), **pm), "here"
+    else:
+        pool, pending = pmmh
+        t = time.perf_counter()
+        try:
+            out = pending.get()
+        finally:
+            pool.close()
+            pool.join()
+        where = (f"in a worker process of 18b's pool beside phases 18 and 19a-b, waited for "
+                 f"{time.perf_counter() - t:.1f} s here")
+    if not np.allclose(out["y"], y.cpu().numpy(), rtol=1e-12, atol=0.0):
+        raise AssertionError("19c PMMH: the worker's series differs from this process's")
+    draws, acc, wall = out["draws"], out["acc"], out["seconds"]
+    pm_chains, pm_particles, pm_warmup, pm_samples = out["sizes"]
+    grid = np.linspace(0.3, 0.99, 200)
+    logl = kalman.kalman_log_likelihood(_ar1_lgssm(grid, dev), y[:, 0]).cpu().numpy()
+    w = np.exp(logl - logl.max())
+    w /= w.sum()
+    mean_ref = float((grid * w).sum())
+    sd_ref = float(np.sqrt(((grid - mean_ref) ** 2 * w).sum()))
+    ok = (np.all(acc > 0.05) and np.all(acc < 0.7) and abs(draws.mean() - mean_ref) < 3.0 * sd_ref / np.sqrt(50)
+          and abs(draws.std() / sd_ref - 1.0) < 0.35)
+    if not ok:
+        raise AssertionError(f"19c PMMH: acceptance {acc}, mean {draws.mean()} ({mean_ref}), sd {draws.std()} "
+                             f"({sd_ref})")
+    lines.append(f"PMMH ({pm_chains} chains, {pm_particles} particles, {pm_warmup} + {pm_samples} steps): mean "
+                 f"{draws.mean():.4f} against the grid's {mean_ref:.4f} (gate {3.0 * sd_ref / np.sqrt(50):.4f}), sd "
+                 f"ratio {draws.std() / sd_ref:.3f} (0.65-1.35), acceptance {acc.min():.3f}-{acc.max():.3f}; "
+                 f"{wall:.1f} s, {wall / (pm_warmup + pm_samples) * 1e3:.1f} ms a step, {where}")
+    if times:
+        # a call of k steps runs k + 1 filters (the start's and the steps')
+        # and little else: a call of 4 steps alone here gives the wall ms of
+        # one, and half a one-step call's device ms and kernels are one step's
+        def run(steps, seed):
+            return _pmmh_run(dev, y, 0, steps, torch.Generator(device=dev).manual_seed(seed), pm_particles, pm_chains)
+
+        dev_ms, kernels = _profile_call(lambda: run(1, 5), cpu=False)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run(4, 6)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) / 5 * 1e3
+        lines.append(f"PMMH step ({pm_chains} chains x {pm_particles} particles, T = 150): wall {step_ms:.2f} ms "
+                     f"(a 4-step call alone here, by its 5 filters), device {dev_ms / 2:.3f} ms, {kernels / 2:.0f} "
+                     f"CUDA kernels, busy share {dev_ms / 2 / step_ms:.3f}")
+    for line in lines:
+        log(f"  19c {line}")
+
+
+def _phase19d_ibis(smi, dev, particles=4096, batch=5, steps=20, times=True):
+    from bayesianinference_tpu_torch import dists
+    from bayesianinference_tpu_torch.engines.ibis import ibis_sampler
+    from bayesianinference_tpu_torch.models import define_inference_problem
+
+    data = np.random.default_rng(0).normal(1.3, 1.0, size=60)  # tests/test_ibis.py's data
+    tau = 2.0
+    post_var = 1.0 / (1.0 / tau**2 + data.size)
+    post_mean = post_var * data.sum()
+    grid = np.linspace(-10, 10, 4001)
+    ll = -0.5 * ((data[None, :] - grid[:, None]) ** 2).sum(1) - 0.5 * data.size * math.log(2 * math.pi)
+    lp = -0.5 * (grid / tau) ** 2 - math.log(tau) - 0.5 * math.log(2 * math.pi)
+    lz = float(np.logaddexp.reduce(ll + lp) + math.log(grid[1] - grid[0]))
+    yd = torch.as_tensor(data, device=dev)
+    problem = define_inference_problem(
+        parameters=[("mu", -10.0, 10.0)], log_likelihood=lambda th: dists.Normal(th[0], 1.0).log_prob(yd).sum(),
+        prior_distribution=dists.Product((dists.Normal(torch.tensor(0.0, dtype=torch.float64, device=dev),
+                                                       torch.tensor(tau, dtype=torch.float64, device=dev)),)),
+        validate=False, device=dev, dtype=torch.float64)
+
+    def pointwise(th, yy):
+        return dists.Normal(th[0], 1.0).log_prob(yy)
+
+    t = time.perf_counter()
+    res = ibis_sampler(problem, pointwise, yd, torch.Generator(device=dev).manual_seed(1), n_particles=particles,
+                       batch_size=batch, mcmc_steps=steps)
+    w = torch.softmax(res.log_weights, 0).cpu().numpy()
+    x = res.particles[:, 0].cpu().numpy()
+    wall = time.perf_counter() - t
+    mu = float((w * x).sum())
+    var = float((w * (x - mu) ** 2).sum())
+    acc = np.nanmean(res.acceptance_history.cpu().numpy())
+    ok = (abs(float(res.log_evidence) - lz) < 0.2 and abs(float(res.log_predictives.sum() - res.log_evidence))
+          <= 1e-10 * abs(lz) and abs(mu - post_mean) < 4 * math.sqrt(post_var / 1000)
+          and abs(var / post_var - 1.0) < 0.2 and bool(res.resampled.any()) and not bool(res.resampled.all())
+          and acc > 0.1)
+    if not ok:
+        raise AssertionError(f"19d IBIS: logZ {float(res.log_evidence)} ({lz}), mean {mu} ({post_mean}), var {var} "
+                             f"({post_var}), resampled {res.resampled.tolist()}, acceptance {acc}")
+    lines = _Lines()
+    lines.append(f"IBIS ({particles} particles, batch {batch}, {steps} steps): logZ {float(res.log_evidence):.4f} against "
+             f"{lz:.4f} (0.2), mean {mu:.4f} ({post_mean:.4f}), var ratio {var / post_var:.3f}, "
+             f"{int(res.resampled.sum())} of {res.resampled.numel()} stages moved, acceptance {acc:.3f}; "
+             f"{wall:.2f} s")
+    if times:
+        g2 = torch.Generator(device=dev).manual_seed(2)
+        lines.append(_unit_row(f"IBIS stage with a move ({particles} particles, {steps} steps)",
+                               lambda s: ibis_sampler(problem, pointwise, yd[:batch * s], g2, n_particles=particles,
+                                                      batch_size=batch, mcmc_steps=steps, ess_threshold=2.0)))
+    for line in lines:
+        log(f"  19d {line}")
+
+
+def phase_time_series(smi: str, pmmh=None, dev="cuda", **sizes):
+    """Phase 19: the time-series engines (module docstring).  ``pmmh`` is
+    phase 18's (pool, pending result) of 19c's PMMH oracle, or None to run
+    it in 19c.  ``sizes`` shrink 19a-d for a rehearsal (``kalman``,
+    ``hmm``, ``particle``, ``ibis``: keyword arguments of each sub-phase,
+    ``times=False`` among them).  No hand-written kernel lies on this path:
+    the watch holds the launch counters at 0."""
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    seconds = []
+    with _KernelWatch() as watch:
+        watch.zero()
+        for tag, fn, key in (("19a", _phase19a_kalman, "kalman"), ("19b", _phase19b_hmm_bocpd, "hmm"),
+                             ("19c", functools.partial(_phase19c_particle, pmmh=pmmh), "particle"),
+                             ("19d", _phase19d_ibis, "ibis")):
+            t = time.perf_counter()
+            fn(smi, dev, **sizes.get(key, {}))
+            seconds.append(f"{tag} {time.perf_counter() - t:.1f}")
+        total = watch.counts()
+    if total["se_covariance"] or total["cholesky"]:
+        raise AssertionError(f"19: a GP kernel launched on the time-series path: {total}")
+    log(f"[19 time series] {time.perf_counter() - t0:.1f} s ({', '.join(seconds)}); launches {total} "
+        "(no GP kernel on this path)" + ("" if pmmh is None else "; 19a's and 19b's rows beside 19c's PMMH oracle "
+                                        "in a worker process"))
     return total
+
 
 def main():
     t0 = time.perf_counter()
 
     def timed(phase, *args):
-        """Run a phase and print the script's seconds so far."""
+        """Run a phase and print the script's seconds so far, and the
+        phase's seconds in the timing and profiling helpers."""
+        before = _MEASURING["seconds"]
         out = phase(*args)
-        log(f"[seconds] {phase.__name__} done at {time.perf_counter() - t0:.0f} s")
+        log(f"[seconds] {phase.__name__} done at {time.perf_counter() - t0:.0f} s ("
+            f"{_MEASURING['seconds'] - before:.1f} s of it timing and profiling)")
         return out
 
     smi = timed(phase_device)
@@ -4561,10 +5254,19 @@ def main():
     svgp_launches = timed(phase_svgp_bo, smi)
     vi_launches = timed(phase_vi_pathfinder, smi, problem, gp_posterior)
     consumption_launches = timed(phase_consumption, smi, problem, gp_posterior)
-    flow_launches = timed(phase_flow_bnn, smi, problem, gp_posterior)
+    flow_launches, pmmh = timed(phase_flow_bnn, smi, problem, gp_posterior, "cuda", {})
+    try:
+        series_launches = timed(phase_time_series, smi, pmmh)
+    finally:
+        if pmmh is not None:
+            pmmh[0].terminate()
+            pmmh[0].join()
+    total_s = time.perf_counter() - t0
+    log(f"[seconds] all phases {total_s:.0f} s, {_MEASURING['seconds']:.0f} s of them timing and profiling; "
+        f"{1200 - total_s:.0f} s left of the 1200 s limit")
     launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] + par_launches[k]
                 + conj_launches[k] + sampler_launches[k] + latent_launches[k] + svgp_launches[k] + vi_launches[k]
-                + consumption_launches[k] + flow_launches[k] for k in launches}
+                + consumption_launches[k] + flow_launches[k] + series_launches[k] for k in launches}
     # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
     # at bench.py's width (B = 1, n = 16384, f32)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")

@@ -36,7 +36,9 @@ kernels, 1e-10.  The quasi-Bayesian net at the reference's defaults (its
 forward pass, alpha-divergence loss and two training steps on the same
 masks: float64 1e-12, float32 1e-5, gradients and steps at 100 x) and
 three flow-VI steps on the ARD GP through both kernels (float64, against
-CPU tensors on the same draws, 1e-8).
+CPU tensors on the same draws, 1e-8).  The time-series engines: numpy data
+lands on the card, and the Kalman, HMM and BOCPD likelihoods and an IBIS
+run on the same draws match the CPU (float64, 1e-10).
 """
 
 import numpy as np
@@ -787,3 +789,97 @@ def test_flow_steps_on_the_gp_on_the_card_match_the_cpu(cuda, monkeypatch):
     for a, b in ((got.elbo_history, want.elbo_history), (got.elbo, want.elbo), (got.log_evidence, want.log_evidence),
                  *zip(flow_vi._leaves(got.params), flow_vi._leaves(want.params))):
         assert _rel_to(a, b) <= 1e-8
+
+
+def test_time_series_entry_points_default_to_the_card_and_match_the_cpu(cuda):
+    """The time-series engines: numpy data lands on the card when no device
+    is named, and the Kalman, HMM and BOCPD likelihoods, a particle filter on
+    the same draws and an IBIS run on the same draws agree with the same on
+    CPU tensors (float64, 1e-10 of the largest entry)."""
+    from bayesianinference_tpu_torch import dists as td
+    from bayesianinference_tpu_torch.engines import changepoint, hmm, ibis, particle, ssm
+    from bayesianinference_tpu_torch.ops import hmm as ohmm
+    from bayesianinference_tpu_torch.ops import kalman
+    from bayesianinference_tpu_torch.ops import particle as opf
+    from bayesianinference_tpu_torch.ops.bocpd import gaussian_upm
+
+    rng = np.random.default_rng(0)
+    y = rng.normal(size=60)
+    theta = np.array([[0.3, 0.8], [0.1, 1.2]])
+    for method in ("sequential", "parallel"):
+        probs = {dev: ssm.define_state_space_model(
+            y, lambda th: ssm.structural_lgssm([ssm.level_component(th[0])], obs_var=th[1]),
+            parameters=[("lv", 1e-4, 10.0), ("ov", 1e-4, 10.0)], prior_distribution=["scale", "scale"],
+            validate=False, method=method, device=dev, dtype=torch.float64) for dev in (None, "cpu")}
+        assert probs[None].device.type == "cuda" and probs["cpu"].device.type == "cpu"
+        a = probs[None].guarded_log_likelihood(torch.as_tensor(theta, device=cuda))
+        b = probs["cpu"].guarded_log_likelihood(torch.as_tensor(theta))
+        assert _rel_to(a, b) <= 1e-10
+    assert ssm.level_component(0.3).transition.device.type == "cuda"
+
+    yt = torch.as_tensor(y)
+
+    def hmm_builder(ys):
+        def build(th):
+            chain = ohmm.HMM(torch.log(torch.full((2,), 0.5, dtype=th.dtype, device=th.device)),
+                             ohmm.row_stochastic(th[2:][:, None]))
+            return chain, -0.5 * (ys[:, None] - th[:2][None, :]) ** 2
+        return build
+
+    params = [("m0", -6.0, 0.0), ("m1", 0.0, 6.0), ("a", -6.0, 6.0), ("b", -6.0, 6.0)]
+    hp = hmm.define_hidden_markov_model(hmm_builder(yt.to(cuda)), params, prior_distribution=["location"] * 4,
+                                        validate=False, dtype=torch.float64)
+    hc = hmm.define_hidden_markov_model(hmm_builder(yt), params, prior_distribution=["location"] * 4,
+                                        validate=False, device="cpu", dtype=torch.float64)
+    assert hp.device.type == "cuda"
+    th4 = torch.tensor([[-1.0, 1.0, 2.0, 2.0]], dtype=torch.float64)
+    assert _rel_to(hp.guarded_log_likelihood(th4.to(cuda)), hc.guarded_log_likelihood(th4)) <= 1e-10
+
+    cp = changepoint.define_changepoint_model(y, lambda th: (gaussian_upm(), th[0]), [("h", 1e-3, 0.5)],
+                                              prior_distribution=["scale"], validate=False)
+    cc = changepoint.define_changepoint_model(yt, lambda th: (gaussian_upm(), th[0]), [("h", 1e-3, 0.5)],
+                                              prior_distribution=["scale"], validate=False)
+    assert cp.device.type == "cuda"
+    h = torch.tensor([[0.05]], dtype=torch.float64)
+    assert _rel_to(cp.guarded_log_likelihood(h.to(cuda)), cc.guarded_log_likelihood(h)) <= 1e-10
+
+    # a particle filter and a PMMH run on numpy data default to the card
+    def ar1(dev):
+        return opf.ParticleModel(lambda g, n: torch.zeros((n, 1), dtype=torch.float64, device=dev),
+                                 lambda g, x, t: 0.8 * x + 0.3 * torch.randn(x.shape, generator=g, dtype=x.dtype,
+                                                                             device=dev),
+                                 lambda x, y_t, t: -0.5 * (y_t - x[:, 0]) ** 2)
+
+    u = torch.rand(60, dtype=torch.float64)
+    g_card = torch.Generator(device=cuda).manual_seed(0)
+    card = opf.particle_filter(ar1(cuda), yt.to(cuda)[:, None], 64, g_card, uniforms=u.to(cuda))
+    assert card.filter_means.device.type == "cuda" and bool(torch.isfinite(card.log_likelihood))
+    res = particle.pmmh_sample(lambda th: ar1(cuda), y[:, None], [("phi", 0.3, 0.99)], g_card, num_particles=32,
+                               num_samples=3, num_warmup=3, num_chains=2)
+    assert res.samples.device.type == "cuda"
+
+    problem_kw = dict(parameters=[("mu", -10.0, 10.0)], log_likelihood=lambda th: th.sum() * 0.0, validate=False,
+                      dtype=torch.float64)
+    from bayesianinference_tpu_torch.models import define_inference_problem
+
+    pc = define_inference_problem(prior_distribution=td.Product((td.Normal(torch.tensor(0.0, device=cuda),
+                                                                           torch.tensor(2.0, device=cuda)),)),
+                                  device=cuda, **problem_kw)
+    ph = define_inference_problem(prior_distribution=td.Product((td.Normal(torch.tensor(0.0), torch.tensor(2.0)),)),
+                                  device="cpu", **problem_kw)
+    gh = torch.Generator().manual_seed(5)
+    start = torch.randn((128, 1), generator=gh, dtype=torch.float64)
+    draws = [ibis.ibis_stage_draws(gh, 128, 1, 4, dtype=torch.float64) for _ in range(6)]
+    pw = lambda th, yy: -0.5 * (yy - th[0]) ** 2  # noqa: E731
+    got = ibis.ibis_sampler(pc, pw, yt.to(cuda), None, n_particles=128, batch_size=10, mcmc_steps=4,
+                            starting_points=start.to(cuda),
+                            draws=[ibis.IBISStageDraws(*(a.to(cuda) for a in d)) for d in draws])
+    want = ibis.ibis_sampler(ph, pw, yt, None, n_particles=128, batch_size=10, mcmc_steps=4, starting_points=start,
+                             draws=draws)
+    assert bool((got.resampled.cpu() == want.resampled).all())
+    assert _rel_to(got.log_predictives, want.log_predictives) <= 1e-10
+    assert _rel_to(got.particles, want.particles) <= 1e-10
+    fr = kalman.kalman_filter(kalman.LGSSM(*(torch.eye(1, dtype=torch.float64, device=cuda),) * 4,
+                                           torch.zeros(1, dtype=torch.float64, device=cuda),
+                                           torch.eye(1, dtype=torch.float64, device=cuda)), y)
+    assert fr.log_likelihood.device.type == "cuda"

@@ -19,6 +19,7 @@ first use.
 
 import importlib
 import inspect
+import re
 import subprocess
 import sys
 import types
@@ -28,31 +29,10 @@ import pytest
 
 import bayesianinference_tpu_torch as bi
 
-SLICE_13 = "queue 1 item 4: slice 13, the closed-form time-series engines"
-SLICE_14 = "queue 1 item 5: slice 14, the particle family and IBIS"
 PARALLEL = "queue 1 item 6: single-card counterparts of parallel/"
 MULTI_CARD = "queue 1 item 7: the multi-card engines"
 
 UNPORTED = {
-    "engines": {
-        **dict.fromkeys(["changepoint_probability", "define_changepoint_model", "run_length_posterior",
-                         "define_hidden_markov_model", "forecast_regime_probabilities", "most_likely_states",
-                         "regime_probabilities", "sample_hidden_paths", "SSMComponent", "ar_component",
-                         "define_state_space_model", "forecast_observations", "level_component",
-                         "seasonal_component", "sample_state_paths", "smoothed_states", "structural_lgssm",
-                         "trend_component"], SLICE_13),
-        **dict.fromkeys(["IBISResult", "ibis_sampler", "PMMHResult", "pmmh_sample"], SLICE_14),
-    },
-    "ops": {
-        **dict.fromkeys(["LGSSM", "FilterResult", "SmootherResult", "kalman_filter", "kalman_forecast",
-                         "kalman_log_likelihood", "kalman_sample", "kalman_smoother", "simulation_smoother",
-                         "BOCPDResult", "UPM", "bocpd", "changepoint_probabilities", "gaussian_upm", "poisson_upm",
-                         "HMM", "HMMFilterResult", "hmm_filter", "hmm_forecast", "hmm_log_likelihood",
-                         "hmm_posterior_sample", "hmm_sample_states", "hmm_smoother", "hmm_viterbi",
-                         "row_stochastic"], SLICE_13),
-        **dict.fromkeys(["ParticleModel", "particle_filter", "particle_forecast", "particle_log_likelihood",
-                         "RBPFModel", "RBPFResult", "rbpf_filter", "rbpf_log_likelihood"], SLICE_14),
-    },
     "parallel": {
         **dict.fromkeys(["parallel_dynamic_nested_sampling", "parallel_ensemble", "parallel_hmc", "parallel_ibis",
                          "parallel_smc"], PARALLEL),
@@ -64,6 +44,24 @@ UNPORTED = {
                         MULTI_CARD),
     },
 }
+# queue 1 items 4 and 5 (slices 13 and 14), ported together: the time-series
+# engines, asserted here by name and by module
+TIME_SERIES = {
+    "engines": ["changepoint_probability", "define_changepoint_model", "run_length_posterior",
+                "define_hidden_markov_model", "forecast_regime_probabilities", "most_likely_states",
+                "regime_probabilities", "sample_hidden_paths", "SSMComponent", "ar_component",
+                "define_state_space_model", "forecast_observations", "level_component", "seasonal_component",
+                "sample_state_paths", "smoothed_states", "structural_lgssm", "trend_component", "IBISResult",
+                "ibis_sampler", "PMMHResult", "pmmh_sample"],
+    "ops": ["LGSSM", "FilterResult", "SmootherResult", "kalman_filter", "kalman_forecast", "kalman_log_likelihood",
+            "kalman_sample", "kalman_smoother", "simulation_smoother", "BOCPDResult", "UPM", "bocpd",
+            "changepoint_probabilities", "gaussian_upm", "poisson_upm", "HMM", "HMMFilterResult", "hmm_filter",
+            "hmm_forecast", "hmm_log_likelihood", "hmm_posterior_sample", "hmm_sample_states", "hmm_smoother",
+            "hmm_viterbi", "row_stochastic", "ParticleModel", "particle_filter", "particle_forecast",
+            "particle_log_likelihood", "RBPFModel", "RBPFResult", "rbpf_filter", "rbpf_log_likelihood"],
+}
+TIME_SERIES_MODULES = ["ops.kalman", "ops.hmm", "ops.bocpd", "ops.particle", "ops.rbpf", "engines.ssm",
+                       "engines.hmm", "engines.changepoint", "engines.particle", "engines.ibis"]
 WORKAROUNDS = {
     "ops": {"se_covariance_pallas": "the port's custom op ops.gp_kernels.se_covariance replaces the Pallas call"},
     "parallel": dict.fromkeys(["Mesh", "NamedSharding", "P", "make_mesh", "replicated", "shard_data"],
@@ -107,6 +105,24 @@ def test_this_slices_modules_export_every_name_of_their_jax_module(module):
     jax_mod, port_mod = _modules(module)
     assert set(jax_mod.__all__) <= set(port_mod.__all__)
     assert all(hasattr(port_mod, n) for n in port_mod.__all__)
+
+
+@pytest.mark.parametrize("sub", sorted(TIME_SERIES))
+def test_the_time_series_names_are_exported(sub):
+    jax_mod, port_mod = _modules(sub)
+    names = TIME_SERIES[sub]
+    assert set(names) <= set(jax_mod.__all__)
+    assert all(hasattr(port_mod, n) for n in names)
+    assert not set(names) & set(UNPORTED.get(sub, {}))
+
+
+@pytest.mark.parametrize("module", TIME_SERIES_MODULES)
+def test_the_time_series_modules_export_every_name_of_their_jax_module(module):
+    jax_mod, port_mod = _modules(module)
+    assert set(jax_mod.__all__) <= set(port_mod.__all__)
+    assert all(hasattr(port_mod, n) for n in port_mod.__all__)
+    imports = re.compile(r"^\s*(import|from)\s+(jax|bayesianinference_tpu\b(?!_torch))", re.M)
+    assert not imports.search(Path(port_mod.__file__).read_text())
 
 
 def test_the_package_imports_its_subpackages_and_loads_utils_lazily():
