@@ -17,7 +17,10 @@ the shrinkage ``-log t_i ~ Exp(1) / m_i`` applies unchanged.
 
 Every segment is the same loop as
 :func:`.nested_sampling.nested_sampling_loop` (a batch sets
-``stop_at_log_likelihood``).  The event merge is a host-side numpy sort,
+``stop_at_log_likelihood``), run through
+:func:`.nested_sampling.run_loop_batched`, so that one function
+(:func:`_dynamic_runs`) serves this engine (one run a stage) and the
+parallel engine (R runs a stage).  The event merge is a host-side numpy sort,
 once per batch stage; the evidence post-processing runs on the device.
 """
 
@@ -25,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,11 +40,14 @@ from ..ops.metropolis import am_init, proposal_chol, run_chain
 from ..ops.ns_math import entropy_from_weights, log_trapezoid_weights
 from .evidence import MeanAndError, NestedSamplingResult, _exponential, _mean_and_error
 from .nested_sampling import (
+    NSBatchState,
     NSRunData,
+    _init_batch,
     default_monte_carlo_steps,
     generate_starting_points,
-    nested_sampling_loop,
+    make_loop_config,
     resolve_monte_carlo_method,
+    run_loop_batched,
     shared_factor,
     shared_factor_chains,
 )
@@ -72,23 +78,31 @@ class NSSegment:
     num_likelihood_evals: int = 0
 
 
+def _segments_from_batch(b: NSBatchState, n_live: int, num_delete: int, constraint_logl: float) -> List[NSSegment]:
+    """The R runs of a batch state as R segments (one copy to the host per
+    array, whatever R)."""
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    dp, dl, dpr = host(b.dead_points), host(b.dead_logl), host(b.dead_logp)
+    lp, ll, lpr, evals = host(b.live_points), host(b.live_logl), host(b.live_logp), host(b.num_likelihood_evals)
+    segments = []
+    for r, nd in enumerate(b.n_dead):
+        order = np.argsort(ll[r], kind="stable")
+        segments.append(NSSegment(
+            points=np.concatenate([dp[r, :nd], lp[r][order]]),
+            log_likelihoods=np.concatenate([dl[r, :nd], ll[r][order]]),
+            log_priors=np.concatenate([dpr[r, :nd], lpr[r][order]]),
+            n_live=n_live,
+            num_delete=num_delete,
+            n_dead=nd,
+            constraint_logl=float(constraint_logl),
+            num_likelihood_evals=int(evals[r]),
+        ))
+    return segments
+
+
 def segment_from_run(run: NSRunData, constraint_logl: float = -math.inf) -> NSSegment:
     """A loop's output as an :class:`NSSegment` (one copy to the host)."""
-    s = run.state
-    nd = s.n_dead
-    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
-    ll = host(s.live_logl)
-    order = np.argsort(ll, kind="stable")
-    return NSSegment(
-        points=np.concatenate([host(s.dead_points[:nd]), host(s.live_points)[order]]),
-        log_likelihoods=np.concatenate([host(s.dead_logl[:nd]), ll[order]]),
-        log_priors=np.concatenate([host(s.dead_logp[:nd]), host(s.live_logp)[order]]),
-        n_live=run.n_live,
-        num_delete=run.num_delete,
-        n_dead=nd,
-        constraint_logl=float(constraint_logl),
-        num_likelihood_evals=int(s.num_likelihood_evals),
-    )
+    return _segments_from_batch(NSBatchState.of_state(run.state), run.n_live, run.num_delete, constraint_logl)[0]
 
 
 def merge_segments(segments):
@@ -330,37 +344,93 @@ def dynamic_nested_sampling(
     All segments merge exactly (:func:`merge_segments`) and go through the
     variable-pool evidence post-processing; the result is a standard
     :class:`~.evidence.NestedSamplingResult`."""
+    if starting_points is not None:
+        starting_points = torch.as_tensor(starting_points, dtype=problem.dtype, device=problem.device)[None]
+    return _dynamic_runs(
+        problem, generator, 1, starting_points, sample_pool_size=sample_pool_size, num_batches=num_batches,
+        batch_size=batch_size, target_posterior_ess=target_posterior_ess, posterior_fraction=posterior_fraction,
+        importance_fraction=importance_fraction, monte_carlo_steps=monte_carlo_steps,
+        monte_carlo_method=monte_carlo_method, num_delete=num_delete, max_iterations=max_iterations,
+        batch_max_iterations=batch_max_iterations, post_process_sampling_runs=post_process_sampling_runs,
+        empirical_posterior_type=empirical_posterior_type, **loop_kwargs)
+
+
+def _dynamic_runs(
+    problem: InferenceProblem,
+    generator: Optional[torch.Generator],
+    num_runs: int,
+    starting_points: Optional[torch.Tensor],
+    *,
+    sample_pool_size: int = 100,
+    num_batches: int = 4,
+    batch_size: Optional[int] = None,
+    target_posterior_ess: Optional[float] = None,
+    posterior_fraction: float = 1.0,
+    importance_fraction: float = 0.8,
+    monte_carlo_steps=None,
+    monte_carlo_method: str = "auto",
+    num_delete: int = 1,
+    max_iterations: int = 10000,
+    batch_max_iterations: int = 5000,
+    post_process_sampling_runs: Optional[int] = 100,
+    empirical_posterior_type: str = "Simple",
+    **loop_kwargs,
+) -> NestedSamplingResult:
+    """:func:`dynamic_nested_sampling` with ``num_runs`` (R) runs a stage,
+    each stage one :func:`.nested_sampling.run_loop_batched` call: the base
+    run is R runs of ``sample_pool_size`` live points (from
+    ``starting_points`` [R, pool, d], or prior draws), and each stage adds R
+    batches of ``batch_size`` live points at one constraint interval, so
+    ``num_batches`` batches take ``ceil(num_batches / R)`` stages.  The
+    user's ``min_iterations`` applies to the base run; the batches run from
+    ``min_iterations=1`` to their level.  With R = 1 this is the single-run
+    engine."""
     if not 0.0 <= posterior_fraction <= 1.0:
         raise ValueError("posterior_fraction must be in [0, 1]")
     if not 0.0 < importance_fraction < 1.0:
         raise ValueError("importance_fraction must be in (0, 1)")
+    if num_runs < 1:
+        raise ValueError("num_runs must be >= 1")
     if generator is None:
         generator = torch.Generator(device=problem.device).manual_seed(0)
     batch_size = batch_size or sample_pool_size
+    pool = sample_pool_size if starting_points is None else int(starting_points.shape[1])
+    if num_delete < 1 or num_delete >= min(int(pool), int(batch_size)):
+        raise ValueError(
+            "need 1 <= num_delete < min(sample_pool_size, batch_size) "
+            f"(got num_delete={num_delete}, sample_pool_size={sample_pool_size}, batch_size={batch_size})")
     method = resolve_monte_carlo_method(monte_carlo_method, problem.dim, gradient_check=problem.gradient_sanity)
     if monte_carlo_steps is None:
         monte_carlo_steps = default_monte_carlo_steps(method, problem.dim)
-    chains = dict(monte_carlo_steps=monte_carlo_steps, monte_carlo_method=method, num_delete=num_delete)
+    loop_kwargs = dict(loop_kwargs)
+    base_min = loop_kwargs.pop("min_iterations", None)
+    chains = dict(monte_carlo_steps=monte_carlo_steps, monte_carlo_method=method, num_delete=num_delete,
+                  **loop_kwargs)
+    base_cfg = make_loop_config(problem.dim, max_iterations=max_iterations,
+                                **({} if base_min is None else {"min_iterations": base_min}), **chains)
+    cfg = make_loop_config(problem.dim, max_iterations=batch_max_iterations, min_iterations=1, **chains)
 
     if starting_points is None:
-        starting_points = generate_starting_points(problem, generator, sample_pool_size)
-    base = nested_sampling_loop(problem, starting_points, generator, max_iterations=max_iterations,
-                                **chains, **loop_kwargs)
-    segments = [segment_from_run(base)]
+        starting_points = torch.stack([generate_starting_points(problem, generator, sample_pool_size)
+                                       for _ in range(num_runs)])
+    base = run_loop_batched(problem, _init_batch(problem, starting_points, base_cfg.capacity), generator, base_cfg,
+                            n_live=pool)
+    segments = _segments_from_batch(base, pool, num_delete, -math.inf)
     extra_evals = 0
-    for _ in range(int(num_batches)):
+    for _ in range(-(-int(num_batches) // num_runs)):
         stage = _stage_interval(segments, posterior_fraction=posterior_fraction,
                                 importance_fraction=importance_fraction,
                                 target_posterior_ess=target_posterior_ess, device=problem.device)
         if stage is None:
             break
         log_l_lo, log_l_hi, pts, logl = stage
-        seeds, evals = _stage_seeds(problem, generator, pts, logl, log_l_lo, batch_size,
+        seeds, evals = _stage_seeds(problem, generator, pts, logl, log_l_lo, num_runs * batch_size,
                                     num_delete=num_delete, monte_carlo_steps=monte_carlo_steps, method=method)
-        run = nested_sampling_loop(problem, seeds, generator, max_iterations=batch_max_iterations,
-                                   min_iterations=1, stop_at_log_likelihood=log_l_hi, **chains, **loop_kwargs)
-        segments.append(segment_from_run(run, constraint_logl=log_l_lo))
         extra_evals += evals
+        runs = run_loop_batched(problem, _init_batch(problem, seeds.reshape(num_runs, batch_size, problem.dim),
+                                                     cfg.capacity),
+                                generator, cfg, n_live=batch_size, stop_at_log_likelihood=log_l_hi)
+        segments.extend(_segments_from_batch(runs, batch_size, num_delete, log_l_lo))
 
     pts, logl, logp, m = merge_segments(segments)
     as_t = lambda a: torch.as_tensor(a, dtype=problem.dtype, device=problem.device)  # noqa: E731

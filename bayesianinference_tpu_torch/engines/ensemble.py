@@ -12,6 +12,7 @@ The JAX package's jit and ``lru_cache`` program caches are not ported.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable, Optional, Tuple, Union
 
 import torch
@@ -51,17 +52,24 @@ class EnsembleResult:
         return self.samples[..., i]
 
 
-def _run(x0, generator, log_density_batch, num_warmup, num_samples, thinning, move, knob):
+def _run(x0, generator, log_density_batch, num_warmup, num_samples, thinning, move, knob, draws=None):
     """Warmup sweeps, then ``num_samples`` recorded states each
     ``thinning`` sweeps apart.  ``knob`` is the move's one tuning number:
-    the stretch scale ``a`` or the mode-jump probability.  Returns (samples
-    [W, num_samples, d], acceptance [W] of the recorded sweeps)."""
+    the stretch scale ``a`` or the mode-jump probability.  ``draws`` (the
+    two halves' draws with a leading sweep axis, in run order) replace the
+    generator's numbers.  Returns (samples [W, num_samples, d], acceptance
+    [W] of the recorded sweeps)."""
     w, d = x0.shape
     state = ensemble_init(x0, log_density_batch)
+    sweeps = itertools.count()
 
     def sweep(st):
-        return ensemble_sweep(ensemble_draws(generator, w, d, move=move, dtype=x0.dtype), st, log_density_batch,
-                              move=move, a=knob, gamma_jump_prob=knob)
+        if draws is None:
+            sweep_draws = ensemble_draws(generator, w, d, move=move, dtype=x0.dtype)
+        else:
+            s = next(sweeps)
+            sweep_draws = tuple(type(half)(*(a[s] for a in half)) for half in draws)
+        return ensemble_sweep(sweep_draws, st, log_density_batch, move=move, a=knob, gamma_jump_prob=knob)
 
     for _ in range(num_warmup):
         state = sweep(state)
@@ -107,6 +115,7 @@ def ensemble_sample(
     gamma_jump_prob: Optional[float] = None,
     starting_points=None,
     device=None,
+    draws=None,
 ) -> EnsembleResult:
     """Run an affine-invariant ensemble of ``num_walkers`` walkers.
 
@@ -120,14 +129,16 @@ def ensemble_sample(
     ``stretch_scale``, default a = 2) or ``"de"`` (knob
     ``gamma_jump_prob``, default 0.1); the other move's knob raises.
     ``num_walkers`` must be even and at least 2d + 2.  Each recorded draw
-    is one sweep, thinned by ``thinning``."""
+    is one sweep, thinned by ``thinning``.  ``draws`` (the two halves'
+    ``StretchDraws`` or ``DEDraws`` with a leading sweep axis, warmup
+    first) replace the generator's numbers of the sweeps."""
     if move not in ("stretch", "de"):
         raise ValueError(f'unknown move {move!r}; use "stretch" or "de"')
     if num_walkers % 2 != 0 or num_walkers < 4:
         raise ValueError(f"num_walkers must be even and >= 4, got {num_walkers}")
     knob = _resolve_move_knob(move, stretch_scale, gamma_jump_prob)
     run = dict(num_warmup=int(num_warmup), num_samples=int(num_samples), thinning=int(thinning), move=move,
-               knob=knob)
+               knob=knob, draws=draws)
 
     if isinstance(target, InferenceProblem):
         _check_walkers(num_walkers, target.dim)

@@ -28,12 +28,14 @@ __all__ = ["HMCResult", "hmc_sample"]
 
 
 def _run_kernel(generator, z0, z_density, *, num_warmup, num_samples, num_leapfrog, thinning, target_accept,
-                initial_step_size, dense_mass, max_leapfrog):
+                initial_step_size, dense_mass, max_leapfrog, draws=None):
     """Fixed-length or ChEES trajectories, with one return shape (samples,
     states, step size, inverse mass, trajectory length); the fixed kernel's
-    length is ``num_leapfrog * step_size``."""
+    length is ``num_leapfrog * step_size``.  ``draws`` (``HMCDraws``, or
+    ``ChEESDraws`` for ``"auto"``, with a leading trajectory axis) replace
+    the generator's numbers."""
     kw = dict(num_warmup=num_warmup, num_samples=num_samples, thinning=thinning, target_accept=target_accept,
-              initial_step_size=initial_step_size, dense_mass=dense_mass)
+              initial_step_size=initial_step_size, dense_mass=dense_mass, draws=draws)
     if num_leapfrog == "auto":
         from ..ops.chees import chees_warmup_and_sample
 
@@ -54,16 +56,17 @@ def z_space_density(problem: InferenceProblem, bij) -> Callable:
 
 
 def bijected_warmup_and_sample(x0, generator, problem: InferenceProblem, *, num_warmup, num_samples, num_leapfrog,
-                               thinning, target_accept, initial_step_size, dense_mass=False, max_leapfrog=256):
+                               thinning, target_accept, initial_step_size, dense_mass=False, max_leapfrog=256,
+                               draws=None):
     """Warmup and sampling in z-space through the box bijection, from the
-    constrained starting points ``x0`` [C, d].  Returns (constrained
-    samples, final states, step size, inverse mass in z-space, trajectory
-    length)."""
+    constrained starting points ``x0`` [C, d]; ``draws`` as for
+    :func:`_run_kernel`.  Returns (constrained samples, final states, step
+    size, inverse mass in z-space, trajectory length)."""
     bij = box_bijection(problem.lower, problem.upper)
     z_samples, states, step_size, inv_mass, traj_len = _run_kernel(
         generator, bij.to_z(x0), z_space_density(problem, bij), num_warmup=num_warmup, num_samples=num_samples,
         num_leapfrog=num_leapfrog, thinning=thinning, target_accept=target_accept,
-        initial_step_size=initial_step_size, dense_mass=dense_mass, max_leapfrog=max_leapfrog)
+        initial_step_size=initial_step_size, dense_mass=dense_mass, max_leapfrog=max_leapfrog, draws=draws)
     return bij.to_x(z_samples), states, step_size, inv_mass, traj_len
 
 
@@ -119,6 +122,7 @@ def hmc_sample(
     dense_mass: bool = False,
     max_leapfrog: int = 256,
     device=None,
+    draws=None,
 ) -> HMCResult:
     """Run ``num_chains`` HMC chains, batched, with a windowed warmup.
 
@@ -136,7 +140,9 @@ def hmc_sample(
     mass.  ``starting_points="pathfinder"`` starts the chains at draws of a
     Pathfinder fit (``min(max(num_chains, 4), 8)`` paths, 128 draws per
     path) made from ``generator`` first; ``"flow"`` at draws of a flow-VI
-    fit (1000 steps, 256 final draws), as the JAX package does."""
+    fit (1000 steps, 256 final draws), as the JAX package does.  ``draws``
+    (``HMCDraws``, or ``ChEESDraws`` for ``"auto"``, one row per
+    trajectory) replace the generator's numbers of the chains."""
     if num_leapfrog != "auto" and (not isinstance(num_leapfrog, int) or num_leapfrog < 1):
         raise ValueError(f'num_leapfrog must be a positive int or "auto", got {num_leapfrog!r}')
     if isinstance(starting_points, str):
@@ -157,7 +163,7 @@ def hmc_sample(
             starting_points = fl.sample(generator, num_chains)
     kw = dict(num_warmup=num_warmup, num_samples=num_samples, num_leapfrog=num_leapfrog, thinning=thinning,
               target_accept=float(target_accept), initial_step_size=float(initial_step_size),
-              dense_mass=bool(dense_mass), max_leapfrog=int(max_leapfrog))
+              dense_mass=bool(dense_mass), max_leapfrog=int(max_leapfrog), draws=draws)
 
     if isinstance(target, InferenceProblem):
         dev = target.device

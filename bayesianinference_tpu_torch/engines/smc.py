@@ -21,9 +21,10 @@ bisection is a fixed number of batched steps with no read.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import warnings
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,13 +32,14 @@ import torch
 from ..core.containers import WeightedSamples
 from ..core.numerics import log_zero, logsumexp
 from ..models.problem import InferenceProblem
-from ..ops.metropolis import am_init, proposal_chol, run_chain
+from ..ops.metropolis import am_block, am_init, proposal_chol, run_chain
 from ..results.diagnostics import _host
 from .evidence import MeanAndError
 
 __all__ = [
     "SMCConfig",
     "SMCResult",
+    "SMCStageDraws",
     "smc_sampler",
     "smc_log_evidence",
     "states_to_result",
@@ -75,6 +77,17 @@ class SMCConfig(NamedTuple):
     ess_target: float = 0.5  # target ESS fraction of the delta-beta search
     covariance_learn_delay: int = 10
     bisection_iters: int = 50
+
+
+class SMCStageDraws(NamedTuple):
+    """One stage's random inputs for R ladders of n particles: the
+    resampling offsets ``offset`` [R] (uniforms) and the rejuvenation
+    block's normals ``z`` [R n, d, mcmc_steps] and acceptance log-uniforms
+    ``log_u`` [R n, mcmc_steps] (see :func:`..ops.metropolis.am_draws`)."""
+
+    offset: torch.Tensor
+    z: torch.Tensor
+    log_u: torch.Tensor
 
 
 class _SMCState(NamedTuple):
@@ -167,9 +180,11 @@ def _tempered_density(problem: InferenceProblem, beta, lz: float):
 
 
 def _smc_ladders(problem: InferenceProblem, particles: torch.Tensor, generator: torch.Generator,
-                 cfg: SMCConfig) -> _SMCState:
+                 cfg: SMCConfig, draws: Optional[Sequence[SMCStageDraws]] = None) -> _SMCState:
     """All R ladders in one stage loop over a flat chain batch, from the
-    [R, n, d] prior particles to beta = 1."""
+    [R, n, d] prior particles to beta = 1.  ``draws[t]`` (one
+    :class:`SMCStageDraws` per pass of the stage loop) replaces the
+    generator's numbers of pass t."""
     num_runs, n, d = particles.shape
     dtype, dev = particles.dtype, particles.device
     lz = log_zero(dtype)
@@ -187,7 +202,7 @@ def _smc_ladders(problem: InferenceProblem, particles: torch.Tensor, generator: 
         logl_var_hist=nan_hist(), logl_mean0=mean0, logl_var0=var0,
     )
 
-    while True:
+    for t in itertools.count():
         active = (s.beta < 1.0) & (s.stage < cfg.max_stages)  # [R]
         if not bool(active.any()):  # the loop's one host read per stage
             break
@@ -202,7 +217,9 @@ def _smc_ladders(problem: InferenceProblem, particles: torch.Tensor, generator: 
         log_z = s.log_z + torch.where(active, inc, torch.zeros_like(inc))
         ess_frac = _ess_fraction(delta, s.logl, n)
 
-        u = torch.rand((num_runs,), generator=generator, dtype=dtype, device=dev)
+        stage_draws = None if draws is None else draws[t]
+        u = (torch.rand((num_runs,), generator=generator, dtype=dtype, device=dev) if stage_draws is None
+             else stage_draws.offset)
         idx = _systematic_resample(u, lw)  # [R, n]
         resampled = torch.gather(s.particles, 1, idx[:, :, None].expand(-1, -1, d))
 
@@ -215,7 +232,10 @@ def _smc_ladders(problem: InferenceProblem, particles: torch.Tensor, generator: 
         rep = lambda a: torch.repeat_interleave(a, n, dim=0)  # noqa: E731
         density = _tempered_density(problem, rep(beta_new), lz)
         st = am_init(resampled.reshape(num_runs * n, d), density, mean0=rep(means), t0=10, chol0=rep(chols))
-        st = run_chain(generator, st, density, cfg.mcmc_steps, cfg.covariance_learn_delay)
+        if stage_draws is None:
+            st = run_chain(generator, st, density, cfg.mcmc_steps, cfg.covariance_learn_delay)
+        else:
+            st = am_block(st, density, stage_draws.z, stage_draws.log_u, cfg.covariance_learn_delay)
         xs = st.x.reshape(num_runs, n, d)
         logl = problem.guarded_log_likelihood(xs)
         acc_rate = st.accepted.reshape(num_runs, n).sum(dim=1).to(dtype) / (n * cfg.mcmc_steps)

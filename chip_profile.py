@@ -44,7 +44,9 @@ step); the unit is a leapfrog step (one batched value-and-gradient).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -205,13 +207,336 @@ def _hmc_workloads(smi: str, out: dict) -> None:
               f"of device time | {smi}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The timing rows of chip_smoke.py phases 14-19 (--smoke-rows).  The smoke run
+# keeps every gate and launch count of those phases; their timing-only rows
+# run here, under the names they had there.  Phase 5's kernel times, which
+# feed the smoke run's kernels line, stay in chip_smoke.py.
+# ---------------------------------------------------------------------------
+
+
+def _unit_costs(runs, reps=1) -> list:
+    """Per unit (wall ms, device ms, CUDA kernels) of each ``(name, run,
+    least)``: ``run(s)`` does ``s`` units, each of at least ``least`` CUDA
+    kernels; by difference of 3 units and 1.  A trace can lose the records
+    of its first kernels, so a window that holds fewer than its bound (1
+    unit's ``least``; 1 unit's count plus 2 ``least`` for 3) is taken again;
+    the differenced device ms must be positive."""
+    import chip_smoke as cs
+
+    def profiled(fn, bound, what):
+        for attempt in range(5):
+            dev_ms, kernels = cs._profile_call(fn, cpu=False, warm=attempt > 0)
+            if kernels >= bound:
+                return dev_ms, kernels
+        raise AssertionError(f"{what}: torch.profiler kept losing kernel records ({kernels} seen, at least "
+                             f"{bound} expected)")
+
+    out = []
+    for name, run, least in runs:
+        w_lo, w_hi = cs._wall_ms(lambda: run(1), reps=reps), cs._wall_ms(lambda: run(3), reps=reps)
+        d_lo, k_lo = profiled(lambda: run(1), least, name)
+        d_hi, k_hi = profiled(lambda: run(3), k_lo + 2 * least, name)
+        wall, devm, kern = (w_hi - w_lo) / 2, (d_hi - d_lo) / 2, (k_hi - k_lo) / 2
+        if not (devm > 0 and kern > 0):
+            raise AssertionError(f"{name}: per unit device {devm} ms, {kern} CUDA kernels")
+        out.append(f"{name}: wall {wall:.2f} ms, device {devm:.3f} ms, {kern:.0f} CUDA kernels, busy share "
+                   f"{devm / wall if wall > 0 else math.nan:.3f}")
+    return out
+
+
+def _phase15_times(smi, dev):
+    """The kernels at this slice's new shapes against their plain versions,
+    their bounds and cholesky_ex (device ms in turns)."""
+    import chip_smoke as cs
+
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    lines = []
+    one32 = torch.full((1,), 2.0, device=dev)
+    z = 6.0 * torch.rand((1, cs.SVGP_M, 2), generator=g, device=dev) - 3.0
+    points = lambda n: 6.0 * torch.rand((1, n, 2), generator=g, device=dev) - 3.0  # noqa: E731
+    for what, x2, n2 in (("K_zz", None, cs.SVGP_M), ("K_zx", points(cs.SVGP_B), cs.SVGP_B),
+                         ("K_zx full data", points(cs.SVGP_N), cs.SVGP_N)):
+        kw = dict(reps=3, groups=3, per_group=5 if n2 <= cs.SVGP_B else 3)
+        ms, plain_ms, _, _ = cs._in_turns(lambda: gk.se_covariance_cuda(z, x2, one32),
+                                          lambda: gk.se_covariance_plain(z, x2, one32), **kw)
+        bound, by = cs._se_bound(z, x2, one32, None, None)
+        lines.append(f"SE {what} [{cs.SVGP_M}, {n2}] f32: {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound:.2e} by "
+                     f"{by})")
+    lines.append(cs._chol_turns(cs.SVGP_M, torch.float32, dev))
+    for dt in (torch.float32, torch.float64):
+        x = torch.rand((1, 64, 2), generator=g, device=dev, dtype=dt)
+        q = torch.rand((1, 512, 2), generator=g, device=dev, dtype=dt)
+        var = torch.ones(1, device=dev, dtype=dt)
+        ell = torch.full((1, 2), 0.3, device=dev, dtype=dt)
+        for what, x2 in (("capacity [64, 64]", None), ("cross [64, 512]", q)):
+            ms, plain_ms, _, _ = cs._in_turns(lambda: gk.se_covariance_cuda(x, x2, var, ell),
+                                              lambda: gk.se_covariance_plain(x, x2, var, ell), reps=3, groups=3,
+                                              per_group=5)
+            bound, by = cs._se_bound(x, x2, var, ell, None)
+            lines.append(f"SE BO {what} ARD {str(dt).split('.')[-1]}: {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+                         f"{bound:.2e} by {by})")
+        lines.append(cs._chol_turns(64, dt, dev))
+    cs.log(f"[15 kernel times] device ms in turns: {'; '.join(lines)} | {smi}")
+
+
+def _phase16_times(smi, dev, problem, pf_problem):
+    """16g: the kernels at the slice's new shapes against their plain
+    versions, their bounds and cholesky_ex; per ADVI step and per
+    Pathfinder iteration wall ms, device ms, CUDA kernels and busy share."""
+    import chip_smoke as cs
+
+    from bayesianinference_tpu_torch.engines import pathfinder as pf
+    from bayesianinference_tpu_torch.engines import vi
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    lines = []
+    # the times do not depend on the values
+    x = torch.randn((1, cs.SLICE_N, cs.SLICE_D), generator=g, device=dev, dtype=torch.float64)
+    for what, b, data, d in (("ADVI step", 32, x, cs.SLICE_D), ("ELBO chunk", vi.EVAL_CHUNK, x, cs.SLICE_D),
+                             ("ARD try", 8, torch.randn((1, cs.ARD_N, cs.ARD_D), generator=g, device=dev,
+                                                        dtype=torch.float64), cs.ARD_D)):
+        var = 0.5 + torch.rand((b,), generator=g, device=dev, dtype=torch.float64)
+        scale = 0.5 + torch.rand((b, d), generator=g, device=dev, dtype=torch.float64)
+        if what != "ARD try":
+            scale = scale[:, :1].expand(b, d)
+        nug = (0.01 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, data.shape[1])
+        per = 3 if b > 64 else 5
+        ms, plain_ms, _, _ = cs._in_turns(lambda: gk.se_covariance_cuda(data, None, var, scale, nug),
+                                          lambda: gk.se_covariance_plain(data, None, var, scale, nug), reps=3, groups=3,
+                                          per_group=per)
+        bound, by = cs._se_bound(data, None, var, scale, nug)
+        k = gk.se_covariance_cuda(data, None, var, scale, nug)
+        c_ms, c_lib, _, _ = cs._in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), reps=3, groups=3,
+                                         per_group=per)
+        c_plain, _ = cs._time_ms(lambda: gk.cholesky_plain(k), reps=3, groups=3, per_group=per)
+        c_bound, c_by = cs._chol_bound(b, data.shape[1], 8)
+        lines.append(f"{what} B={b} n={data.shape[1]} f64: SE {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound:.3g} by "
+                     f"{by}); Cholesky {c_ms:.4f} ms (plain {c_plain:.4f}, cholesky_ex {c_lib:.4f}, bound "
+                     f"{c_bound:.3g} by {c_by})")
+        del k
+    pr9 = []
+    for n, dt in ((256, torch.float32), (64, torch.float32), (64, torch.float64)):
+        a = torch.randn((1, n, n), generator=g, device=dev, dtype=dt)
+        k = a @ a.mT / n + torch.eye(n, device=dev, dtype=dt)
+        c_ms, c_lib, _, _ = cs._in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), reps=3, groups=3,
+                                         per_group=5)
+        c_plain, _ = cs._time_ms(lambda: gk.cholesky_plain(k), reps=3, groups=3, per_group=5)
+        pr9.append(f"n={n} {str(dt).split('.')[-1]} {c_ms:.4f} (plain {c_plain:.4f}, cholesky_ex {c_lib:.4f})")
+    # per ADVI step and per Pathfinder iteration (its L-BFGS step and its
+    # share of the ELBO block), by difference of fits
+    draws = vi.vi_draws(g, 3, 32, 32, problem.dim)
+    pf_draws = pf.pathfinder_draws(g, 8, pf_problem.dim, 30, 32)
+    # the bounds: about two thirds of the CUDA kernels a complete trace of
+    # one unit counts on an H100 (425 and 2113)
+    lines += _unit_costs((
+        ("ADVI step (B = 32)", lambda s: vi.advi_fit(problem, None, num_steps=s, final_elbo_samples=32,
+                                                     draws=vi.VIDraws(draws.steps[:s], draws.final)), 280),
+        ("Pathfinder iteration (ARD, 8 paths)", lambda s: pf.pathfinder_fit(pf_problem, None, maxiter=s,
+                                                                             num_draws_per_path=32, draws=pf_draws),
+         1400)),
+        reps=1)
+    cs.log(f"[16g kernel times] device ms in turns: {'; '.join(lines)}; the SVGP and BO Cholesky shapes at B = 1, "
+           f"kernel ms {'; '.join(pr9)} | {smi}")
+
+
+def _phase17_times(smi, dev, shapes):
+    """17f: the kernels at the slice's new shapes (the predictive's
+    symmetric K and cross-covariance, and K's factor, at each B of
+    ``shapes``) against their plain versions, bounds and cholesky_ex."""
+    import chip_smoke as cs
+
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    lines = []
+    x = torch.randn((1, cs.SLICE_N, cs.SLICE_D), generator=g, device=dev, dtype=torch.float64)
+    xq = torch.randn((1, cs.HOLDOUT_N, cs.SLICE_D), generator=g, device=dev, dtype=torch.float64)
+    for what, b in shapes:
+        var = 0.5 + torch.rand((b,), generator=g, device=dev, dtype=torch.float64)
+        scale = (0.5 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, cs.SLICE_D)
+        nug = (0.01 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, cs.SLICE_N)
+        kw = dict(reps=2, groups=2, per_group=3 if b > 64 else 10)
+        ms, plain_ms, _, _ = cs._in_turns(lambda: gk.se_covariance_cuda(x, None, var, scale, nug),
+                                          lambda: gk.se_covariance_plain(x, None, var, scale, nug), **kw)
+        bound, by = cs._se_bound(x, None, var, scale, nug)
+        x_ms, x_plain, _, _ = cs._in_turns(lambda: gk.se_covariance_cuda(x, xq, var, scale),
+                                           lambda: gk.se_covariance_plain(x, xq, var, scale), **kw)
+        x_bound, x_by = cs._se_bound(x, xq, var, scale, None)
+        k = gk.se_covariance_cuda(x, None, var, scale, nug)
+        c_ms, c_lib, _, _ = cs._in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), **kw)
+        c_plain, _ = cs._time_ms(lambda: gk.cholesky_plain(k), **kw)
+        c_bound, c_by = cs._chol_bound(b, cs.SLICE_N, 8)
+        lines.append(f"{what} B={b} n={cs.SLICE_N} f64: SE {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound:.3g} by "
+                     f"{by}); cross SE [{cs.SLICE_N}, {cs.HOLDOUT_N}] {x_ms:.4f} ms (plain {x_plain:.4f}, bound "
+                     f"{x_bound:.3g} by {x_by}); Cholesky {c_ms:.4f} ms (plain {c_plain:.4f}, cholesky_ex "
+                     f"{c_lib:.4f}, bound {c_bound:.3g} by {c_by})")
+        del k
+    cs.log(f"[17f kernel times] device ms in turns: {'; '.join(lines)} | {smi}")
+
+
+def _phase18_bnn_units(smi, dev, beside="alone on the card"):
+    """18a's per-unit rows at the defaults (f32, n = 256): a training step
+    and a sample_trained_net call (200 samples, 31 points); ``beside``
+    says what else ran."""
+    import chip_smoke as cs
+
+    from bayesianinference_tpu_torch import bnn
+
+    x_np, y_np = cs._sine_data()
+    x, y = torch.as_tensor(x_np, device=dev), torch.as_tensor(y_np, device=dev)
+    net = bnn.regression_net()
+    g = torch.Generator(device=dev).manual_seed(1)
+    init = net.init(g, x[:1])
+    draws = [bnn.BNNStepDraws(None, net.draw_masks(g, cs.BNN_N, 10, dtype=torch.float32)) for _ in range(3)]
+    # the bounds: about two thirds of the CUDA kernels a complete trace of
+    # one unit counts on an H100 (214 and 54-67)
+    rows = _unit_costs((
+        ("training step", lambda s: bnn.train_regression_net(net, None, x, y, initial_params=init, num_steps=s,
+                                                             draws=draws[:s]), 140),
+        ("sample_trained_net (200 samples, 31 points)",
+         lambda s: [bnn.sample_trained_net(net, init, g, x[:31], num_samples=200).std() for _ in range(s)], 44)))
+    cs.log(f"[18a BNN units] at the defaults (f32, n = {cs.BNN_N}), {beside}: {'; '.join(rows)} | {smi}")
+
+
+def _phase18_times(smi, dev, problem):
+    """18d: the kernels at the flow step's B = 64 (n = 512 f64) against their
+    plain versions, bounds and cholesky_ex; per flow step and per ADVI step
+    at the same B wall ms, device ms, CUDA kernels and busy share."""
+    import chip_smoke as cs
+
+    from bayesianinference_tpu_torch.engines import vi
+    from bayesianinference_tpu_torch.engines.flow_vi import flow_vi_fit
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    b = cs.FLOW_GP_B
+    x = torch.randn((1, cs.SLICE_N, cs.SLICE_D), generator=g, device=dev, dtype=torch.float64)
+    var = 0.5 + torch.rand((b,), generator=g, device=dev, dtype=torch.float64)
+    scale = (0.5 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, cs.SLICE_D)
+    nug = (0.01 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, cs.SLICE_N)
+    kw = dict(reps=2, groups=2, per_group=10)
+    ms, plain_ms, _, _ = cs._in_turns(lambda: gk.se_covariance_cuda(x, None, var, scale, nug),
+                                      lambda: gk.se_covariance_plain(x, None, var, scale, nug), **kw)
+    bound, by = cs._se_bound(x, None, var, scale, nug)
+    k = gk.se_covariance_cuda(x, None, var, scale, nug)
+    c_ms, c_lib, _, _ = cs._in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), **kw)
+    c_plain, _ = cs._time_ms(lambda: gk.cholesky_plain(k), **kw)
+    c_bound, c_by = cs._chol_bound(b, cs.SLICE_N, 8)
+    del k
+    draws = vi.vi_draws(g, 3, b, 64, problem.dim)
+    # the bounds: about two thirds of the CUDA kernels a complete trace of
+    # one unit counts on an H100 (696-742 and 436)
+    parts = _unit_costs((
+        (f"flow step at B = {b}", lambda s: flow_vi_fit(problem, g, num_steps=s, num_elbo_samples=b,
+                                                        final_evidence_samples=64,
+                                                        draws=vi.VIDraws(draws.steps[:s], draws.final)), 490),
+        (f"ADVI step (fullrank) at B = {b}", lambda s: vi.advi_fit(problem, None, family="fullrank", num_steps=s,
+                                                                   num_elbo_samples=b, final_elbo_samples=64,
+                                                                   draws=vi.VIDraws(draws.steps[:s], draws.final)),
+         290)),
+        reps=1)
+    cs.log(f"[18d kernel times] device ms in turns: B={b} n={cs.SLICE_N} f64: SE {ms:.4f} ms (plain "
+           f"{plain_ms:.4f}, bound {bound:.3g} by {by}); Cholesky {c_ms:.4f} ms (plain {c_plain:.4f}, cholesky_ex {c_lib:.4f}, bound "
+           f"{c_bound:.3g} by {c_by}); {'; '.join(parts)} | {smi}")
+
+
+def _phase20_units(smi, dev, problem, start):
+    """Phase 20's per-unit rows (wall ms, device ms, CUDA kernels, busy
+    share, by difference of runs of 3 units and 1): an SMC stage (8 runs x
+    200 particles, 8 steps), an HMC trajectory (8 chains, L = 5), an
+    ensemble sweep on phase 4's GP slice (32 walkers from ``start``), an
+    IBIS stage with a move (2048 particles, 15 steps) and a dynamic-NS loop
+    iteration of 8 batched runs (40 AM steps)."""
+    import chip_smoke as cs
+    from bayesianinference_tpu_torch import dists
+    from bayesianinference_tpu_torch.engines import nested_sampling as tns
+    from bayesianinference_tpu_torch.engines.smc import SMCConfig, _smc_ladders
+    from bayesianinference_tpu_torch.parallel import parallel_ensemble, parallel_hmc, parallel_ibis
+
+    box, _ = cs._gaussian_box_problem(2, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    smc_start = tns.generate_starting_points(box, g, 1600).reshape(8, 200, 2)
+    # a ladder of s stages: max_stages caps it (each stage's step is the ESS-targeted one)
+    smc = lambda s: _smc_ladders(box, smc_start, g, SMCConfig(max_stages=s, mcmc_steps=8))  # noqa: E731
+    hmc_start = tns.generate_starting_points(box, g, 8)
+    hmc = lambda s: parallel_hmc(box, g, num_chains=8, num_warmup=1, num_samples=s, num_leapfrog=5,  # noqa: E731
+                                 starting_points=hmc_start)
+    ens = lambda s: parallel_ensemble(problem, g, num_walkers=32, num_warmup=0, num_samples=s,  # noqa: E731
+                                      starting_points=start)
+    normal, yd = cs._normal_mean_problem(dev, cs.PAR_DATA)
+    pointwise = lambda th, v: dists.Normal(th[0], 1.0).log_prob(v)  # noqa: E731
+    ibis = lambda s: parallel_ibis(normal, pointwise, yd[:5 * s], g, n_particles=2048, batch_size=5,  # noqa: E731
+                                   mcmc_steps=15, ess_threshold=2.0)
+    cfg = tns.make_loop_config(1, monte_carlo_steps=40, monte_carlo_method="adaptive_metropolis")
+    dns_start = torch.stack([tns.generate_starting_points(normal, g, 48) for _ in range(8)])
+
+    def dns(s):
+        c = dataclasses.replace(cfg, max_iterations=s, min_iterations=s)
+        tns.run_loop_batched(normal, tns._init_batch(normal, dns_start, c.capacity), g, c, n_live=48)
+
+    # the bounds: about two thirds of the CUDA kernels tests/parallel_op_counts.py counts a unit
+    rows = _unit_costs((("SMC stage (8 runs x 200 particles, 8 steps)", smc, 2700),
+                        ("HMC trajectory (8 chains, L = 5)", hmc, 600),
+                        ("ensemble sweep on the GP slice (32 walkers, B = 16 a half)", ens, 150),
+                        ("IBIS stage with a move (2048 particles, 15 steps)", ibis, 300),
+                        ("dynamic-NS loop iteration (8 runs, 40 AM steps)", dns, 3000)))
+    cs.log(f"[20 units] {'; '.join(rows)} | {smi}")
+
+
+def _smoke_rows(smi: str) -> None:
+    """The rows: 14a's density call, 14b's, 14c's and 14e's value-and-grad
+    walls and Cholesky times, 15a's ELBO step, 15d's suggestions,
+    15's kernel times, 16g, 17d's quantile call, 17f, 18a's units, 18d,
+    19a-d's density calls, PMMH step and IBIS stage, and phase 20's units.  The sub-phases whose
+    rows share their setup run whole with ``times=True`` (their gates too);
+    phase 4's NS run gives 16g, 17 and 18 their problem and posterior, and
+    19c runs its PMMH oracle in this process."""
+    import chip_smoke as cs
+    from bayesianinference_tpu_torch.interop import problem_data_from_numpy
+
+    dev = torch.device("cuda")
+    _, problem, _, _, (res, _, _) = cs.phase_gp_slice(smi)
+    rng = np.random.default_rng(0)
+    x_np = rng.normal(size=(cs.ARD_N, cs.ARD_D))
+    y_np = np.sin(x_np[:, 0]) + 0.5 * x_np[:, 1] + 0.1 * rng.normal(size=cs.ARD_N)
+    ard = cs._ard_gp_problem(*problem_data_from_numpy(x_np, y_np, device=dev, dtype=torch.float64))
+    with cs._KernelWatch() as watch:
+        cs._phase14_classifier(smi, watch, dev, 100, 50, 20, 4, 20, times=True)
+        cs._phase14_bridges(smi, watch, dev, cs.BRIDGE_NS, times=True)
+        cs._phase14_sgpr(smi, watch, dev, times=True)
+        cs._phase14_mogp(smi, watch, dev, times=True)
+        cs._phase15_elbo(smi, watch, dev, times=True)
+        cs._phase15_bo(smi, watch, dev, times=True)
+        _phase15_times(smi, dev)
+        _phase16_times(smi, dev, problem, ard)
+        cs._phase17_tp_quantiles(smi, watch, dev, res, cs._holdout(dev)[0], times=True)
+        _phase17_times(smi, dev, (("predictive", 512), ("regression", res.points.shape[0])))
+        _phase18_bnn_units(smi, dev)
+        _phase18_times(smi, dev, problem)
+        for sub in (cs._phase19a_kalman, cs._phase19b_hmm_bocpd, cs._phase19c_particle, cs._phase19d_ibis):
+            sub(smi, dev, times=True)
+    w = torch.exp(res.crude_log_posterior_weights)
+    _phase20_units(smi, dev, problem, res.points[torch.multinomial(w, 32, replacement=True)])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--smoke-rows", action="store_true",
+                    help="print the timing rows of chip_smoke.py phases 14-19 instead of the workloads")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: torch.cuda.is_available() is false; this script needs a CUDA card")
     sys.path.insert(0, os.path.abspath(args.repo))
+    if args.smoke_rows:
+        from chip_smoke import phase_device
+
+        _smoke_rows(phase_device())
+        return
     from bayesianinference_tpu_torch.engines.laplace import laplace_posterior_fit
     from bayesianinference_tpu_torch.engines.nested_sampling import nested_sampling
     from bayesianinference_tpu_torch.interop import problem_data_from_numpy

@@ -110,8 +110,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     width (n = 262144, M = 256, batch 8192, f32; K_zz's jitter 1e-4 in
     both dtypes) through the kernels and plain against plain f64, each
     quantity's error over 8 data seeds at
-    most twice the plain f32 path's plus 1e-6, with the step's wall and
-    device time, CUDA kernels, busy share and peak memory; (b) fit_svgp on
+    most twice the plain f32 path's plus 1e-6, with the step's peak memory;
+    (b) fit_svgp on
     _class_data at n = 262144 (256 farthest inducing points, minibatch
     8192, 300 steps, f32), its full-data bound, its predictions against the
     truth, and an f64 fit against CPU tensors on the same draws (within ten
@@ -127,8 +127,7 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     logistic model at n = 4096, eight schools collapsed by
     marginalize_latents through direct quadrature, and a 256-group random
     effects model at 64 thetas against its closed form (no hand-written
-    kernel runs in 15e).  Then the kernels at the slice's new shapes
-    against their plain versions, bounds and cholesky_ex.
+    kernel runs in 15e).
 
 16. ADVI, Pathfinder, bridge sampling and the results layer: (a) ADVI at
     its defaults (3000 steps, 32 draws) on tests/test_vi.py's conjugate
@@ -154,11 +153,7 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     on CPU tensors (1e-10), model weights by all three methods, an SBC
     study of the conjugate Normal engine (200 replications) and the
     summary and calculation report of phase 4's NS result, on card
-    tensors; (g) the kernels at the slice's new shapes (B = 32, the ELBO
-    chunk, the ARD try at B = 8, n = 512 f64) against their plain
-    versions, bounds and cholesky_ex, with per ADVI step and per Pathfinder
-    iteration (by difference of fits of 1 and 3 steps or iterations) wall
-    ms, device ms, CUDA kernels and busy share.
+    tensors.
 
 17. the consumption layer: (a) the 24 scalar families' log_prob, cdf and
     icdf on tests/test_dists_scalar.py's grids on the card against CPU
@@ -178,14 +173,12 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     predict_from_gaussian_process(max_samples=None) (1e-10); (d) the
     Student-t process predictive's 0.05 and 0.95 quantiles through
     StudentT.cdf at phase 4's data, at one theta against scipy's t.ppf
-    (1e-9) and at 16 against CPU tensors (1e-10), with wall ms and CUDA
-    kernels per quantile call; (e) predictive_distribution and
+    (1e-9) and at 16 against CPU tensors (1e-10); (e) predictive_distribution and
     posterior_predictive_check (2000 replicates) on NS of a conjugate
     Normal model against its exact predictive (4 NS standard errors), the
     Normal exponential family against the conjugate Normal engine (1e-12),
     the mixtures, censoring and a KDE of phase 4's posterior on card
-    against CPU tensors (1e-12); (f) the kernels at the predictive's B = S
-    and (c)'s B against their plain versions, bounds and cholesky_ex.
+    against CPU tensors (1e-12).
 
 18. the quasi-Bayesian networks and RealNVP flow VI: (a) the MC-dropout
     net trained on the card in float32 on tests/test_bnn.py's data
@@ -195,23 +188,19 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     each under test_bnn_end_to_end's gates (mean |error| < 0.2, sd > 0.03,
     3-sigma coverage > 0.9, the trained network log evidence above the
     initial one), its forward pass, loss and gradient on the card against
-    CPU tensors on the same masks (float64 1e-12, float32 1e-5), and per
-    training step and per sample_trained_net call (200 samples) wall and
-    device ms, CUDA kernels and busy share; (b) tests/test_flow_vi.py's
+    CPU tensors on the same masks (float64 1e-12, float32 1e-5); (b)
+    tests/test_flow_vi.py's
     oracles: the conjugate posterior and evidence (2000 steps), the box and
     scale test (1500 steps), the banana against fullrank ADVI (4000 flow steps at 2e-3, 3000 ADVI steps; the
     slow test's gates) and hmc_sample(starting_points="flow") on the
     banana; (c) flow VI on phase 4's GP problem through both kernels and
     both reverse rules (64 draws a step, 1000 steps, the final 8192 in
     chunks of 1024): pareto k < 0.7, the PSIS logZ within 0.05 of phase
-    4's grid logZ and the ELBO at most 0.02 above it; (d) the kernels at
-    B = 64, n = 512 f64 against their plain versions, bounds and
-    cholesky_ex, and per flow step and per fullrank ADVI step at B = 64
-    wall and device ms, CUDA kernels and busy share.  (b)'s five fits (no
+    4's grid logZ and the ELBO at most 0.02 above it.  (b)'s five fits (no
     hand-written kernel in them) run in five worker processes while (a) and
     (c) run, so (a)'s and (c)'s wall times are taken under that load; the
-    per-unit rows are taken after the fits end, beside 19c's PMMH oracle,
-    which the same pool runs first and which goes on into phase 19.
+    same pool runs 19c's PMMH oracle first, which goes on into phase 19,
+    and 20e's run after the fits, which goes on into phase 20.
 19. the time-series engines (no hand-written kernel: the watch holds both
     counters at 0): (a) the Kalman filter, smoother, forecast and
     simulation smoother (both methods, masked steps; the latter on
@@ -233,12 +222,39 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     degenerate RBPF against Kalman (1e-10), PMMH against the exact grid
     posterior (512 particles, 250 + 250 steps, 8 chains; the JAX test's
     gates; a host-bound run with no hand-written kernel, in a worker
-    process of 18b's pool from phase 18 on, so (a)'s and (b)'s wall times
-    are taken beside it); (d) IBIS against the exact evidence and posterior (4096
-    particles, batch 5, 20 steps).  Kernels, wall and device ms and busy
-    share per density call, PMMH step and IBIS stage with a move.
+    process of 18b's pool from phase 18 on); (d) IBIS against the exact
+    evidence and posterior (4096 particles, batch 5, 20 steps).
+20. the single-card parallel engines (``parallel/``): (a) parallel SMC at
+    tests/test_parallel_smc_hmc.py's configuration (the 2-D Gaussian box,
+    8 runs, 200 particles, 8 AM steps), bit for bit ``smc_sampler`` on one
+    generator, logZ within 0.3 of the analytic value, the card against CPU
+    tensors on the same draws (1e-12); (b) parallel HMC at the JAX smoke
+    configuration (8 chains, 60 + 40, L = 5) with the diagonal mass, the
+    dense mass (its factor through the Cholesky kernel) and ChEES, each
+    against CPU tensors on the same draws: ChEES at 1e-12; the fixed L at
+    1e-12 after 3 warmup iterations (rounding grows past that through dual
+    averaging) and at 60 + 40 by the moment gate on both sides and the
+    step sizes' ratio; and a moment run (64 chains, 150 + 100) gated at 4
+    standard errors from its own chains;
+    (c) the parallel ensemble on phase 4's GP slice through both kernels
+    (32 walkers, B = 16 a half-update, 100 + 600 sweeps from draws of
+    phase 4's posterior): the card against CPU tensors on the same draws
+    for 5 sweeps (1e-10), the pooled mean within 4 Monte Carlo standard
+    errors (batch means, and the NS mean's own) of phase 4's NS posterior
+    mean, one launch of each kernel a density call; (d) parallel IBIS on
+    the JAX oracle (the normal mean, 40 observations, 2048 particles, batch
+    5, 15 steps) under its gates, and against CPU tensors (1e-12); (e)
+    parallel dynamic NS on the JAX oracle (8 runs of pool 48, one stage, 40
+    steps): |z| < 4 and the posterior mean (a host-bound run with no
+    hand-written kernel, in a worker process of 18b's pool from phase 18
+    on).
 
-Each of phases 4, 6, 7, 9, 11b, 12, 13c, 13e, 14, 15, 16, 17 and 18 (and 13b the Cholesky's)
+The timing-only rows of phases 14-19 (per-unit wall and device ms, CUDA
+kernels and busy shares, and each slice's kernel times in turns) are
+``chip_profile.py --smoke-rows``'s; this script keeps every gate and launch
+count of those phases, and phase 5's kernel times, which feed the JSON line.
+
+Each of phases 4, 6, 7, 9, 11b, 12, 13c, 13e, 14, 15, 16, 17, 18 and 20 (and 13b the Cholesky's)
 zeroes the kernels' launch counters before it drives its path and fails if
 a kernel of that path was not launched; the ``launches`` of the JSON line
 are their sum.  Phase 19 zeroes them too and fails if either kernel
@@ -2194,35 +2210,6 @@ def _profile_call(fn, cpu: bool = True, warm: bool = True):
     return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
 
 
-@_measuring
-def _unit_costs(runs, reps=1) -> list:
-    """Per unit (wall ms, device ms, CUDA kernels) of each ``(name, run,
-    least)``: ``run(s)`` does ``s`` units, each of at least ``least`` CUDA
-    kernels; by difference of 3 units and 1.  A trace can lose the records
-    of its first kernels, so a window that holds fewer than its bound (1
-    unit's ``least``; 1 unit's count plus 2 ``least`` for 3) is taken again;
-    the differenced device ms must be positive."""
-    def profiled(fn, bound, what):
-        for attempt in range(5):
-            dev_ms, kernels = _profile_call(fn, cpu=False, warm=attempt > 0)
-            if kernels >= bound:
-                return dev_ms, kernels
-        raise AssertionError(f"{what}: torch.profiler kept losing kernel records ({kernels} seen, at least "
-                             f"{bound} expected)")
-
-    out = []
-    for name, run, least in runs:
-        w_lo, w_hi = _wall_ms(lambda: run(1), reps=reps), _wall_ms(lambda: run(3), reps=reps)
-        d_lo, k_lo = profiled(lambda: run(1), least, name)
-        d_hi, k_hi = profiled(lambda: run(3), k_lo + 2 * least, name)
-        wall, devm, kern = (w_hi - w_lo) / 2, (d_hi - d_lo) / 2, (k_hi - k_lo) / 2
-        if not (devm > 0 and kern > 0):
-            raise AssertionError(f"{name}: per unit device {devm} ms, {kern} CUDA kernels")
-        out.append(f"{name}: wall {wall:.2f} ms, device {devm:.3f} ms, {kern:.0f} CUDA kernels, busy share "
-                   f"{devm / wall if wall > 0 else math.nan:.3f}")
-    return out
-
-
 def _vg(fn, *args):
     """[value, gradient...] of ``fn(*args)``, the gradient in those of
     ``args`` that require one, as one detached vector."""
@@ -2279,10 +2266,10 @@ def _accuracy_gate(what: str, errs_kernel, errs_plain) -> str:
     return f"normalized error kernel {ek:.2e} plain f32 {ep:.2e}"
 
 
-def _phase14_classifier(smi, watch, dev, pool, k, steps, starts, min_iterations, n=CLASS_N, unit=10):
+def _phase14_classifier(smi, watch, dev, pool, k, steps, starts, min_iterations, n=CLASS_N, unit=10, times=False):
     """14a: the main path (NS over (amp, ls) of the logit classifier at
-    n = 512, f64, Laplace), its Laplace fit and its predictions; one
-    density call at B = ``unit`` timed."""
+    n = 512, f64, Laplace), its Laplace fit and its predictions; with
+    ``times`` (``chip_profile.py``), one density call at B = ``unit`` timed."""
     from bayesianinference_tpu_torch import csrc
     from bayesianinference_tpu_torch.engines.gp_classify import predict_from_gp_classifier
     from bayesianinference_tpu_torch.engines.laplace import laplace_posterior_fit
@@ -2356,16 +2343,20 @@ def _phase14_classifier(smi, watch, dev, pool, k, steps, starts, min_iterations,
     corr = float(np.corrcoef(p, p_true)[0, 1])
     if not (p.shape == (41,) and np.all((p >= 0) & (p <= 1)) and corr > 0.85):
         raise AssertionError(f"14a: predictions {p.tolist()} (correlation with the generating p {corr:.3f})")
-    # per density call at B = unit, the batch of PERF.md's row: CUDA kernels, Newton steps, wall and device time
-    th = live[-unit:]
-    one = lambda: problem.guarded_log_likelihood(th)  # noqa: E731
-    c0 = watch.counts()["cholesky"]
-    one()
-    steps_here = watch.counts()["cholesky"] - c0 - 1
-    kernels = _launches_per_call(one, calls=3)
-    dev_ms, _ = _profile_call(one, warm=False)
-    wall_ms = _wall_ms(one)
-    chol = _chol_turns(n, torch.float64, dev, b=unit)
+    row = ""
+    if times:
+        # per density call at B = unit, the batch of PERF.md's row: CUDA kernels, Newton steps, wall and device time
+        th = live[-unit:]
+        one = lambda: problem.guarded_log_likelihood(th)  # noqa: E731
+        c0 = watch.counts()["cholesky"]
+        one()
+        steps_here = watch.counts()["cholesky"] - c0 - 1
+        kernels = _launches_per_call(one, calls=3)
+        dev_ms, _ = _profile_call(one, warm=False)
+        wall_ms = _wall_ms(one)
+        row = (f"; one density call at B = {unit}: {steps_here} Newton steps, {kernels:.1f} CUDA kernels, wall "
+               f"{wall_ms:.2f} ms, device {dev_ms:.3f} ms, busy share {dev_ms / wall_ms:.3f}; the Cholesky of B, "
+               f"device ms in turns: {_chol_turns(n, torch.float64, dev, b=unit)}")
     log(f"[14a GP classifier] logit, Laplace, n={n} f64 (benchmarks/latent_gp.py::_class_data), NS pool {pool}, "
         f"{k} deletions and at least {min_iterations} iterations, {steps} AM steps (cut from phase 4's 100), to fit "
         f"the time limit: logZ {logz:.4f} +- "
@@ -2376,13 +2367,11 @@ def _phase14_classifier(smi, watch, dev, pool, k, steps, starts, min_iterations,
         f"rel diff {rel:.3e} at the {pool} live points, Newton steps equal ({int(it_gpu.min())}-{int(it_gpu.max())}); "
         f"Laplace fit ({starts} starts) {fit_wall:.2f} s, mode {[round(v, 6) for v in mode.tolist()]}, logZ "
         f"{float(fit.log_evidence):.6f}, vs CPU tensors rel err {', '.join(f'{a} {b:.2e}' for a, b in errs.items())}; "
-        f"predictions at 41 points, correlation with the generating p {corr:.3f}; one density call at B = {unit}: "
-        f"{steps_here} Newton steps, {kernels:.1f} CUDA kernels, wall {wall_ms:.2f} ms, device {dev_ms:.3f} ms, "
-        f"busy share {dev_ms / wall_ms:.3f}; the Cholesky of B, device ms in turns: {chol} | {smi}")
+        f"predictions at 41 points, correlation with the generating p {corr:.3f}{row} | {smi}")
     return launches, problem, cpu_problem, fit.mean
 
 
-def _phase14_bridges(smi, watch, dev, sizes, seeds=BRIDGE_SEEDS):
+def _phase14_bridges(smi, watch, dev, sizes, seeds=BRIDGE_SEEDS, times=False):
     """14b: logML + gradient of the logit classifier, Laplace and EP, at
     bench_bridges' widths (f32, theta = [1.5, 1.0], jitter 1e-5).  Each
     (n, method) case is gated on its own, over the data of ``seeds``
@@ -2418,27 +2407,28 @@ def _phase14_bridges(smi, watch, dev, sizes, seeds=BRIDGE_SEEDS):
                              if method == "laplace" else ge.gp_ep_state(k, y, lik).iterations)[0])
             for key, v in watch.counts().items():
                 launches[key] += v
-            ms = _wall_ms(lambda: _vg(logml, *args[torch.float32]), reps=3)
+            ms = f"{_wall_ms(lambda: _vg(logml, *args[torch.float32]), reps=3):.1f} ms, " if times else ""
             ek, ep = _case_error(errs_k), _case_error(errs_p)
             ok = _within_rule(ek, ep)
             if not ok:
                 failed.append(f"n={n} {method}")
-            lines.append(f"n={n} {method}: {ms:.1f} ms, {loops} {'Newton steps' if method == 'laplace' else 'sweeps'}"
+            lines.append(f"n={n} {method}: {ms}{loops} {'Newton steps' if method == 'laplace' else 'sweeps'}"
                          f" (kernel path), logML {got[0]:.6f} (f64 {ref[0]:.6f}), normalized error over {seeds} "
                          f"seeds kernel {ek:.2e} plain f32 {ep:.2e} ({'within' if ok else 'ABOVE'} 2x + 1e-6; "
                          f"the bench's data alone {errs_k[0].norm():.2e} and {errs_p[0].norm():.2e})")
         lines[-1] += f", B's Cholesky route {gk._cholesky_route(n)[0]}"
     check = watch.check("14b")
-    chol = "; ".join(_chol_turns(n, torch.float32, dev) for n in sizes)
+    chol = ("; the Cholesky of B, device ms in turns: " + "; ".join(_chol_turns(n, torch.float32, dev) for n in sizes)
+            if times else "")
     log(f"[14b latent-GP logML+grad] logit, f32, theta [1.5, 1.0], B = 1, data of seeds 0-{seeds - 1} of "
-        f"_class_data: " + "; ".join(lines) + f"; {check}; the Cholesky of B, device ms in turns: {chol} | {smi}")
+        f"_class_data: " + "; ".join(lines) + f"; {check}{chol} | {smi}")
     if failed:
         raise AssertionError(f"14b: the kernel path's normalized error is above twice the plain f32 path's plus "
                              f"1e-6 at {', '.join(failed)}")
     return launches
 
 
-def _phase14_sgpr(smi, watch, dev, n=SGPR_N, m=SGPR_M, opt_n=16384, opt_m=128, opt_steps=50):
+def _phase14_sgpr(smi, watch, dev, n=SGPR_N, m=SGPR_M, opt_n=16384, opt_m=128, opt_steps=50, times=False):
     """14c: the SGPR bound + gradient at bench_sgpr's width, the SE call that
     makes K_uf, and optimize_sparse_gp against the same on CPU tensors."""
     from bayesianinference_tpu_torch.engines.sparse_gp import define_sparse_gaussian_process, optimize_sparse_gp
@@ -2483,18 +2473,20 @@ def _phase14_sgpr(smi, watch, dev, n=SGPR_N, m=SGPR_M, opt_n=16384, opt_m=128, o
     if not (trace_rel <= 1e-6 and float(traces[0][0][-1]) > float(traces[0][0][0])):
         raise AssertionError(f"14c: optimize_sparse_gp trace on the card vs CPU tensors rel diff {trace_rel:.3e}, "
                              f"first {float(traces[0][0][0])} last {float(traces[0][0][-1])}")
-    ms = _wall_ms(lambda: _vg(bound, *args[torch.float32]), reps=3)
-    x32, z32 = args[torch.float32][1], args[torch.float32][3]
-    one = torch.ones(1, dtype=torch.float32, device=dev)
-    se_ms, _ = _time_ms(lambda: gk.se_covariance_cuda(z32[None], x32[None], one), reps=5, groups=3, per_group=5)
-    se_plain_ms, _ = _time_ms(lambda: gk.se_covariance_plain(z32[None], x32[None], one), reps=3, groups=3,
-                              per_group=3)
-    se_bound, se_by = _se_bound(z32[None], x32[None], one, None, None)
+    timed = ""
+    if times:
+        ms = _wall_ms(lambda: _vg(bound, *args[torch.float32]), reps=3)
+        x32, z32 = args[torch.float32][1], args[torch.float32][3]
+        one = torch.ones(1, dtype=torch.float32, device=dev)
+        se_ms, _ = _time_ms(lambda: gk.se_covariance_cuda(z32[None], x32[None], one), reps=5, groups=3, per_group=5)
+        se_plain_ms, _ = _time_ms(lambda: gk.se_covariance_plain(z32[None], x32[None], one), reps=3, groups=3,
+                                  per_group=3)
+        se_bound, se_by = _se_bound(z32[None], x32[None], one, None, None)
+        timed = (f"{ms:.1f} ms per value-and-grad; the SE call making K_uf [{m}, {n}]: {se_ms:.4f} ms (plain "
+                 f"{se_plain_ms:.4f}, bound {se_bound:.4f} by {se_by}); ")
     log(f"[14c SGPR] n={n} m={m} d={SGPR_D} f32, z = x[::n//m][:m], theta [0, 0, -2] (numpy's generator, not "
-        f"JAX's): bound {got[0]:.6f} (f64 {ref[0]:.6f}), value+grad {gate}; {ms:.1f} ms per value-and-grad; "
-        f"peak device memory of the call {peak:.0f} MiB above "
-        f"what was held; the SE call making K_uf [{m}, {n}]: {se_ms:.4f} ms (plain {se_plain_ms:.4f}, bound "
-        f"{se_bound:.4f} by {se_by}); optimize_sparse_gp n={opt_n} m={opt_m} f64, {opt_steps} Adam steps: bound "
+        f"JAX's): bound {got[0]:.6f} (f64 {ref[0]:.6f}), value+grad {gate}; peak device memory of the call "
+        f"{peak:.0f} MiB above what was held; {timed}optimize_sparse_gp n={opt_n} m={opt_m} f64, {opt_steps} Adam steps: bound "
         f"{float(traces[0][0][0]):.4f} -> {float(traces[0][0][-1]):.4f}, trace vs CPU tensors rel diff "
         f"{trace_rel:.2e}, {traces[0][2]:.2f} s on the card ({traces[1][2]:.2f} s on the host); launches {launches}; "
         f"{watch.check('14c')} | {smi}")
@@ -2551,7 +2543,7 @@ def _phase14_tp(smi, watch, dev, starts):
     return launches
 
 
-def _phase14_mogp(smi, watch, dev, n=MOGP_N, t_out=MOGP_T):
+def _phase14_mogp(smi, watch, dev, n=MOGP_N, t_out=MOGP_T, times=False):
     """14e: the multi-output GP at bench_mogp's width: the dense logML and
     its gradient through both kernels against the plain path, and against
     the Kronecker path."""
@@ -2580,15 +2572,15 @@ def _phase14_mogp(smi, watch, dev, n=MOGP_N, t_out=MOGP_T):
         kron = float(mo.mogp_log_marginal_kronecker(gk.se_kernel(v64, l64), b64, x64, y64.reshape(t_out, n).mT,
                                                     s64[0], jitter=0.0))
     launches = watch.counts()
-    ms = _wall_ms(lambda: _vg(logml, *args[torch.float32]), reps=3)
-    chol = _chol_turns(n * t_out, torch.float32, dev)
+    timed = ""
+    if times:
+        timed = (f"{_wall_ms(lambda: _vg(logml, *args[torch.float32]), reps=3):.1f} ms per value-and-grad; the "
+                 f"Cholesky of the covariance, device ms in turns: {_chol_turns(n * t_out, torch.float32, dev)}; ")
     if not abs(dense - kron) <= 1e-8 * abs(kron):
         raise AssertionError(f"14e: dense logML {dense} vs Kronecker {kron}")
     log(f"[14e MOGP] n={n} T={t_out} (nT={n * t_out}) f32 (benchmarks/latent_gp.py::bench_mogp's data), gradient in "
-        f"(variance, lengthscale, a, noise): logML {got[0]:.4f} (f64 {ref[0]:.4f}), {gate}; {ms:.1f} ms per "
-        f"value-and-grad; dense (kernels, f64, no jitter) {dense:.6f} vs "
-        f"Kronecker {kron:.6f}; the Cholesky of the covariance, device ms in turns: {chol}; launches {launches}; "
-        f"{watch.check('14e')} | {smi}")
+        f"(variance, lengthscale, a, noise): logML {got[0]:.4f} (f64 {ref[0]:.4f}), {gate}; {timed}dense (kernels, "
+        f"f64, no jitter) {dense:.6f} vs Kronecker {kron:.6f}; launches {launches}; {watch.check('14e')} | {smi}")
     return launches
 
 
@@ -2739,10 +2731,11 @@ def _per_quantity(vec, sizes):
     return dict(zip(_SVGP_QUANTITIES, torch.split(vec, sizes)))
 
 
-def _phase15_elbo(smi, watch, dev, n=SVGP_N, m=SVGP_M, batch=SVGP_B, seeds=SVGP_SEEDS):
+def _phase15_elbo(smi, watch, dev, n=SVGP_N, m=SVGP_M, batch=SVGP_B, seeds=SVGP_SEEDS, times=False):
     """15a: the SVGP ELBO and its gradient in (theta, z, m, raw) at
     bench_svgp_step's width, f32 through the kernels and plain against
-    plain f64, each quantity gated on its own over the seeds' data."""
+    plain f64, each quantity gated on its own over the seeds' data; with
+    ``times`` (``chip_profile.py``), a step's wall and device time."""
     elbo = _svgp_elbo(n)
     sizes = [1, 2, 2 * m, m, m * m]
     errs = {q: ([], []) for q in _SVGP_QUANTITIES}
@@ -2762,8 +2755,12 @@ def _phase15_elbo(smi, watch, dev, n=SVGP_N, m=SVGP_M, batch=SVGP_B, seeds=SVGP_
         raise AssertionError(f"15a: launches {launches}")
     value, value64, args = bench
     step = lambda: _vg(elbo, *args[torch.float32])  # noqa: E731
-    wall = _wall_ms(step, reps=3)
-    device_ms, kernels = _profile_call(step, cpu=False, warm=False)
+    timed = ""
+    if times:
+        wall = _wall_ms(step, reps=3)
+        device_ms, kernels = _profile_call(step, cpu=False, warm=False)
+        timed = (f"wall {wall:.2f} ms (median of 3), device {device_ms:.3f} ms, {kernels} CUDA kernels, busy share "
+                 f"{device_ms / wall:.3f}, ")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -2780,8 +2777,7 @@ def _phase15_elbo(smi, watch, dev, n=SVGP_N, m=SVGP_M, batch=SVGP_B, seeds=SVGP_
     log(f"[15a SVGP ELBO+grad] n={n} M={m} batch={batch} d=2 f32, Bernoulli logit, se_kernel(2, 1), data of "
         f"bench_svgp_step's generator at seeds {seeds[0]}-{seeds[-1]}: ELBO {value:.4f} (f64 {value64:.4f}); "
         f"normalized error, root mean square over {len(seeds)} seeds, kernel path against plain f32 (rule 2x + "
-        f"1e-6): {'; '.join(lines)}; per step: wall {wall:.2f} ms (median of 3), device {device_ms:.3f} ms, "
-        f"{kernels} CUDA kernels, busy share {device_ms / wall:.3f}, peak device memory {peak:.0f} MiB above what "
+        f"1e-6): {'; '.join(lines)}; per step: {timed}peak device memory {peak:.0f} MiB above what "
         f"was held; launches {launches}; {watch.check('15a')} | {smi}")
     if failed:
         raise AssertionError(f"15a: the kernel path's normalized error is above twice the plain f32 path's plus "
@@ -3017,8 +3013,8 @@ def _bo_final_check(state, dev):
     return _rel_max(got, ref), _rel_max(plain, ref)
 
 
-def _bo_step_profile(state, draws, cfg):
-    """(wall ms, device ms, CUDA kernels, SE and Cholesky launches) of one
+def _bo_step_row(state, draws, cfg) -> str:
+    """Wall ms, device ms, CUDA kernels and SE and Cholesky launches of one
     suggestion from ``state``."""
     from bayesianinference_tpu_torch.engines import bayesopt as bo
     from bayesianinference_tpu_torch.ops import gp_kernels as gk
@@ -3028,13 +3024,16 @@ def _bo_step_profile(state, draws, cfg):
     device_ms, kernels = _profile_call(step, cpu=False, warm=False)
     before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
     step()
-    return wall, device_ms, kernels, gk.se_covariance_cuda.launches - before[0], gk.cholesky_cuda.launches - before[1]
+    return (f", per suggestion wall {wall:.1f} ms, device {device_ms:.2f} ms, {kernels} CUDA kernels, "
+            f"{gk.se_covariance_cuda.launches - before[0]} SE and {gk.cholesky_cuda.launches - before[1]} Cholesky "
+            "launches")
 
 
-def _phase15_bo(smi, watch, dev, camel_steps=56):
+def _phase15_bo(smi, watch, dev, camel_steps=56, times=False):
     """15d: Bayesian optimization through both kernels: Branin's ask/tell run
     on the JAX test's draws, the Six-Hump Camel at the default configuration
-    (f32), the same in f64 on the card and on CPU tensors."""
+    (f32), the same in f64 on the card and on CPU tensors; with ``times``
+    (``chip_profile.py``), one suggestion profiled at each final state."""
     from bayesianinference_tpu_torch.engines import bayesopt as bo
 
     total = {"se_covariance": 0, "cholesky": 0}
@@ -3062,13 +3061,12 @@ def _phase15_bo(smi, watch, dev, camel_steps=56):
     counts = watch.counts()
     _, y_best = state.best()
     errs = _bo_final_check(state, dev)
-    prof = _bo_step_profile(state, step_draws[-1], cfg)
+    row = _bo_step_row(state, step_draws[-1], cfg) if times else ""
     if not (float(y_best) < 0.3979 + 0.7 and state.n == 26 and counts["se_covariance"] > 0 and counts["cholesky"] > 0):
         raise AssertionError(f"15d Branin: y_best {float(y_best)}, n {state.n}, launches {counts}")
     lines.append(f"Branin ask/tell (6 + 20, 256 candidates, 6 hyper steps, f32, the JAX test's draws from "
-                 f"{BRANIN_DRAWS.name}): y_best {float(y_best):.4f} (gate < 1.0979), {wall:.2f} s, per suggestion "
-                 f"wall {prof[0]:.1f} ms, device {prof[1]:.2f} ms, {prof[2]} CUDA kernels, {prof[3]} SE and {prof[4]} "
-                 f"Cholesky launches; final logML+moments error kernel {errs[0]:.1e} plain f32 {errs[1]:.1e}")
+                 f"{BRANIN_DRAWS.name}): y_best {float(y_best):.4f} (gate < 1.0979), {wall:.2f} s{row}; final "
+                 f"logML+moments error kernel {errs[0]:.1e} plain f32 {errs[1]:.1e}")
     for key in total:
         total[key] += counts[key]
     # Six-Hump Camel at the default configuration, nugget pinned at 1e-6
@@ -3088,17 +3086,16 @@ def _phase15_bo(smi, watch, dev, camel_steps=56):
     for tag in ("f32", "f64"):
         res, seconds, counts = runs[tag]
         errs = _bo_final_check(res.state, dev)
-        prof = _bo_step_profile(res.state, bo.bo_draws(torch.Generator().manual_seed(1), 2, cfg,
-                                                       dtype=res.state.x.dtype), cfg)
+        row = _bo_step_row(res.state, bo.bo_draws(torch.Generator().manual_seed(1), 2, cfg, dtype=res.state.x.dtype),
+                           cfg) if times else ""
         if not (float(res.y_best) < -1.0316 + 0.05 and counts["se_covariance"] > 0 and counts["cholesky"] > 0):
             raise AssertionError(f"15d Camel {tag}: y_best {float(res.y_best)}, launches {counts}")
         for key in total:
             total[key] += counts[key]
         lines.append(f"Camel {tag} (8 + {camel_steps}, capacity {8 + camel_steps}, 512 candidates, 8 hyper and 12 "
-                     f"refine steps): y_best {float(res.y_best):.4f} (gate < -0.9816), {seconds:.2f} s, per "
-                     f"suggestion at the final state wall {prof[0]:.1f} ms, device {prof[1]:.2f} ms, {prof[2]} CUDA "
-                     f"kernels, {prof[3]} SE and {prof[4]} Cholesky launches; launches over the run {counts}; final "
-                     f"logML+moments error kernel {errs[0]:.1e} plain {errs[1]:.1e}")
+                     f"refine steps): y_best {float(res.y_best):.4f} (gate < -0.9816), {seconds:.2f} s"
+                     f"{row.replace('per suggestion', 'per suggestion at the final state')}; launches over the run "
+                     f"{counts}; final logML+moments error kernel {errs[0]:.1e} plain {errs[1]:.1e}")
     card, cpu = runs["f64"][0], runs["f64 cpu"][0]
     hist = max(_rel_max(card.x_history, cpu.x_history), _rel_max(card.y_history, cpu.y_history))
     if not hist <= 1e-8:
@@ -3214,41 +3211,6 @@ def _phase15_models(smi, dev, n=4096, groups=256, batch=64):
         f"{sec_re:.2f} s for value and gradient | {smi}")
 
 
-@_measuring
-def _phase15_times(smi, dev):
-    """The kernels at this slice's new shapes against their plain versions,
-    their bounds and cholesky_ex (device ms in turns)."""
-    from bayesianinference_tpu_torch.ops import gp_kernels as gk
-
-    g = torch.Generator(device=dev).manual_seed(0)
-    lines = []
-    one32 = torch.full((1,), 2.0, device=dev)
-    z = 6.0 * torch.rand((1, SVGP_M, 2), generator=g, device=dev) - 3.0
-    for what, x2, n2 in (("K_zz", None, SVGP_M), ("K_zx", 6.0 * torch.rand((1, SVGP_B, 2), generator=g, device=dev)
-                                                  - 3.0, SVGP_B),
-                         ("K_zx full data", 6.0 * torch.rand((1, SVGP_N, 2), generator=g, device=dev) - 3.0, SVGP_N)):
-        kw = dict(reps=3, groups=3, per_group=5 if n2 <= SVGP_B else 3)
-        ms, plain_ms, _, _ = _in_turns(lambda: gk.se_covariance_cuda(z, x2, one32),
-                                       lambda: gk.se_covariance_plain(z, x2, one32), **kw)
-        bound, by = _se_bound(z, x2, one32, None, None)
-        lines.append(f"SE {what} [{SVGP_M}, {n2}] f32: {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound:.2e} by {by})")
-    lines.append(_chol_turns(SVGP_M, torch.float32, dev))
-    for dt in (torch.float32, torch.float64):
-        x = torch.rand((1, 64, 2), generator=g, device=dev, dtype=dt)
-        q = torch.rand((1, 512, 2), generator=g, device=dev, dtype=dt)
-        var = torch.ones(1, device=dev, dtype=dt)
-        ell = torch.full((1, 2), 0.3, device=dev, dtype=dt)
-        for what, x2 in (("capacity [64, 64]", None), ("cross [64, 512]", q)):
-            ms, plain_ms, _, _ = _in_turns(lambda: gk.se_covariance_cuda(x, x2, var, ell),
-                                           lambda: gk.se_covariance_plain(x, x2, var, ell), reps=3, groups=3,
-                                           per_group=5)
-            bound, by = _se_bound(x, x2, var, ell, None)
-            lines.append(f"SE BO {what} ARD {str(dt).split('.')[-1]}: {ms:.4f} ms (plain {plain_ms:.4f}, bound "
-                         f"{bound:.2e} by {by})")
-        lines.append(_chol_turns(64, dt, dev))
-    log(f"[15 kernel times] device ms in turns: {'; '.join(lines)} | {smi}")
-
-
 def phase_svgp_bo(smi: str, dev="cuda", **sizes):
     """Phase 15: the stochastic variational GP and Bayesian optimization
     through both kernels, the generative front end and marginalized
@@ -3272,8 +3234,6 @@ def phase_svgp_bo(smi: str, dev="cuda", **sizes):
         seconds.append(f"15e {time.perf_counter() - t:.1f}")
         if not (total["se_covariance"] > 0 and total["cholesky"] > 0):
             raise AssertionError(f"15: launches {total}")
-        if sizes.get("times", True):
-            _phase15_times(smi, dev)
         log(f"[15 SVGP and BO] {time.perf_counter() - t0:.1f} s ({', '.join(seconds)}); launches {total}; "
             f"{watch.check('15')}")
     return total
@@ -3718,71 +3678,11 @@ def _phase16_results(smi, dev, ns_res, reps=200):
         f"acceptance {np.nanmean(rep.acceptance_rates):.3f}")
 
 
-@_measuring
-def _phase16_times(smi, dev, problem, pf_problem):
-    """16g: the kernels at the slice's new shapes against their plain
-    versions, their bounds and cholesky_ex; per ADVI step and per
-    Pathfinder iteration wall ms, device ms, CUDA kernels and busy share."""
-    from bayesianinference_tpu_torch.engines import pathfinder as pf
-    from bayesianinference_tpu_torch.engines import vi
-    from bayesianinference_tpu_torch.ops import gp_kernels as gk
-
-    g = torch.Generator(device=dev).manual_seed(0)
-    lines = []
-    # the times do not depend on the values
-    x = torch.randn((1, SLICE_N, SLICE_D), generator=g, device=dev, dtype=torch.float64)
-    for what, b, data, d in (("ADVI step", 32, x, SLICE_D), ("ELBO chunk", vi.EVAL_CHUNK, x, SLICE_D),
-                             ("ARD try", 8, torch.randn((1, ARD_N, ARD_D), generator=g, device=dev,
-                                                        dtype=torch.float64), ARD_D)):
-        var = 0.5 + torch.rand((b,), generator=g, device=dev, dtype=torch.float64)
-        scale = 0.5 + torch.rand((b, d), generator=g, device=dev, dtype=torch.float64)
-        if what != "ARD try":
-            scale = scale[:, :1].expand(b, d)
-        nug = (0.01 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, data.shape[1])
-        per = 3 if b > 64 else 5
-        ms, plain_ms, _, _ = _in_turns(lambda: gk.se_covariance_cuda(data, None, var, scale, nug),
-                                       lambda: gk.se_covariance_plain(data, None, var, scale, nug), reps=3, groups=3,
-                                       per_group=per)
-        bound, by = _se_bound(data, None, var, scale, nug)
-        k = gk.se_covariance_cuda(data, None, var, scale, nug)
-        c_ms, c_lib, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), reps=3, groups=3,
-                                      per_group=per)
-        c_plain, _ = _time_ms(lambda: gk.cholesky_plain(k), reps=3, groups=3, per_group=per)
-        c_bound, c_by = _chol_bound(b, data.shape[1], 8)
-        lines.append(f"{what} B={b} n={data.shape[1]} f64: SE {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound:.3g} by "
-                     f"{by}); Cholesky {c_ms:.4f} ms (plain {c_plain:.4f}, cholesky_ex {c_lib:.4f}, bound "
-                     f"{c_bound:.3g} by {c_by})")
-        del k
-    pr9 = []
-    for n, dt in ((256, torch.float32), (64, torch.float32), (64, torch.float64)):
-        a = torch.randn((1, n, n), generator=g, device=dev, dtype=dt)
-        k = a @ a.mT / n + torch.eye(n, device=dev, dtype=dt)
-        c_ms, c_lib, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), reps=3, groups=3,
-                                      per_group=5)
-        c_plain, _ = _time_ms(lambda: gk.cholesky_plain(k), reps=3, groups=3, per_group=5)
-        pr9.append(f"n={n} {str(dt).split('.')[-1]} {c_ms:.4f} (plain {c_plain:.4f}, cholesky_ex {c_lib:.4f})")
-    # per ADVI step and per Pathfinder iteration (its L-BFGS step and its
-    # share of the ELBO block), by difference of fits
-    draws = vi.vi_draws(g, 3, 32, 32, problem.dim)
-    pf_draws = pf.pathfinder_draws(g, 8, pf_problem.dim, 30, 32)
-    # the bounds: about two thirds of the CUDA kernels a complete trace of
-    # one unit counts on an H100 (425 and 2113)
-    lines += _unit_costs((
-        ("ADVI step (B = 32)", lambda s: vi.advi_fit(problem, None, num_steps=s, final_elbo_samples=32,
-                                                     draws=vi.VIDraws(draws.steps[:s], draws.final)), 280),
-        ("Pathfinder iteration (ARD, 8 paths)", lambda s: pf.pathfinder_fit(pf_problem, None, maxiter=s,
-                                                                             num_draws_per_path=32, draws=pf_draws),
-         1400)),
-        reps=1)
-    log(f"[16g kernel times] device ms in turns: {'; '.join(lines)}; the SVGP and BO Cholesky shapes at B = 1, "
-        f"kernel ms {'; '.join(pr9)} | {smi}")
-
-
 def phase_vi_pathfinder(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes):
     """Phase 16: ADVI, Pathfinder, bridge sampling, HMC's Pathfinder start
     and the results layer (module docstring).  ``sizes`` shrink 16a-f for a
     rehearsal (``oracles``, ``advi``, ``hmc``, ``results``: keyword
-    arguments of each sub-phase; ``times=False`` skips 16g)."""
+    arguments of each sub-phase)."""
     dev = torch.device(dev)
     ns_res, grid_logz, cpu_problem = gp_posterior
     t0 = time.perf_counter()
@@ -3801,7 +3701,7 @@ def phase_vi_pathfinder(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes)
         add(launches)
         seconds.append(f"16b {time.perf_counter() - t:.1f}")
         t = time.perf_counter()
-        launches, fits, ard = _phase16_pathfinder(smi, watch, dev, gp_problem, grid_logz)
+        launches, fits, _ = _phase16_pathfinder(smi, watch, dev, gp_problem, grid_logz)
         add(launches)
         seconds.append(f"16c {time.perf_counter() - t:.1f}")
         t = time.perf_counter()
@@ -3816,10 +3716,6 @@ def phase_vi_pathfinder(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes)
         t = time.perf_counter()
         _phase16_results(smi, dev, ns_res, **sizes.get("results", {}))
         seconds.append(f"16f {time.perf_counter() - t:.1f}")
-        if sizes.get("times", True):
-            t = time.perf_counter()
-            _phase16_times(smi, dev, gp_problem, ard)
-            seconds.append(f"16g {time.perf_counter() - t:.1f}")
         log(f"[16 VI, Pathfinder, bridge, results] {time.perf_counter() - t0:.1f} s ({', '.join(seconds)}); launches "
             f"{total}; {watch.check('16')}")
     return total
@@ -4071,11 +3967,12 @@ def _phase17_regression(smi, watch, dev, problem, res, xq):
     return launches
 
 
-def _phase17_tp_quantiles(smi, watch, dev, res, xq, thetas_n=TP_THETAS):
+def _phase17_tp_quantiles(smi, watch, dev, res, xq, thetas_n=TP_THETAS, times=False):
     """17d: the Student-t process predictive's 0.05 and 0.95 quantiles at
     phase 4's data (n = 512 f64) through StudentT.cdf: at one theta
-    against scipy.stats.t.ppf, at ``thetas_n`` against CPU tensors; wall ms
-    and CUDA kernels per quantile call."""
+    against scipy.stats.t.ppf, at ``thetas_n`` against CPU tensors; with
+    ``times`` (``chip_profile.py``), wall ms and CUDA kernels per quantile
+    call."""
     from scipy import stats
 
     from bayesianinference_tpu_torch.engines.t_process import predict_from_t_process
@@ -4102,13 +3999,15 @@ def _phase17_tp_quantiles(smi, watch, dev, res, xq, thetas_n=TP_THETAS):
     rel_one, rel_many = _rel_max(got_one, want_one), _rel_max(got_many, want_many)
     if not (rel_one <= 1e-9 and rel_many <= 1e-10 and bool((got_many[1] > got_many[0]).all())):
         raise AssertionError(f"17d: TP quantiles vs scipy {rel_one:.3e}, card vs CPU {rel_many:.3e}")
-    wall = _wall_ms(lambda: many.quantile(q), reps=1)
-    dev_ms, kernels = _profile_call(lambda: many.quantile(q), cpu=False, warm=False)
+    row = ""
+    if times:
+        wall = _wall_ms(lambda: many.quantile(q), reps=1)
+        dev_ms, kernels = _profile_call(lambda: many.quantile(q), cpu=False, warm=False)
+        row = (f"; a quantile call at {thetas_n} thetas: wall {wall:.1f} ms, device {dev_ms:.2f} ms, {kernels} CUDA "
+               f"kernels (80 bisection steps of the betainc CDF, {kernels / 80:.0f} a step)")
     log(f"[17d Student-t process quantiles] n = {SLICE_N} f64, nu = 4, {xq.shape[0]} points, q = 0.05 and 0.95: at "
         f"one theta vs scipy.stats.t.ppf max rel {rel_one:.2e}; at {thetas_n} thetas card vs CPU tensors "
-        f"{rel_many:.2e}; a quantile call at {thetas_n} thetas: wall {wall:.1f} ms, device {dev_ms:.2f} ms, "
-        f"{kernels} CUDA kernels (80 bisection steps of the betainc CDF, {kernels / 80:.0f} a step); launches "
-        f"{launches}; {time.perf_counter() - t0:.1f} s | {smi}")
+        f"{rel_many:.2e}{row}; launches {launches}; {time.perf_counter() - t0:.1f} s | {smi}")
     return launches
 
 
@@ -4187,45 +4086,10 @@ def _phase17_rest(smi, dev, gp_res, ns_pool=400, ns_delete=40, ns_steps=20, repl
         f"{time.perf_counter() - t0:.1f} s | {smi}")
 
 
-@_measuring
-def _phase17_times(smi, dev, shapes):
-    """17f: the kernels at the slice's new shapes (the predictive's
-    symmetric K and cross-covariance, and K's factor, at each B of
-    ``shapes``) against their plain versions, bounds and cholesky_ex."""
-    from bayesianinference_tpu_torch.ops import gp_kernels as gk
-
-    g = torch.Generator(device=dev).manual_seed(17)
-    lines = []
-    x = torch.randn((1, SLICE_N, SLICE_D), generator=g, device=dev, dtype=torch.float64)
-    xq = torch.randn((1, HOLDOUT_N, SLICE_D), generator=g, device=dev, dtype=torch.float64)
-    for what, b in shapes:
-        var = 0.5 + torch.rand((b,), generator=g, device=dev, dtype=torch.float64)
-        scale = (0.5 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, SLICE_D)
-        nug = (0.01 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, SLICE_N)
-        kw = dict(reps=2, groups=2, per_group=3 if b > 64 else 10)
-        ms, plain_ms, _, _ = _in_turns(lambda: gk.se_covariance_cuda(x, None, var, scale, nug),
-                                       lambda: gk.se_covariance_plain(x, None, var, scale, nug), **kw)
-        bound, by = _se_bound(x, None, var, scale, nug)
-        x_ms, x_plain, _, _ = _in_turns(lambda: gk.se_covariance_cuda(x, xq, var, scale),
-                                        lambda: gk.se_covariance_plain(x, xq, var, scale), **kw)
-        x_bound, x_by = _se_bound(x, xq, var, scale, None)
-        k = gk.se_covariance_cuda(x, None, var, scale, nug)
-        c_ms, c_lib, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), **kw)
-        c_plain, _ = _time_ms(lambda: gk.cholesky_plain(k), **kw)
-        c_bound, c_by = _chol_bound(b, SLICE_N, 8)
-        lines.append(f"{what} B={b} n={SLICE_N} f64: SE {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound:.3g} by "
-                     f"{by}); cross SE [{SLICE_N}, {HOLDOUT_N}] {x_ms:.4f} ms (plain {x_plain:.4f}, bound "
-                     f"{x_bound:.3g} by {x_by}); Cholesky {c_ms:.4f} ms (plain {c_plain:.4f}, cholesky_ex "
-                     f"{c_lib:.4f}, bound {c_bound:.3g} by {c_by})")
-        del k
-    log(f"[17f kernel times] device ms in turns: {'; '.join(lines)} | {smi}")
-
-
 def phase_consumption(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes):
     """Phase 17: the consumption layer (module docstring).  ``sizes``
     shrink 17a-e for a rehearsal (``families``, ``scores``, ``tp``,
-    ``rest``: keyword arguments of each sub-phase; ``times=False`` skips
-    17f)."""
+    ``rest``: keyword arguments of each sub-phase)."""
     dev = torch.device(dev)
     res = gp_posterior[0]
     t0 = time.perf_counter()
@@ -4240,7 +4104,7 @@ def phase_consumption(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes):
         _phase17_families(smi, dev, **sizes.get("families", {}))
         seconds.append(f"17a {time.perf_counter() - t:.1f}")
         t = time.perf_counter()
-        launches, xq, s_count = _phase17_gp_scores(smi, watch, dev, gp_problem, gp_posterior,
+        launches, xq, _ = _phase17_gp_scores(smi, watch, dev, gp_problem, gp_posterior,
                                                    **sizes.get("scores", {}))
         add(launches)
         seconds.append(f"17b {time.perf_counter() - t:.1f}")
@@ -4255,10 +4119,6 @@ def phase_consumption(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes):
         t = time.perf_counter()
         _phase17_rest(smi, dev, res, **sizes.get("rest", {}))
         seconds.append(f"17e {time.perf_counter() - t:.1f}")
-        if sizes.get("times", True):
-            t = time.perf_counter()
-            _phase17_times(smi, dev, (("predictive", s_count), ("regression", res.points.shape[0])))
-            seconds.append(f"17f {time.perf_counter() - t:.1f}")
         log(f"[17 consumption layer] {time.perf_counter() - t0:.1f} s ({', '.join(seconds)}); launches {total}; "
             f"{watch.check('17')}")
     return total
@@ -4365,28 +4225,6 @@ def _phase18_bnn(smi, dev, configs=BNN_CONFIGS):
         f"defaults): f64 {e64:.2e} (1e-12), f32 {e32:.2e} (1e-5) | {smi}")
 
 
-def _phase18_bnn_units(smi, dev, beside="alone on the card"):
-    """18a's per-unit rows at the defaults (f32, n = 256): a training step
-    and a sample_trained_net call (200 samples, 31 points); ``beside``
-    says what else ran."""
-    from bayesianinference_tpu_torch import bnn
-
-    x_np, y_np = _sine_data()
-    x, y = torch.as_tensor(x_np, device=dev), torch.as_tensor(y_np, device=dev)
-    net = bnn.regression_net()
-    g = torch.Generator(device=dev).manual_seed(1)
-    init = net.init(g, x[:1])
-    draws = [bnn.BNNStepDraws(None, net.draw_masks(g, BNN_N, 10, dtype=torch.float32)) for _ in range(3)]
-    # the bounds: about two thirds of the CUDA kernels a complete trace of
-    # one unit counts on an H100 (214 and 54-67)
-    rows = _unit_costs((
-        ("training step", lambda s: bnn.train_regression_net(net, None, x, y, initial_params=init, num_steps=s,
-                                                             draws=draws[:s]), 140),
-        ("sample_trained_net (200 samples, 31 points)",
-         lambda s: [bnn.sample_trained_net(net, init, g, x[:31], num_samples=200).std() for _ in range(s)], 44)))
-    log(f"[18a BNN units] at the defaults (f32, n = {BNN_N}), {beside}: {'; '.join(rows)} | {smi}")
-
-
 def _banana_problem(dev):
     """tests/test_flow_vi.py's banana and its grid-quadrature logZ."""
     from bayesianinference_tpu_torch.models.problem import define_inference_problem
@@ -4457,20 +4295,24 @@ def _phase18b_job(job: str, dev: str, steps: dict) -> dict:
     return {**out, "seconds": time.perf_counter() - t0}
 
 
-def _phase18b_start(dev, pmmh=None, conj_steps=2000, box_steps=1500, banana_steps=4000, advi_steps=3000,
+def _phase18b_start(dev, pmmh=None, dns=None, conj_steps=2000, box_steps=1500, banana_steps=4000, advi_steps=3000,
                     hmc_warmup=100):
     """Starts 18b: tests/test_flow_vi.py's oracles on the card (the
     conjugate posterior and evidence, the box-and-scale test, the banana
     against full-rank ADVI with the slow test's gates, HMC from a flow start
     on the banana), the five fits in five worker processes; before them, in
     the same pool, 19c's PMMH oracle (:func:`_pmmh_oracle`, keyword
-    arguments ``pmmh``) unless ``pmmh`` is None: (pool, pending result,
-    sizes, the PMMH oracle's pending result or None)."""
+    arguments ``pmmh``) unless ``pmmh`` is None, and after them 20e's run
+    (:func:`_dns_oracle`, keyword arguments ``dns``) unless ``dns`` is
+    None: (pool, pending result, sizes, the PMMH oracle's and 20e's pending
+    results or None)."""
     steps = dict(conj=conj_steps, box=box_steps, banana=banana_steps, advi=advi_steps, hmc_warmup=hmc_warmup)
     pool = multiprocessing.get_context("spawn").Pool(5)
     pmmh_pending = None if pmmh is None else pool.apply_async(_pmmh_oracle, (str(dev),), pmmh)
     jobs = ("banana_flow", "conjugate", "box", "banana_advi", "hmc_flow")  # the longest first
-    return pool, pool.starmap_async(_phase18b_job, [(job, str(dev), steps) for job in jobs]), steps, pmmh_pending
+    fits = pool.starmap_async(_phase18b_job, [(job, str(dev), steps) for job in jobs])
+    dns_pending = None if dns is None else pool.apply_async(_dns_oracle, (str(dev),), dns)
+    return pool, fits, steps, pmmh_pending, dns_pending
 
 
 def _phase18b_finish(smi, pending, steps):
@@ -4528,63 +4370,22 @@ def _phase18_flow_gp(smi, watch, dev, problem, grid_logz, steps=FLOW_GP_STEPS, b
     return launches
 
 
-@_measuring
-def _phase18_times(smi, dev, problem):
-    """18d: the kernels at the flow step's B = 64 (n = 512 f64) against their
-    plain versions, bounds and cholesky_ex; per flow step and per ADVI step
-    at the same B wall ms, device ms, CUDA kernels and busy share."""
-    from bayesianinference_tpu_torch.engines import vi
-    from bayesianinference_tpu_torch.engines.flow_vi import flow_vi_fit
-    from bayesianinference_tpu_torch.ops import gp_kernels as gk
-
-    g = torch.Generator(device=dev).manual_seed(18)
-    b = FLOW_GP_B
-    x = torch.randn((1, SLICE_N, SLICE_D), generator=g, device=dev, dtype=torch.float64)
-    var = 0.5 + torch.rand((b,), generator=g, device=dev, dtype=torch.float64)
-    scale = (0.5 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, SLICE_D)
-    nug = (0.01 + torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)).expand(b, SLICE_N)
-    kw = dict(reps=2, groups=2, per_group=10)
-    ms, plain_ms, _, _ = _in_turns(lambda: gk.se_covariance_cuda(x, None, var, scale, nug),
-                                   lambda: gk.se_covariance_plain(x, None, var, scale, nug), **kw)
-    bound, by = _se_bound(x, None, var, scale, nug)
-    k = gk.se_covariance_cuda(x, None, var, scale, nug)
-    c_ms, c_lib, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), **kw)
-    c_plain, _ = _time_ms(lambda: gk.cholesky_plain(k), **kw)
-    c_bound, c_by = _chol_bound(b, SLICE_N, 8)
-    del k
-    draws = vi.vi_draws(g, 3, b, 64, problem.dim)
-    # the bounds: about two thirds of the CUDA kernels a complete trace of
-    # one unit counts on an H100 (696-742 and 436)
-    parts = _unit_costs((
-        (f"flow step at B = {b}", lambda s: flow_vi_fit(problem, g, num_steps=s, num_elbo_samples=b,
-                                                        final_evidence_samples=64,
-                                                        draws=vi.VIDraws(draws.steps[:s], draws.final)), 490),
-        (f"ADVI step (fullrank) at B = {b}", lambda s: vi.advi_fit(problem, None, family="fullrank", num_steps=s,
-                                                                   num_elbo_samples=b, final_elbo_samples=64,
-                                                                   draws=vi.VIDraws(draws.steps[:s], draws.final)),
-         290)),
-        reps=1)
-    log(f"[18d kernel times] device ms in turns: B={b} n={SLICE_N} f64: SE {ms:.4f} ms (plain {plain_ms:.4f}, bound "
-        f"{bound:.3g} by {by}); Cholesky {c_ms:.4f} ms (plain {c_plain:.4f}, cholesky_ex {c_lib:.4f}, bound "
-        f"{c_bound:.3g} by {c_by}); {'; '.join(parts)} | {smi}")
-
-
-def phase_flow_bnn(smi: str, gp_problem, gp_posterior, dev="cuda", pmmh=None, **sizes):
+def phase_flow_bnn(smi: str, gp_problem, gp_posterior, dev="cuda", pmmh=None, dns=None, **sizes):
     """Phase 18: the quasi-Bayesian networks and flow VI (module
     docstring).  18b's five fits run in worker processes while 18a and 18c
-    run here; the per-unit rows (18a's, 18d) are taken after the fits end.
-    ``pmmh`` (keyword arguments of :func:`_pmmh_oracle`, or None) puts 19c's
-    PMMH oracle in the same pool first.  ``sizes`` shrink 18a-c for a
-    rehearsal (``bnn`` (``configs=``), ``oracles``, ``gp``: keyword
-    arguments of each sub-phase; ``times=False`` skips 18d and 18a's
-    per-unit rows).  Returns (launches, None), or with the PMMH oracle
-    (launches, (pool, its pending result)): the pool stays open for phase
-    19, which closes it."""
+    run here.  ``pmmh`` (keyword arguments of :func:`_pmmh_oracle`, or
+    None) puts 19c's PMMH oracle in the same pool first, ``dns`` (of
+    :func:`_dns_oracle`, or None) 20e's run after the fits.  ``sizes``
+    shrink 18a-c for a rehearsal (``bnn`` (``configs=``), ``oracles``,
+    ``gp``: keyword arguments of each sub-phase).  Returns (launches,
+    None), or with either run (launches, (pool, the PMMH oracle's pending
+    result, 20e's)): the pool stays open for phases 19 and 20; the caller
+    closes it."""
     dev = torch.device(dev)
     grid_logz = gp_posterior[1]
     t0 = time.perf_counter()
     seconds = []
-    pool, pending, steps, pmmh_pending = _phase18b_start(dev, pmmh, **sizes.get("oracles", {}))
+    pool, pending, steps, pmmh_pending, dns_pending = _phase18b_start(dev, pmmh, dns, **sizes.get("oracles", {}))
     try:
         with _KernelWatch() as watch:
             t = time.perf_counter()
@@ -4598,24 +4399,17 @@ def phase_flow_bnn(smi: str, gp_problem, gp_posterior, dev="cuda", pmmh=None, **
             t = time.perf_counter()
             _phase18b_finish(smi, pending, steps)
             seconds.append(f"18b waited {time.perf_counter() - t:.1f}")
-            if sizes.get("times", True):
-                t = time.perf_counter()
-                _phase18_bnn_units(smi, dev, "alone on the card" if pmmh_pending is None
-                                   else "beside 19c's PMMH oracle in a worker process")
-                _phase18_times(smi, dev, gp_problem)
-                seconds.append(f"18a units and 18d {time.perf_counter() - t:.1f}"
-                               + ("" if pmmh_pending is None else " beside 19c's PMMH oracle"))
             log(f"[18 BNN and flow VI] {time.perf_counter() - t0:.1f} s ({', '.join(seconds)}); launches {total}; "
                 f"{watch.check('18')}")
     except BaseException:
         pool.terminate()
         pool.join()
         raise
-    if pmmh_pending is None:
+    if pmmh_pending is None and dns_pending is None:
         pool.close()
         pool.join()
         return total, None
-    return total, (pool, pmmh_pending)
+    return total, (pool, pmmh_pending, dns_pending)
 
 # ---------------------------------------------------------------------------
 # Phase 19: the time-series engines (no hand-written kernel on this path)
@@ -4707,7 +4501,7 @@ def _ts_random_model(dev, seed=0):
 
 
 def _phase19a_kalman(smi, dev, chains=8192, t_bench=256, t_long=131072, t_par=4097, ref_chains=256,
-                     level_t=400, times=True):
+                     level_t=400, times=False):
     from bayesianinference_tpu_torch.engines import ssm
     from bayesianinference_tpu_torch.engines.laplace import laplace_posterior_fit
     from bayesianinference_tpu_torch.ops import kalman
@@ -4785,8 +4579,11 @@ def _phase19a_kalman(smi, dev, chains=8192, t_bench=256, t_long=131072, t_par=40
     gate = _f32_gate("19a long series", long[(dev.type, torch.float32)][2], long[("cpu", torch.float32)][2],
                      long[("cpu", torch.float64)][2])
     m32, y32, _ = long[(dev.type, torch.float32)]
-    wall = _wall_ms(lambda: kalman.kalman_log_likelihood(m32, y32, method="parallel"), reps=1) if times else math.nan
-    lines.append(f"long series T = {t_long} f32, parallel: {wall:.1f} ms, {t_long / wall * 1e3:.3g} steps/s; {gate}")
+    timed = ""
+    if times:
+        wall = _wall_ms(lambda: kalman.kalman_log_likelihood(m32, y32, method="parallel"), reps=1)
+        timed = f"{wall:.1f} ms, {t_long / wall * 1e3:.3g} steps/s; "
+    lines.append(f"long series T = {t_long} f32, parallel: {timed}{gate}")
 
     # the local-level problem of tests/test_ssm.py:249-282, Laplace through the parallel method
     truth = ssm.structural_lgssm([ssm.level_component(torch.tensor(0.3, dtype=torch.float64))], obs_var=0.8)
@@ -4871,7 +4668,7 @@ def _nig_segment(y, mu0=0.3, kappa0=2.0, alpha0=1.5, beta0=0.8):
 
 
 def _phase19b_hmm_bocpd(smi, dev, chains=8192, t_bench=256, k=4, t_long=131072, k_long=8, bocpd_t=8192,
-                        r_max=512, ref_chains=256, times=True):
+                        r_max=512, ref_chains=256, times=False):
     import importlib
 
     from bayesianinference_tpu_torch.engines import changepoint, hmm
@@ -4950,8 +4747,8 @@ def _phase19b_hmm_bocpd(smi, dev, chains=8192, t_bench=256, k=4, t_long=131072, 
                                                                        ("cpu", torch.float32),
                                                                        ("cpu", torch.float64))))
     m32, l32, _ = long[(dev.type, torch.float32)]
-    wall = _wall_ms(lambda: ohmm.hmm_log_likelihood(m32, l32, method="parallel"), reps=1) if times else math.nan
-    lines.append(f"HMM long series T = {t_long}, K = {k_long} f32, parallel: {wall:.1f} ms; {gate}")
+    timed = f"{_wall_ms(lambda: ohmm.hmm_log_likelihood(m32, l32, method='parallel'), reps=1):.1f} ms; " if times else ""
+    lines.append(f"HMM long series T = {t_long}, K = {k_long} f32, parallel: {timed}{gate}")
     # BOCPD at benchmarks/hmm_throughput.py::bench_bocpd's width
     yb = torch.randn(bocpd_t, generator=torch.Generator().manual_seed(4), dtype=torch.float64)
     runs = {}
@@ -5040,24 +4837,25 @@ def _pmmh_oracle(dev: str, pm_particles=512, pm_warmup=250, pm_samples=250, pm_c
     """19c's PMMH run for the exact grid posterior (tests/test_particle.py:163-200):
     a host-bound loop of eager filter steps that reaches no hand-written
     kernel, so it runs in a worker process of 18b's pool beside phases 18
-    and 19a-b (it fails if a kernel launched there).  Its series, draws,
+    and 19a-b (it fails if a kernel launched during the run).  Its series, draws,
     acceptance rates, sizes and seconds."""
     from bayesianinference_tpu_torch.ops import gp_kernels as gk
 
     dev = torch.device(dev)
     _, y = _ar1_data(dev)
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
     t0 = time.perf_counter()
     res = _pmmh_run(dev, y, pm_warmup, pm_samples, torch.Generator(device=dev).manual_seed(4), pm_particles,
                     pm_chains)
     draws = res.points[:, 0].cpu().numpy()
     seconds = time.perf_counter() - t0
-    if gk.se_covariance_cuda.launches or gk.cholesky_cuda.launches:
-        raise AssertionError("19c PMMH: a hand-written kernel launched in the worker process")
+    if (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches) != before:
+        raise AssertionError("19c PMMH: a hand-written kernel launched")
     return dict(y=y.cpu().numpy(), draws=draws, acc=res.acceptance_rate.cpu().numpy(), seconds=seconds,
                 sizes=(pm_chains, pm_particles, pm_warmup, pm_samples))
 
 
-def _phase19c_particle(smi, dev, particles=4096, seeds=8, pmmh=None, times=True, **pm):
+def _phase19c_particle(smi, dev, particles=4096, seeds=8, pmmh=None, times=False, **pm):
     """19c; ``pmmh`` is (pool, pending result) of :func:`_pmmh_oracle` run in
     18b's pool, or None to run it here with the keyword arguments ``pm``."""
     from bayesianinference_tpu_torch.ops import kalman
@@ -5143,7 +4941,7 @@ def _phase19c_particle(smi, dev, particles=4096, seeds=8, pmmh=None, times=True,
         log(f"  19c {line}")
 
 
-def _phase19d_ibis(smi, dev, particles=4096, batch=5, steps=20, times=True):
+def _phase19d_ibis(smi, dev, particles=4096, batch=5, steps=20, times=False):
     from bayesianinference_tpu_torch import dists
     from bayesianinference_tpu_torch.engines.ibis import ibis_sampler
     from bayesianinference_tpu_torch.models import define_inference_problem
@@ -5200,8 +4998,8 @@ def phase_time_series(smi: str, pmmh=None, dev="cuda", **sizes):
     """Phase 19: the time-series engines (module docstring).  ``pmmh`` is
     phase 18's (pool, pending result) of 19c's PMMH oracle, or None to run
     it in 19c.  ``sizes`` shrink 19a-d for a rehearsal (``kalman``,
-    ``hmm``, ``particle``, ``ibis``: keyword arguments of each sub-phase,
-    ``times=False`` among them).  No hand-written kernel lies on this path:
+    ``hmm``, ``particle``, ``ibis``: keyword arguments of each sub-phase).
+    No hand-written kernel lies on this path:
     the watch holds the launch counters at 0."""
     dev = torch.device(dev)
     t0 = time.perf_counter()
@@ -5218,21 +5016,439 @@ def phase_time_series(smi: str, pmmh=None, dev="cuda", **sizes):
     if total["se_covariance"] or total["cholesky"]:
         raise AssertionError(f"19: a GP kernel launched on the time-series path: {total}")
     log(f"[19 time series] {time.perf_counter() - t0:.1f} s ({', '.join(seconds)}); launches {total} "
-        "(no GP kernel on this path)" + ("" if pmmh is None else "; 19a's and 19b's rows beside 19c's PMMH oracle "
-                                        "in a worker process"))
+        "(no GP kernel on this path)" + ("" if pmmh is None else "; 19c's PMMH oracle in a worker process"))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the single-card parallel engines (parallel SMC, HMC, the ensemble,
+# IBIS and dynamic NS); only the ensemble on phase 4's GP reaches the kernels
+# (and HMC's dense mass the Cholesky)
+# ---------------------------------------------------------------------------
+
+PAR_HMC_MOMENTS = dict(chains=64, warmup=150, samples=100, leapfrog=5)  # 20b's moment run
+PAR_ENS = dict(walkers=32, warmup=100, samples=600, batches=12)  # 20c's run on the GP slice
+PAR_CARD_CPU_TOL = 1e-12  # 20a, 20b and 20d: the card against CPU tensors on the same draws, f64
+PAR_ENS_CARD_CPU_TOL = 1e-10  # 20c: through both kernels, whose sums run in another order than the plain versions'
+
+
+def _card_cpu_err(pairs) -> float:
+    """The largest of ``_rel_max`` over (card, CPU) pairs."""
+    return max(_rel_max(a, b) for a, b in pairs)
+
+
+class _SMCStageDraws:
+    """Stage t's ``SMCStageDraws`` made on the host from ``seed`` and t and
+    put on ``dev``: the same numbers for a run on the card and one on CPU
+    tensors, whatever the number of stages."""
+
+    def __init__(self, seed, runs, n, d, steps, dev):
+        self.seed, self.shape, self.dev = seed, (runs, n, d, steps), dev
+
+    def __getitem__(self, t):
+        from bayesianinference_tpu_torch.engines.smc import SMCStageDraws
+
+        runs, n, d, steps = self.shape
+        g = torch.Generator().manual_seed(1000 * self.seed + t)
+        offset = torch.rand((runs,), generator=g, dtype=torch.float64)
+        z = torch.randn((runs * n, d, steps), generator=g, dtype=torch.float64)
+        log_u = torch.log(1e-38 + (1.0 - 1e-38) * torch.rand((runs * n, steps), generator=g, dtype=torch.float64))
+        return SMCStageDraws(offset.to(self.dev), z.to(self.dev), log_u.to(self.dev))
+
+
+def _phase20a_smc(smi, dev, runs=8, particles=200, steps=8):
+    """20a: parallel SMC at the JAX test's configuration: bit for bit
+    ``smc_sampler`` on one generator, logZ against the analytic value, and
+    the card against CPU tensors on the same draws."""
+    from bayesianinference_tpu_torch.engines.nested_sampling import generate_starting_points
+    from bayesianinference_tpu_torch.engines.smc import smc_sampler
+    from bayesianinference_tpu_torch.parallel import parallel_smc
+
+    problem, analytic = _gaussian_box_problem(2, dev)
+    cpu_problem, _ = _gaussian_box_problem(2, "cpu")
+    kw = dict(num_runs=runs, n_particles=particles, mcmc_steps=steps)
+    t = time.perf_counter()
+    res = parallel_smc(problem, torch.Generator(device=dev).manual_seed(0), **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    ref = smc_sampler(problem, torch.Generator(device=dev).manual_seed(0), **kw)
+    bitwise = torch.equal(res.log_z_runs, ref.log_z_runs) and torch.equal(res.particles, ref.particles)
+    logz = float(res.log_evidence.mean)
+    start = generate_starting_points(cpu_problem, torch.Generator().manual_seed(1), runs * particles)
+    start = start.reshape(runs, particles, 2)
+    card = parallel_smc(problem, None, starting_points=start.to(dev), draws=_SMCStageDraws(1, runs, particles, 2, steps,
+                                                                                             dev), **kw)
+    cpu = parallel_smc(cpu_problem, None, starting_points=start, draws=_SMCStageDraws(1, runs, particles, 2, steps,
+                                                                                      "cpu"), **kw)
+    err = _card_cpu_err([(card.log_z_runs, cpu.log_z_runs), (card.particles, cpu.particles)])
+    stages_equal = torch.equal(card.n_stages.cpu(), cpu.n_stages)
+    if not (bitwise and abs(logz - analytic) < 0.3 and err <= PAR_CARD_CPU_TOL and stages_equal):
+        raise AssertionError(f"20a parallel SMC: bitwise smc_sampler {bitwise}, logZ {logz} (analytic {analytic}), "
+                             f"card vs CPU {err:.3e}, stage counts equal {stages_equal}")
+    log(f"[20a parallel SMC] {runs} runs x {particles} particles, {steps} AM steps, f64 (tests/test_parallel_smc_hmc.py"
+        f"'s configuration): bit for bit smc_sampler on one generator; logZ {logz:.4f} +- "
+        f"{float(res.log_evidence.standard_error):.4f} (analytic {analytic:.4f}, gate 0.3), stages "
+        f"{res.n_stages.tolist()}, {res.num_likelihood_evals} evals in {wall:.2f} s; the card against CPU tensors on "
+        f"the same draws {err:.1e} (gate {PAR_CARD_CPU_TOL:g}) | {smi}")
+
+
+def _par_hmc_draws(g, chains, d, warmup, samples, auto):
+    """One run's trajectory draws from the host generator ``g``."""
+    from bayesianinference_tpu_torch.ops.chees import chees_draws
+    from bayesianinference_tpu_torch.ops.hmc import _phase_lengths, hmc_draws
+
+    make = chees_draws if auto else hmc_draws
+    return make(g, chains, d, num_trajectories=sum(_phase_lengths(warmup)) + samples, dtype=torch.float64)
+
+
+def _chain_moment_gate(x) -> tuple:
+    """The pooled mean and variance of chains ``x`` [chains, samples, 2]
+    against 0 and the box's variance (``_BOX_VAR``, 1 - 1.5e-5), each
+    within 4 standard errors, a standard error the spread of the chains'
+    own values over sqrt(chains).  (passed, mean, variance, 4 se of each)."""
+    x = x.cpu()
+    c = x.shape[0]
+    mean, var = x.reshape(-1, 2).mean(0), x.reshape(-1, 2).var(0)
+    se_mean, se_var = x.mean(1).std(0) / math.sqrt(c), x.var(1).std(0) / math.sqrt(c)
+    ok = bool((mean.abs() <= 4 * se_mean).all()) and bool(((var - _BOX_VAR).abs() <= 4 * se_var).all())
+    return ok, mean, var, 4 * se_mean, 4 * se_var
+
+
+def _rounded(t, places=4):
+    return [round(v, places) for v in t.tolist()]
+
+
+# 20b at 60 + 40 with a fixed trajectory length: the step size that the card
+# and the CPU freeze on the same draws may differ by rounding that dual
+# averaging amplifies, but no more than two runs from different seeds do:
+# |log eps_card - log eps_cpu| <= 4 sqrt(2) sd, sd = 0.105, the largest spread
+# of log eps over 16 seeds at this configuration (diagonal 0.097, dense 0.105;
+# tests/parallel_hmc_study.py)
+PAR_HMC_LOG_EPS_TOL = 4 * math.sqrt(2) * 0.105
+
+
+def _phase20b_hmc(smi, watch, dev, chains=8, warmup=60, samples=40, leapfrog=5, replay_warmup=3, replay_samples=3,
+                  moments=PAR_HMC_MOMENTS):
+    """20b: parallel HMC at the JAX smoke configuration (diagonal, dense and
+    ChEES), each on the card and on CPU tensors from the same draws, and a
+    moment run.
+
+    ChEES at ``warmup`` + ``samples`` is held against the CPU at 1e-12 in
+    the samples, step size, inverse mass and trajectory length: it freezes a
+    trajectory of one or two steps (as JAX does on its mesh,
+    tests/test_torch_parallel_smc_hmc.py), and its rounding grows far less
+    (the port against JAX at this configuration: 1e-15 to 5e-11 over four
+    keys, tests/parallel_hmc_study.py; these draws read 1.6e-15).
+    With the fixed L the rounding does grow through dual averaging (the JAX
+    package against itself from starts 1e-15 apart: 6.5e-14 after 6 warmup
+    iterations, 1.4e-12 after 9, 0.09 after 60; the card against the CPU
+    0.10 and 0.85 at 60 + 40), so the diagonal and dense masses are held at
+    1e-12 over ``replay_warmup`` + ``replay_samples``, and at the full
+    configuration by what rounding cannot move: both runs pass the moment
+    gate of :func:`_chain_moment_gate`, and their frozen step sizes agree
+    within ``PAR_HMC_LOG_EPS_TOL``.  The moment run's gate is the same
+    test at ``moments``' depth."""
+    from bayesianinference_tpu_torch.ops.chees import ChEESDraws
+    from bayesianinference_tpu_torch.ops.hmc import HMCDraws
+    from bayesianinference_tpu_torch.parallel import parallel_hmc
+
+    problem, _ = _gaussian_box_problem(2, dev)
+    cpu_problem, _ = _gaussian_box_problem(2, "cpu")
+    lines, launches = [], {"se_covariance": 0, "cholesky": 0}
+    fields = ("samples", "step_size", "inv_mass_diag", "trajectory_length")
+    start = 4.0 * torch.rand((chains, 2), generator=torch.Generator().manual_seed(2), dtype=torch.float64) - 2.0
+
+    def pair(kw, nw, ns, seed, count=False):
+        """The run on the card and on CPU tensors from one host generator's draws."""
+        auto = kw["num_leapfrog"] == "auto"
+        draws = _par_hmc_draws(torch.Generator().manual_seed(seed), chains, 2, nw, ns, auto)
+        run = dict(num_chains=chains, num_warmup=nw, num_samples=ns, **kw)
+        before = watch.counts()
+        card = parallel_hmc(problem, None, starting_points=start.to(dev),
+                            draws=(ChEESDraws if auto else HMCDraws)(*(a.to(dev) for a in draws)), **run)
+        after = watch.counts()
+        if count:
+            for k in launches:
+                launches[k] += after[k] - before[k]
+        return card, parallel_hmc(cpu_problem, None, starting_points=start, draws=draws, **run)
+
+    for name, kw in (("diagonal", dict(num_leapfrog=leapfrog)), ("dense", dict(num_leapfrog=leapfrog, dense_mass=True)),
+                     ("auto", dict(num_leapfrog="auto"))):
+        card, cpu = pair(kw, warmup, samples, 3, count=True)
+        ok = bool(torch.isfinite(card.samples).all()) and float(card.step_size) > 0 and card.step_size.shape == ()
+        if kw.get("dense_mass"):
+            m = card.inv_mass_diag
+            ok = ok and m.shape == (2, 2) and _rel_max(m, m.mT) <= 1e-12
+        full = _card_cpu_err([(getattr(card, f), getattr(cpu, f)) for f in fields])
+        if name == "auto":
+            held = full <= PAR_CARD_CPU_TOL
+            line = (f"the card against CPU tensors on the same draws {full:.1e} at {warmup} + {samples} (gate "
+                    f"{PAR_CARD_CPU_TOL:g})")
+        else:
+            a, b = pair(kw, replay_warmup, replay_samples, 3)
+            short = _card_cpu_err([(getattr(a, f), getattr(b, f)) for f in fields])
+            gates = [_chain_moment_gate(r.samples) for r in (card, cpu)]
+            log_eps = abs(math.log(float(card.step_size) / float(cpu.step_size)))
+            held = short <= PAR_CARD_CPU_TOL and all(g[0] for g in gates) and log_eps <= PAR_HMC_LOG_EPS_TOL
+            line = (f"the card against CPU tensors on the same draws {short:.1e} at {replay_warmup} + "
+                    f"{replay_samples} (gate {PAR_CARD_CPU_TOL:g}); at {warmup} + {samples} {full:.1e}, the step "
+                    f"sizes' |log ratio| {log_eps:.3f} (gate {PAR_HMC_LOG_EPS_TOL:.3f}), the moment gate on the card "
+                    f"and the CPU: mean {_rounded(gates[0][1])} and {_rounded(gates[1][1])} (4 se "
+                    f"{_rounded(gates[0][3])}, {_rounded(gates[1][3])}), variance {_rounded(gates[0][2])} and "
+                    f"{_rounded(gates[1][2])} (4 se {_rounded(gates[0][4])}, {_rounded(gates[1][4])})")
+        if not (ok and held):
+            raise AssertionError(f"20b parallel HMC {name}: {line}; samples finite and one positive step size {ok}")
+        lines.append(f"{name}: step size {float(card.step_size):.4f}, trajectory length "
+                     f"{float(card.trajectory_length):.3f}, acceptance {float(card.acceptance_rates.mean()):.3f}; "
+                     + line)
+    c = moments["chains"]
+    t = time.perf_counter()
+    run = parallel_hmc(problem, torch.Generator(device=dev).manual_seed(4), num_chains=c,
+                       num_warmup=moments["warmup"], num_samples=moments["samples"], num_leapfrog=moments["leapfrog"])
+    ok, mean, var, se4_mean, se4_var = _chain_moment_gate(run.samples)
+    wall = time.perf_counter() - t
+    if not (ok and int(run.divergences.sum()) == 0):
+        raise AssertionError(f"20b moments: mean {mean.tolist()} (4 se {se4_mean.tolist()}), variance "
+                             f"{var.tolist()} (4 se {se4_var.tolist()}), divergences {int(run.divergences.sum())}")
+    lines.append(f"moments ({c} chains, {moments['warmup']} + {moments['samples']}, L = {moments['leapfrog']}): "
+                 f"mean {_rounded(mean)} (4 se {_rounded(se4_mean)}), variance {_rounded(var)} (4 se "
+                 f"{_rounded(se4_var)}), {wall:.2f} s")
+    log(f"[20b parallel HMC] {chains} chains, {warmup} + {samples} steps, L = {leapfrog} (the JAX smoke "
+        f"configuration), f64: {'; '.join(lines)}; the dense mass's factor through the Cholesky kernel: launches "
+        f"{launches} | {smi}")
+    return launches
+
+
+def _stacked_sweeps(g, walkers, d, sweeps, move="stretch"):
+    """``sweeps`` sweeps' ensemble draws from the host generator ``g``, each
+    half's fields with a leading sweep axis."""
+    from bayesianinference_tpu_torch.ops.ensemble import ensemble_draws
+
+    rows = [ensemble_draws(g, walkers, d, move=move, dtype=torch.float64) for _ in range(sweeps)]
+    return tuple(type(rows[0][h])(*(torch.stack(f) for f in zip(*(r[h] for r in rows)))) for h in range(2))
+
+
+def _phase20c_ensemble(smi, watch, dev, problem, gp_posterior, walkers=PAR_ENS["walkers"],
+                       warmup=PAR_ENS["warmup"], samples=PAR_ENS["samples"], batches=PAR_ENS["batches"],
+                       replay_sweeps=5):
+    """20c: the parallel ensemble on phase 4's GP slice through both
+    kernels (each half-update one density call at B = walkers / 2), started
+    at draws of phase 4's NS posterior: the card against CPU tensors on the
+    same draws for ``replay_sweeps`` sweeps, and the pooled posterior mean
+    against phase 4's NS posterior mean within 4 Monte Carlo standard
+    errors (the ensemble's by batch means over ``batches`` batches of the
+    walkers' mean, the NS mean's from its evidence resampling)."""
+    from bayesianinference_tpu_torch.parallel import parallel_ensemble
+
+    res, _, cpu_problem = gp_posterior
+    d = problem.dim
+    w = torch.exp(res.crude_log_posterior_weights).cpu()
+    pick = torch.multinomial(w, walkers, replacement=True, generator=torch.Generator().manual_seed(5))
+    start = res.points.cpu()[pick]
+    draws = _stacked_sweeps(torch.Generator().manual_seed(6), walkers, d, replay_sweeps)
+    on_card = tuple(type(h)(*(a.to(dev) for a in h)) for h in draws)
+    kw = dict(num_walkers=walkers, num_warmup=0, num_samples=replay_sweeps)
+    card = parallel_ensemble(problem, None, starting_points=start.to(dev), draws=on_card, **kw)
+    cpu = parallel_ensemble(cpu_problem, None, starting_points=start, draws=draws, **kw)
+    err = _card_cpu_err([(card.samples, cpu.samples), (card.acceptance_rates, cpu.acceptance_rates)])
+    watch.zero()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run = parallel_ensemble(problem, torch.Generator(device=dev).manual_seed(7), num_walkers=walkers,
+                            num_warmup=warmup, num_samples=samples, starting_points=start.to(dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = watch.counts()
+    sweeps = warmup + samples
+    series = run.samples.mean(0).cpu()  # [samples, d]: the walkers' mean at each recorded sweep
+    batch_means = series[: samples // batches * batches].reshape(batches, -1, d).mean(1)
+    se_ens = batch_means.std(0) / math.sqrt(batches)
+    mean = series.mean(0)
+    ns_mean = res.parameter_expected_values.mean.cpu()
+    ns_se = res.parameter_expected_values.standard_error.cpu()
+    se = torch.sqrt(se_ens**2 + ns_se**2)
+    calls = 2 * sweeps + 1  # the starting walkers' call, then two half-updates a sweep
+    ok_launches = launches["se_covariance"] == calls and launches["cholesky"] == calls
+    if not (err <= PAR_ENS_CARD_CPU_TOL and bool(((mean - ns_mean).abs() <= 4 * se).all()) and ok_launches):
+        raise AssertionError(f"20c parallel ensemble: card vs CPU {err:.3e}; mean {mean.tolist()} against NS "
+                             f"{ns_mean.tolist()} (4 se {(4 * se).tolist()}); launches {launches} for {calls} calls")
+    log(f"[20c parallel ensemble, GP slice] n={SLICE_N} d={SLICE_D} f64, {walkers} walkers (B = {walkers // 2} a "
+        f"half-update), {warmup} + {samples} stretch sweeps from draws of phase 4's NS posterior: the card against "
+        f"CPU tensors on the same draws for {replay_sweeps} sweeps {err:.1e} (gate {PAR_ENS_CARD_CPU_TOL:g}); pooled "
+        f"mean {[round(v, 5) for v in mean.tolist()]} against phase 4's NS mean {[round(v, 5) for v in ns_mean.tolist()]}"
+        f", standard errors by {batches} batch means {[f'{v:.2e}' for v in se_ens.tolist()]} and of the NS mean "
+        f"{[f'{v:.2e}' for v in ns_se.tolist()]} (gate 4 x their root sum of squares); acceptance "
+        f"{float(run.acceptance_rates.mean()):.3f}; {sweeps} sweeps in {wall:.2f} s = {wall / sweeps * 1e3:.2f} ms a "
+        f"sweep; launches {launches}, one of each a density call | {smi}")
+    return launches
+
+
+def _normal_mean_problem(dev, data, sigma=1.0, tau=2.0):
+    """tests/test_parallel_dynamic_ibis.py's normal mean model, on ``dev``."""
+    from bayesianinference_tpu_torch import dists
+    from bayesianinference_tpu_torch.models import define_inference_problem
+
+    yd = torch.as_tensor(data, dtype=torch.float64, device=dev)
+    full = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)  # noqa: E731
+    return define_inference_problem(
+        parameters=[("mu", -10.0, 10.0)], log_likelihood=lambda th: dists.Normal(th[0], sigma).log_prob(yd).sum(),
+        prior_distribution=dists.Product((dists.Normal(full(0.0), full(tau)),)), validate=False, device=dev,
+        dtype=torch.float64), yd
+
+
+def _normal_mean_oracle(data, sigma=1.0, tau=2.0):
+    """(posterior mean, posterior variance, logZ by quadrature on a 4001-point grid)."""
+    post_var = 1.0 / (1.0 / tau**2 + data.size / sigma**2)
+    grid = np.linspace(-10, 10, 4001)
+    ll = (-0.5 * ((data[None, :] - grid[:, None]) / sigma) ** 2).sum(1) - data.size * math.log(sigma * math.sqrt(
+        2 * math.pi))
+    lp = -0.5 * (grid / tau) ** 2 - math.log(tau * math.sqrt(2 * math.pi))
+    return post_var * data.sum() / sigma**2, post_var, float(np.logaddexp.reduce(ll + lp) + math.log(grid[1] - grid[0]))
+
+
+PAR_DATA = np.random.default_rng(3).normal(0.8, 1.0, size=40)  # tests/test_parallel_dynamic_ibis.py's data
+
+
+def _phase20d_ibis(smi, dev, particles=2048, batch=5, steps=15):
+    """20d: parallel IBIS on the JAX oracle (the normal mean, 40
+    observations) under its gates, and the card against CPU tensors on the
+    same draws."""
+    from bayesianinference_tpu_torch import dists
+    from bayesianinference_tpu_torch.engines.ibis import ibis_stage_draws
+    from bayesianinference_tpu_torch.parallel import parallel_ibis
+
+    post_mean, post_var, log_z = _normal_mean_oracle(PAR_DATA)
+    problem, yd = _normal_mean_problem(dev, PAR_DATA)
+    cpu_problem, y_cpu = _normal_mean_problem("cpu", PAR_DATA)
+
+    def pointwise(th, yy):
+        return dists.Normal(th[0], 1.0).log_prob(yy)
+
+    kw = dict(n_particles=particles, batch_size=batch, mcmc_steps=steps)
+    t = time.perf_counter()
+    res = parallel_ibis(problem, pointwise, yd, torch.Generator(device=dev).manual_seed(1), **kw)
+    w = torch.softmax(res.log_weights, 0).cpu()
+    x = res.particles[:, 0].cpu()
+    wall = time.perf_counter() - t
+    mu = float((w * x).sum())
+    var = float((w * (x - mu) ** 2).sum())
+    acc = float(np.nanmean(res.acceptance_history.cpu().numpy()))
+    pred_err = abs(float(res.log_predictives.sum() - res.log_evidence)) / abs(float(res.log_evidence))
+    g = torch.Generator().manual_seed(8)
+    start = 2.0 * torch.randn((particles, 1), generator=g, dtype=torch.float64)
+    stages = -(-PAR_DATA.size // batch)
+    draws = [ibis_stage_draws(g, particles, 1, steps, dtype=torch.float64, device="cpu") for _ in range(stages)]
+    card = parallel_ibis(problem, pointwise, yd, None, starting_points=start.to(dev),
+                         draws=[type(s)(*(a.to(dev) for a in s)) for s in draws], **kw)
+    cpu = parallel_ibis(cpu_problem, pointwise, y_cpu, None, starting_points=start, draws=draws, **kw)
+    err = _card_cpu_err([(getattr(card, f), getattr(cpu, f)) for f in ("particles", "log_evidence", "log_predictives",
+                                                                        "ess_history")])
+    ok = (abs(float(res.log_evidence) - log_z) < 0.25 and pred_err <= 1e-6
+          and abs(mu - post_mean) < 4 * math.sqrt(post_var / 500) and abs(var / post_var - 1.0) < 0.25
+          and bool(res.resampled.any()) and acc > 0.1 and err <= PAR_CARD_CPU_TOL
+          and torch.equal(card.resampled.cpu(), cpu.resampled))
+    if not ok:
+        raise AssertionError(f"20d parallel IBIS: logZ {float(res.log_evidence)} ({log_z}), predictives {pred_err:.1e},"
+                             f" mean {mu} ({post_mean}), var {var} ({post_var}), resampled {res.resampled.tolist()}, "
+                             f"acceptance {acc}, card vs CPU {err:.3e}")
+    log(f"[20d parallel IBIS] {particles} particles, batch {batch}, {steps} AM steps, f64, the normal mean with "
+        f"{PAR_DATA.size} observations (the JAX oracle): logZ {float(res.log_evidence):.4f} against quadrature "
+        f"{log_z:.4f} (gate 0.25), the predictives' sum {pred_err:.1e} from it (1e-6), mean {mu:.4f} ({post_mean:.4f}"
+        f"), variance ratio {var / post_var:.3f}, {int(res.resampled.sum())} of {stages} stages moved, acceptance "
+        f"{acc:.3f}, {wall:.2f} s; the card against CPU tensors on the same draws {err:.1e} (gate "
+        f"{PAR_CARD_CPU_TOL:g}) | {smi}")
+
+
+PAR_DNS_STEPS = 40  # 20e's chain steps a replacement, the JAX oracle's
+
+
+def _dns_oracle(dev: str, runs=8, pool=48, batches=8, steps=PAR_DNS_STEPS) -> dict:
+    """20e's run: parallel dynamic NS on the JAX oracle (the normal mean,
+    pool 48, ``num_batches=8`` over ``num_runs=8``: one stage).  A
+    host-bound loop of batched AM steps that reaches no hand-written kernel,
+    so it runs in a worker process of 18b's pool beside phases 18 and 19 (it
+    fails if a kernel launched during the run).  Its readings and seconds."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+    from bayesianinference_tpu_torch.parallel import parallel_dynamic_nested_sampling
+
+    dev = torch.device(dev)
+    problem, _ = _normal_mean_problem(dev, PAR_DATA)
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+    t0 = time.perf_counter()
+    res = parallel_dynamic_nested_sampling(problem, torch.Generator(device=dev).manual_seed(5), num_runs=runs,
+                                           sample_pool_size=pool, num_batches=batches, monte_carlo_steps=steps,
+                                           post_process_sampling_runs=50)
+    w = torch.exp(res.crude_log_posterior_weights)
+    out = dict(logz=float(res.log_evidence.mean), se=float(res.log_evidence.standard_error),
+               mean=float(w @ res.points[:, 0]), iterations=res.iterations, evals=res.num_likelihood_evals,
+               seconds=time.perf_counter() - t0, sizes=(runs, pool, batches, steps))
+    if (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches) != before:
+        raise AssertionError("20e parallel dynamic NS: a hand-written kernel launched")
+    return out
+
+
+def _phase20e_dynamic_ns(smi, dev, pending=None, **kw):
+    """20e's gates on :func:`_dns_oracle`'s readings (``pending``: its
+    result from 18b's pool, or None to run it here with ``kw``): |z| < 4
+    against the quadrature logZ, the posterior mean within 4 posterior sd."""
+    post_mean, post_var, log_z = _normal_mean_oracle(PAR_DATA)
+    t = time.perf_counter()
+    r = _dns_oracle(str(dev), **kw) if pending is None else pending.get()
+    wait = time.perf_counter() - t
+    runs, pool, batches, steps = r["sizes"]
+    z = (r["logz"] - log_z) / r["se"]
+    if not (abs(z) < 4.0 and abs(r["mean"] - post_mean) < 4 * math.sqrt(post_var) and r["iterations"] > 0):
+        raise AssertionError(f"20e parallel dynamic NS: logZ {r['logz']} +- {r['se']} against {log_z} (z {z:.2f}), "
+                             f"mean {r['mean']} ({post_mean})")
+    where = ("in this process" if pending is None else
+             f"in a worker process of 18b's pool from phase 18 on, waited for {wait:.1f} s here")
+    log(f"[20e parallel dynamic NS] the normal mean (the JAX oracle): {runs} runs of pool {pool}, {batches} batches "
+        f"({-(-batches // runs)} stage), {steps} AM steps a replacement, f64: logZ {r['logz']:.4f} +- {r['se']:.4f} "
+        f"against quadrature {log_z:.4f} (z {z:+.2f}, gate 4), mean {r['mean']:.4f} ({post_mean:.4f}), "
+        f"{r['iterations']} iterations, {r['evals']} evals in {r['seconds']:.1f} s {where} | {smi}")
+
+
+def phase_parallel_engines(smi: str, gp_problem, gp_posterior, dev="cuda", dns=None, **sizes):
+    """Phase 20: the single-card parallel engines (module docstring).
+    ``dns`` is the pending result of 20e's run in 18b's pool, or None to
+    run it here.  ``sizes`` shrink 20a-e for a rehearsal (``smc``, ``hmc``,
+    ``ensemble``, ``ibis``, ``dns``: keyword arguments of each sub-phase).
+    Returns the launches of 20b's runs (the dense mass's factor) and 20c's
+    run."""
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    seconds, total = [], {"se_covariance": 0, "cholesky": 0}
+    with _KernelWatch() as watch:
+        for tag, run in (("20a", lambda: _phase20a_smc(smi, dev, **sizes.get("smc", {}))),
+                         ("20b", lambda: _phase20b_hmc(smi, watch, dev, **sizes.get("hmc", {}))),
+                         ("20c", lambda: _phase20c_ensemble(smi, watch, dev, gp_problem, gp_posterior,
+                                                            **sizes.get("ensemble", {}))),
+                         ("20d", lambda: _phase20d_ibis(smi, dev, **sizes.get("ibis", {}))),
+                         ("20e", lambda: _phase20e_dynamic_ns(smi, dev, dns, **sizes.get("dns", {})))):
+            t = time.perf_counter()
+            for k, v in (run() or {}).items():
+                total[k] += v
+            seconds.append(f"{tag} {time.perf_counter() - t:.1f}")
+        if not (total["se_covariance"] > 0 and total["cholesky"] > 0):
+            raise AssertionError(f"20: launches {total}")
+        log(f"[20 parallel engines] {time.perf_counter() - t0:.1f} s ({', '.join(seconds)}); launches {total}; "
+            f"{watch.check('20')}")
     return total
 
 
 def main():
     t0 = time.perf_counter()
 
+    took = {}
+
     def timed(phase, *args):
-        """Run a phase and print the script's seconds so far, and the
-        phase's seconds in the timing and profiling helpers."""
-        before = _MEASURING["seconds"]
+        """Run a phase and print the script's seconds so far, the phase's
+        seconds, and its seconds in the timing and profiling helpers."""
+        before, t = _MEASURING["seconds"], time.perf_counter()
         out = phase(*args)
-        log(f"[seconds] {phase.__name__} done at {time.perf_counter() - t0:.0f} s ("
-            f"{_MEASURING['seconds'] - before:.1f} s of it timing and profiling)")
+        took[phase.__name__] = time.perf_counter() - t
+        log(f"[seconds] {phase.__name__} done at {time.perf_counter() - t0:.0f} s, took "
+            f"{took[phase.__name__]:.1f} s ({_MEASURING['seconds'] - before:.1f} s of it timing and profiling)")
         return out
 
     smi = timed(phase_device)
@@ -5254,19 +5470,21 @@ def main():
     svgp_launches = timed(phase_svgp_bo, smi)
     vi_launches = timed(phase_vi_pathfinder, smi, problem, gp_posterior)
     consumption_launches = timed(phase_consumption, smi, problem, gp_posterior)
-    flow_launches, pmmh = timed(phase_flow_bnn, smi, problem, gp_posterior, "cuda", {})
+    flow_launches, pool = timed(phase_flow_bnn, smi, problem, gp_posterior, "cuda", {}, {})
     try:
-        series_launches = timed(phase_time_series, smi, pmmh)
+        series_launches = timed(phase_time_series, smi, pool[:2])
+        engines_launches = timed(phase_parallel_engines, smi, problem, gp_posterior, "cuda", pool[2])
     finally:
-        if pmmh is not None:
-            pmmh[0].terminate()
-            pmmh[0].join()
+        pool[0].terminate()
+        pool[0].join()
     total_s = time.perf_counter() - t0
-    log(f"[seconds] all phases {total_s:.0f} s, {_MEASURING['seconds']:.0f} s of them timing and profiling; "
+    log(f"[seconds] all phases {total_s:.0f} s, {_MEASURING['seconds']:.0f} s of them timing and profiling; phase 4 "
+        f"(the host's yardstick) {took['phase_gp_slice']:.1f} s, phase 20 {took['phase_parallel_engines']:.1f} s; "
         f"{1200 - total_s:.0f} s left of the 1200 s limit")
     launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] + par_launches[k]
                 + conj_launches[k] + sampler_launches[k] + latent_launches[k] + svgp_launches[k] + vi_launches[k]
-                + consumption_launches[k] + flow_launches[k] + series_launches[k] for k in launches}
+                + consumption_launches[k] + flow_launches[k] + series_launches[k] + engines_launches[k]
+                for k in launches}
     # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
     # at bench.py's width (B = 1, n = 16384, f32)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")

@@ -38,7 +38,10 @@ masks: float64 1e-12, float32 1e-5, gradients and steps at 100 x) and
 three flow-VI steps on the ARD GP through both kernels (float64, against
 CPU tensors on the same draws, 1e-8).  The time-series engines: numpy data
 lands on the card, and the Kalman, HMM and BOCPD likelihoods and an IBIS
-run on the same draws match the CPU (float64, 1e-10).
+run on the same draws match the CPU (float64, 1e-10).  The single-card
+parallel engines (float64, against CPU tensors on the same draws): parallel
+SMC, HMC over 3 warmup iterations and IBIS, 1e-12; the parallel ensemble
+on an ARD GP through both kernels, 1e-10, one launch of each a density call.
 """
 
 import numpy as np
@@ -883,3 +886,91 @@ def test_time_series_entry_points_default_to_the_card_and_match_the_cpu(cuda):
                                            torch.zeros(1, dtype=torch.float64, device=cuda),
                                            torch.eye(1, dtype=torch.float64, device=cuda)), y)
     assert fr.log_likelihood.device.type == "cuda"
+
+
+def _box2(dev):
+    from bayesianinference_tpu_torch.dists.scalar import Normal
+    from bayesianinference_tpu_torch.models import define_inference_problem
+
+    return define_inference_problem(parameters=[("x", -5.0, 5.0), ("y", -5.0, 5.0)],
+                                    log_likelihood=lambda th: Normal(0.0, 1.0).log_prob(th).sum(),
+                                    prior_distribution=["location", "location"], validate=False, device=dev,
+                                    dtype=torch.float64)
+
+
+def test_parallel_smc_hmc_and_ibis_on_the_card_match_the_cpu_on_the_same_draws(cuda):
+    """chip_smoke.py 20a, 20b and 20d at small sizes (float64, the card
+    against CPU tensors on the same draws, 1e-12 of the largest entry):
+    parallel SMC (4 runs x 64 particles), parallel HMC over 3 warmup
+    iterations (diagonal, dense and ChEES; rounding grows through dual
+    averaging, 2.2e-12 after 6 on one start, tests/test_torch_parallel_smc_hmc.py)
+    and parallel IBIS;
+    a problem built without a device lands on the card."""
+    from bayesianinference_tpu_torch import dists as td
+    from bayesianinference_tpu_torch.engines.ibis import IBISStageDraws, ibis_stage_draws
+    from bayesianinference_tpu_torch.engines.smc import SMCStageDraws
+    from bayesianinference_tpu_torch.models import define_inference_problem
+    from bayesianinference_tpu_torch.ops.chees import ChEESDraws, chees_draws
+    from bayesianinference_tpu_torch.ops.hmc import HMCDraws, hmc_draws
+    from bayesianinference_tpu_torch.parallel import parallel_hmc, parallel_ibis, parallel_smc
+
+    card, host = _box2(None), _box2("cpu")
+    assert card.device.type == "cuda"
+    g = torch.Generator().manual_seed(0)
+    start = 8.0 * torch.rand((4, 64, 2), generator=g, dtype=torch.float64) - 4.0
+    draws = [SMCStageDraws(torch.rand(4, generator=g, dtype=torch.float64),
+                           torch.randn((256, 2, 4), generator=g, dtype=torch.float64),
+                           torch.log(torch.rand((256, 4), generator=g, dtype=torch.float64))) for _ in range(30)]
+    kw = dict(num_runs=4, n_particles=64, mcmc_steps=4)
+    a = parallel_smc(card, None, starting_points=start.to(cuda), draws=[SMCStageDraws(*(t.to(cuda) for t in d))
+                                                                         for d in draws], **kw)
+    b = parallel_smc(host, None, starting_points=start, draws=draws, **kw)
+    assert torch.equal(a.n_stages.cpu(), b.n_stages)
+    assert _rel_to(a.log_z_runs, b.log_z_runs) <= 1e-12 and _rel_to(a.particles, b.particles) <= 1e-12
+
+    x0 = 4.0 * torch.rand((8, 2), generator=g, dtype=torch.float64) - 2.0
+    for kw in (dict(num_leapfrog=5), dict(num_leapfrog=5, dense_mass=True), dict(num_leapfrog="auto")):
+        make, kind = (chees_draws, ChEESDraws) if kw["num_leapfrog"] == "auto" else (hmc_draws, HMCDraws)
+        d = make(g, 8, 2, num_trajectories=3 + 3, dtype=torch.float64)
+        a = parallel_hmc(card, None, num_chains=8, num_warmup=3, num_samples=3, starting_points=x0.to(cuda),
+                         draws=kind(*(t.to(cuda) for t in d)), **kw)
+        b = parallel_hmc(host, None, num_chains=8, num_warmup=3, num_samples=3, starting_points=x0, draws=d, **kw)
+        for f in ("samples", "step_size", "inv_mass_diag", "trajectory_length"):
+            assert _rel_to(getattr(a, f), getattr(b, f)) <= 1e-12, (kw, f)
+
+    y = torch.as_tensor(np.random.default_rng(3).normal(0.8, 1.0, size=40))
+    prior = lambda dev: td.Product((td.Normal(torch.tensor(0.0, device=dev), torch.tensor(2.0, device=dev)),))  # noqa: E731
+    probs = [define_inference_problem(parameters=[("mu", -10.0, 10.0)], log_likelihood=lambda th: th.sum() * 0.0,
+                                      prior_distribution=prior(dev), validate=False, device=dev, dtype=torch.float64)
+             for dev in (cuda, "cpu")]
+    pw = lambda th, yy: td.Normal(th[0], 1.0).log_prob(yy)  # noqa: E731
+    start = 2.0 * torch.randn((256, 1), generator=g, dtype=torch.float64)
+    draws = [ibis_stage_draws(g, 256, 1, 6, dtype=torch.float64) for _ in range(8)]
+    a = parallel_ibis(probs[0], pw, y.to(cuda), None, n_particles=256, batch_size=5, mcmc_steps=6,
+                      starting_points=start.to(cuda), draws=[IBISStageDraws(*(t.to(cuda) for t in d)) for d in draws])
+    b = parallel_ibis(probs[1], pw, y, None, n_particles=256, batch_size=5, mcmc_steps=6, starting_points=start,
+                      draws=draws)
+    assert torch.equal(a.resampled.cpu(), b.resampled) and bool(b.resampled.any())
+    for f in ("particles", "log_predictives", "ess_history"):
+        assert _rel_to(getattr(a, f), getattr(b, f)) <= 1e-12, f
+
+
+def test_parallel_ensemble_on_a_gp_through_both_kernels_matches_the_cpu(cuda):
+    """chip_smoke.py 20c at n = 64 (float64): the parallel ensemble on an ARD
+    GP's five hyperparameters, every density call through both kernels at
+    B = 8 (16 at the start), against CPU tensors on the same draws for 5
+    sweeps, 1e-10 of the largest entry."""
+    from bayesianinference_tpu_torch.ops.ensemble import ensemble_draws
+    from bayesianinference_tpu_torch.parallel import parallel_ensemble
+
+    card, host = _ard_problem(cuda, d=3), _ard_problem("cpu", d=3)
+    g = torch.Generator().manual_seed(1)
+    start = 2.0 * torch.rand((16, 5), generator=g, dtype=torch.float64) - 1.0
+    rows = [ensemble_draws(g, 16, 5, dtype=torch.float64) for _ in range(5)]
+    draws = tuple(type(rows[0][h])(*(torch.stack(f) for f in zip(*(r[h] for r in rows)))) for h in range(2))
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+    a = parallel_ensemble(card, None, num_walkers=16, num_warmup=0, num_samples=5, starting_points=start.to(cuda),
+                          draws=tuple(type(h)(*(t.to(cuda) for t in h)) for h in draws))
+    assert gk.se_covariance_cuda.launches - before[0] == 11 and gk.cholesky_cuda.launches - before[1] == 11
+    b = parallel_ensemble(host, None, num_walkers=16, num_warmup=0, num_samples=5, starting_points=start, draws=draws)
+    assert _rel_to(a.samples, b.samples) <= 1e-10 and _rel_to(a.acceptance_rates, b.acceptance_rates) <= 1e-10

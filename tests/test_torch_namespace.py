@@ -12,7 +12,9 @@ Stated departures, held here too: ``engines.nested_sampling`` is the
 module in the port (the function in JAX, whose ``engines/__init__.py``
 rebinds the name); ``core.numerics.logsumexp`` and ``logmeanexp`` take
 ``dim``/``keepdim`` (JAX ``axis``/``keepdims``) and
-``ops.metropolis.chol_rank1_update`` takes ``chol`` (JAX ``L``).
+``ops.metropolis.chol_rank1_update`` takes ``chol`` (JAX ``L``);
+``parallel.parallel_dynamic_nested_sampling`` takes ``num_runs`` (R, the
+runs of a stage; JAX reads it from its mesh).
 Importing the port builds no kernel; ``bnn``, ``utils`` and ``viz`` load at
 first use.
 """
@@ -29,13 +31,10 @@ import pytest
 
 import bayesianinference_tpu_torch as bi
 
-PARALLEL = "queue 1 item 6: single-card counterparts of parallel/"
 MULTI_CARD = "queue 1 item 7: the multi-card engines"
 
 UNPORTED = {
     "parallel": {
-        **dict.fromkeys(["parallel_dynamic_nested_sampling", "parallel_ensemble", "parallel_hmc", "parallel_ibis",
-                         "parallel_smc"], PARALLEL),
         **dict.fromkeys(["sharded_bayesian_linear_regression", "sharded_categorical_conjugate_model",
                          "sharded_cholesky", "sharded_covariance_matrix", "sharded_gp_logml_blocked",
                          "sharded_gp_log_marginal_likelihood", "sharded_gp_predict",
@@ -62,6 +61,9 @@ TIME_SERIES = {
 }
 TIME_SERIES_MODULES = ["ops.kalman", "ops.hmm", "ops.bocpd", "ops.particle", "ops.rbpf", "engines.ssm",
                        "engines.hmm", "engines.changepoint", "engines.particle", "engines.ibis"]
+# queue 1 item 6: the single-card parallel engines, asserted by name and by module
+PARALLEL = {"parallel_smc": "parallel_smc", "parallel_hmc": "parallel_hmc", "parallel_ensemble": "parallel_ensemble",
+            "parallel_ibis": "parallel_ibis", "parallel_dynamic_nested_sampling": "parallel_dynamic_ns"}
 WORKAROUNDS = {
     "ops": {"se_covariance_pallas": "the port's custom op ops.gp_kernels.se_covariance replaces the Pallas call"},
     "parallel": dict.fromkeys(["Mesh", "NamedSharding", "P", "make_mesh", "replicated", "shard_data"],
@@ -125,6 +127,16 @@ def test_the_time_series_modules_export_every_name_of_their_jax_module(module):
     assert not imports.search(Path(port_mod.__file__).read_text())
 
 
+@pytest.mark.parametrize("name", sorted(PARALLEL))
+def test_the_single_card_parallel_engines_are_exported(name):
+    jax_mod, port_mod = _modules(f"parallel.{PARALLEL[name]}")
+    assert name in jax_mod.__all__ and name in port_mod.__all__
+    assert getattr(bi.parallel, name) is getattr(port_mod, name)
+    assert name not in UNPORTED["parallel"]
+    imports = re.compile(r"^\s*(import|from)\s+(jax|bayesianinference_tpu\b(?!_torch))", re.M)
+    assert not imports.search(Path(port_mod.__file__).read_text())
+
+
 def test_the_package_imports_its_subpackages_and_loads_utils_lazily():
     for name in ("bnn", "core", "dists", "engines", "models", "ops", "parallel", "results", "utils", "viz"):
         assert isinstance(getattr(bi, name), types.ModuleType)
@@ -150,6 +162,11 @@ def test_stated_departures():
     assert {"dim", "keepdim"} <= set(inspect.signature(bi.core.logsumexp).parameters)
     assert {"dim", "keepdim"} <= set(inspect.signature(bi.core.logmeanexp).parameters)
     assert "chol" in inspect.signature(bi.ops.chol_rank1_update).parameters
+    # R, the runs of a dynamic-NS stage, is the JAX mesh's "runs" axis size; on one card it is num_runs (default 1)
+    import bayesianinference_tpu.parallel as jpar
+
+    assert "num_runs" not in inspect.signature(jpar.parallel_dynamic_nested_sampling).parameters
+    assert inspect.signature(bi.parallel.parallel_dynamic_nested_sampling).parameters["num_runs"].default == 1
 
 
 # utils: the counterparts of tests/test_utils_gbm.py's checks, and profiling
