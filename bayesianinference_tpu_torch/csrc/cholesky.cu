@@ -82,6 +82,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -631,9 +633,25 @@ cudaError_t trailing(const T* csrc, T* l, int batch, int gb, int n, int c0, int 
 // half 1; the update of half 2's columns by half 1; half 2; then one
 // rank-kWidePanel update of everything right of the panel.  Six launches
 // per panel; each trailing element is read and written once per panel.
+// cudaFuncSetAttribute acts on the current device only: the limits are set
+// once per device (and per T), on the first blocked launch there.
+constexpr int kMaxDevices = 64;
+
+template <typename T>
+int smem_limits_on_current_device() {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  static std::once_flag once[kMaxDevices];
+  static int result[kMaxDevices];
+  std::call_once(once[dev], [dev] { result[dev] = set_smem_limits<T>(); });
+  return result[dev];
+}
+
 template <typename T>
 int launch_blocked(const T* k, T* l, int batch, int n, cudaStream_t stream) {
-  static const int configured = set_smem_limits<T>();
+  const int configured = smem_limits_on_current_device<T>();
   if (configured != cudaSuccess) return configured;
   if (batch <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
   const int gb = batch < 65535 ? batch : 65535;

@@ -114,12 +114,12 @@ def pmmh_sample(
     generator's proposal, accept and resampling draws.  The problem lives
     on ``y``'s device (a tensor) or on ``device`` (the card when ``None``),
     in ``y``'s floating dtype (the default dtype for integer data).
-    ``mesh=`` raises: sharding the chains over several cards is ROADMAP
-    queue 1 item 7."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "pmmh_sample(mesh=...) shards the chains over several chips, which the port does not do yet "
-            "(ROADMAP queue 1, item 7: the sharded engines)")
+    ``mesh`` (the port's :class:`~..parallel.sharding.Mesh`) splits the
+    chains over ``mesh.shape[axis_name]`` shards, a multiple of it each;
+    with no collective between chains, the shards that share a device run
+    as one batch there (on one device the result is the unsharded run's),
+    and a shard on another device runs on a generator of its own seeded
+    from ``generator``."""
     if isinstance(y, torch.Tensor):
         y = y if device is None else y.to(torch.device(device))
     else:
@@ -134,17 +134,40 @@ def pmmh_sample(
         generator = torch.Generator(device=y.device).manual_seed(0)
     bij = box_bijection(problem.lower, problem.upper)
     c, d = num_chains, problem.dim
-    lz = log_zero(dtype)
     total_steps = num_warmup + num_samples * thin
     if draws is None:
         draws = pmmh_draws(generator, total_steps, c, d, y.shape[0], dtype=dtype, device=y.device)
 
+    from ..parallel.sharding import check_mesh, device_groups, generator_on, in_batch_order
+
+    groups = [(torch.arange(c, device=y.device), y.device)]
+    if mesh is not None:
+        n_shards = check_mesh(mesh, "pmmh_sample").shape[axis_name]
+        if c % n_shards:
+            raise ValueError(f"num_chains={c} must be a multiple of the mesh '{axis_name}' axis size {n_shards}")
+        groups = device_groups(mesh.axis_devices(axis_name), c, y.device)
+
     try:
-        u = bij.to_z(problem.prior_distribution.sample(generator, (c,)).to(dtype).reshape(c, d))
+        u0 = bij.to_z(problem.prior_distribution.sample(generator, (c,)).to(dtype).reshape(c, d))
     except (NotImplementedError, AttributeError):
-        u = torch.zeros((c, d), dtype=dtype, device=y.device)
+        u0 = torch.zeros((c, d), dtype=dtype, device=y.device)
+    out = [_pmmh_chains(model_builder, y.to(dev), problem, bij, u0[idx].to(dev),
+                        PMMHDraws(*(t[:, idx.to(t.device)].to(dev) for t in draws)), generator_on(generator, dev),
+                        num_particles, num_warmup, num_samples, thin, initial_scale, ess_threshold, target_acceptance)
+           for idx, dev in groups]
+    return PMMHResult(*(in_batch_order([getattr(o, f) for o in out], groups, y.device)
+                        for f in ("samples", "log_likelihoods", "acceptance_rate", "proposal_scales")))
+
+
+def _pmmh_chains(model_builder, y, problem, bij, u, draws: PMMHDraws, generator, num_particles, num_warmup,
+                 num_samples, thin, initial_scale, ess_threshold, target_acceptance) -> PMMHResult:
+    """The chains started at ``u`` [C, d], all on ``y``'s device, as one batch."""
+    c, d = u.shape
+    dtype = y.dtype
+    lz = log_zero(dtype)
+    total_steps = num_warmup + num_samples * thin
     # dispatch once on the model type: an RBPFModel gets the marginalized filter
-    if isinstance(model_builder(bij.to_x(u[0])), RBPFModel):
+    if isinstance(model_builder(bij.to_x(u[:1].to(problem.device))[0]), RBPFModel):
         def one(th, offsets):
             return rbpf_log_likelihood(model_builder(th), y, num_particles, generator, ess_threshold, offsets)
 
@@ -153,9 +176,14 @@ def pmmh_sample(
         def batched(theta, offsets):
             return batched_log_likelihood(model_builder, theta, y, num_particles, generator, ess_threshold, offsets)
 
+    home = problem.device  # the prior and the box live there
+
+    def to_x(u):
+        return bij.to_x(u.to(home)).to(u.device)
+
     def parts(u, offsets):
-        theta = bij.to_x(u)
-        lp = torch.func.vmap(problem.log_prior)(theta) + bij.log_jacobian(u)
+        theta = to_x(u)
+        lp = (torch.func.vmap(problem.log_prior)(theta.to(home)) + bij.log_jacobian(u.to(home))).to(u.device)
         ll = batched(theta, offsets)
         return lp, torch.where(torch.isnan(ll), torch.full_like(ll, lz), ll)
 
@@ -174,7 +202,7 @@ def pmmh_sample(
             log_scale = log_scale + (1.0 / math.sqrt(1.0 + t)) * (accept.to(dtype) - target_acceptance)[:, None]
         else:
             acc = acc + accept
-        thetas.append(bij.to_x(u))
+        thetas.append(to_x(u))
         lls.append(ll)
     keep = slice(num_warmup, None, thin if thin > 1 else 1)
     samples = torch.stack(thetas[keep][:num_samples], dim=1)

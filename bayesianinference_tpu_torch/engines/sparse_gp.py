@@ -7,11 +7,15 @@ memory rather than an n x n factorization; the attached :class:`SGPRModel`
 is a duck type of :class:`.gp.GPModel`, so
 ``predict_from_gaussian_process`` works on it unchanged.
 
-Not ported, as multi-chip workarounds: ``_sharded_bound_fn`` and the
-``mesh=`` argument (``shard_map`` of the data axis over several chips; the
-port's target is one card, and ``mesh=`` raises, ROADMAP queue 1 item 7),
-and the ``jax.jit``/``lax.scan`` form of the Adam loop (a host loop over
-eager steps here, with optax's update from :mod:`..core.optim`).
+With ``mesh=`` (the port's :class:`~..parallel.sharding.Mesh`) the bound
+shards the data axis: each shard builds its ``K_uf`` block with one call of
+the SE op on its device and its ([m, m], [m], scalar) statistics, and one
+sum over the shards (the ``psum``) feeds the m x m finish on the mesh's
+first device.
+
+Not ported: the ``jax.jit``/``lax.scan`` form of the Adam loop (a host
+loop over eager steps here, with optax's update from
+:mod:`..core.optim`).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from ..core.optim import adam_init, adam_step
 from ..core.standardize import NormalizedData, normalize_data
 from ..core.transforms import box_bijection
 from ..models.problem import InferenceProblem, define_inference_problem
-from ..ops.sgpr import sgpr_predict, sgpr_state
+from ..ops.sgpr import sgpr_data_stats, sgpr_kuu_inv_chol, sgpr_predict, sgpr_state, sgpr_state_from_stats
 
 __all__ = [
     "SGPRModel",
@@ -109,6 +113,30 @@ class SGPRModel:
         return 12 * self.z.shape[0] * self.x.shape[0]
 
 
+def _sharded_bound_fn(model: SGPRModel, mesh, axis_name: str) -> Callable:
+    """theta -> bound with the data axis sharded over ``mesh``: L^-1 of
+    K_uu once, each shard's statistics of its rows (zero-padded, a 0/1
+    weight column), one sum over the shards, the m x m finish once."""
+    from ..parallel.sharding import axis_blocks, check_mesh, sum_to
+
+    mesh = check_mesh(mesh, "define_sparse_gaussian_process")
+    xs, ys, ws = axis_blocks(mesh, axis_name, model.x, model.y)
+
+    def bound(theta):
+        kernel, noise, mean_fn = model._pieces(theta)
+        linv, ok_l = sgpr_kuu_inv_chol(kernel, model.z, model.jitter)
+        stats = []
+        for x_s, y_s, w_s in zip(xs, ys, ws):
+            dev = x_s.device
+            err = y_s - (mean_fn(x_s) if mean_fn is not None else 0.0)
+            stats.append(sgpr_data_stats(kernel, linv.to(dev), model.z.to(dev), x_s, err,
+                                         torch.as_tensor(noise).to(dev), weights=w_s))
+        first = linv.device
+        return sgpr_state_from_stats(linv, ok_l, sum_to(stats, first), noise).bound
+
+    return bound
+
+
 @dataclasses.dataclass(frozen=True)
 class SGPROptimization:
     """Result of a type-II maximum-likelihood SGPR fit; ``problem`` is a new
@@ -128,7 +156,9 @@ def with_inducing(problem: InferenceProblem, z) -> InferenceProblem:
     model = problem.metadata["gaussian_process"]
     z = torch.as_tensor(z, dtype=model.x.dtype, device=model.x.device)
     new_model = dataclasses.replace(model, z=z)
-    return dataclasses.replace(problem, log_likelihood=new_model.log_marginal_likelihood,
+    mesh_spec = problem.metadata.get("sgpr_mesh")  # a data-sharded bound stays sharded
+    new_ll = _sharded_bound_fn(new_model, *mesh_spec) if mesh_spec is not None else new_model.log_marginal_likelihood
+    return dataclasses.replace(problem, log_likelihood=new_ll,
                                metadata={**problem.metadata, "gaussian_process": new_model})
 
 
@@ -201,6 +231,7 @@ def define_sparse_gaussian_process(
     generator: Optional[torch.Generator] = None,
     jitter: Optional[float] = None,
     mesh=None,
+    axis_name: str = "data",
     device=None,
 ) -> InferenceProblem:
     """Build the hyperparameter-inference problem for a SPARSE GP: the
@@ -208,13 +239,9 @@ def define_sparse_gaussian_process(
 
     ``inducing``: an int m (selected from the training inputs by
     ``inducing_method``) or an explicit [m, d] array.  ``nugget_builder``
-    is required (the bound's iid Gaussian noise).  ``mesh=`` (the JAX
-    package's data-sharded bound over several chips) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "define_sparse_gaussian_process(mesh=...) shards the data axis over several chips, which the port "
-            "does not do yet (ROADMAP queue 1, item 7: the sharded engines)"
-        )
+    is required (the bound's iid Gaussian noise).  With ``mesh=`` the
+    likelihood shards the data axis over ``mesh.shape[axis_name]`` devices
+    (one sum of the statistics per evaluation)."""
     x = torch.atleast_2d(as_float_on(x, device))
     y = torch.as_tensor(y, device=x.device, dtype=x.dtype)
     if y.dim() == 2:
@@ -239,7 +266,7 @@ def define_sparse_gaussian_process(
                       mean_builder=mean_builder, jitter=jitter)
     return define_inference_problem(
         parameters=parameters,
-        log_likelihood=model.log_marginal_likelihood,
+        log_likelihood=_sharded_bound_fn(model, mesh, axis_name) if mesh is not None else model.log_marginal_likelihood,
         prior_distribution=prior_distribution,
         log_prior=log_prior,
         validate=validate,
@@ -248,4 +275,5 @@ def define_sparse_gaussian_process(
         dtype=x.dtype,
         gaussian_process=model,
         data_preprocessors=norm,
+        sgpr_mesh=(mesh, axis_name) if mesh is not None else None,
     )

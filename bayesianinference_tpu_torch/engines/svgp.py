@@ -14,11 +14,15 @@ per step) and the multiclass bound's Monte-Carlo normals; a fit takes them
 as ``draws=`` (tests replay the JAX key tree that way) or makes them from
 ``generator``.
 
-Not ported, as TPU or multi-chip workarounds: the ``jax.jit`` +
-``lax.scan`` one-program Adam loops (a host loop over eager steps here,
-with optax's update from :mod:`..core.optim`), and ``fit_svgp``'s
-``mesh=``/``axis_name`` path (a ``shard_map`` of the data axis over
-several chips; ``mesh=`` raises, ROADMAP queue 1 item 7).
+``fit_svgp(mesh=)`` (the port's :class:`~..parallel.sharding.Mesh`) splits
+the data axis over ``mesh.shape[axis_name]`` devices: each shard's
+expected log-likelihood (its K_zx block through the SE op on its device,
+zero-padded rows weighted 0) is summed over the shards (the ``psum``)
+before the KL term; every step is full batch.
+
+Not ported, as TPU workarounds: the ``jax.jit`` + ``lax.scan`` one-program
+Adam loops (a host loop over eager steps here, with optax's update from
+:mod:`..core.optim`).
 """
 
 from __future__ import annotations
@@ -36,8 +40,10 @@ from ..ops.gp_laplace import LatentLikelihood, gauss_hermite_expectation
 from ..ops.svgp import (
     SVGPVariational,
     svgp_elbo,
+    svgp_expected_loglik,
     svgp_hetero_elbo,
     svgp_init_variational,
+    svgp_kl,
     svgp_latent_moments,
     svgp_multiclass_elbo,
     svgp_multiclass_latent_moments,
@@ -191,6 +197,7 @@ def fit_svgp(
     generator: Optional[torch.Generator] = None,
     draws: Optional[SVGPDraws] = None,
     mesh=None,
+    axis_name: str = "data",
     device=None,
 ) -> SVGPFit:
     """Train an SVGP: hyperparameters (through the box bijection of
@@ -204,11 +211,10 @@ def fit_svgp(
     minibatch indices come from ``draws`` ([steps, B], :func:`svgp_draws`)
     or from ``generator`` (default: seed 0 on the data's device).  x [n, q]
     that is not a tensor goes to ``device``, the card unless it names the
-    CPU."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_svgp(mesh=...) shards the data axis over several chips, which the port does not do yet "
-            "(ROADMAP queue 1, item 7: the sharded engines)")
+    CPU.  ``mesh``: the data axis split over ``mesh.shape[axis_name]``
+    devices (full-batch steps)."""
+    if mesh is not None and minibatch is not None:
+        raise ValueError("minibatch and mesh are mutually exclusive (a device's data shard already is its batch)")
     if isinstance(likelihood, str):
         try:
             likelihood = _NAMED_LIKELIHOODS[likelihood]()
@@ -233,6 +239,23 @@ def fit_svgp(
             return elbo(params, x, y, s.scale)
         idx = draws.indices[step]
         return elbo(params, x[idx], y[idx], s.scale)
+
+    if mesh is not None:
+        from ..parallel.sharding import axis_blocks, check_mesh, sum_to
+
+        blocks = list(zip(*axis_blocks(check_mesh(mesh, "fit_svgp"), axis_name, x, y)))
+
+        def elbo(params, *_):
+            kernel = kernel_builder(s.bij.to_x(params["u"]))
+            ell = sum_to([svgp_expected_loglik(
+                kernel, xs, ys, params["z"].to(xs.device), likelihood,
+                SVGPVariational(m=params["m"].to(xs.device), raw_scale=params["raw"].to(xs.device)),
+                jitter=jitter, num_quad_points=num_quad_points, point_weights=ws) for xs, ys, ws in blocks],
+                params["m"].device)
+            return ell - svgp_kl(SVGPVariational(m=params["m"], raw_scale=params["raw"]))
+
+        def batch_elbo(params, step):
+            return elbo(params)
 
     params0 = {"u": s.u0, "z": s.z0, "m": var0.m, "raw": var0.raw_scale}
     params, trace = _adam_loop(params0, batch_elbo, steps, learning_rate, optimize_inducing)

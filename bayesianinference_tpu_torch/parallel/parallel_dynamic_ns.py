@@ -20,8 +20,9 @@ is the number of runs folded into the batch, the argument ``num_runs``
 (default 1, what the JAX default gives on one device).
 
 Not ported: the compiled programs and their cache (``_batch_runs_program``,
-the base run through ``_parallel_runs_program``) and the default mesh;
-``mesh=`` raises.
+the base run through ``_parallel_runs_program``) and the default mesh.
+With ``mesh=`` (a ``runs`` axis whose shards share the problem's device,
+:mod:`._mesh`) R is the axis size, as in JAX.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 from ..engines.dynamic_ns import _dynamic_runs
 from ..engines.evidence import NestedSamplingResult
 from ..models.problem import InferenceProblem
-from ._mesh import refuse_mesh
+from ._mesh import mesh_shards
 
 __all__ = ["parallel_dynamic_nested_sampling"]
 
@@ -55,6 +56,8 @@ def parallel_dynamic_nested_sampling(
     ``num_batches`` batches take ``ceil(num_batches / R)`` stages (rounded
     up to a multiple of R).  The user's ``min_iterations`` applies to the
     base run; the batches run from ``min_iterations=1`` to their level.
-    ``generator`` None is one on the problem's device seeded 0."""
-    refuse_mesh("parallel_dynamic_nested_sampling", mesh)
+    ``generator`` None is one on the problem's device seeded 0; ``mesh``
+    sets R to its ``runs`` axis size."""
+    if mesh is not None:
+        num_runs = mesh_shards("parallel_dynamic_nested_sampling", mesh, "runs", None, "", problem)
     return _dynamic_runs(problem, generator, num_runs, None, **options)

@@ -13,9 +13,10 @@ whole of half B (``[W/2:]``), then B against the updated A.  That is
 the box bijection's z-space.
 
 Not ported: the compiled program and its cache
-(``_parallel_ensemble_program``), the default mesh and the check that the
-half divides by the shard count, which cannot fail with one shard;
-``mesh=`` raises.  The JAX function keys each shard and splits that key
+(``_parallel_ensemble_program``) and the default mesh.  ``mesh=`` (the
+port's Mesh, a ``walkers`` axis) runs as this batch when its shards share
+the problem's device, after the JAX function's check that each half
+divides over it (:mod:`._mesh`).  The JAX function keys each shard and splits that key
 locally, so it is not ``ensemble_sample`` draw for draw; here random
 numbers are inputs (``draws``: the two halves' ``StretchDraws`` or
 ``DEDraws`` with a leading sweep axis, warmup first), from which a run of
@@ -30,7 +31,7 @@ import torch
 
 from ..engines.ensemble import EnsembleResult, ensemble_sample
 from ..models.problem import InferenceProblem
-from ._mesh import refuse_mesh
+from ._mesh import mesh_shards
 
 __all__ = ["parallel_ensemble"]
 
@@ -54,10 +55,15 @@ def parallel_ensemble(
     at least 2d + 2) as two half-batches on the problem's device:
     :func:`..engines.ensemble.ensemble_sample` for a problem.  Walkers
     start at prior draws from ``generator`` (None: one on the problem's
-    device seeded 0) or at ``starting_points`` [num_walkers, d]."""
-    refuse_mesh("parallel_ensemble", mesh)
+    device seeded 0) or at ``starting_points`` [num_walkers, d].  ``mesh``:
+    see :mod:`._mesh` (a ``walkers`` axis dividing each half)."""
     if not isinstance(problem, InferenceProblem):
         raise ValueError("parallel_ensemble takes an InferenceProblem")
+    if mesh is not None:
+        if num_walkers % 2 != 0 or num_walkers < 2 * problem.dim + 2:
+            raise ValueError(f"num_walkers must be even and >= 2d+2={2 * problem.dim + 2}, got {num_walkers}")
+        mesh_shards("parallel_ensemble", mesh, "walkers", num_walkers // 2,
+                    f"half-ensemble size {num_walkers // 2}", problem)
     return ensemble_sample(problem, generator, num_walkers=num_walkers, num_samples=num_samples,
                            num_warmup=num_warmup, thinning=thinning, move=move, stretch_scale=stretch_scale,
                            gamma_jump_prob=gamma_jump_prob, starting_points=starting_points, draws=draws)

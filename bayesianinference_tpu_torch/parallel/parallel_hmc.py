@@ -14,8 +14,10 @@ acceptance of all chains, the moments of all chains, one trajectory
 length.  Sampling shares nothing.
 
 Not ported: the compiled program and its cache (``_parallel_hmc_program``),
-the default mesh and the multiple-of-shards check, which cannot fail with
-one shard; ``mesh=`` raises.  The JAX function keys each shard and splits
+the default mesh.  ``mesh=`` (the port's Mesh, a ``chains`` axis) runs as
+this batch when its shards share the problem's device, after the JAX
+function's check that the chains divide over it (:mod:`._mesh`).  The JAX
+function keys each shard and splits
 that key over its chains, so it is not :func:`..engines.hmc.hmc_sample`
 draw for draw; here random numbers are inputs (``draws``: ``HMCDraws``,
 or ``ChEESDraws`` for ``"auto"``, one row per trajectory), from which a
@@ -30,7 +32,7 @@ import torch
 
 from ..engines.hmc import HMCResult, hmc_sample
 from ..models.problem import InferenceProblem
-from ._mesh import refuse_mesh
+from ._mesh import mesh_shards
 
 __all__ = ["parallel_hmc"]
 
@@ -58,10 +60,11 @@ def parallel_hmc(
     length adapted from all of them: :func:`..engines.hmc.hmc_sample` for a
     problem.  Chains start at prior draws from ``generator`` (None: one on
     the problem's device seeded 0) or at ``starting_points``
-    [num_chains, d]."""
-    refuse_mesh("parallel_hmc", mesh)
+    [num_chains, d].  ``mesh``: see :mod:`._mesh`."""
     if not isinstance(problem, InferenceProblem) or isinstance(starting_points, str):
         raise ValueError("parallel_hmc takes an InferenceProblem and starting_points [num_chains, d] or None")
+    if mesh is not None:
+        mesh_shards("parallel_hmc", mesh, "chains", num_chains, f"num_chains={num_chains}", problem)
     return hmc_sample(problem, generator, num_chains=num_chains, num_samples=num_samples, num_warmup=num_warmup,
                       num_leapfrog=num_leapfrog, thinning=thinning, target_accept=target_accept,
                       starting_points=starting_points, initial_step_size=initial_step_size, dense_mass=dense_mass,

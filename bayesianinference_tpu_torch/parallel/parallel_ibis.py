@@ -16,9 +16,10 @@ steps seeded with the resampled cloud's mean and covariance (+ 1e-10 I).
 The ESS test is one host read per stage where JAX has a ``lax.cond``.
 
 Not ported: the compiled program and its cache
-(``_parallel_ibis_program``), the global-logsumexp helper, the default
-mesh and the multiple-of-shards check, which cannot fail with one shard;
-``mesh=`` raises.  The JAX function folds the shard index into each
+(``_parallel_ibis_program``), the global-logsumexp helper and the default
+mesh.  ``mesh=`` (the port's Mesh, a ``particles`` axis) runs as this batch
+when its shards share the problem's device, after the JAX function's check
+that the particles divide over it (:mod:`._mesh`).  The JAX function folds the shard index into each
 stage's move key, so its chains' numbers differ from ``ibis_sampler``'s;
 here random numbers are inputs (``starting_points``, the prior draws, and
 ``draws``, one :class:`..engines.ibis.IBISStageDraws` per stage), from
@@ -33,7 +34,7 @@ import torch
 
 from ..engines.ibis import IBISResult, IBISStageDraws, ibis_sampler
 from ..models.problem import InferenceProblem
-from ._mesh import refuse_mesh
+from ._mesh import mesh_shards
 
 __all__ = ["parallel_ibis"]
 
@@ -55,8 +56,10 @@ def parallel_ibis(
 ) -> IBISResult:
     """IBIS of ``n_particles`` particles as one batch on the problem's
     device; the contract of :func:`..engines.ibis.ibis_sampler`
-    (``pointwise_loglike(theta, data) -> [n_obs]``)."""
-    refuse_mesh("parallel_ibis", mesh)
+    (``pointwise_loglike(theta, data) -> [n_obs]``).  ``mesh``: see
+    :mod:`._mesh` (a ``particles`` axis)."""
+    if mesh is not None:
+        mesh_shards("parallel_ibis", mesh, "particles", n_particles, f"n_particles={n_particles}", problem)
     return ibis_sampler(problem, pointwise_loglike, data, generator, n_particles=n_particles,
                         batch_size=batch_size, mcmc_steps=mcmc_steps, ess_threshold=ess_threshold,
                         covariance_learn_delay=covariance_learn_delay, starting_points=starting_points, draws=draws)

@@ -11,10 +11,11 @@ prior masses, so the union of their samples, with the runs' pools summed
 at every level, is one run of the combined pool.
 
 Not ported: the JAX package's ``shard_map`` program over a ``runs`` mesh
-axis (``_parallel_runs_program``, its compile cache, the ``mesh``
-argument and its multiple-of-shards check).  The runs share one card;
-spreading them over several cards with ``torch.distributed`` is left for
-the port of the sharded engines.
+axis (``_parallel_runs_program`` and its compile cache).  ``mesh=`` (the
+port's Mesh, a ``runs`` axis, which the runs must divide) splits the runs by
+device: the shards of one device run as one batch there (:mod:`._mesh`), on
+the whole batch's generator on the problem's device and on one seeded from
+it elsewhere.
 """
 
 from __future__ import annotations
@@ -25,8 +26,16 @@ from typing import Optional, Sequence
 import torch
 
 from ..engines.evidence import NestedSamplingResult, dedup_by_point, evidence_sampling
-from ..engines.nested_sampling import _init_batch, generate_starting_points, make_loop_config, run_loop_batched
+from ..engines.nested_sampling import (
+    NSBatchState,
+    _init_batch,
+    generate_starting_points,
+    make_loop_config,
+    run_loop_batched,
+)
 from ..models.problem import InferenceProblem
+from ._mesh import mesh_devices, problem_on
+from .sharding import device_groups, generator_on, in_batch_order
 
 __all__ = ["parallel_nested_sampling", "merge_runs"]
 
@@ -92,6 +101,22 @@ def merge_runs(
     )
 
 
+def _in_batch_order(parts, groups, device) -> NSBatchState:
+    """The device groups' run batches as one, in the runs' order."""
+    order = torch.argsort(torch.cat([idx.cpu() for idx, _ in groups])).tolist()
+    kw = {}
+    for f in dataclasses.fields(NSBatchState):
+        vals = [getattr(p, f.name) for p in parts]
+        if isinstance(vals[0], torch.Tensor):
+            kw[f.name] = in_batch_order(vals, groups, device)
+        elif isinstance(vals[0], list):
+            joined = [v for part in vals for v in part]
+            kw[f.name] = [joined[i] for i in order]
+        else:
+            kw[f.name] = any(vals)
+    return NSBatchState(**kw)
+
+
 def parallel_nested_sampling(
     problem: InferenceProblem,
     generator: Optional[torch.Generator] = None,
@@ -100,6 +125,7 @@ def parallel_nested_sampling(
     sample_pool_size: int = 100,
     post_process_sampling_runs: Optional[int] = 100,
     empirical_posterior_type: str = "Simple",
+    mesh=None,
     **loop_kwargs,
 ) -> NestedSamplingResult:
     """``num_runs`` independent runs of ``sample_pool_size`` live points
@@ -111,15 +137,23 @@ def parallel_nested_sampling(
     ``stop_at_log_likelihood``; ``monte_carlo_steps=None`` (the default)
     takes the chosen chains' dimension law, as a single run does.  The
     result reports the runs' evaluations summed and the most iterations
-    any run made."""
+    any run made.  ``mesh``: see :mod:`._mesh`."""
+    groups = [(torch.arange(num_runs, device=problem.device), problem.device)]
+    if mesh is not None:
+        groups = device_groups(mesh_devices("parallel_nested_sampling", mesh, "runs", num_runs,
+                                            f"num_runs={num_runs}"), num_runs, problem.device)
     if generator is None:
         generator = torch.Generator(device=problem.device).manual_seed(0)
     cfg = make_loop_config(problem.dim, gradient_check=problem.gradient_sanity, **loop_kwargs)
     if not 1 <= cfg.num_delete < sample_pool_size:
         raise ValueError("need 1 <= num_delete < sample_pool_size")
     starts = torch.stack([generate_starting_points(problem, generator, sample_pool_size) for _ in range(num_runs)])
-    runs = run_loop_batched(problem, _init_batch(problem, starts, cfg.capacity), generator, cfg,
-                            n_live=sample_pool_size)
+    parts = []
+    for idx, dev in groups:
+        p = problem_on(problem, dev)
+        parts.append(run_loop_batched(p, _init_batch(p, starts[idx].to(dev), cfg.capacity),
+                                      generator_on(generator, dev), cfg, n_live=sample_pool_size))
+    runs = _in_batch_order(parts, groups, problem.device)
     result = merge_runs(
         runs.dead_points, runs.dead_logl, runs.dead_logp, runs.n_dead,
         runs.live_points, runs.live_logl, runs.live_logp,

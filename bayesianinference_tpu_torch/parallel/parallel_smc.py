@@ -8,10 +8,11 @@ advances all R ladders and runs their rejuvenation chains as one [R n]
 batch.  Given the same generator this is :func:`..engines.smc.smc_sampler`
 bit for bit, as the JAX function is ``smc_sampler`` given the same key.
 
-Not ported: the compiled program and its cache (``_parallel_smc_program``),
-the default mesh (the largest device count dividing ``num_runs``) and the
-multiple-of-shards check, which cannot fail with one shard.  ``mesh=``
-raises.  Random numbers are inputs: ``draws`` holds one
+Not ported: the compiled program and its cache (``_parallel_smc_program``)
+and the default mesh (the largest device count dividing ``num_runs``).
+``mesh=`` (the port's Mesh, a ``runs`` axis, which the runs must divide)
+splits the ladders by device: the shards of one device run as one batch
+there (:mod:`._mesh`).  Random numbers are inputs: ``draws`` holds one
 :class:`..engines.smc.SMCStageDraws` per stage, so a run of the JAX
 function on a mesh can be replayed from its keys.
 """
@@ -31,7 +32,8 @@ from ..engines.smc import (
     states_to_result,
 )
 from ..models.problem import InferenceProblem
-from ._mesh import refuse_mesh
+from ._mesh import mesh_devices, problem_on
+from .sharding import device_groups, generator_on, in_batch_order
 
 __all__ = ["parallel_smc"]
 
@@ -54,11 +56,36 @@ def parallel_smc(
     device; the contract (and, per generator, the result) of
     :func:`..engines.smc.smc_sampler`.  ``generator`` None is one on that
     device seeded 0; ``draws[t]`` replaces its numbers at stage t."""
-    refuse_mesh("parallel_smc", mesh)
+    groups = [(torch.arange(num_runs, device=problem.device), problem.device)]
+    if mesh is not None:
+        groups = device_groups(mesh_devices("parallel_smc", mesh, "runs", num_runs, f"num_runs={num_runs}"),
+                               num_runs, problem.device)
     generator = torch.Generator(device=problem.device).manual_seed(0) if generator is None else generator
     starting_points, n_particles = prepare_smc_starting_points(problem, generator, starting_points, num_runs,
                                                                n_particles)
     cfg = SMCConfig(max_stages=max_stages, mcmc_steps=mcmc_steps, ess_target=float(ess_target),
                     covariance_learn_delay=covariance_learn_delay)
-    states = _smc_ladders(problem, starting_points, generator, cfg, draws)
+    parts = [_smc_ladders(problem_on(problem, dev), starting_points[idx].to(dev), generator_on(generator, dev),
+                          cfg, None if draws is None else _GroupDraws(draws, idx, dev))
+             for idx, dev in groups]
+    states = type(parts[0])(*(in_batch_order(f, groups, problem.device) for f in zip(*parts)))
     return states_to_result(states, cfg, problem.param_names)
+
+
+class _GroupDraws:
+    """Stage t's draws of the runs ``idx`` on ``dev``, made when the stage
+    asks for them: ``draws`` need only be indexed by stage (it may have no
+    length, as a source that makes any stage's numbers on demand)."""
+
+    def __init__(self, draws, idx: torch.Tensor, dev):
+        self.draws, self.idx, self.dev = draws, idx, dev
+
+    def __getitem__(self, t: int) -> SMCStageDraws:
+        return _draws_of(self.draws[t], self.idx, self.dev)
+
+
+def _draws_of(d: SMCStageDraws, idx: torch.Tensor, dev) -> SMCStageDraws:
+    """The rows of one stage's draws that belong to the runs ``idx``."""
+    n_runs = d.offset.shape[0]
+    rows = lambda t: t.reshape(n_runs, -1, *t.shape[1:])[idx.to(t.device)].reshape(-1, *t.shape[1:])  # noqa: E731
+    return SMCStageDraws(d.offset[idx.to(d.offset.device)].to(dev), rows(d.z).to(dev), rows(d.log_u).to(dev))

@@ -487,11 +487,57 @@ def _phase20_units(smi, dev, problem, start):
     cs.log(f"[20 units] {'; '.join(rows)} | {smi}")
 
 
+def _phase21_times(smi, dev):
+    """Phase 21's timing rows: the kernels at the mesh's new shapes against
+    their plain versions, bounds and cholesky_ex (device ms in turns: a
+    shard's two-input SE block [4096, 16384] f32, a panel's diagonal block
+    at B = 1, n = 256 in both dtypes), and 21b's blocked logML (n = 16384
+    f32, 4 shards on the card): wall and device ms and CUDA kernels per
+    call and per panel step."""
+    import chip_smoke as cs
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+    from bayesianinference_tpu_torch.parallel import make_mesh, sharded_gp_logml_blocked
+
+    n, rows = cs.GRAD_N, cs.GRAD_N // cs.MESH_SHARDS
+    x, y = cs._mesh_gp_data(n, dev, torch.float32)
+    var = torch.ones((1,), device=dev)
+    scale = torch.ones((1, cs.SLICE_D), device=dev)
+    kw = dict(reps=2, groups=2, per_group=5)
+    ms, plain_ms, _, _ = cs._in_turns(lambda: gk.se_covariance_cuda(x[None, :rows], x[None], var, scale),
+                                      lambda: gk.se_covariance_plain(x[None, :rows], x[None], var, scale), **kw)
+    bound, by = cs._se_bound(x[None, :rows], x[None], var, scale, None)
+    lines = [f"SE [{rows}, {n}] f32 {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound:.3g} by {by})"]
+    for dtype in (torch.float32, torch.float64):
+        xs = x[:cs.MESH_BLOCK].to(dtype)
+        k = gk.covariance_matrix(gk.se_kernel(1.0, 1.0), xs, nugget=math.exp(-2.0), symmetrize=False)[None]
+        c_ms, c_lib, _, _ = cs._in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), reps=2,
+                                         groups=2, per_group=20)
+        c_plain, _ = cs._time_ms(lambda: gk.cholesky_plain(k), reps=2, groups=2, per_group=20)
+        c_bound, c_by = cs._chol_bound(1, cs.MESH_BLOCK, torch.finfo(dtype).bits // 8)
+        lines.append(f"Cholesky B=1 n={cs.MESH_BLOCK} {str(dtype)[6:]} {c_ms:.4f} ms (plain {c_plain:.4f}, "
+                     f"cholesky_ex {c_lib:.4f}, bound {c_bound:.3g} by {c_by})")
+    cs.log(f"[21 kernel times] device ms in turns: {'; '.join(lines)} | {smi}")
+    mesh = make_mesh(("data",), devices=cs._mesh_devices(dev))
+    kern = gk.se_kernel(1.0, 1.0)
+
+    def call():
+        with torch.no_grad():
+            sharded_gp_logml_blocked(kern, x, y, mesh, nugget=math.exp(-2.0), block=cs.MESH_BLOCK)
+
+    wall = cs._wall_ms(call, reps=3)
+    dev_ms, kernels = cs._profile_call(call, cpu=False)
+    panels = n // cs.MESH_BLOCK
+    cs.log(f"[21b units] blocked logML n={n} f32, {cs.MESH_SHARDS} shards on the card: wall {wall:.2f} ms, device "
+           f"{dev_ms:.3f} ms, {kernels} CUDA kernels, busy share {dev_ms / wall:.3f}; per panel step ({panels}): wall "
+           f"{wall / panels:.3f} ms, device {dev_ms / panels:.3f} ms, {kernels / panels:.1f} CUDA kernels | {smi}")
+
+
 def _smoke_rows(smi: str) -> None:
     """The rows: 14a's density call, 14b's, 14c's and 14e's value-and-grad
     walls and Cholesky times, 15a's ELBO step, 15d's suggestions,
     15's kernel times, 16g, 17d's quantile call, 17f, 18a's units, 18d,
-    19a-d's density calls, PMMH step and IBIS stage, and phase 20's units.  The sub-phases whose
+    19a-d's density calls, PMMH step and IBIS stage, phase 20's units and
+    phase 21's kernel times and panel step.  The sub-phases whose
     rows share their setup run whole with ``times=True`` (their gates too);
     phase 4's NS run gives 16g, 17 and 18 their problem and posterior, and
     19c runs its PMMH oracle in this process."""
@@ -521,13 +567,14 @@ def _smoke_rows(smi: str) -> None:
             sub(smi, dev, times=True)
     w = torch.exp(res.crude_log_posterior_weights)
     _phase20_units(smi, dev, problem, res.points[torch.multinomial(w, 32, replacement=True)])
+    _phase21_times(smi, dev)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--smoke-rows", action="store_true",
-                    help="print the timing rows of chip_smoke.py phases 14-19 instead of the workloads")
+                    help="print the timing rows of chip_smoke.py phases 14-21 instead of the workloads")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: torch.cuda.is_available() is false; this script needs a CUDA card")

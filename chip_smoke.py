@@ -41,7 +41,9 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
    chains; pool 400, 300 deletions, 40 updates) and d = 72 through ``auto``
    (the constrained-HMC chains: 36 four-step trajectories per replacement,
    d / 2 where the law takes 1.5 d, at eps = 0.8 / sqrt(72); pool 512, 448
-   deletions), each within 4 max(sigma, 0.2) of the analytic logZ;
+   deletions), each within 4 max(sigma, 0.2) of the analytic logZ (no
+   hand-written kernel: both runs go to two worker processes started after
+   phase 12, beside phases 13-17, and are gated after phase 17);
 9. a GP with ARD lengthscales (n = 512, d = 20: 22 hyperparameters, so
    ``auto`` takes the slice chains) by slice and by constrained-HMC nested
    sampling, three iterations each: both kernels launched at least once
@@ -131,7 +133,8 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
 
 16. ADVI, Pathfinder, bridge sampling and the results layer: (a) ADVI at
     its defaults (3000 steps, 32 draws) on tests/test_vi.py's conjugate
-    oracle under its gates, fullrank on its rho = 0.9 Gaussian; (b) ADVI
+    oracle under its gates, fullrank on its rho = 0.9 Gaussian (no
+    hand-written kernel: in phase 8's worker pool after its runs); (b) ADVI
     on phase 4's GP problem, both families, 250 steps (3000 cut), each
     step's value and gradient through both kernels and both reverse rules
     at B = 32, the ELBO under phase 4's grid logZ plus 4 MC standard
@@ -248,16 +251,42 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     steps): |z| < 4 and the posterior mean (a host-bound run with no
     hand-written kernel, in a worker process of 18b's pool from phase 18
     on).
+21. the multi-card engines (``parallel/sharding.py`` and the ``sharded_*``
+    modules) on a 4-shard mesh, one shard a card where there are four
+    cards, else all four on the one (the layout on a line of its own): (a)
+    ``sharded_covariance_matrix`` at bench.py's n = 16384, d = 3, f32
+    against the single-device op's K (1e-6), one SE launch a shard; (b)
+    ``sharded_gp_logml_blocked`` there (block 256) against plain f64 beside
+    the single-device kernel path (phase 6's gates), its wall (a second
+    call), Cholesky launches and peak memory; (c) ``sharded_cholesky`` at n
+    = 4096 f64 against the ``cholesky`` op's factor (1e-10); (d) the
+    blocked logML's value and theta-gradient at n = 2048 f64 against the
+    single-device kernel path (1e-7); (e) ``sharded_gp_predict`` at n =
+    16384, m = 512 f32, mean and std against plain f64 within twice the
+    single-device kernel path's error plus 1e-6; (f) the four sharded
+    conjugate models at 2^20 rows f64 against the dense engines (1e-10);
+    (g) the blocked logML at n = 65536 f32 (a 4 GiB row block a shard)
+    against the single-device kernel path's f32 value (5e-5), run after the
+    shards are freed, with the peak memory per device; where there are
+    four cards, one blocked Cholesky (n = 1024) on the last card against
+    the plain version (its shared-memory limits are set per device); (h)
+    in a worker process of 18b's pool, the pool-sharded NS on the headline
+    problem (pool 128, 8 deletions, 40 steps) against the analytic logZ (4
+    sigma) and the single-device run (4 combined sigma), and the runs x
+    live x data NS at (2, 2, 2) against the quadrature logZ (4 sigma +
+    0.1).
 
-The timing-only rows of phases 14-19 (per-unit wall and device ms, CUDA
+The timing-only rows of phases 14-21 (per-unit wall and device ms, CUDA
 kernels and busy shares, and each slice's kernel times in turns) are
 ``chip_profile.py --smoke-rows``'s; this script keeps every gate and launch
 count of those phases, and phase 5's kernel times, which feed the JSON line.
 
 Each of phases 4, 6, 7, 9, 11b, 12, 13c, 13e, 14, 15, 16, 17, 18 and 20 (and 13b the Cholesky's)
 zeroes the kernels' launch counters before it drives its path and fails if
-a kernel of that path was not launched; the ``launches`` of the JSON line
-are their sum.  Phase 19 zeroes them too and fails if either kernel
+a kernel of that path was not launched; phase 21 zeroes them before each
+sharded call and reads them after it (its single-device and plain
+references outside that count); the ``launches`` of the JSON line are their
+sum.  Phase 19 zeroes them too and fails if either kernel
 launched: no hand-written kernel lies on the time-series path, and it adds
 0 to the sum.  Phase 5 fails
 unless each kernel is one CUDA kernel launch per call at the slice's shape,
@@ -1039,46 +1068,85 @@ def _gaussian_box_problem(dim: int, device="cuda"):
     return problem, dim * (math.log(math.erf(5.0 / math.sqrt(2.0))) - math.log(10.0))
 
 
-def phase_ns_highdim(smi: str):
+# the JAX tests' runs (tests/test_nested_sampling.py) with more deletions per iteration, which cuts the
+# iterations (each run is host-bound, minutes long otherwise): 8a three quarters of the pool, as 8b had before;
+# 8b seven eighths, for the script's time limit.  8b's chains at d / 2 trajectories per replacement (144 leapfrog
+# steps), not the law's 1.5 d (432), for the script's time limit: 218 s at 432 steps, 69-70 s at 288 with logZ
+# +0.83 and -0.33 sigma at seeds 0 and 1 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md); at 144 steps and 448
+# deletions +0.08 to +0.96 sigma over seeds 0-3 on CPU tensors (PERF.md).  (tag, d, expected chains, the JAX
+# test's deletions, options)
+NS_HIGHDIM_CASES = (
+    ("a", 32, "slice", 50, dict(sample_pool_size=400, max_iterations=400, min_iterations=20, monte_carlo_steps=40,
+                                num_delete=300)),
+    ("b", 72, "chmc", 256, dict(sample_pool_size=512, max_iterations=150, min_iterations=20, num_delete=448,
+                                post_process_sampling_runs=20, monte_carlo_steps=144)),
+)
+
+
+def _ns_highdim_job(tag: str, dev: str) -> dict:
+    """One of phase 8's runs: its readings as Python numbers.  No
+    hand-written kernel lies on this path, so it runs in a worker process
+    beside phases 13-17 (it fails if a kernel launched)."""
+    from bayesianinference_tpu_torch.engines.nested_sampling import nested_sampling, resolve_monte_carlo_method
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    _, dim, _, _, kw = next(c for c in NS_HIGHDIM_CASES if c[0] == tag)
+    dev = torch.device(dev)
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+    problem, analytic = _gaussian_box_problem(dim, dev)
+    method = resolve_monte_carlo_method("auto", dim, gradient_check=problem.gradient_sanity)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = nested_sampling(problem, torch.Generator(device=dev).manual_seed(0), **kw)
+    logz, err = float(res.log_evidence.mean), float(res.log_evidence.standard_error)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches) != before:
+        raise AssertionError(f"8{tag}: a hand-written kernel launched")
+    return dict(method=method, logz=logz, err=err, analytic=analytic, iterations=res.iterations,
+                evals=res.num_likelihood_evals, wall=wall,
+                acc=float(res.acceptance_rates[: res.generated_nested_samples].mean()))
+
+
+def _ns_highdim_start(dev="cuda"):
+    """Starts phase 8's two runs in two worker processes (the longer first),
+    then 16a's fits (:func:`_advi_oracle_job`) in the same pool: (pool,
+    pending results by tag, 16a's pending result); :func:`phase_ns_highdim`
+    gates the runs and closes the pool, phase 16 gates the fits."""
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    runs = {tag: pool.apply_async(_ns_highdim_job, (tag, str(dev))) for tag in ("b", "a")}
+    return pool, runs, pool.apply_async(_advi_oracle_job, (str(dev),))
+
+
+def phase_ns_highdim(smi: str, pending=None):
     """Nested sampling above d = 16 on the analytic oracle, float64, through
     ``monte_carlo_method="auto"``: (a) d = 32 takes the slice chains, (b)
-    d = 72 the constrained-HMC chains, at d / 2 trajectories per replacement."""
-    from bayesianinference_tpu_torch.engines.nested_sampling import nested_sampling, resolve_monte_carlo_method
-
-    dev = torch.device("cuda")
-    cases = (
-        # the JAX tests' runs (tests/test_nested_sampling.py) with more deletions per iteration, which cuts the
-        # iterations (each run is host-bound, minutes long otherwise): 8a three quarters of the pool, as 8b had
-        # before; 8b seven eighths, for the script's time limit
-        ("a", 32, "slice", 50, dict(sample_pool_size=400, max_iterations=400, min_iterations=20, monte_carlo_steps=40,
-                                    num_delete=300)),
-        # 8b's chains at d / 2 trajectories per replacement (144 leapfrog steps), not the law's 1.5 d (432), for
-        # the script's time limit: 218 s at 432 steps, 69-70 s at 288 with logZ +0.83 and -0.33 sigma at
-        # seeds 0 and 1 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md); at 144 steps and 448 deletions +0.08 to
-        # +0.96 sigma over seeds 0-3 on CPU tensors (PERF.md)
-        ("b", 72, "chmc", 256, dict(sample_pool_size=512, max_iterations=150, min_iterations=20, num_delete=448,
-                                    post_process_sampling_runs=20, monte_carlo_steps=144)),
-    )
-    for tag, dim, expect, jax_delete, kw in cases:
-        problem, analytic = _gaussian_box_problem(dim)
-        method = resolve_monte_carlo_method("auto", dim, gradient_check=problem.gradient_sanity)
-        if method != expect:
-            raise AssertionError(f"NS d={dim}: auto resolved to {method}, expected {expect}")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = nested_sampling(problem, torch.Generator(device=dev).manual_seed(0), **kw)
-        logz, err = float(res.log_evidence.mean), float(res.log_evidence.standard_error)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        acc = float(res.acceptance_rates[: res.generated_nested_samples].mean())
+    d = 72 the constrained-HMC chains, at d / 2 trajectories per
+    replacement.  ``pending``: :func:`_ns_highdim_start`'s pool and results
+    (the pool is closed here), or None to run both here."""
+    t = time.perf_counter()
+    if pending is None:
+        readings = {c[0]: _ns_highdim_job(c[0], "cuda") for c in NS_HIGHDIM_CASES}
+        where = "in this process"
+    else:
+        pool, jobs = pending[:2]
+        readings = {tag: job.get() for tag, job in jobs.items()}
+        pool.close()
+        pool.join()
+        where = f"in a worker process beside phases 13-17, waited for {time.perf_counter() - t:.1f} s here"
+    for tag, dim, expect, jax_delete, kw in NS_HIGHDIM_CASES:
+        r = readings[tag]
+        if r["method"] != expect:
+            raise AssertionError(f"NS d={dim}: auto resolved to {r['method']}, expected {expect}")
+        logz, err, analytic = r["logz"], r["err"], r["analytic"]
         if not (math.isfinite(logz) and math.isfinite(err) and abs(logz - analytic) <= 4 * max(err, 0.2)):
-            raise AssertionError(f"NS d={dim} ({method}): logZ {logz} +- {err}, analytic {analytic:.3f}")
-        log(f"[8{tag} NS d={dim}] auto -> {method}, pool {kw['sample_pool_size']}, num_delete {kw['num_delete']} "
+            raise AssertionError(f"NS d={dim} ({expect}): logZ {logz} +- {err}, analytic {analytic:.3f}")
+        log(f"[8{tag} NS d={dim}] auto -> {expect}, pool {kw['sample_pool_size']}, num_delete {kw['num_delete']} "
             f"({jax_delete} in the JAX test's run; more here to fit the script's time)"
             f"{', 36 four-step chmc trajectories per replacement (the law 108; cut to fit the time)' if tag == 'b' else ''}: "
-            f"logZ {logz:.3f} +- {err:.3f} (analytic {analytic:.3f}), {res.iterations} iterations, "
-            f"{res.num_likelihood_evals} evals in {wall:.2f} s = {res.num_likelihood_evals / wall:.4g} evals/s, "
-            f"mean recorded acceptance {acc:.3f} | {smi}")
+            f"logZ {logz:.3f} +- {err:.3f} (analytic {analytic:.3f}), {r['iterations']} iterations, "
+            f"{r['evals']} evals in {r['wall']:.2f} s = {r['evals'] / r['wall']:.4g} evals/s {where}, "
+            f"mean recorded acceptance {r['acc']:.3f} | {smi}")
 
 
 def _ard_gp_problem(x, y):
@@ -3275,12 +3343,17 @@ def _normal_model(dev, n_obs=40, seed=1, tau0=3.0, mu0=0.0):
     return problem, data, (mu0 / tau0**2 + data.sum()) / prec, prec**-0.5, log_z
 
 
-def _phase16_advi_oracles(smi, dev, steps=3000):
-    """16a: ADVI at its defaults on the conjugate oracle (tests/test_vi.py's
-    gates) and fullrank on the rho = 0.9 Gaussian."""
+def _advi_oracle_job(dev: str, steps: int = 3000) -> dict:
+    """16a's fits: ADVI at its defaults on the conjugate oracle and fullrank
+    on the rho = 0.9 Gaussian; their readings as Python numbers.  No
+    hand-written kernel lies on this path, so it runs in a worker process
+    of phase 8's pool beside phases 13-15 (it fails if a kernel launched)."""
     from bayesianinference_tpu_torch.engines.vi import advi_fit
     from bayesianinference_tpu_torch.models.problem import define_inference_problem
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
 
+    dev = torch.device(dev)
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
     problem, _, pm, psd, log_z = _normal_model(dev)
     g = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
@@ -3288,11 +3361,7 @@ def _phase16_advi_oracles(smi, dev, steps=3000):
     s = r.sample(g, 20000)[:, 0]
     elbo = float(r.elbo)
     wall = time.perf_counter() - t0
-    mean, sd = float(s.mean()), float(s.std())
-    if not (abs(mean - pm) <= 0.02 and abs(sd / psd - 1) <= 0.1 and log_z - 0.1 < elbo < log_z + 0.02):
-        raise AssertionError(f"16a ADVI: mean {mean} (exact {pm}), sd {sd} ({psd}), ELBO {elbo} (logZ {log_z})")
-    rho = 0.9
-    prec = torch.as_tensor(np.linalg.inv([[1.0, rho], [rho, 1.0]]), device=dev)
+    prec = torch.as_tensor(np.linalg.inv([[1.0, 0.9], [0.9, 1.0]]), device=dev)
     corr_problem = define_inference_problem(parameters=[("a", -8.0, 8.0), ("b", -8.0, 8.0)],
                                             log_likelihood=lambda th: -0.5 * th @ prec @ th,
                                             prior_distribution=["location", "location"], validate=False, device=dev,
@@ -3301,12 +3370,31 @@ def _phase16_advi_oracles(smi, dev, steps=3000):
     fr = advi_fit(corr_problem, g, family="fullrank", num_steps=steps)
     got_rho = float(np.corrcoef(fr.sample(g, 20000).cpu().numpy().T)[0, 1])
     wall_fr = time.perf_counter() - t1
-    if not abs(got_rho - rho) <= 0.06:
-        raise AssertionError(f"16a ADVI fullrank: correlation {got_rho} (0.9)")
-    log(f"[16a ADVI oracles] conjugate Normal, meanfield, {steps} steps, 32 draws: mean {mean:.4f} (exact {pm:.4f}), "
-        f"sd {sd:.4f} ({psd:.4f}), ELBO {elbo:.4f} vs logZ {log_z:.4f}, {wall:.1f} s = "
-        f"{1e3 * wall / steps:.2f} ms a step; fullrank on the rho = 0.9 Gaussian: correlation {got_rho:.4f}, "
-        f"{wall_fr:.1f} s | {smi}")
+    if (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches) != before:
+        raise AssertionError("16a: a hand-written kernel launched")
+    return dict(mean=float(s.mean()), sd=float(s.std()), elbo=elbo, pm=pm, psd=psd, log_z=log_z, rho=got_rho,
+                wall=wall, wall_fr=wall_fr, steps=steps)
+
+
+def _phase16_advi_oracles(smi, dev, pending=None, **kw):
+    """16a: ADVI at its defaults on the conjugate oracle (tests/test_vi.py's
+    gates) and fullrank on the rho = 0.9 Gaussian, gated on
+    :func:`_advi_oracle_job`'s readings (``pending``: its result from phase
+    8's pool, or None to run it here with ``kw``)."""
+    t = time.perf_counter()
+    r = _advi_oracle_job(str(dev), **kw) if pending is None else pending.get()
+    wait = time.perf_counter() - t
+    mean, sd, elbo, pm, psd, log_z = r["mean"], r["sd"], r["elbo"], r["pm"], r["psd"], r["log_z"]
+    if not (abs(mean - pm) <= 0.02 and abs(sd / psd - 1) <= 0.1 and log_z - 0.1 < elbo < log_z + 0.02):
+        raise AssertionError(f"16a ADVI: mean {mean} (exact {pm}), sd {sd} ({psd}), ELBO {elbo} (logZ {log_z})")
+    if not abs(r["rho"] - 0.9) <= 0.06:
+        raise AssertionError(f"16a ADVI fullrank: correlation {r['rho']} (0.9)")
+    where = ("in this process" if pending is None else
+             f"in a worker process of phase 8's pool, waited for {wait:.1f} s here")
+    log(f"[16a ADVI oracles] conjugate Normal, meanfield, {r['steps']} steps, 32 draws: mean {mean:.4f} (exact "
+        f"{pm:.4f}), sd {sd:.4f} ({psd:.4f}), ELBO {elbo:.4f} vs logZ {log_z:.4f}, {r['wall']:.1f} s = "
+        f"{1e3 * r['wall'] / r['steps']:.2f} ms a step; fullrank on the rho = 0.9 Gaussian: correlation "
+        f"{r['rho']:.4f}, {r['wall_fr']:.1f} s, {where} | {smi}")
 
 
 def _elbo_se(problem, fit, final) -> float:
@@ -3678,11 +3766,12 @@ def _phase16_results(smi, dev, ns_res, reps=200):
         f"acceptance {np.nanmean(rep.acceptance_rates):.3f}")
 
 
-def phase_vi_pathfinder(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes):
+def phase_vi_pathfinder(smi: str, gp_problem, gp_posterior, dev="cuda", advi=None, **sizes):
     """Phase 16: ADVI, Pathfinder, bridge sampling, HMC's Pathfinder start
-    and the results layer (module docstring).  ``sizes`` shrink 16a-f for a
-    rehearsal (``oracles``, ``advi``, ``hmc``, ``results``: keyword
-    arguments of each sub-phase)."""
+    and the results layer (module docstring).  ``advi`` is the pending
+    result of 16a's fits in phase 8's pool, or None to run them here.
+    ``sizes`` shrink 16a-f for a rehearsal (``oracles``, ``advi``, ``hmc``,
+    ``results``: keyword arguments of each sub-phase)."""
     dev = torch.device(dev)
     ns_res, grid_logz, cpu_problem = gp_posterior
     t0 = time.perf_counter()
@@ -3694,7 +3783,7 @@ def phase_vi_pathfinder(smi: str, gp_problem, gp_posterior, dev="cuda", **sizes)
 
     with _KernelWatch() as watch:
         t = time.perf_counter()
-        _phase16_advi_oracles(smi, dev, **sizes.get("oracles", {}))
+        _phase16_advi_oracles(smi, dev, advi, **sizes.get("oracles", {}))
         seconds.append(f"16a {time.perf_counter() - t:.1f}")
         t = time.perf_counter()
         launches, _ = _phase16_advi_gp(smi, watch, dev, gp_problem, cpu_problem, grid_logz, **sizes.get("advi", {}))
@@ -4295,8 +4384,8 @@ def _phase18b_job(job: str, dev: str, steps: dict) -> dict:
     return {**out, "seconds": time.perf_counter() - t0}
 
 
-def _phase18b_start(dev, pmmh=None, dns=None, conj_steps=2000, box_steps=1500, banana_steps=4000, advi_steps=3000,
-                    hmc_warmup=100):
+def _phase18b_start(dev, pmmh=None, dns=None, mesh_ns=None, conj_steps=2000, box_steps=1500, banana_steps=4000,
+                    advi_steps=3000, hmc_warmup=100):
     """Starts 18b: tests/test_flow_vi.py's oracles on the card (the
     conjugate posterior and evidence, the box-and-scale test, the banana
     against full-rank ADVI with the slow test's gates, HMC from a flow start
@@ -4304,15 +4393,17 @@ def _phase18b_start(dev, pmmh=None, dns=None, conj_steps=2000, box_steps=1500, b
     the same pool, 19c's PMMH oracle (:func:`_pmmh_oracle`, keyword
     arguments ``pmmh``) unless ``pmmh`` is None, and after them 20e's run
     (:func:`_dns_oracle`, keyword arguments ``dns``) unless ``dns`` is
-    None: (pool, pending result, sizes, the PMMH oracle's and 20e's pending
-    results or None)."""
+    None, then 21h's runs (:func:`_mesh_ns_oracle`, keyword arguments
+    ``mesh_ns``) unless ``mesh_ns`` is None: (pool, pending result, sizes,
+    the PMMH oracle's, 20e's and 21h's pending results or None)."""
     steps = dict(conj=conj_steps, box=box_steps, banana=banana_steps, advi=advi_steps, hmc_warmup=hmc_warmup)
     pool = multiprocessing.get_context("spawn").Pool(5)
     pmmh_pending = None if pmmh is None else pool.apply_async(_pmmh_oracle, (str(dev),), pmmh)
     jobs = ("banana_flow", "conjugate", "box", "banana_advi", "hmc_flow")  # the longest first
     fits = pool.starmap_async(_phase18b_job, [(job, str(dev), steps) for job in jobs])
     dns_pending = None if dns is None else pool.apply_async(_dns_oracle, (str(dev),), dns)
-    return pool, fits, steps, pmmh_pending, dns_pending
+    mesh_pending = None if mesh_ns is None else pool.apply_async(_mesh_ns_oracle, (str(dev),), mesh_ns)
+    return pool, fits, steps, pmmh_pending, dns_pending, mesh_pending
 
 
 def _phase18b_finish(smi, pending, steps):
@@ -4370,22 +4461,24 @@ def _phase18_flow_gp(smi, watch, dev, problem, grid_logz, steps=FLOW_GP_STEPS, b
     return launches
 
 
-def phase_flow_bnn(smi: str, gp_problem, gp_posterior, dev="cuda", pmmh=None, dns=None, **sizes):
+def phase_flow_bnn(smi: str, gp_problem, gp_posterior, dev="cuda", pmmh=None, dns=None, mesh_ns=None, **sizes):
     """Phase 18: the quasi-Bayesian networks and flow VI (module
     docstring).  18b's five fits run in worker processes while 18a and 18c
     run here.  ``pmmh`` (keyword arguments of :func:`_pmmh_oracle`, or
     None) puts 19c's PMMH oracle in the same pool first, ``dns`` (of
-    :func:`_dns_oracle`, or None) 20e's run after the fits.  ``sizes``
+    :func:`_dns_oracle`, or None) 20e's run after the fits and ``mesh_ns``
+    (of :func:`_mesh_ns_oracle`, or None) 21h's after that.  ``sizes``
     shrink 18a-c for a rehearsal (``bnn`` (``configs=``), ``oracles``,
     ``gp``: keyword arguments of each sub-phase).  Returns (launches,
-    None), or with either run (launches, (pool, the PMMH oracle's pending
-    result, 20e's)): the pool stays open for phases 19 and 20; the caller
-    closes it."""
+    None), or with any of those runs (launches, (pool, the PMMH oracle's
+    pending result, 20e's, 21h's)): the pool stays open for phases 19-21;
+    the caller closes it."""
     dev = torch.device(dev)
     grid_logz = gp_posterior[1]
     t0 = time.perf_counter()
     seconds = []
-    pool, pending, steps, pmmh_pending, dns_pending = _phase18b_start(dev, pmmh, dns, **sizes.get("oracles", {}))
+    pool, pending, steps, pmmh_pending, dns_pending, mesh_pending = _phase18b_start(dev, pmmh, dns, mesh_ns,
+                                                                                    **sizes.get("oracles", {}))
     try:
         with _KernelWatch() as watch:
             t = time.perf_counter()
@@ -4405,11 +4498,11 @@ def phase_flow_bnn(smi: str, gp_problem, gp_posterior, dev="cuda", pmmh=None, dn
         pool.terminate()
         pool.join()
         raise
-    if pmmh_pending is None and dns_pending is None:
+    if pmmh_pending is None and dns_pending is None and mesh_pending is None:
         pool.close()
         pool.join()
         return total, None
-    return total, (pool, pmmh_pending, dns_pending)
+    return total, (pool, pmmh_pending, dns_pending, mesh_pending)
 
 # ---------------------------------------------------------------------------
 # Phase 19: the time-series engines (no hand-written kernel on this path)
@@ -5436,6 +5529,424 @@ def phase_parallel_engines(smi: str, gp_problem, gp_posterior, dev="cuda", dns=N
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the multi-card engines (parallel/sharding.py and the sharded_*
+# modules) on a 4-shard mesh
+
+MESH_SHARDS = 4
+MESH_BLOCK = 256  # the panel width of the blocked factorizations
+MESH_BIG_N = 65536  # 21g: the width the row-sharded engine exists for (a 4 GiB f32 row block a shard)
+MESH_GRAD_N = 2048  # 21d
+MESH_CHOL_N = 4096  # 21c
+MESH_PRED_M = 512  # 21e's query points
+MESH_CONJ_ROWS = 2**20  # 21f
+MESH_THETA = (0.0, 0.0, -2.0)  # bench.py::bench_gp's theta: log variance, log lengthscale, log nugget
+
+
+def _mesh_devices(dev="cuda") -> list:
+    """The mesh's 4 shards: one per card where there are four, else all on
+    ``dev`` (the one card, or the CPU in a rehearsal)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and torch.cuda.device_count() >= MESH_SHARDS:
+        return [torch.device("cuda", i) for i in range(MESH_SHARDS)]
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return [dev] * MESH_SHARDS
+
+
+def _mesh_gp_data(n: int, dev, dtype, seed: int = 0):
+    """bench.py::bench_gp's data law (x ~ N(0, I_3), y = sin x_0 + 0.1 noise,
+    drawn in float32) at width n."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, SLICE_D)).astype(np.float32)
+    y = (np.sin(x[:, 0]) + 0.1 * rng.normal(size=n)).astype(np.float32)
+    return torch.as_tensor(x, device=dev, dtype=dtype), torch.as_tensor(y, device=dev, dtype=dtype)
+
+
+def _mesh_kernel(gk, th):
+    return gk.se_kernel(torch.exp(th[0]), torch.exp(th[1])), torch.exp(th[2])
+
+
+def _peaks(devices) -> str:
+    """Peak device memory of each distinct device since its last reset."""
+    if devices[0].type != "cuda":
+        return "not measured (CPU)"
+    return ", ".join(f"{d} {torch.cuda.max_memory_allocated(d) / 2**30:.2f} GiB" for d in dict.fromkeys(devices))
+
+
+def _reset_peaks(devices) -> None:
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
+
+
+def _synced_s(fn, devices):
+    """(result, host seconds) of ``fn`` ending in a synchronize of every device."""
+    t = time.perf_counter()
+    out = fn()
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+    return out, time.perf_counter() - t
+
+
+class _Counted:
+    """Adds the launches of the calls it wraps (counters zeroed just before
+    each, read just after) to ``total``: the main path's launches; the
+    reference calls that the gates compare against run outside it."""
+
+    def __init__(self):
+        self.total = {"se_covariance": 0, "cholesky": 0}
+
+    def __call__(self, fn):
+        from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+        gk.se_covariance_cuda.launches = 0
+        gk.cholesky_cuda.launches = 0
+        out = fn()
+        got = {"se_covariance": gk.se_covariance_cuda.launches, "cholesky": gk.cholesky_cuda.launches}
+        for k, v in got.items():
+            self.total[k] += v
+        return out, got
+
+
+def _phase21_gp(smi, counted, mesh, devices, dev, n=GRAD_N, m=MESH_PRED_M, chol_n=MESH_CHOL_N,
+                grad_n=MESH_GRAD_N):
+    """21a-e: the row-sharded covariance, blocked logML, Cholesky, gradient
+    and prediction against the single-device kernel path and plain f64."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+    from bayesianinference_tpu_torch.parallel import (sharded_cholesky, sharded_covariance_matrix,
+                                                      sharded_gp_logml_blocked, sharded_gp_predict)
+
+    panels = n // MESH_BLOCK
+    x, y = _mesh_gp_data(n, dev, torch.float32)
+    th = torch.tensor(MESH_THETA, device=dev, dtype=torch.float32)
+    kern, nug = _mesh_kernel(gk, th)
+    # 21a: one SE launch a shard
+    with torch.no_grad():
+        k_sh, launches = counted(lambda: sharded_covariance_matrix(kern, x, mesh, nugget=nug))
+        k_ref = gk.covariance_matrix(kern, x, nugget=nug, symmetrize=False)
+        err_a = ((k_sh.gather(dev) - k_ref).abs().max() / k_ref.abs().max()).item()
+    del k_sh, k_ref
+    if not (err_a <= 1e-6 and launches["se_covariance"] == MESH_SHARDS):
+        raise AssertionError(f"21a sharded covariance: rel err {err_a}, launches {launches}")
+    log(f"[21a sharded covariance] n={n} d={SLICE_D} f32, {MESH_SHARDS} row blocks [{n // MESH_SHARDS}, {n}]: "
+        f"against the single-device op's K rel err {err_a:.2e} (gate 1e-6); SE launches {launches['se_covariance']} "
+        f"(one a shard) | {smi}")
+
+    # 21b: the blocked logML, f32, against plain f64 beside the single-device kernel path
+    with torch.no_grad():
+        got_b, launches = counted(lambda: sharded_gp_logml_blocked(kern, x, y, mesh, nugget=nug, block=MESH_BLOCK))
+        # the first call's wall and memory hold the watch's checks of its new shapes: measure a second one
+        _reset_peaks(devices)
+        _, wall_b = _synced_s(lambda: sharded_gp_logml_blocked(kern, x, y, mesh, nugget=nug, block=MESH_BLOCK),
+                              devices)
+        peaks_b = _peaks(devices)
+        single = _gp_logml(th, x, y)
+        x64, y64 = _mesh_gp_data(n, dev, torch.float64)
+        ref = _gp_logml_plain(th.double(), x64, y64)
+    err_k, err_s = abs(got_b.double() - ref).item(), abs(single.double() - ref).item()
+    bound = min(2.0 * err_s + 1e-6 * abs(ref.item()), 5e-5 * abs(ref.item()))
+    if not (math.isfinite(got_b.item()) and err_k <= bound and launches["cholesky"] >= panels
+            and launches["se_covariance"] == MESH_SHARDS):
+        raise AssertionError(f"21b sharded logML: {got_b.item()} (err {err_k}) single {single.item()} (err {err_s}) "
+                             f"f64 {ref.item()}; launches {launches}")
+    log(f"[21b sharded blocked logML] n={n} f32 block {MESH_BLOCK}: {got_b.item():.9g} (err {err_k:.3g}) single-device "
+        f"kernel path {single.item():.9g} (err {err_s:.3g}) plain f64 {ref.item():.9g}; gate {bound:.3g}; wall "
+        f"{wall_b * 1e3:.1f} ms (a second call, warm); launches {launches} ({panels} panels, a factor a device a panel); peak "
+        f"memory per device in that call {peaks_b} | {smi}")
+
+    # 21c: the sharded Cholesky, f64, against the cholesky op's factor
+    xc, _ = _mesh_gp_data(chol_n, dev, torch.float64, seed=1)
+    with torch.no_grad():
+        kc = gk.covariance_matrix(gk.se_kernel(1.0, 1.0), xc, nugget=math.exp(-2.0), symmetrize=False)
+        (l_sh, logdet), launches = counted(lambda: sharded_cholesky(kc, mesh, block=MESH_BLOCK))
+        l_op = gk.cholesky(kc)
+        err_l = ((l_sh.gather(dev) - l_op).abs().max() / l_op.abs().max()).item()
+        ref_ld = 2.0 * torch.log(torch.diagonal(l_op)).sum()
+        err_ld = abs((logdet - ref_ld) / ref_ld).item()
+    del kc, l_sh, l_op
+    if not (err_l <= 1e-10 and err_ld <= 1e-10 and launches["cholesky"] >= chol_n // MESH_BLOCK):
+        raise AssertionError(f"21c sharded Cholesky: L rel err {err_l}, logdet rel err {err_ld}, launches {launches}")
+    log(f"[21c sharded Cholesky] n={chol_n} f64 block {MESH_BLOCK}: L against the cholesky op's factor rel err "
+        f"{err_l:.2e}, log det rel err {err_ld:.2e} (gate 1e-10); launches {launches} | {smi}")
+
+    # 21d: value and theta-gradient, f64, against the single-device kernel path
+    xd, yd = _mesh_gp_data(grad_n, dev, torch.float64, seed=2)
+    th64 = th.double()
+    (got_d, launches) = counted(lambda: _value_and_grad(
+        lambda t, xx, yy: sharded_gp_logml_blocked(_mesh_kernel(gk, t)[0], xx, yy, mesh, nugget=torch.exp(t[2]),
+                                                   block=MESH_BLOCK), th64, xd, yd))
+    want_d = _value_and_grad(_gp_logml, th64, xd, yd)
+    flat = lambda vg: torch.cat([vg[0].reshape(1), vg[1]])  # noqa: E731
+    err_d = ((flat(got_d) - flat(want_d)).abs() / flat(want_d).abs()).max().item()
+    if not (err_d <= 1e-7 and launches["cholesky"] >= grad_n // MESH_BLOCK):
+        raise AssertionError(f"21d sharded logML gradient: {flat(got_d).tolist()} against {flat(want_d).tolist()}")
+    log(f"[21d sharded logML and theta-gradient] n={grad_n} f64: against the single-device kernel path rel err "
+        f"{err_d:.2e} (gate 1e-7); launches {launches} | {smi}")
+
+    # 21e: prediction, f32, against plain f64 beside the single-device kernel path
+    xq = torch.as_tensor(np.random.default_rng(3).normal(size=(m, SLICE_D)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        (mean_e, std_e), launches = counted(lambda: sharded_gp_predict(kern, x, y, xq, mesh, nugget=nug,
+                                                                        block=MESH_BLOCK))
+        mean_s, std_s = gk.gp_posterior_moments(kern, x, y, xq, nugget=nug)
+        with _plain_ops():
+            mean_r, std_r = gk.gp_posterior_moments(gk.se_kernel(1.0, 1.0), x64, y64, xq.double(),
+                                                    nugget=math.exp(-2.0))
+    errs = {}
+    for name, got, sgl, want in (("mean", mean_e, mean_s, mean_r), ("std", std_e, std_s, std_r)):
+        scale = want.abs().max()
+        errs[name] = (((got.double() - want).abs().max() / scale).item(),
+                      ((sgl.double() - want).abs().max() / scale).item())
+    if not (all(ek <= 2.0 * es + 1e-6 for ek, es in errs.values()) and launches["cholesky"] >= panels
+            and launches["se_covariance"] == 2 * MESH_SHARDS):
+        raise AssertionError(f"21e sharded predict: errors (sharded, single) {errs}; launches {launches}")
+    log(f"[21e sharded predict] n={n} m={m} f32: " + "; ".join(
+        f"{k} rel err {ek:.3g} (single-device kernel path {es:.3g})" for k, (ek, es) in errs.items())
+        + f" against plain f64 (gate 2 x single + 1e-6); launches {launches} | {smi}")
+
+
+def _phase21_conjugate(smi, counted, mesh, dev, rows=MESH_CONJ_ROWS):
+    """21f: the four data-sharded conjugate models against the dense engines."""
+    from bayesianinference_tpu_torch.engines import conjugate as cj
+    from bayesianinference_tpu_torch.parallel import (sharded_bayesian_linear_regression,
+                                                      sharded_categorical_conjugate_model,
+                                                      sharded_multinormal_conjugate_model,
+                                                      sharded_normal_conjugate_model)
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    kw = dict(generator=g, device=dev, dtype=torch.float64)
+    x = 4.0 * torch.rand((rows, 1), **kw) - 2.0
+    y = 1.0 - 2.0 * x[:, 0] + 0.5 * x[:, 0] ** 3 + 0.1 * torch.randn(rows, **kw)
+    data = 1.3 + 0.7 * torch.randn(rows, **kw)
+    mv = torch.randn((rows, 3), **kw) @ torch.tensor([[1.0, 0.4, 0.0], [0.0, 1.1, -0.2], [0.0, 0.0, 0.8]],
+                                                     device=dev, dtype=torch.float64)
+    cats = torch.randint(0, 4, (rows,), generator=g, device=dev).double()
+    cases = (
+        ("BLR degree 3", lambda: sharded_bayesian_linear_regression(x, y, mesh, degree=3),
+         lambda: cj.bayesian_linear_regression(x, y, degree=3),
+         lambda r: [r.log_evidence, r.posterior_parameters.b, r.posterior_parameters.v]),
+        ("Normal", lambda: sharded_normal_conjugate_model(data, mesh), lambda: cj.normal_conjugate_model(data),
+         lambda r: [r.log_evidence, r.posterior.mu0, r.posterior.beta]),
+        ("Multinormal", lambda: sharded_multinormal_conjugate_model(mv, mesh),
+         lambda: cj.multinormal_conjugate_model(mv), lambda r: [r.log_evidence, r.posterior.mu0, r.posterior.psi]),
+        ("Categorical", lambda: sharded_categorical_conjugate_model(cats, 4, mesh),
+         lambda: cj.categorical_conjugate_model(cats, 4), lambda r: [r.log_evidence, r.posterior.alpha]),
+    )
+    rows_out = []
+    for name, sharded, dense, fields in cases:
+        got, launches = counted(sharded)
+        want = dense()
+        err = max(((torch.as_tensor(a) - torch.as_tensor(b)).abs().max() / torch.as_tensor(b).abs().max()).item()
+                  for a, b in zip(fields(got), fields(want)))
+        if not err <= 1e-10:
+            raise AssertionError(f"21f {name}: sharded against dense rel err {err}")
+        rows_out.append(f"{name} {err:.2e} (launches {launches})")
+    log(f"[21f sharded conjugate models] {rows} rows f64 over {MESH_SHARDS} shards, against the dense engines "
+        f"(gate 1e-10): " + "; ".join(rows_out) + f" | {smi}")
+
+
+def _phase21_big(smi, counted, mesh, devices, dev, n=MESH_BIG_N):
+    """21g: the blocked logML forward at the width the row-sharded engine
+    exists for.  Returns the check to run once the shards are freed and the
+    watch is closed (:func:`_phase21_big_check`: the single-device kernel
+    path's K and L are n^2 f32 each, too large for the watch's plain
+    copies beside them)."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+    from bayesianinference_tpu_torch.parallel import sharded_gp_logml_blocked
+
+    x, y = _mesh_gp_data(n, dev, torch.float32)
+    th = torch.tensor(MESH_THETA, device=dev, dtype=torch.float32)
+    kern, nug = _mesh_kernel(gk, th)
+    with torch.no_grad():
+        got, launches = counted(lambda: sharded_gp_logml_blocked(kern, x, y, mesh, nugget=nug, block=MESH_BLOCK))
+        # the first call's wall and memory hold the watch's check of the new SE shape: measure a second one
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        _reset_peaks(devices)
+        _, wall = _synced_s(lambda: sharded_gp_logml_blocked(kern, x, y, mesh, nugget=nug, block=MESH_BLOCK),
+                            devices)
+        peaks = _peaks(devices)
+    return lambda: _phase21_big_check(smi, dev, x, y, kern, nug, got, launches, wall, peaks)
+
+
+def _phase21_big_check(smi, dev, x, y, kern, nug, got, launches, wall, peaks):
+    """21g's gate: against the single-device kernel path's f32 logML."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    n = x.shape[0]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        k = gk.covariance_matrix(kern, x, nugget=nug, symmetrize=False)
+        factor = gk.cholesky(k)
+        del k
+        w = torch.linalg.solve_triangular(factor, y[:, None], upper=False)[:, 0]
+        logdet = 2.0 * torch.log(torch.diagonal(factor)).sum()
+        del factor
+        want = -0.5 * (n * math.log(2 * math.pi) + logdet + (w * w).sum())
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    err = abs((got.double() - want.double()) / want.double()).item()
+    if not (math.isfinite(got.item()) and err <= 5e-5 and launches["se_covariance"] == MESH_SHARDS
+            and launches["cholesky"] >= n // MESH_BLOCK):
+        raise AssertionError(f"21g sharded logML at n={n}: {got.item()} against {want.item()} (rel err {err}); "
+                             f"launches {launches}")
+    log(f"[21g sharded blocked logML at full width] n={n} f32 ({MESH_SHARDS} row blocks of "
+        f"{n // MESH_SHARDS * n * 4 / 2**30:.0f} GiB; one device would hold {n * n * 4 / 2**30:.0f} GiB): "
+        f"{got.item():.9g} against the single-device kernel path's {want.item():.9g} (rel err {err:.2e}, gate 5e-5); "
+        f"wall {wall:.2f} s (a second call, warm); launches {launches}; peak memory per device in that call "
+        f"{peaks} | {smi}")
+
+
+def _mesh_ns_oracle(dev: str, pool=128, k=8, steps=40, max_iterations=900, min_iterations=50) -> dict:
+    """21h's runs: the pool-sharded NS on the headline problem (the 2-D
+    Gaussian box) on phase 21's 4-shard mesh beside the single-device run
+    at the same settings, and the runs x live x data NS at (2, 2, 2) (8
+    shards) on the JAX test's data.  Host-bound loops that reach no
+    hand-written kernel, so they run in a worker process of 18b's pool (it
+    fails if a kernel launched).  Their readings and seconds."""
+    from bayesianinference_tpu_torch.dists.scalar import Normal
+    from bayesianinference_tpu_torch.engines.nested_sampling import nested_sampling
+    from bayesianinference_tpu_torch.models.problem import define_inference_problem
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+    from bayesianinference_tpu_torch.parallel import (make_mesh, make_multi_axis_mesh, multi_axis_nested_sampling,
+                                                      sharded_pool_nested_sampling)
+
+    dev = torch.device(dev)
+    devices = _mesh_devices(dev)
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+    problem, analytic = _gaussian_box_problem(2, dev)
+    kw = dict(sample_pool_size=pool, num_delete=k, max_iterations=max_iterations, min_iterations=min_iterations,
+              monte_carlo_steps=steps)
+    t0 = time.perf_counter()
+    r = sharded_pool_nested_sampling(problem, torch.Generator(device=dev).manual_seed(21),
+                                     mesh=make_mesh(("live",), devices=devices), **kw)
+    t1 = time.perf_counter()
+    r1 = nested_sampling(problem, torch.Generator(device=dev).manual_seed(7), **kw)
+    t2 = time.perf_counter()
+    data = torch.as_tensor(np.random.default_rng(0).normal(0.5, 1.3, 64), device=dev)
+    ma_problem = define_inference_problem(
+        parameters=[("mu", -5.0, 5.0), ("log_sigma", -2.0, 2.0)],
+        log_likelihood=lambda th: Normal(th[0], torch.exp(th[1])).log_prob(data).sum(),
+        prior_distribution=["location", "location"], validate=False, device=dev, dtype=torch.float64)
+    ma_devices = [devices[i % MESH_SHARDS] for i in range(8)]
+    ma = multi_axis_nested_sampling(
+        ma_problem, torch.Generator(device=dev).manual_seed(21), mesh=make_multi_axis_mesh(2, 2, 2, ma_devices),
+        sample_pool_size=64, num_delete=8, data=data,
+        local_log_likelihood=lambda th, shard: Normal(th[0], torch.exp(th[1])).log_prob(shard).sum(),
+        max_iterations=600, min_iterations=50, monte_carlo_steps=steps)
+    t3 = time.perf_counter()
+    if (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches) != before:
+        raise AssertionError("21h: a hand-written kernel launched")
+    f = lambda res: (float(res.log_evidence.mean), float(res.log_evidence.standard_error), res.iterations)  # noqa: E731
+    return dict(pool=f(r), single=f(r1), multi=f(ma), analytic=analytic, data=data.cpu().numpy(),
+                seconds=(t1 - t0, t2 - t1, t3 - t2), layout=[str(d) for d in devices], sizes=(pool, k, steps))
+
+
+def _multi_axis_quadrature(y) -> float:
+    """tests/test_parallel.py::test_multi_axis_nested_sampling's oracle: the
+    mu integral in closed form, log sigma by 400-point Gauss-Legendre."""
+    xb, wb = np.polynomial.legendre.leggauss(400)
+    ls, wls = 2.0 * xb, 2.0 * wb
+    sig2 = np.exp(2.0 * ls)
+    n_obs = y.shape[0]
+    log_inner = (-0.5 * (n_obs - 1) * np.log(2 * np.pi * sig2) - 0.5 * np.sum((y - y.mean()) ** 2) / sig2
+                 - 0.5 * np.log(n_obs))
+    mx = log_inner.max()
+    return float(mx + np.log(np.sum(wls * np.exp(log_inner - mx))) - np.log(10.0) - np.log(4.0))
+
+
+def _phase21h_ns(smi, dev, pending=None, **kw):
+    """21h's gates on :func:`_mesh_ns_oracle`'s readings (``pending``: its
+    result from 18b's pool, or None to run it here): the pool-sharded run
+    within 4 sigma of the analytic logZ and within 4 combined sigma of the
+    single-device run; the multi-axis run within 4 sigma + 0.1 of the
+    quadrature logZ."""
+    t = time.perf_counter()
+    r = _mesh_ns_oracle(str(dev), **kw) if pending is None else pending.get()
+    wait = time.perf_counter() - t
+    (lz, se, it), (lz1, se1, _), (lzm, sem, itm) = r["pool"], r["single"], r["multi"]
+    quad = _multi_axis_quadrature(r["data"])
+    z = (lz - r["analytic"]) / se
+    ok = (abs(z) < 4.0 and abs(lz - lz1) < 4.0 * math.hypot(se, se1) and it > 50
+          and abs(lzm - quad) < 4.0 * sem + 0.1 and itm > 10)
+    if not ok:
+        raise AssertionError(f"21h mesh NS: {r}; quadrature {quad}")
+    where = ("in this process" if pending is None else
+             f"in a worker process of 18b's pool from phase 18 on, waited for {wait:.1f} s here")
+    pool, k, steps = r["sizes"]
+    log(f"[21h mesh NS] the headline problem (2-D Gaussian box), pool {pool}, {k} deletions, {steps} AM steps, f64, "
+        f"{MESH_SHARDS} live shards ({', '.join(r['layout'])}): logZ {lz:.4f} +- {se:.4f} against analytic "
+        f"{r['analytic']:.4f} (z {z:+.2f}, gate 4), single-device run {lz1:.4f} +- {se1:.4f} (gate 4 combined sigma), "
+        f"{it} iterations; runs x live x data (2, 2, 2) on the JAX test's 64 observations: logZ {lzm:.4f} +- "
+        f"{sem:.4f} against quadrature {quad:.4f} (gate 4 sigma + 0.1), {itm} iterations; seconds "
+        f"{', '.join(f'{s:.1f}' for s in r['seconds'])} {where} | {smi}")
+
+
+def _phase21_repair_check(smi, dev, n=1024):
+    """The blocked Cholesky on the last card (its shared-memory limits set
+    per device): one n = 1024 factor against the plain version where there
+    are four cards; on one card it says the repair is untested."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    count = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if count < MESH_SHARDS:
+        log(f"[21 blocked Cholesky on another card] {max(count, 1)} device(s): the per-device shared-memory "
+            f"limits of csrc/cholesky.cu's blocked path are untested here (they need a second card) | {smi}")
+        return
+    last = torch.device("cuda", count - 1)
+    x, _ = _mesh_gp_data(n, last, torch.float64, seed=4)
+    with torch.no_grad():
+        k = gk.covariance_matrix(gk.se_kernel(1.0, 1.0), x, nugget=0.1, symmetrize=False)
+        got, want = gk.cholesky(k), gk.cholesky_plain(k)
+        err = ((got - want).abs().max() / want.abs().max()).item()
+    if not err <= TOL["chol"][torch.float64]:
+        raise AssertionError(f"21: blocked Cholesky on {last}: rel err {err}")
+    log(f"[21 blocked Cholesky on another card] n={n} f64 on {last} (the blocked path): against the plain version "
+        f"rel err {err:.2e} (gate 1e-10) | {smi}")
+
+
+def phase_multi_card(smi: str, dev="cuda", mesh_ns=None, **sizes):
+    """Phase 21: the multi-card engines on a 4-shard mesh (module docstring).
+    ``mesh_ns`` is the pending result of 21h's runs in 18b's pool, or None
+    to run them here.  ``sizes`` shrink 21a-h for a rehearsal (``gp``,
+    ``conjugate``, ``big``, ``ns``: keyword arguments of each sub-phase).
+    Returns the launches of 21a-g's sharded calls."""
+    from bayesianinference_tpu_torch.parallel import make_mesh
+
+    dev = torch.device(dev)
+    devices = _mesh_devices(dev)
+    mesh = make_mesh(("data",), devices=devices)
+    layout = "one shard a card" if len(set(devices)) == MESH_SHARDS else f"all {MESH_SHARDS} on {devices[0]}"
+    log(f"[21 mesh] {MESH_SHARDS} shards ({layout}): {', '.join(str(d) for d in devices)}")
+    t0 = time.perf_counter()
+    counted, seconds = _Counted(), []
+    with _KernelWatch() as watch:
+        for tag, run in (("21a-e", lambda: _phase21_gp(smi, counted, mesh, devices, dev, **sizes.get("gp", {}))),
+                         ("21f", lambda: _phase21_conjugate(smi, counted, mesh, dev, **sizes.get("conjugate", {}))),
+                         ("21g", lambda: _phase21_big(smi, counted, mesh, devices, dev, **sizes.get("big", {})))):
+            t = time.perf_counter()
+            big_check = run()
+            seconds.append(f"{tag} {time.perf_counter() - t:.1f}")
+        checked = watch.check("21")
+    t = time.perf_counter()
+    big_check()
+    seconds.append(f"21g's reference {time.perf_counter() - t:.1f}")
+    t = time.perf_counter()
+    _phase21_repair_check(smi, dev)
+    _phase21h_ns(smi, dev, mesh_ns, **sizes.get("ns", {}))
+    seconds.append(f"21h {time.perf_counter() - t:.1f}")
+    total = counted.total
+    if not (total["se_covariance"] > 0 and total["cholesky"] > 0):
+        raise AssertionError(f"21: launches {total}")
+    log(f"[21 multi-card engines] {time.perf_counter() - t0:.1f} s ({', '.join(seconds)}); launches of the sharded "
+        f"calls {total}; {checked}")
+    return total
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -5458,33 +5969,42 @@ def main():
     times, big = timed(phase_kernel_times, smi)
     grad_launches, _ = timed(phase_gp_grad, smi)
     laplace_launches, _ = timed(phase_laplace, smi, problem, ns_logz)
-    timed(phase_ns_highdim, smi)
     ard_launches = timed(phase_gp_ard, smi)
     timed(phase_checkpoint_dynamic, smi)
     t11 = time.perf_counter()
     par_launches = timed(phase_parallel_ns, smi, spine, gp_rate)
     conj_launches = timed(phase_conjugate, smi)
     log(f"[seconds] phases 11 and 12 took {time.perf_counter() - t11:.0f} s")
-    sampler_launches = timed(phase_samplers, smi, problem, gp_posterior)
-    latent_launches = timed(phase_latent_gp, smi)
-    svgp_launches = timed(phase_svgp_bo, smi)
-    vi_launches = timed(phase_vi_pathfinder, smi, problem, gp_posterior)
-    consumption_launches = timed(phase_consumption, smi, problem, gp_posterior)
-    flow_launches, pool = timed(phase_flow_bnn, smi, problem, gp_posterior, "cuda", {}, {})
+    # phase 8's runs and 16a's fits (no hand-written kernel) in two worker processes beside phases 13-17, after
+    # the kernel times of phase 5; phase 8 gated after phase 17
+    highdim = _ns_highdim_start()
+    try:
+        sampler_launches = timed(phase_samplers, smi, problem, gp_posterior)
+        latent_launches = timed(phase_latent_gp, smi)
+        svgp_launches = timed(phase_svgp_bo, smi)
+        vi_launches = timed(phase_vi_pathfinder, smi, problem, gp_posterior, "cuda", highdim[2])
+        consumption_launches = timed(phase_consumption, smi, problem, gp_posterior)
+        timed(phase_ns_highdim, smi, highdim)
+    finally:
+        highdim[0].terminate()
+        highdim[0].join()
+    flow_launches, pool = timed(phase_flow_bnn, smi, problem, gp_posterior, "cuda", {}, {}, {})
     try:
         series_launches = timed(phase_time_series, smi, pool[:2])
         engines_launches = timed(phase_parallel_engines, smi, problem, gp_posterior, "cuda", pool[2])
+        mesh_launches = timed(phase_multi_card, smi, "cuda", pool[3])
     finally:
         pool[0].terminate()
         pool[0].join()
     total_s = time.perf_counter() - t0
     log(f"[seconds] all phases {total_s:.0f} s, {_MEASURING['seconds']:.0f} s of them timing and profiling; phase 4 "
-        f"(the host's yardstick) {took['phase_gp_slice']:.1f} s, phase 20 {took['phase_parallel_engines']:.1f} s; "
+        f"(the host's yardstick) {took['phase_gp_slice']:.1f} s, phase 20 {took['phase_parallel_engines']:.1f} s, "
+        f"phase 21 {took['phase_multi_card']:.1f} s; "
         f"{1200 - total_s:.0f} s left of the 1200 s limit")
     launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] + par_launches[k]
                 + conj_launches[k] + sampler_launches[k] + latent_launches[k] + svgp_launches[k] + vi_launches[k]
                 + consumption_launches[k] + flow_launches[k] + series_launches[k] + engines_launches[k]
-                for k in launches}
+                + mesh_launches[k] for k in launches}
     # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
     # at bench.py's width (B = 1, n = 16384, f32)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")

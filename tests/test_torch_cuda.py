@@ -974,3 +974,145 @@ def test_parallel_ensemble_on_a_gp_through_both_kernels_matches_the_cpu(cuda):
     assert gk.se_covariance_cuda.launches - before[0] == 11 and gk.cholesky_cuda.launches - before[1] == 11
     b = parallel_ensemble(host, None, num_walkers=16, num_warmup=0, num_samples=5, starting_points=start, draws=draws)
     assert _rel_to(a.samples, b.samples) <= 1e-10 and _rel_to(a.acceptance_rates, b.acceptance_rates) <= 1e-10
+
+
+def test_sharded_gp_on_a_four_shard_mesh_runs_both_kernels_on_every_shard(cuda):
+    """The row-sharded GP on 4 shards (one a card where there are four, else
+    all on the one): each assembly one SE launch a shard, the blocked logML
+    and Cholesky at least one Cholesky launch a panel, each against CPU
+    tensors on a CPU mesh (float64, 1e-10 of the largest entry)."""
+    from bayesianinference_tpu_torch.parallel import (make_mesh, sharded_cholesky, sharded_covariance_matrix,
+                                                      sharded_gp_logml_blocked, sharded_gp_predict)
+
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(4)] if count >= 4 else ["cuda:0"] * 4
+    mesh, host = make_mesh(("data",), devices=devices), make_mesh(("data",), devices=["cpu"] * 4)
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.uniform(-2, 2, (1024, 3)))
+    y = torch.sin(x[:, 0]) + 0.1 * torch.tensor(rng.normal(size=1024))
+    kern = gk.se_kernel(1.3, 0.8)
+    before = gk.se_covariance_cuda.launches
+    k_card = sharded_covariance_matrix(kern, x.to(cuda), mesh, nugget=0.1)
+    assert gk.se_covariance_cuda.launches - before == 4
+    assert [str(k_card[i].device) for i in range(4)] == [str(torch.device(d)) for d in devices]
+    k_host = sharded_covariance_matrix(kern, x, host, nugget=0.1).gather()
+    assert _rel_to(k_card.gather("cpu"), k_host) <= 1e-10
+    before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
+    got = sharded_gp_logml_blocked(kern, x.to(cuda), y.to(cuda), mesh, nugget=0.1, block=128)
+    assert gk.se_covariance_cuda.launches - before[0] == 4 and gk.cholesky_cuda.launches - before[1] >= 1024 // 128
+    assert _rel_to(got, sharded_gp_logml_blocked(kern, x, y, host, nugget=0.1, block=128)) <= 1e-10
+    before = gk.cholesky_cuda.launches
+    l_card, logdet = sharded_cholesky(k_card, mesh, block=256)
+    assert gk.cholesky_cuda.launches - before >= 1024 // 256
+    l_host, logdet_host = sharded_cholesky(k_host, host, block=256)
+    assert _rel_to(l_card.gather("cpu"), l_host.gather()) <= 1e-10 and _rel_to(logdet, logdet_host) <= 1e-10
+    xq = torch.tensor(rng.normal(size=(17, 3)))
+    mean, std = sharded_gp_predict(kern, x.to(cuda), y.to(cuda), xq.to(cuda), mesh, nugget=0.1, block=128)
+    mean_h, std_h = sharded_gp_predict(kern, x, y, xq, host, nugget=0.1, block=128)
+    assert _rel_to(mean, mean_h) <= 1e-10 and _rel_to(std, std_h) <= 1e-10
+
+
+def test_sharded_conjugate_sgpr_and_svgp_on_a_card_mesh_match_the_cpu(cuda):
+    """The data-sharded BLR (its k x k factor through the Cholesky kernel),
+    the SGPR bound and an SVGP fit on a 4-shard card mesh against the same
+    on a CPU mesh (float64, 1e-10; the fit's 10 steps 1e-8)."""
+    from bayesianinference_tpu_torch.engines.sparse_gp import define_sparse_gaussian_process
+    from bayesianinference_tpu_torch.engines.svgp import fit_svgp
+    from bayesianinference_tpu_torch.parallel import make_mesh, sharded_bayesian_linear_regression
+
+    count = torch.cuda.device_count()
+    mesh = make_mesh(("data",), devices=[f"cuda:{i}" for i in range(4)] if count >= 4 else ["cuda:0"] * 4)
+    host = make_mesh(("data",), devices=["cpu"] * 4)
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.uniform(-2, 2, (203, 1)))
+    y = 1.0 - 2.0 * x[:, 0] + 0.5 * x[:, 0] ** 3 + 0.1 * torch.tensor(rng.normal(size=203))
+    before = gk.cholesky_cuda.launches
+    a = sharded_bayesian_linear_regression(x.to(cuda), y.to(cuda), mesh, degree=3)
+    assert gk.cholesky_cuda.launches > before
+    b = sharded_bayesian_linear_regression(x, y, host, degree=3)
+    assert _rel_to(a.log_evidence, b.log_evidence) <= 1e-10 and _rel_to(a.posterior_parameters.b,
+                                                                       b.posterior_parameters.b) <= 1e-10
+    params = [("v", 0.05, 20.0), ("l", 0.05, 20.0), ("s2", 1e-3, 2.0)]
+    kw = dict(nugget_builder=lambda th: th[2], inducing=16, validate=False, jitter=1e-10)
+    th = torch.tensor([[1.3, 0.8, 0.05]], dtype=torch.float64)
+    ys = torch.sin(3 * x[:, 0])
+    p_card = define_sparse_gaussian_process(x.to(cuda), ys.to(cuda), lambda t: gk.se_kernel(t[0], t[1]), params,
+                                            mesh=mesh, **kw)
+    p_host = define_sparse_gaussian_process(x, ys, lambda t: gk.se_kernel(t[0], t[1]), params, mesh=host, **kw)
+    assert _rel_to(p_card.guarded_log_likelihood(th.to(cuda)), p_host.guarded_log_likelihood(th)) <= 1e-10
+    yb = (ys > 0).double()
+    kb = lambda t: gk.se_kernel(t[0] ** 2, t[1])  # noqa: E731
+    amp_ls = [("amp", 0.05, 10.0), ("ls", 0.1, 5.0)]
+    f_card = fit_svgp(x.to(cuda), yb.to(cuda), kb, amp_ls, inducing=8, steps=10, mesh=mesh)
+    f_host = fit_svgp(x, yb, kb, amp_ls, inducing=8, steps=10, mesh=host)
+    assert _rel_to(f_card.elbo_trace, f_host.elbo_trace) <= 1e-8 and _rel_to(f_card.theta, f_host.theta) <= 1e-8
+
+
+def test_run_level_engines_split_their_runs_over_the_cards(cuda):
+    """Parallel NS and SMC and PMMH on a mesh over every card (4 shards on
+    the one card where there is one): the runs or chains of each card run
+    as one batch there, on a copy of the problem; NS within 4 sigma and SMC
+    within 0.3 of the analytic logZ of the 2-D Gaussian box, PMMH finite on
+    its 4 chains."""
+    import math
+
+    from bayesianinference_tpu_torch.dists.scalar import Normal
+    from bayesianinference_tpu_torch.engines.particle import pmmh_sample
+    from bayesianinference_tpu_torch.models.problem import define_inference_problem
+    from bayesianinference_tpu_torch.ops.particle import ParticleModel
+    from bayesianinference_tpu_torch.parallel import make_mesh, parallel_nested_sampling, parallel_smc
+
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(4)] if count >= 4 else ["cuda:0"] * 4
+    problem = define_inference_problem(parameters=[("x", -5.0, 5.0), ("y", -5.0, 5.0)],
+                                       log_likelihood=lambda th: Normal(0.0, 1.0).log_prob(th).sum(),
+                                       prior_distribution=["location"] * 2, validate=False, device=cuda,
+                                       dtype=torch.float64)
+    analytic = 2 * (math.log(math.erf(5 / math.sqrt(2))) - math.log(10.0))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ns = parallel_nested_sampling(problem, g, num_runs=8, sample_pool_size=25, monte_carlo_steps=60,
+                                  max_iterations=800, min_iterations=30, mesh=make_mesh(("runs",), devices=devices))
+    assert abs(float(ns.log_evidence.mean) - analytic) < 4 * float(ns.log_evidence.standard_error)
+    smc = parallel_smc(problem, g, num_runs=8, n_particles=200, mcmc_steps=8, mesh=make_mesh(("runs",), devices=devices))
+    assert abs(float(smc.log_evidence.mean) - analytic) < 0.3 and smc.log_z_runs.device == problem.device
+    y = torch.randn(30, generator=g, device=cuda, dtype=torch.float64)
+    model = lambda th: ParticleModel(  # noqa: E731
+        lambda gen, n: torch.randn((n, 1), generator=gen, device=gen.device, dtype=torch.float64),
+        lambda gen, x, t: th[0] * x + 0.5 * torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype),
+        lambda x, yt, t: Normal(x[..., 0], 0.6).log_prob(yt))
+    r = pmmh_sample(model, y, [("phi", 0.3, 0.99)], g, num_particles=64, num_samples=5, num_warmup=5, num_chains=4,
+                    mesh=make_mesh(("chains",), devices=devices))
+    assert r.samples.shape == (4, 5, 1) and bool(torch.isfinite(r.log_likelihoods).all())
+
+
+def test_pmmh_chains_split_over_the_cards_are_the_unsharded_chains(cuda):
+    """PMMH's 8 chains on a mesh over every card (4 shards on the one card
+    where there is one), with the filters' noise fixed and every other draw
+    given: each chain's path is a function of its start and its draws, so
+    the chains that each card runs are the unsharded run's, in its order
+    (float64, 1e-12)."""
+    from bayesianinference_tpu_torch.engines.particle import pmmh_draws, pmmh_sample
+    from bayesianinference_tpu_torch.ops.particle import ParticleModel
+    from bayesianinference_tpu_torch.parallel import make_mesh
+
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(4)] if count >= 4 else ["cuda:0"] * 4
+    rng = np.random.default_rng(11)
+    p, steps, c = 32, 30, 8
+    y = torch.tensor(rng.normal(size=(steps, 1)), device=cuda)
+    z0, zs = torch.tensor(rng.normal(size=(p, 1))), torch.tensor(rng.normal(size=(steps, p, 1)))
+
+    def builder(th):
+        dev = th.device
+        return ParticleModel(lambda g, n: 0.5 * z0.to(dev), lambda g, x, t: th[0] * x + 0.3 * zs.to(dev)[t],
+                             lambda x, yt, t: -0.5 * ((yt[0] - x[:, 0]) / 0.4) ** 2)
+
+    draws = pmmh_draws(torch.Generator(device=cuda).manual_seed(12), 12, c, 1, steps, dtype=torch.float64)
+
+    def run(mesh):
+        return pmmh_sample(builder, y, [("phi", 0.3, 0.99)], torch.Generator(device=cuda).manual_seed(13),
+                           num_particles=p, num_samples=6, num_warmup=6, num_chains=c, draws=draws, mesh=mesh)
+
+    one, split = run(None), run(make_mesh(("chains",), devices=devices))
+    for f in ("samples", "log_likelihoods", "acceptance_rate", "proposal_scales"):
+        assert _rel_to(getattr(split, f), getattr(one, f).cpu()) <= 1e-12, f

@@ -3,10 +3,11 @@ the ``__all__`` of the JAX package and of each of its subpackages exists in
 the port's namespace of the same name, less two named lists:
 
 * ``UNPORTED``: modules still to port, each name tagged with its ROADMAP
-  queue item;
+  queue item (none is left);
 * ``WORKAROUNDS``: names that exist only for the TPU or XLA and have no
-  port (the Pallas entry point, which the port's custom op replaces; the
-  mesh helpers of ``parallel/sharding.py``).
+  port (the Pallas entry point, which the port's custom op replaces; ``P``
+  and ``NamedSharding``, JAX's placement types: the port's mesh places
+  tensors itself).
 
 Stated departures, held here too: ``engines.nested_sampling`` is the
 module in the port (the function in JAX, whose ``engines/__init__.py``
@@ -31,17 +32,16 @@ import pytest
 
 import bayesianinference_tpu_torch as bi
 
-MULTI_CARD = "queue 1 item 7: the multi-card engines"
-
-UNPORTED = {
-    "parallel": {
-        **dict.fromkeys(["sharded_bayesian_linear_regression", "sharded_categorical_conjugate_model",
-                         "sharded_cholesky", "sharded_covariance_matrix", "sharded_gp_logml_blocked",
-                         "sharded_gp_log_marginal_likelihood", "sharded_gp_predict",
-                         "sharded_multinormal_conjugate_model", "sharded_normal_conjugate_model",
-                         "sharded_pool_nested_sampling", "multi_axis_nested_sampling", "make_multi_axis_mesh"],
-                        MULTI_CARD),
-    },
+UNPORTED = {}
+# queue 1 item 7 (slice 16): the multi-card engines and the mesh helpers, asserted by name and by module
+MULTI_CARD = {
+    "sharding": ["Mesh", "make_mesh", "replicated", "shard_data"],
+    "sharded_gp": ["sharded_covariance_matrix", "sharded_gp_log_marginal_likelihood"],
+    "sharded_chol": ["sharded_cholesky", "sharded_gp_logml_blocked", "sharded_gp_predict"],
+    "sharded_conjugate": ["sharded_bayesian_linear_regression", "sharded_categorical_conjugate_model",
+                          "sharded_multinormal_conjugate_model", "sharded_normal_conjugate_model"],
+    "sharded_pool_ns": ["sharded_pool_nested_sampling"],
+    "multi_axis_ns": ["make_multi_axis_mesh", "multi_axis_nested_sampling"],
 }
 # queue 1 items 4 and 5 (slices 13 and 14), ported together: the time-series
 # engines, asserted here by name and by module
@@ -66,8 +66,7 @@ PARALLEL = {"parallel_smc": "parallel_smc", "parallel_hmc": "parallel_hmc", "par
             "parallel_ibis": "parallel_ibis", "parallel_dynamic_nested_sampling": "parallel_dynamic_ns"}
 WORKAROUNDS = {
     "ops": {"se_covariance_pallas": "the port's custom op ops.gp_kernels.se_covariance replaces the Pallas call"},
-    "parallel": dict.fromkeys(["Mesh", "NamedSharding", "P", "make_mesh", "replicated", "shard_data"],
-                              "jax.sharding's mesh helpers"),
+    "parallel": dict.fromkeys(["NamedSharding", "P"], "JAX's placement types (jax.sharding)"),
 }
 SUBPACKAGES = ["", "bnn", "core", "dists", "engines", "models", "ops", "parallel", "results", "utils", "viz"]
 THIS_SLICE = ["bnn", "dists", "results", "utils", "viz"]  # and core's betainc
@@ -132,7 +131,20 @@ def test_the_single_card_parallel_engines_are_exported(name):
     jax_mod, port_mod = _modules(f"parallel.{PARALLEL[name]}")
     assert name in jax_mod.__all__ and name in port_mod.__all__
     assert getattr(bi.parallel, name) is getattr(port_mod, name)
-    assert name not in UNPORTED["parallel"]
+    assert name not in UNPORTED.get("parallel", {})
+    imports = re.compile(r"^\s*(import|from)\s+(jax|bayesianinference_tpu\b(?!_torch))", re.M)
+    assert not imports.search(Path(port_mod.__file__).read_text())
+
+
+@pytest.mark.parametrize("module", sorted(MULTI_CARD))
+def test_the_multi_card_engines_are_exported(module):
+    """Each multi-card module exports its JAX module's names (the sharding
+    module less JAX's placement types) from itself and from ``parallel``,
+    and imports neither JAX nor the JAX package."""
+    jax_mod, port_mod = _modules(f"parallel.{module}")
+    names = MULTI_CARD[module]
+    assert set(jax_mod.__all__) - set(WORKAROUNDS["parallel"]) == set(names)
+    assert all(getattr(bi.parallel, n) is getattr(port_mod, n) for n in names)
     imports = re.compile(r"^\s*(import|from)\s+(jax|bayesianinference_tpu\b(?!_torch))", re.M)
     assert not imports.search(Path(port_mod.__file__).read_text())
 

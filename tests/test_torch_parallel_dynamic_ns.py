@@ -1,6 +1,7 @@
 """The port's parallel dynamic NS (``parallel/parallel_dynamic_ns.py``)
-against the JAX function, and ``mesh=`` in all five single-card parallel
-engines, on the CPU in float64.
+against the JAX function, and ``mesh=`` in the run-level parallel engines
+(parallel NS split over two device groups against its oracle), on the CPU
+in float64.
 
 * ``_segments_from_batch`` against JAX's ``_segments_from_stacked`` on the
   same run arrays (those of the port's own base run and first stage, R = 3
@@ -162,16 +163,56 @@ def _gauss():
                                     dtype=torch.float64)
 
 
+MESH_AXES = {"parallel_smc": "runs", "parallel_hmc": "chains", "parallel_ensemble": "walkers",
+             "parallel_ibis": "particles", "parallel_dynamic_nested_sampling": "runs",
+             "parallel_nested_sampling": "runs"}
 MESH_CALLS = {
-    "parallel_smc": lambda p: parallel.parallel_smc(p, mesh="runs"),
-    "parallel_hmc": lambda p: parallel.parallel_hmc(p, mesh="chains"),
-    "parallel_ensemble": lambda p: parallel.parallel_ensemble(p, mesh="walkers"),
-    "parallel_ibis": lambda p: parallel.parallel_ibis(p, lambda th, y: -y * th[0], torch.ones(3), mesh="particles"),
-    "parallel_dynamic_nested_sampling": lambda p: parallel.parallel_dynamic_nested_sampling(p, mesh="runs"),
+    "parallel_smc": lambda p, m: parallel.parallel_smc(p, None, num_runs=2, n_particles=50, mcmc_steps=2, mesh=m),
+    "parallel_hmc": lambda p, m: parallel.parallel_hmc(p, None, num_chains=2, num_samples=4, num_warmup=4,
+                                                       num_leapfrog=3, mesh=m),
+    "parallel_ensemble": lambda p, m: parallel.parallel_ensemble(p, None, num_walkers=8, num_samples=3,
+                                                                 num_warmup=2, mesh=m),
+    "parallel_ibis": lambda p, m: parallel.parallel_ibis(p, lambda th, y: -y * th[0], torch.ones(3), None,
+                                                         n_particles=64, mcmc_steps=2, mesh=m),
+    "parallel_dynamic_nested_sampling": lambda p, m: parallel.parallel_dynamic_nested_sampling(
+        p, None, sample_pool_size=20, num_batches=2, batch_size=10, monte_carlo_steps=5, max_iterations=40,
+        min_iterations=5, post_process_sampling_runs=5, mesh=m),
+    "parallel_nested_sampling": lambda p, m: parallel.parallel_nested_sampling(
+        p, None, num_runs=2, sample_pool_size=20, monte_carlo_steps=5, max_iterations=40, min_iterations=5,
+        post_process_sampling_runs=5, mesh=m),
 }
+
+
+def test_parallel_ns_splits_its_runs_by_device():
+    """tests/test_parallel.py::test_parallel_ns_over_mesh's oracle (8 runs of
+    pool 25, 60 steps; slow in JAX) on a mesh of two "devices" ("cpu" and
+    "cpu:0" compare unequal), so the runs go as two device groups, each on
+    its copy of the problem, and merge: within 4 sigma of the analytic
+    logZ."""
+    problem = _gauss()
+    mesh = parallel.make_mesh(("runs",), devices=["cpu"] * 4 + ["cpu:0"] * 4)
+    res = parallel.parallel_nested_sampling(problem, torch.Generator().manual_seed(0), num_runs=8,
+                                            sample_pool_size=25, monte_carlo_steps=60, max_iterations=800,
+                                            min_iterations=30, mesh=mesh)
+    analytic = 2 * (math.log(math.erf(5 / math.sqrt(2))) - math.log(10.0))
+    assert res.sample_pool_size == 200 and res.iterations > 30
+    assert abs(float(res.log_evidence.mean) - analytic) < 4 * float(res.log_evidence.standard_error)
 
 
 @pytest.mark.parametrize("engine", sorted(MESH_CALLS))
 def test_mesh_raises_and_names_the_multi_card_item(engine):
-    with pytest.raises(NotImplementedError, match=f"{engine}\\(mesh=.*queue 1, item 7"):
-        MESH_CALLS[engine](_gauss())
+    """For the engines whose shards meet in collectives at every step, a
+    mesh over devices other than the problem's raises and names the ROADMAP
+    item (here a meta device beside the CPU); a mesh of CPU shards runs as
+    the batch, with the JAX function's multiple-of-shards check; an object
+    that is not the port's Mesh is refused."""
+    axis = MESH_AXES[engine]
+    if engine not in ("parallel_nested_sampling", "parallel_smc"):  # these split their runs by device
+        with pytest.raises(NotImplementedError, match=f"{engine}\\(mesh=.*queue 1, item 9"):
+            MESH_CALLS[engine](_gauss(), parallel.make_mesh((axis,), devices=["cpu", "meta"]))
+    with pytest.raises(TypeError, match="takes the port's parallel.Mesh"):
+        MESH_CALLS[engine](_gauss(), axis)
+    assert MESH_CALLS[engine](_gauss(), parallel.make_mesh((axis,), devices=["cpu"] * 2)) is not None
+    if engine != "parallel_dynamic_nested_sampling":  # R is the axis size there, as in JAX
+        with pytest.raises(ValueError, match=f"must be a multiple of the mesh '{axis}' axis size 3"):
+            MESH_CALLS[engine](_gauss(), parallel.make_mesh((axis,), devices=["cpu"] * 3))

@@ -46,6 +46,7 @@ from bayesianinference_tpu_torch import dists as td
 from bayesianinference_tpu_torch.engines.ibis import IBISStageDraws, ibis_sampler
 from bayesianinference_tpu_torch.models import define_inference_problem
 from bayesianinference_tpu_torch.ops import ensemble as tens
+from bayesianinference_tpu_torch.parallel import make_mesh as t_make_mesh
 from bayesianinference_tpu_torch.parallel import parallel_ensemble, parallel_ibis
 
 torch.set_num_threads(1)
@@ -126,7 +127,8 @@ def test_parallel_ensemble_replays_the_jax_mesh_run(move, thinning):
     start = np.asarray(j_starts(jp, jax.random.split(key)[0], walkers))
     draws = _mesh_ensemble_draws(key, walkers, mesh.shape["walkers"], 2, warmup, samples, thinning, move)
     got = parallel_ensemble(tp, None, num_walkers=walkers, num_samples=samples, num_warmup=warmup, thinning=thinning,
-                            move=move, starting_points=T(start), draws=draws)
+                            move=move, starting_points=T(start), draws=draws,
+                            mesh=t_make_mesh(("walkers",), devices=["cpu"] * mesh.shape["walkers"]))
     assert got.samples.shape == (walkers, samples, 2) and got.move == move
     close(got.samples, want.samples)
     close(got.acceptance_rates, want.acceptance_rates)
@@ -213,7 +215,8 @@ def test_parallel_ibis_replays_the_jax_mesh_run(normal_mean):
     k_init, draws = _mesh_ibis_draws(key, n, len(jax.devices()), 1, steps, stages)
     start = np.asarray(m["jp"].prior_distribution.sample(k_init, (n,))).reshape(n, 1)
     got = parallel_ibis(m["tp"], m["t_pointwise"], T(m["data"]), None, n_particles=n, batch_size=batch,
-                        mcmc_steps=steps, starting_points=T(start), draws=draws)
+                        mcmc_steps=steps, starting_points=T(start), draws=draws,
+                        mesh=t_make_mesh(("particles",), devices=["cpu"] * len(jax.devices())))
     np.testing.assert_array_equal(got.resampled.numpy(), np.asarray(want.resampled))
     assert got.resampled.any() and not got.resampled.all()
     for f in ("log_evidence", "log_predictives", "ess_history", "acceptance_history", "particles", "log_weights_"):

@@ -42,10 +42,12 @@ from bayesianinference_tpu.parallel import parallel_hmc as j_parallel_hmc
 from bayesianinference_tpu.parallel import parallel_smc as j_parallel_smc
 from bayesianinference_tpu_torch.dists.scalar import Normal
 from bayesianinference_tpu_torch.engines.hmc import hmc_sample
+from bayesianinference_tpu_torch.engines.nested_sampling import generate_starting_points
 from bayesianinference_tpu_torch.engines.smc import SMCStageDraws, smc_sampler
 from bayesianinference_tpu_torch.models.problem import define_inference_problem
 from bayesianinference_tpu_torch.ops.chees import ChEESDraws
 from bayesianinference_tpu_torch.ops.hmc import HMCDraws
+from bayesianinference_tpu_torch.parallel import make_mesh as t_make_mesh
 from bayesianinference_tpu_torch.parallel import parallel_hmc, parallel_smc
 
 torch.set_num_threads(1)
@@ -115,14 +117,50 @@ def test_parallel_smc_replays_the_jax_mesh_run(runs, shards, n):
         assert mesh.shape["runs"] == shards
     k_start, draws = _smc_draws(key, runs, n, 2, steps, int(np.max(want.n_stages)))
     start = np.asarray(j_prepare(jp, k_start, None, runs, n)[0])
+    # on the port's own mesh of CPU shards (the runs axis of the JAX mesh, or 6 shards for its default); at 16
+    # runs over two "devices" ("cpu" and "cpu:0" compare unequal), so the ladders split into two device groups
+    devices = ["cpu"] * 4 + ["cpu:0"] * 4 if runs == 16 else ["cpu"] * (shards or 6)
+    port_mesh = t_make_mesh(("runs",), devices=devices)
     got = parallel_smc(tp, None, num_runs=runs, n_particles=n, mcmc_steps=steps, starting_points=T(start),
-                       draws=draws)
+                       draws=draws, mesh=port_mesh)
     close(got.log_z_runs, want.log_z_runs, rtol=1e-12)
     close(got.particles, want.particles)
     np.testing.assert_array_equal(got.n_stages.numpy(), np.asarray(want.n_stages))
     for f in ("log_likelihoods", "betas", "ess_fractions", "acceptance_rates"):
         close(getattr(got, f), getattr(want, f))
     assert got.num_likelihood_evals == want.num_likelihood_evals
+
+
+class _OnDemand:
+    """Any stage's draws made when asked for, from a seed and the stage:
+    indexed by stage, with no length (as ``chip_smoke.py``'s 20a gives)."""
+
+    def __init__(self, runs, n, steps):
+        self.runs, self.n, self.steps = runs, n, steps
+
+    def __getitem__(self, t):
+        g = torch.Generator().manual_seed(100 + t)
+        rows = self.runs * self.n
+        return SMCStageDraws(torch.rand((self.runs,), generator=g, dtype=torch.float64),
+                             torch.randn((rows, 2, self.steps), generator=g, dtype=torch.float64),
+                             torch.log(torch.rand((rows, self.steps), generator=g, dtype=torch.float64)))
+
+
+@pytest.mark.parametrize("devices", [None, ["cpu:0", "cpu"] * 2])
+def test_parallel_smc_takes_draws_made_on_demand(devices):
+    """Draws that are only indexed by stage (no length) give the run of the
+    same stages' draws as a list, unsharded and split over two device
+    groups."""
+    _, tp = _problems()
+    runs, n, steps = 4, 50, 4
+    start = generate_starting_points(tp, torch.Generator().manual_seed(1), runs * n).reshape(runs, n, 2)
+    mesh = None if devices is None else t_make_mesh(("runs",), devices=devices)
+    kw = dict(num_runs=runs, n_particles=n, mcmc_steps=steps, starting_points=start, mesh=mesh)
+    lazy = parallel_smc(tp, None, draws=_OnDemand(runs, n, steps), **kw)
+    listed = parallel_smc(tp, None, draws=[_OnDemand(runs, n, steps)[t] for t in range(int(lazy.n_stages.max()))],
+                          **kw)
+    for f in ("particles", "log_z_runs", "n_stages"):
+        np.testing.assert_array_equal(getattr(lazy, f).numpy(), getattr(listed, f).numpy(), err_msg=f)
 
 
 def test_parallel_smc_is_smc_sampler_on_one_generator():
@@ -237,7 +275,8 @@ def test_parallel_hmc_replays_the_jax_mesh_run(case):
     start = np.asarray(j_starts(jp, jax.random.split(key)[0], chains))
     draws = _mesh_hmc_draws(key, chains, mesh.shape["chains"], 2, kw["num_warmup"], kw["num_samples"],
                             kw.get("thinning", 1), kw["num_leapfrog"] == "auto")
-    got = parallel_hmc(tp, None, num_chains=chains, starting_points=T(start), draws=draws, **kw)
+    got = parallel_hmc(tp, None, num_chains=chains, starting_points=T(start), draws=draws,
+                       mesh=t_make_mesh(("chains",), devices=["cpu"] * mesh.shape["chains"]), **kw)
     assert got.samples.shape == (chains, kw["num_samples"], 2) and got.step_size.shape == ()
     for f in ("samples", "acceptance_rates", "step_size", "inv_mass_diag", "trajectory_length"):
         close(getattr(got, f), getattr(want, f))

@@ -329,8 +329,68 @@ def test_pmmh_smoke_and_mesh(ar1_data):
     assert bool((res.proposal_scales > 0).all())
     # chains differ: each filter draws its own randomness
     assert not torch.equal(res.log_likelihoods[0], res.log_likelihoods[1])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="takes the port's parallel.Mesh"):
         tpm.pmmh_sample(lambda th: _t_ar1(phi=th[0]), T(y), [("phi", 0.3, 0.99)], None, mesh=object())
+
+
+def test_pmmh_mesh_sharded_chains_match_the_unsharded_run(ar1_data):
+    """``tests/test_particle.py::test_pmmh_mesh_sharded_chains_match_single_device``:
+    8 chains over an 8-shard CPU mesh reproduce the unsharded run on the
+    same generator exactly (no collective between chains; the unsharded
+    run replays JAX's, ``test_pmmh_replays_jax_steps``), and a chain count
+    that is not a multiple of the axis raises."""
+    from bayesianinference_tpu_torch.parallel import make_mesh
+
+    y = T(ar1_data[:40])
+    kw = dict(num_particles=64, num_samples=20, num_warmup=20, num_chains=8)
+    mesh = make_mesh(("chains",), devices=["cpu"] * 8)
+    tpm_mesh = lambda devices: make_mesh(("chains",), devices=devices)  # noqa: E731
+    r1 = tpm.pmmh_sample(lambda th: _t_ar1(phi=th[0]), y, [("phi", 0.3, 0.99)], torch.Generator().manual_seed(8), **kw)
+    r8 = tpm.pmmh_sample(lambda th: _t_ar1(phi=th[0]), y, [("phi", 0.3, 0.99)], torch.Generator().manual_seed(8),
+                         mesh=mesh, **kw)
+    for f in ("samples", "log_likelihoods", "acceptance_rate", "proposal_scales"):
+        np.testing.assert_array_equal(getattr(r8, f).numpy(), getattr(r1, f).numpy())
+    # over two "devices" ("cpu" and "cpu:0" compare unequal) the chains go as two groups, each batch's filters
+    # drawing from its own generator
+    two = tpm.pmmh_sample(lambda th: _t_ar1(phi=th[0]), y, [("phi", 0.3, 0.99)], torch.Generator().manual_seed(8),
+                          mesh=tpm_mesh(["cpu"] * 4 + ["cpu:0"] * 4), **kw)
+    assert two.samples.shape == r1.samples.shape and bool(torch.isfinite(two.log_likelihoods).all())
+    with pytest.raises(ValueError, match="multiple"):
+        tpm.pmmh_sample(lambda th: _t_ar1(phi=th[0]), y, [("phi", 0.3, 0.99)], None, num_particles=32, num_samples=4,
+                        num_warmup=4, num_chains=3, mesh=mesh)
+
+
+def _t_ar1_fixed(phi, z0, zs):
+    """The AR(1) on fixed normals (init [P, 1], transitions [T, P, 1]): a
+    filter's estimate is a function of theta and its resampling offsets
+    alone, whatever generator it is handed."""
+    sd0 = (Q**2 / (1 - phi**2)) ** 0.5
+    return tpf.ParticleModel(lambda g, p: sd0 * z0, lambda g, x, t: phi * x + Q * zs[t], _obs_lp)
+
+
+@pytest.mark.parametrize("devices", [["cpu:0", "cpu", "cpu:0", "cpu"], ["cpu:0"] * 4])
+def test_pmmh_device_groups_run_the_chains_of_the_unsharded_run(ar1_data, devices):
+    """With the filters' noise fixed and every other draw given, a chain's
+    path is a function of its start and its columns of ``PMMHDraws``: the
+    chains split by device (two groups, chains {0, 1, 4, 5} and {2, 3, 6,
+    7}, each on a generator of its own; or one group on a device that is
+    not the problem's) are the unsharded run's chains, in its order."""
+    from bayesianinference_tpu_torch.parallel import make_mesh
+
+    y, p, nw, ns, c = T(ar1_data[:40]), 32, 6, 6, 8
+    rng = np.random.default_rng(11)
+    z0, zs = T(rng.normal(size=(p, 1))), T(rng.normal(size=(40, p, 1)))
+    draws = tpm.pmmh_draws(torch.Generator().manual_seed(12), nw + ns, c, 1, 40, dtype=torch.float64, device="cpu")
+
+    def run(mesh):
+        return tpm.pmmh_sample(lambda th: _t_ar1_fixed(th[0], z0, zs), y, [("phi", 0.3, 0.99)],
+                               torch.Generator().manual_seed(13), num_particles=p, num_samples=ns, num_warmup=nw,
+                               num_chains=c, draws=draws, mesh=mesh)
+
+    one, split = run(None), run(make_mesh(("chains",), devices=devices))
+    assert len(set(one.log_likelihoods[:, -1].tolist())) == c  # every chain's path is its own
+    for f in ("samples", "log_likelihoods", "acceptance_rate", "proposal_scales"):
+        close(getattr(split, f), getattr(one, f), rtol=1e-12, atol=0.0)
 
 
 def _t_calm_builder(model):

@@ -3,8 +3,9 @@
 
 Parity tests put the same numpy-seeded inputs through both packages;
 oracle tests hold the port to the oracles of ``tests/test_sgpr.py``, one
-counterpart each (its mesh-sharded test excepted: the port does not shard
-the data axis, and ``mesh=`` raises).  Parity tolerances:
+counterpart each; its mesh-sharded test's counterpart holds the port's
+bound on an 8-shard CPU mesh (``parallel.make_mesh``) against the JAX
+bound on the 8-device mesh of ``tests/conftest.py``.  Parity tolerances:
 
 * bound and the predictive moments: rtol 1e-10;
 * the bound's gradient in theta: 1e-10 of the largest entry; its state
@@ -12,7 +13,9 @@ the data axis, and ``mesh=`` raises).  Parity tolerances:
   of K_mm: 1e-10 of the largest entry where that is below 1e6;
 * farthest-point inducing selection: the same rows;
 * Adam traces of ``optimize_sparse_gp`` over 50 steps: the bound and
-  theta at rtol 1e-9, z at 1e-8 of its largest entry.
+  theta at rtol 1e-9, z at 1e-8 of its largest entry;
+* the data-sharded bound and its gradient: rtol 1e-10 and 1e-8 (the JAX
+  test's), against the JAX mesh run and the single-device bound.
 """
 
 import jax
@@ -148,10 +151,40 @@ def test_adam_trace_matches_optax(gp_data, optimize_inducing):
 
 
 def test_mesh_is_not_ported(gp_data):
+    """JAX's mesh type is not ported: ``mesh=`` takes the port's Mesh."""
     x, y = gp_data[:2]
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    with pytest.raises(TypeError, match="takes the port's parallel.Mesh"):
         tsg.define_sparse_gaussian_process(x, y, lambda th: tgk.se_kernel(lengthscale=th[0]), [("l", 0.05, 20.0)],
                                            nugget_builder=lambda th: 0.1, inducing=8, validate=False, mesh=object())
+
+
+def test_sharded_bound_matches_jax_mesh_run(gp_data):
+    """``tests/test_sgpr.py::test_sharded_bound_matches_single_device``:
+    n = 150 is not a multiple of 8, so the padding mask is exercised;
+    gradients flow through the shards, and ``optimize_sparse_gp`` keeps the
+    problem's bound sharded."""
+    from bayesianinference_tpu.parallel import make_mesh as j_make_mesh
+    from bayesianinference_tpu_torch.parallel import make_mesh
+
+    x, y = gp_data[:2]
+    kwargs = dict(nugget_builder=lambda th: th[2], inducing=32, prior_distribution=["scale"] * 3, validate=False,
+                  jitter=1e-10)
+    jp = jsg.define_sparse_gaussian_process(jnp.asarray(x.numpy()), jnp.asarray(y.numpy()),
+                                            lambda th: jgk.se_kernel(variance=th[0], lengthscale=th[1]), _PARAMS,
+                                            mesh=j_make_mesh(("data",)), **kwargs)
+    tp = tsg.define_sparse_gaussian_process(x, y, lambda th: tgk.se_kernel(variance=th[0], lengthscale=th[1]),
+                                            _PARAMS, mesh=make_mesh(("data",), devices=["cpu"] * 8), **kwargs)
+    _, single = _problems(x, y, 32)
+    th = np.array([1.3, 0.8, 0.05])
+    th_t = T(th).requires_grad_(True)
+    got = tp.log_likelihood(th_t)
+    (g,) = torch.autograd.grad(got, th_t)
+    close(got.detach(), jax.jit(jp.log_likelihood)(jnp.asarray(th)), rtol=1e-10)
+    close(got.detach(), single.log_likelihood(T(th)), rtol=1e-10)
+    close(g, jax.jit(jax.grad(jp.log_likelihood))(jnp.asarray(th)), rtol=1e-8)
+    opt = tsg.optimize_sparse_gp(tp, steps=25, learning_rate=0.05)
+    close(opt.problem.log_likelihood(opt.theta), opt.bound, rtol=1e-8)
+    assert opt.problem.metadata["sgpr_mesh"][1] == "data"
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,9 @@ fits take the JAX key tree's draws as inputs (``SVGPDraws``: the minibatch
 indices of each step's ``jax.random.randint``, the multiclass normals of
 each step's and of the final bound's ``jax.random.normal``).  Oracle tests
 hold the port to the oracles of ``tests/test_svgp.py``, one counterpart
-each (its mesh-sharded test excepted: ``mesh=`` raises in the port).
-Tolerances:
+each; its mesh-sharded test's counterpart runs the port's fit on an
+8-shard CPU mesh against the JAX fit on the 8-device mesh of
+``tests/conftest.py``.  Tolerances:
 
 * KL, latent moments, ELBO values and gradients (every named likelihood,
   a custom scalar one, point weights): rtol 1e-12, gradients 1e-12 of
@@ -18,7 +19,9 @@ Tolerances:
   digits), the multiclass fit's at 1e-8 (Adam divides each Monte-Carlo
   gradient entry by its own running scale, which magnifies the rounding of
   the small entries: 2e-9 seen on the CPU);
-* predictions from a JAX fit carried over by ``interop``: rtol 1e-10.
+* predictions from a JAX fit carried over by ``interop``: rtol 1e-10;
+* the data-sharded fit against the JAX mesh fit (40 full-batch steps): the
+  replays' 1e-9 of the largest entry.
 """
 
 import jax
@@ -403,6 +406,26 @@ def test_hetero_fit_recovers_noise_profile():
     assert np.isfinite(float(fit_mb.elbo))
 
 
+def test_sharded_fit_matches_jax_mesh_fit():
+    """``tests/test_svgp.py::test_sharded_fit_matches_single_device``: 50
+    points pad to 56 over 8 shards; the fit on the port's mesh against the
+    JAX fit on its mesh and against the port's unsharded fit."""
+    from bayesianinference_tpu.parallel import make_mesh as j_make_mesh
+    from bayesianinference_tpu_torch.parallel import make_mesh
+
+    x, y = _toy(n=50, seed=5)
+    kw = dict(likelihood="bernoulli_logit", inducing=8, steps=40, learning_rate=0.05)
+    want = jsv.fit_svgp(x, y, _amp_ls(jgk), PARAMS, mesh=j_make_mesh(("data",)), key=jax.random.PRNGKey(2), **kw)
+    got = tsv.fit_svgp(T(x), T(y), _amp_ls(tgk), PARAMS, mesh=make_mesh(("data",), devices=["cpu"] * 8), **kw)
+    single = tsv.fit_svgp(T(x), T(y), _amp_ls(tgk), PARAMS, **kw)
+    _fit_close(got, want, ("elbo_trace", "elbo", "theta", "z"))
+    _fit_close(got, single, ("elbo_trace", "elbo", "theta", "z"))
+    close_rel(got.variational.m, want.variational.m, 1e-9)
+    xq = np.linspace(-3, 3, 9)[:, None]
+    for a, b in zip(tsv.predict_from_svgp(got, T(xq)), jsv.predict_from_svgp(want, xq)):
+        close_rel(a, b, 1e-9)
+
+
 def test_validation_errors_and_mesh():
     x, y = _toy(n=10)
     ls = lambda th: tgk.se_kernel(1.0, th[0])  # noqa: E731
@@ -410,8 +433,13 @@ def test_validation_errors_and_mesh():
         tsv.fit_svgp(T(x), T(y), ls, [("ls", 0.1, 5.0)], likelihood="nope")
     with pytest.raises(ValueError, match="minibatch"):
         tsv.fit_svgp(T(x), T(y), ls, [("ls", 0.1, 5.0)], minibatch=99)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    with pytest.raises(TypeError, match="takes the port's parallel.Mesh"):
         tsv.fit_svgp(T(x), T(y), ls, [("ls", 0.1, 5.0)], mesh=object())
+    from bayesianinference_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tsv.fit_svgp(T(x), T(y), ls, [("ls", 0.1, 5.0)], mesh=make_mesh(("data",), devices=["cpu"] * 8),
+                     minibatch=5)
     z = torch.zeros((4, 1), dtype=torch.float64)
     with pytest.raises(ValueError, match="labels must lie"):
         tsv.fit_svgp_multiclass(z, torch.tensor([0, 1, 5, 2]), ls, [("ls", 0.1, 5.0)], num_classes=3, steps=1)
