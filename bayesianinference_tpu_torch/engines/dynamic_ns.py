@@ -27,6 +27,7 @@ once per batch stage; the evidence post-processing runs on the device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -42,12 +43,11 @@ from .evidence import MeanAndError, NestedSamplingResult, _exponential, _mean_an
 from .nested_sampling import (
     NSBatchState,
     NSRunData,
-    _init_batch,
     default_monte_carlo_steps,
     generate_starting_points,
     make_loop_config,
     resolve_monte_carlo_method,
-    run_loop_batched,
+    runs_by_device,
     shared_factor,
     shared_factor_chains,
 )
@@ -361,6 +361,7 @@ def _dynamic_runs(
     num_runs: int,
     starting_points: Optional[torch.Tensor],
     *,
+    groups=None,
     sample_pool_size: int = 100,
     num_batches: int = 4,
     batch_size: Optional[int] = None,
@@ -384,7 +385,11 @@ def _dynamic_runs(
     ``num_batches`` batches take ``ceil(num_batches / R)`` stages.  The
     user's ``min_iterations`` applies to the base run; the batches run from
     ``min_iterations=1`` to their level.  With R = 1 this is the single-run
-    engine."""
+    engine.  ``groups`` (:func:`..parallel.sharding.device_groups` of the
+    R runs; None: one group on the problem's device, the one-batch call)
+    splits each stage's runs over devices
+    (:func:`.nested_sampling.runs_by_device`), each device keeping one copy
+    of the problem for every stage."""
     if not 0.0 <= posterior_fraction <= 1.0:
         raise ValueError("posterior_fraction must be in [0, 1]")
     if not 0.0 < importance_fraction < 1.0:
@@ -413,8 +418,10 @@ def _dynamic_runs(
     if starting_points is None:
         starting_points = torch.stack([generate_starting_points(problem, generator, sample_pool_size)
                                        for _ in range(num_runs)])
-    base = run_loop_batched(problem, _init_batch(problem, starting_points, base_cfg.capacity), generator, base_cfg,
-                            n_live=pool)
+    if groups is None:
+        groups = [(torch.arange(num_runs, device=problem.device), problem.device)]
+    run_batch = functools.partial(runs_by_device, problem, groups=groups, copies={})
+    base = run_batch(starting_points, generator, base_cfg, n_live=pool)
     segments = _segments_from_batch(base, pool, num_delete, -math.inf)
     extra_evals = 0
     for _ in range(-(-int(num_batches) // num_runs)):
@@ -427,9 +434,8 @@ def _dynamic_runs(
         seeds, evals = _stage_seeds(problem, generator, pts, logl, log_l_lo, num_runs * batch_size,
                                     num_delete=num_delete, monte_carlo_steps=monte_carlo_steps, method=method)
         extra_evals += evals
-        runs = run_loop_batched(problem, _init_batch(problem, seeds.reshape(num_runs, batch_size, problem.dim),
-                                                     cfg.capacity),
-                                generator, cfg, n_live=batch_size, stop_at_log_likelihood=log_l_hi)
+        runs = run_batch(seeds.reshape(num_runs, batch_size, problem.dim), generator, cfg, n_live=batch_size,
+                         stop_at_log_likelihood=log_l_hi)
         segments.extend(_segments_from_batch(runs, batch_size, num_delete, log_l_lo))
 
     pts, logl, logp, m = merge_segments(segments)

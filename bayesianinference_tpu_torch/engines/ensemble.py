@@ -19,10 +19,11 @@ import torch
 
 from ..core.containers import WeightedSamples
 from ..core.device import as_float_on
+from ..core.shards import ShardAxis
 from ..core.transforms import box_bijection
 from ..models.problem import InferenceProblem
-from ..ops.ensemble import ensemble_draws, ensemble_init, ensemble_sweep
-from .hmc import z_space_density
+from ..ops.ensemble import EnsembleState, ensemble_draws, shard_sweep
+from .hmc import problem_chains, z_space_density
 
 __all__ = ["EnsembleResult", "ensemble_sample"]
 
@@ -52,36 +53,57 @@ class EnsembleResult:
         return self.samples[..., i]
 
 
-def _run(x0, generator, log_density_batch, num_warmup, num_samples, thinning, move, knob, draws=None):
+def _run(x0, generator, log_density_batch, num_warmup, num_samples, thinning, move, knob, draws=None, shards=None):
     """Warmup sweeps, then ``num_samples`` recorded states each
     ``thinning`` sweeps apart.  ``knob`` is the move's one tuning number:
     the stretch scale ``a`` or the mode-jump probability.  ``draws`` (the
     two halves' draws with a leading sweep axis, in run order) replace the
-    generator's numbers.  Returns (samples [W, num_samples, d], acceptance
-    [W] of the recorded sweeps)."""
+    generator's numbers.  With ``shards`` (a
+    :class:`..core.shards.ShardAxis`; ``log_density_batch`` then one
+    density per shard) each half's rows are split over the shards, each
+    shard moving its part against the gathered complementary half
+    (:func:`..ops.ensemble.shard_sweep`).  Returns (samples [W,
+    num_samples, d], acceptance [W] of the recorded sweeps) on ``x0``'s
+    device."""
     w, d = x0.shape
-    state = ensemble_init(x0, log_density_batch)
+    h = w // 2
+    if shards is None:
+        shards, log_density_batch = ShardAxis.one(x0.device), [log_density_batch]
+    halves = ([], [])
+    for xa, xb, fn in zip(shards.split(x0[:h]), shards.split(x0[h:]), log_density_batch):
+        # one density call of the shard's walkers, as the one-batch engine makes one of all of them
+        lp = fn(torch.cat([xa, xb]))
+        zero = torch.zeros((xa.shape[0],), dtype=torch.int64, device=xa.device)
+        halves[0].append(EnsembleState(x=xa, log_density=lp[:xa.shape[0]], accepted=zero, proposed=zero))
+        halves[1].append(EnsembleState(x=xb, log_density=lp[xa.shape[0]:], accepted=zero, proposed=zero))
     sweeps = itertools.count()
 
-    def sweep(st):
+    def sweep(halves):
         if draws is None:
-            sweep_draws = ensemble_draws(generator, w, d, move=move, dtype=x0.dtype)
+            whole = ensemble_draws(generator, w, d, move=move, dtype=x0.dtype)
         else:
             s = next(sweeps)
-            sweep_draws = tuple(type(half)(*(a[s] for a in half)) for half in draws)
-        return ensemble_sweep(sweep_draws, st, log_density_batch, move=move, a=knob, gamma_jump_prob=knob)
+            whole = tuple(type(half)(*(a[s] for a in half)) for half in draws)
+        parts = tuple([type(half)(*fields) for fields in zip(*(shards.split(a) for a in half))] for half in whole)
+        return shard_sweep(shards, parts, halves, log_density_batch, move=move, a=knob, gamma_jump_prob=knob)
 
     for _ in range(num_warmup):
-        state = sweep(state)
+        halves = sweep(halves)
     # acceptance statistics cover the sampling phase only
-    state = state._replace(accepted=torch.zeros_like(state.accepted), proposed=torch.zeros_like(state.proposed))
-    xs = torch.empty((num_samples, w, d), dtype=x0.dtype, device=x0.device)
+    halves = tuple([st._replace(accepted=torch.zeros_like(st.accepted), proposed=torch.zeros_like(st.proposed))
+                    for st in part] for part in halves)
+    bufs = tuple([torch.empty((num_samples,) + tuple(st.x.shape), dtype=x0.dtype, device=st.x.device)
+                  for st in part] for part in halves)
     for s in range(num_samples):
         for _ in range(thinning):
-            state = sweep(state)
-        xs[s] = state.x
-    acc = state.accepted.to(x0.dtype) / torch.clamp(state.proposed.to(x0.dtype), min=1.0)
-    return xs.transpose(0, 1), acc
+            halves = sweep(halves)
+        for part, buf in zip(halves, bufs):
+            for st, b in zip(part, buf):
+                b[s] = st.x
+    xs = torch.cat([shards.gather([b.transpose(0, 1) for b in buf]) for buf in bufs])
+    acc = torch.cat([shards.gather([st.accepted.to(x0.dtype) / torch.clamp(st.proposed.to(x0.dtype), min=1.0)
+                                    for st in part]) for part in halves])
+    return xs, acc
 
 
 def _resolve_move_knob(move, stretch_scale, gamma_jump_prob) -> float:
@@ -100,6 +122,37 @@ def _check_walkers(num_walkers: int, d: int) -> None:
     if num_walkers < 2 * d + 2:
         raise ValueError(f"num_walkers={num_walkers} is below the 2d+2={2 * d + 2} minimum for d={d} "
                          "(stretch moves span only the walker subspace)")
+
+
+def run_options(*, num_walkers, num_warmup, num_samples, thinning, move, stretch_scale, gamma_jump_prob,
+                draws) -> dict:
+    """The run's options as :func:`_run` takes them, once the move, its
+    knob and the walker count are checked."""
+    if move not in ("stretch", "de"):
+        raise ValueError(f'unknown move {move!r}; use "stretch" or "de"')
+    if num_walkers % 2 != 0 or num_walkers < 4:
+        raise ValueError(f"num_walkers must be even and >= 4, got {num_walkers}")
+    return dict(num_warmup=int(num_warmup), num_samples=int(num_samples), thinning=int(thinning), move=move,
+                knob=_resolve_move_knob(move, stretch_scale, gamma_jump_prob), draws=draws)
+
+
+def sample_problem(problem: InferenceProblem, generator, num_walkers: int, starting_points, options: dict,
+                   shards=None, shard_problems=None) -> "EnsembleResult":
+    """:func:`ensemble_sample` of a problem, in the box bijection's z-space,
+    with :func:`run_options`' ``options``.  With ``shards`` (a
+    :class:`..core.shards.ShardAxis` whose home is the problem's device;
+    None: one shard, the problem itself) each half's rows are split over
+    the shards, each evaluated on its copy of the problem in
+    ``shard_problems``."""
+    if shards is None:
+        shards, shard_problems = ShardAxis.one(problem.device), [problem]
+    _check_walkers(num_walkers, problem.dim)
+    generator, x0 = problem_chains(problem, generator, num_walkers, starting_points)
+    bij = box_bijection(problem.lower, problem.upper)
+    densities = [z_space_density(p, box_bijection(p.lower, p.upper)) for p in shard_problems]
+    z_samples, acc = _run(bij.to_z(x0), generator, densities, shards=shards, **options)
+    return EnsembleResult(samples=bij.to_x(z_samples), acceptance_rates=acc, param_names=problem.param_names,
+                          move=options["move"])
 
 
 def ensemble_sample(
@@ -132,35 +185,17 @@ def ensemble_sample(
     is one sweep, thinned by ``thinning``.  ``draws`` (the two halves'
     ``StretchDraws`` or ``DEDraws`` with a leading sweep axis, warmup
     first) replace the generator's numbers of the sweeps."""
-    if move not in ("stretch", "de"):
-        raise ValueError(f'unknown move {move!r}; use "stretch" or "de"')
-    if num_walkers % 2 != 0 or num_walkers < 4:
-        raise ValueError(f"num_walkers must be even and >= 4, got {num_walkers}")
-    knob = _resolve_move_knob(move, stretch_scale, gamma_jump_prob)
-    run = dict(num_warmup=int(num_warmup), num_samples=int(num_samples), thinning=int(thinning), move=move,
-               knob=knob, draws=draws)
-
+    run = run_options(num_walkers=num_walkers, num_warmup=num_warmup, num_samples=num_samples, thinning=thinning,
+                      move=move, stretch_scale=stretch_scale, gamma_jump_prob=gamma_jump_prob, draws=draws)
     if isinstance(target, InferenceProblem):
-        _check_walkers(num_walkers, target.dim)
-        generator = torch.Generator(device=target.device).manual_seed(0) if generator is None else generator
-        if starting_points is None:
-            from .nested_sampling import generate_starting_points
-
-            starting_points = generate_starting_points(target, generator, num_walkers)
-        x0 = torch.as_tensor(starting_points, dtype=target.dtype, device=target.device)
-        if tuple(x0.shape) != (num_walkers, target.dim):
-            raise ValueError(f"starting_points must be [{num_walkers}, {target.dim}]")
-        bij = box_bijection(target.lower, target.upper)
-        z_samples, acc = _run(bij.to_z(x0), generator, z_space_density(target, bij), **run)
-        samples, names = bij.to_x(z_samples), target.param_names
-    else:
-        if starting_points is None:
-            raise ValueError("raw-density targets need explicit starting_points [num_walkers, d]")
-        x0 = as_float_on(starting_points, device)
-        if x0.shape[:1] != (num_walkers,):
-            raise ValueError(f"starting_points must be [{num_walkers}, d], got {tuple(x0.shape)}")
-        _check_walkers(num_walkers, int(x0.shape[-1]))
-        generator = torch.Generator(device=x0.device).manual_seed(0) if generator is None else generator
-        samples, acc = _run(x0, generator, torch.func.vmap(target), **run)
-        names = tuple(f"x{i}" for i in range(x0.shape[-1]))
-    return EnsembleResult(samples=samples, acceptance_rates=acc, param_names=names, move=move)
+        return sample_problem(target, generator, num_walkers, starting_points, run)
+    if starting_points is None:
+        raise ValueError("raw-density targets need explicit starting_points [num_walkers, d]")
+    x0 = as_float_on(starting_points, device)
+    if x0.shape[:1] != (num_walkers,):
+        raise ValueError(f"starting_points must be [{num_walkers}, d], got {tuple(x0.shape)}")
+    _check_walkers(num_walkers, int(x0.shape[-1]))
+    generator = torch.Generator(device=x0.device).manual_seed(0) if generator is None else generator
+    samples, acc = _run(x0, generator, torch.func.vmap(target), **run)
+    return EnsembleResult(samples=samples, acceptance_rates=acc, param_names=tuple(f"x{i}" for i in
+                                                                                   range(x0.shape[-1])), move=move)

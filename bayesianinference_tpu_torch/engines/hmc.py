@@ -20,6 +20,7 @@ import torch
 
 from ..core.containers import WeightedSamples
 from ..core.device import as_float_on
+from ..core.shards import ShardAxis
 from ..core.transforms import box_bijection
 from ..models.problem import InferenceProblem
 from ..ops.hmc import warmup_and_sample
@@ -28,14 +29,15 @@ __all__ = ["HMCResult", "hmc_sample"]
 
 
 def _run_kernel(generator, z0, z_density, *, num_warmup, num_samples, num_leapfrog, thinning, target_accept,
-                initial_step_size, dense_mass, max_leapfrog, draws=None):
+                initial_step_size, dense_mass, max_leapfrog, draws=None, shards=None):
     """Fixed-length or ChEES trajectories, with one return shape (samples,
     states, step size, inverse mass, trajectory length); the fixed kernel's
     length is ``num_leapfrog * step_size``.  ``draws`` (``HMCDraws``, or
     ``ChEESDraws`` for ``"auto"``, with a leading trajectory axis) replace
-    the generator's numbers."""
+    the generator's numbers; ``shards`` (with one ``z_density`` per shard)
+    as for :func:`..ops.hmc.warmup_and_sample`."""
     kw = dict(num_warmup=num_warmup, num_samples=num_samples, thinning=thinning, target_accept=target_accept,
-              initial_step_size=initial_step_size, dense_mass=dense_mass, draws=draws)
+              initial_step_size=initial_step_size, dense_mass=dense_mass, draws=draws, shards=shards)
     if num_leapfrog == "auto":
         from ..ops.chees import chees_warmup_and_sample
 
@@ -57,17 +59,63 @@ def z_space_density(problem: InferenceProblem, bij) -> Callable:
 
 def bijected_warmup_and_sample(x0, generator, problem: InferenceProblem, *, num_warmup, num_samples, num_leapfrog,
                                thinning, target_accept, initial_step_size, dense_mass=False, max_leapfrog=256,
-                               draws=None):
+                               draws=None, shards=None, shard_problems=None):
     """Warmup and sampling in z-space through the box bijection, from the
     constrained starting points ``x0`` [C, d]; ``draws`` as for
-    :func:`_run_kernel`.  Returns (constrained samples, final states, step
-    size, inverse mass in z-space, trajectory length)."""
+    :func:`_run_kernel`.  With ``shards`` (a :class:`..core.shards.ShardAxis`
+    whose home is the problem's device; None: one shard, the problem
+    itself) each shard runs its block of the chains against its copy of the
+    problem in ``shard_problems``, as the JAX function does under
+    ``axis_name``.  Returns (constrained samples, final states, step size,
+    inverse mass in z-space, trajectory length)."""
+    if shards is None:
+        shards, shard_problems = ShardAxis.one(problem.device), [problem]
     bij = box_bijection(problem.lower, problem.upper)
+    density = [z_space_density(p, box_bijection(p.lower, p.upper)) for p in shard_problems]
     z_samples, states, step_size, inv_mass, traj_len = _run_kernel(
-        generator, bij.to_z(x0), z_space_density(problem, bij), num_warmup=num_warmup, num_samples=num_samples,
+        generator, bij.to_z(x0), density, num_warmup=num_warmup, num_samples=num_samples,
         num_leapfrog=num_leapfrog, thinning=thinning, target_accept=target_accept,
-        initial_step_size=initial_step_size, dense_mass=dense_mass, max_leapfrog=max_leapfrog, draws=draws)
+        initial_step_size=initial_step_size, dense_mass=dense_mass, max_leapfrog=max_leapfrog, draws=draws,
+        shards=shards)
     return bij.to_x(z_samples), states, step_size, inv_mass, traj_len
+
+
+def kernel_options(*, num_warmup, num_samples, num_leapfrog, thinning, target_accept, initial_step_size, dense_mass,
+                   max_leapfrog, draws) -> dict:
+    """The run's options as :func:`_run_kernel` takes them, once
+    ``num_leapfrog`` is checked."""
+    if num_leapfrog != "auto" and (not isinstance(num_leapfrog, int) or num_leapfrog < 1):
+        raise ValueError(f'num_leapfrog must be a positive int or "auto", got {num_leapfrog!r}')
+    return dict(num_warmup=num_warmup, num_samples=num_samples, num_leapfrog=num_leapfrog, thinning=thinning,
+                target_accept=float(target_accept), initial_step_size=float(initial_step_size),
+                dense_mass=bool(dense_mass), max_leapfrog=int(max_leapfrog), draws=draws)
+
+
+def sample_problem(problem: InferenceProblem, generator, num_chains: int, starting_points, options: dict,
+                   shards=None, shard_problems=None) -> "HMCResult":
+    """:func:`hmc_sample` of a problem, with :func:`kernel_options`'
+    ``options``; ``shards`` and ``shard_problems`` as for
+    :func:`bijected_warmup_and_sample`."""
+    generator, x0 = problem_chains(problem, generator, num_chains, starting_points)
+    samples, states, step_size, inv_mass, traj_len = bijected_warmup_and_sample(
+        x0, generator, problem, shards=shards, shard_problems=shard_problems, **options)
+    return states_to_hmc_result(samples, states, step_size, inv_mass, problem.param_names, traj_len)
+
+
+def problem_chains(problem: InferenceProblem, generator, num_chains: int, starting_points):
+    """(generator, starting points [num_chains, d] on the problem's device)
+    of a problem's chains or walkers: ``generator`` None is one on the
+    problem's device seeded 0, and they start at prior draws from it
+    unless ``starting_points`` are given."""
+    generator = torch.Generator(device=problem.device).manual_seed(0) if generator is None else generator
+    if starting_points is None:
+        from .nested_sampling import generate_starting_points
+
+        starting_points = generate_starting_points(problem, generator, num_chains)
+    x0 = torch.as_tensor(starting_points, dtype=problem.dtype, device=problem.device)
+    if tuple(x0.shape) != (num_chains, problem.dim):
+        raise ValueError(f"starting_points must be [{num_chains}, {problem.dim}]")
+    return generator, x0
 
 
 def states_to_hmc_result(samples, states, step_size, inv_mass, param_names, trajectory_length=None) -> "HMCResult":
@@ -143,8 +191,9 @@ def hmc_sample(
     fit (1000 steps, 256 final draws), as the JAX package does.  ``draws``
     (``HMCDraws``, or ``ChEESDraws`` for ``"auto"``, one row per
     trajectory) replace the generator's numbers of the chains."""
-    if num_leapfrog != "auto" and (not isinstance(num_leapfrog, int) or num_leapfrog < 1):
-        raise ValueError(f'num_leapfrog must be a positive int or "auto", got {num_leapfrog!r}')
+    kw = kernel_options(num_warmup=num_warmup, num_samples=num_samples, num_leapfrog=num_leapfrog,
+                        thinning=thinning, target_accept=target_accept, initial_step_size=initial_step_size,
+                        dense_mass=dense_mass, max_leapfrog=max_leapfrog, draws=draws)
     if isinstance(starting_points, str):
         if starting_points not in ("pathfinder", "flow"):
             raise ValueError(f'unknown starting_points {starting_points!r}; expected an array, "pathfinder", or "flow"')
@@ -161,30 +210,14 @@ def hmc_sample(
 
             fl = flow_vi_fit(target, generator, num_steps=1000, final_evidence_samples=256)
             starting_points = fl.sample(generator, num_chains)
-    kw = dict(num_warmup=num_warmup, num_samples=num_samples, num_leapfrog=num_leapfrog, thinning=thinning,
-              target_accept=float(target_accept), initial_step_size=float(initial_step_size),
-              dense_mass=bool(dense_mass), max_leapfrog=int(max_leapfrog), draws=draws)
-
     if isinstance(target, InferenceProblem):
-        dev = target.device
-        generator = torch.Generator(device=dev).manual_seed(0) if generator is None else generator
-        if starting_points is None:
-            from .nested_sampling import generate_starting_points
-
-            starting_points = generate_starting_points(target, generator, num_chains)
-        x0 = torch.as_tensor(starting_points, dtype=target.dtype, device=dev)
-        if tuple(x0.shape) != (num_chains, target.dim):
-            raise ValueError(f"starting_points must be [{num_chains}, {target.dim}]")
-        out = bijected_warmup_and_sample(x0, generator, target, **kw)
-        names = target.param_names
-    else:
-        if starting_points is None:
-            raise ValueError("raw-density targets need explicit starting_points [num_chains, d]")
-        x0 = as_float_on(starting_points, device)
-        if x0.dim() != 2 or x0.shape[0] != num_chains:
-            raise ValueError(f"starting_points must be [{num_chains}, d], got shape {tuple(x0.shape)}")
-        generator = torch.Generator(device=x0.device).manual_seed(0) if generator is None else generator
-        out = _run_kernel(generator, x0, torch.func.vmap(target), **kw)
-        names = tuple(f"x{i}" for i in range(x0.shape[-1]))
-    samples, states, step_size, inv_mass, traj_len = out
-    return states_to_hmc_result(samples, states, step_size, inv_mass, names, traj_len)
+        return sample_problem(target, generator, num_chains, starting_points, kw)
+    if starting_points is None:
+        raise ValueError("raw-density targets need explicit starting_points [num_chains, d]")
+    x0 = as_float_on(starting_points, device)
+    if x0.dim() != 2 or x0.shape[0] != num_chains:
+        raise ValueError(f"starting_points must be [{num_chains}, d], got shape {tuple(x0.shape)}")
+    generator = torch.Generator(device=x0.device).manual_seed(0) if generator is None else generator
+    samples, states, step_size, inv_mass, traj_len = _run_kernel(generator, x0, torch.func.vmap(target), **kw)
+    return states_to_hmc_result(samples, states, step_size, inv_mass, tuple(f"x{i}" for i in range(x0.shape[-1])),
+                                traj_len)

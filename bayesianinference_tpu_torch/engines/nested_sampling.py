@@ -33,6 +33,8 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from ..core.numerics import log_zero, logaddexp, logsubexp, logsumexp
+from ..core.shards import generator_on, in_batch_order
+from ..models.placement import problem_on
 from ..models.problem import InferenceProblem, random_domain_points
 from ..ops.chmc import chmc_draws, run_chmc_chain
 from ..ops.metropolis import am_init, proposal_chol, run_chain, run_chain_adaptive, small_cholesky
@@ -580,6 +582,41 @@ def run_loop_batched(
 
 
 run_loop_batched.host_reads = 0
+
+
+def _in_batch_order(parts, groups, device) -> NSBatchState:
+    """The device groups' run batches as one, in the runs' order."""
+    order = torch.argsort(torch.cat([idx.cpu() for idx, _ in groups])).tolist()
+    kw = {}
+    for f in dataclasses.fields(NSBatchState):
+        vals = [getattr(p, f.name) for p in parts]
+        if isinstance(vals[0], torch.Tensor):
+            kw[f.name] = in_batch_order(vals, groups, device)
+        elif isinstance(vals[0], list):
+            joined = [v for part in vals for v in part]
+            kw[f.name] = [joined[i] for i in order]
+        else:
+            kw[f.name] = any(vals)
+    return NSBatchState(**kw)
+
+
+def runs_by_device(problem: InferenceProblem, starts, generator, cfg, *, groups, n_live: int, copies=None,
+                   **loop) -> NSBatchState:
+    """The runs from ``starts`` [R, n_live, d], each device group of
+    ``groups`` (:func:`..parallel.sharding.device_groups`) as one
+    :func:`run_loop_batched` batch on its device against its copy of the
+    problem (kept in ``copies`` by device, when given, for the next call),
+    merged on the problem's device in the runs' order.  One group on the
+    problem's device is the one-batch call."""
+    copies = {} if copies is None else copies
+    parts = []
+    for idx, dev in groups:
+        if dev not in copies:
+            copies[dev] = problem_on(problem, dev)
+        p = copies[dev]
+        parts.append(run_loop_batched(p, _init_batch(p, starts[idx].to(dev), cfg.capacity),
+                                      generator_on(generator, dev), cfg, n_live=n_live, **loop))
+    return _in_batch_order(parts, groups, problem.device)
 
 
 def run_loop_from_state(

@@ -199,6 +199,11 @@ class InferenceProblem:
         return ok
 
 
+def _first_coordinate_log_prob(prior: Distribution, theta) -> torch.Tensor:
+    """A scalar prior's log density of a one-parameter problem's theta [1]."""
+    return prior.log_prob(theta[..., 0])
+
+
 def _as_param_specs(parameters) -> Tuple[ParamSpec, ...]:
     out = []
     for p in parameters:
@@ -451,7 +456,7 @@ def define_inference_problem(
         if prior_dist.event_shape == ():
             if len(params) != 1:
                 raise ValueError("scalar prior given for a multi-parameter problem")
-            log_prior = lambda th: prior_dist.log_prob(th[..., 0])  # noqa: E731
+            log_prior = functools.partial(_first_coordinate_log_prob, prior_dist)
         else:
             log_prior = prior_dist.log_prob
     elif prior_distribution is not None:

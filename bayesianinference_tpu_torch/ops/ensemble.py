@@ -15,6 +15,9 @@ schedule that keeps the ensemble distribution invariant).  Each half is
 one batched proposal and one density call over [W/2, d].  The random
 numbers of a half are inputs (:class:`StretchDraws`, :class:`DEDraws`),
 as for the other chains; a NaN log-acceptance compares false and rejects.
+:func:`shard_sweep` is the sweep with each half's rows split over the
+shards of a mesh axis, each shard moving its part against the gathered
+complementary half; :func:`ensemble_sweep` is its one-shard case.
 """
 
 from __future__ import annotations
@@ -24,7 +27,10 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-__all__ = ["EnsembleState", "StretchDraws", "DEDraws", "ensemble_init", "ensemble_draws", "ensemble_sweep"]
+from ..core.shards import ShardAxis
+
+__all__ = ["EnsembleState", "StretchDraws", "DEDraws", "ensemble_init", "ensemble_draws", "ensemble_sweep",
+           "shard_sweep"]
 
 
 class EnsembleState(NamedTuple):
@@ -121,20 +127,40 @@ def _de_half(draws: DEDraws, x_act, lp_act, x_comp, log_density_batch, gamma_jum
     return _metropolis(lp_y - lp_act, draws, y, lp_y, x_act, lp_act)
 
 
+def _update_half(shards, half, draws, active, complement, log_density_fns, knob) -> list:
+    """Each shard's part of the active half (its state in ``active``) moved
+    against the whole complementary half: the shards' parts of it gathered
+    on the home device (the tiled ``all_gather``) and sent to each."""
+    whole = shards.send(shards.gather([st.x for st in complement]))
+    out = []
+    for dr, st, x_comp, fn in zip(draws, active, whole, log_density_fns):
+        x, lp, acc = half(dr, st.x, st.log_density, x_comp, fn, knob)
+        out.append(EnsembleState(x=x, log_density=lp, accepted=st.accepted + acc, proposed=st.proposed + 1))
+    return out
+
+
+def shard_sweep(shards, draws, halves, log_density_fns, *, move: str = "stretch", a: float = 2.0,
+                gamma_jump_prob: float = 0.1):
+    """One sweep of an ensemble whose halves are split over the shards of
+    ``shards`` (:class:`..core.shards.ShardAxis`): ``halves`` is
+    (the shards' states of their rows of the first half, the same of the
+    second), ``draws`` the two halves' draws as per-shard lists (each
+    shard's rows), ``log_density_fns`` one density per shard.  Each shard
+    updates its part of the first half against the whole second half, then
+    its part of the second against the whole updated first: the JAX
+    function's two gathers a sweep.  Returns the new ``halves``."""
+    half = _stretch_half if move == "stretch" else _de_half
+    knob = a if move == "stretch" else gamma_jump_prob
+    first = _update_half(shards, half, draws[0], halves[0], halves[1], log_density_fns, knob)
+    return first, _update_half(shards, half, draws[1], halves[1], first, log_density_fns, knob)
+
+
 def ensemble_sweep(draws: Tuple[HalfDraws, HalfDraws], state: EnsembleState, log_density_batch: Callable, *,
                    move: str = "stretch", a: float = 2.0, gamma_jump_prob: float = 0.1) -> EnsembleState:
     """One sweep: the first half against the second, then the second
-    against the UPDATED first."""
+    against the UPDATED first (:func:`shard_sweep` on one shard)."""
     h = state.x.shape[0] // 2
-    half = _stretch_half if move == "stretch" else _de_half
-    knob = a if move == "stretch" else gamma_jump_prob
-    x0, lp0 = state.x[:h], state.log_density[:h]
-    x1, lp1 = state.x[h:], state.log_density[h:]
-    x0, lp0, acc0 = half(draws[0], x0, lp0, x1, log_density_batch, knob)
-    x1, lp1, acc1 = half(draws[1], x1, lp1, x0, log_density_batch, knob)
-    return EnsembleState(
-        x=torch.cat([x0, x1]),
-        log_density=torch.cat([lp0, lp1]),
-        accepted=state.accepted + torch.cat([acc0, acc1]),
-        proposed=state.proposed + 1,
-    )
+    halves = ([EnsembleState(*(f[:h] for f in state))], [EnsembleState(*(f[h:] for f in state))])
+    (first,), (second,) = shard_sweep(ShardAxis.one(state.x.device), ([draws[0]], [draws[1]]), halves,
+                                      [log_density_batch], move=move, a=a, gamma_jump_prob=gamma_jump_prob)
+    return EnsembleState(*(torch.cat(pair) for pair in zip(first, second)))

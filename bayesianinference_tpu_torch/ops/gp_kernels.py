@@ -45,6 +45,7 @@ package computes them outside any Pallas kernel.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Callable, Optional
@@ -167,7 +168,8 @@ def se_covariance_cuda(x1, x2, variance, lengthscale=None, nugget=None, tile: in
     operands through their strides (nothing is expanded or scaled into a
     copy).  ``tile`` forces the 32- or 64-wide output tile (0: the kernel's
     launcher picks it from the call's shape).  Counts its launches in
-    ``se_covariance_cuda.launches``."""
+    ``se_covariance_cuda.launches``, and by device index in
+    ``se_covariance_cuda.launches_by_device``."""
     given = [t for t in (x1, x2, variance, lengthscale, nugget) if t is not None]
     dims = [3] + ([3] if x2 is not None else []) + [1] + ([2] if lengthscale is not None else []) + (
         [2] if nugget is not None else [])
@@ -191,6 +193,7 @@ def se_covariance_cuda(x1, x2, variance, lengthscale=None, nugget=None, tile: in
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream
         se_covariance_cuda.launches += 1
+        se_covariance_cuda.launches_by_device[x1.device.index] += 1
         code = fn(
             ptr(x1), ptr(x2), ptr(variance), ptr(lengthscale), ptr(nugget), out.data_ptr(),
             batch, n1, n2, d,
@@ -205,6 +208,7 @@ def se_covariance_cuda(x1, x2, variance, lengthscale=None, nugget=None, tile: in
 
 
 se_covariance_cuda.launches = 0
+se_covariance_cuda.launches_by_device = collections.Counter()
 
 
 @torch.library.custom_op(f"{_NS}::se_covariance", mutates_args=(), device_types="cpu")
@@ -423,6 +427,7 @@ def _cholesky_launch(k: torch.Tensor, route: str, nb: int) -> torch.Tensor:
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
         cholesky_cuda.launches += 1
+        cholesky_cuda.launches_by_device[k.device.index] += 1
         if route == "fused":
             fn = lib.bi_cholesky_fused_f64 if f64 else lib.bi_cholesky_fused_f32
             code = fn(k.data_ptr(), out.data_ptr(), b, n, stream)
@@ -436,7 +441,8 @@ def _cholesky_launch(k: torch.Tensor, route: str, nb: int) -> torch.Tensor:
 def cholesky_cuda(k: torch.Tensor) -> torch.Tensor:
     """CUDA implementation of the ``cholesky`` op: launches the path of
     ``csrc/cholesky.cu`` that :func:`_cholesky_route` picks for n, on the
-    current stream.  Counts its calls in ``cholesky_cuda.launches``."""
+    current stream.  Counts its calls in ``cholesky_cuda.launches``, and by
+    device index in ``cholesky_cuda.launches_by_device``."""
     _check_cuda("cholesky", (k,), (3,))
     n, n2 = k.shape[1:]
     if not k.is_contiguous():
@@ -447,6 +453,7 @@ def cholesky_cuda(k: torch.Tensor) -> torch.Tensor:
 
 
 cholesky_cuda.launches = 0
+cholesky_cuda.launches_by_device = collections.Counter()
 
 
 @torch.library.custom_op(f"{_NS}::cholesky", mutates_args=(), device_types="cpu")

@@ -17,6 +17,14 @@ per chain; those numbers are inputs (:class:`HMCDraws`, made by
 :func:`hmc_draws`), so the CPU tests feed the port the very draws of the
 JAX function.
 
+The chains may also be split over the shards of a mesh axis
+(``shards=``, a :class:`..core.shards.ShardAxis`, as the JAX
+function's ``axis_name``): each shard steps its block on its device with
+its own density, and the acceptance mean and the moments are reduced
+across the shards on the home device, the moments by the JAX package's
+Chan merge of the shards' own.  One batch is the one-shard case of the
+same code.
+
 Out-of-support points carry the finite log-zero sentinel.  Non-finite
 gradients are zeroed after the call; a trajectory that ends on the
 sentinel, or whose energy error is non-finite or above 1000 (divergent),
@@ -25,12 +33,14 @@ has acceptance probability 0.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..core.numerics import is_log_zero
+from ..core.shards import ShardAxis
 from .chmc import _safe_grad, _value_and_grad
 from .gp_kernels import cholesky
 
@@ -254,37 +264,45 @@ class _Welford(NamedTuple):
 
 class _FixedLength(NamedTuple):
     """The iteration of :func:`warmup_and_sample`: :func:`hmc_step`'s
-    jittered trajectory of ``num_leapfrog`` steps."""
+    jittered trajectory of ``num_leapfrog`` steps on every shard of
+    ``shards`` (each with its density in ``log_density_fns``)."""
 
-    log_density_fn: Callable
+    log_density_fns: list
     num_leapfrog: int
+    shards: ShardAxis
 
     def step(self, draws, states, eps, inv_mass, p_chol, i: int, adapt: bool):
-        """Iteration ``i`` of the run (0 at the first warmup iteration).
-        Returns (states, mean acceptance probability)."""
-        states, probs = hmc_step(draws, states, self.log_density_fn, eps, inv_mass, self.num_leapfrog, p_chol=p_chol)
-        return states, probs.mean()
+        """Iteration ``i`` of the run (0 at the first warmup iteration) from
+        the shards' draws, states, inverse masses and momentum factors and
+        the step size ``eps`` on the home device.  Returns (the shards'
+        states, the mean acceptance probability of all chains: the ``pmean``
+        of the shards' means)."""
+        out = [hmc_step(dr, st, fn, e, m, self.num_leapfrog, p_chol=pc) for dr, st, fn, e, m, pc in
+               zip(draws, states, self.log_density_fns, self.shards.send(eps), inv_mass, p_chol)]
+        return [st for st, _ in out], self.shards.mean([probs.mean() for _, probs in out])
 
     def freeze(self, step_size):
         """The sampling phase's trajectory length, once warmup has ended."""
         return self.num_leapfrog * step_size
 
 
-def _warmup_phase(next_draws: Callable, states: HMCState, iteration, da: DAState, inv_mass, first: int,
+def _warmup_phase(next_draws: Callable, states: list, iteration, da: DAState, inv_mass, first: int,
                   num_iters: int, target_accept: float, collect_welford: bool, dense: bool = False):
     """One warmup phase, iterations ``first`` to ``first + num_iters - 1``:
-    the chains step together, their MEAN acceptance probability drives one
-    shared dual-averaging step size, and with ``collect_welford`` each
-    iteration's positions are merged into the moments ([d] variances, or
-    the [d, d] covariance when ``dense``)."""
-    p_chol = momentum_factor(inv_mass)
-    wf = _Welford.empty(states.x, dense)
+    the chains of every shard step together, their MEAN acceptance
+    probability drives one shared dual-averaging step size, and with
+    ``collect_welford`` each iteration's positions are merged into each
+    shard's moments ([d] variances, or the [d, d] covariance when
+    ``dense``), returned per shard."""
+    shards = iteration.shards
+    p_chol, inv_mass = shards.send(momentum_factor(inv_mass)), shards.send(inv_mass)
+    wfs = [_Welford.empty(st.x, dense) for st in states]
     for i in range(first, first + num_iters):
         states, ap_mean = iteration.step(next_draws(), states, torch.exp(da.log_eps), inv_mass, p_chol, i, True)
         da = dual_averaging_update(da, ap_mean, target_accept)
         if collect_welford:
-            wf = wf.merge(states.x)
-    return states, da, wf
+            wfs = [wf.merge(st.x) for wf, st in zip(wfs, states)]
+    return states, da, wfs
 
 
 def _phase_lengths(num_warmup: int):
@@ -293,18 +311,31 @@ def _phase_lengths(num_warmup: int):
     return p1, p2, max(num_warmup - p1 - p2, 1)
 
 
-def _draw_source(generator, draws, chains: int, dim: int, dtype, make=hmc_draws):
-    """A callable giving the next trajectory's draws: row t of ``draws`` at
-    the t-th call, or fresh draws from ``generator`` when ``draws`` is None."""
-    if draws is None:
-        return lambda: make(generator, chains, dim, dtype=dtype)
-    rows = iter(range(draws[0].shape[0]))
+def _draw_source(generator, draws, chains: int, dim: int, dtype, shards, make=hmc_draws):
+    """A callable giving the next trajectory's draws, each shard's rows on
+    its device: row t of ``draws`` at the t-th call, or fresh draws of all
+    chains from ``generator`` when ``draws`` is None (the same numbers
+    however the chains are sharded)."""
+    rows = itertools.count()
 
     def take():
-        t = next(rows)
-        return type(draws)(*(a[t] for a in draws))
+        if draws is None:
+            whole = make(generator, chains, dim, dtype=dtype)
+        else:
+            t = next(rows)
+            whole = type(draws)(*(a[t] for a in draws))
+        return [type(whole)(*fields) for fields in zip(*(shards.split(a) for a in whole))]
 
     return take
+
+
+def _on_shards(shards, log_density_fn, device):
+    """(shards, the per-shard densities): with ``shards`` None, one shard
+    on ``device`` and its density ``log_density_fn``; else ``shards`` and
+    ``log_density_fn``, one density per shard."""
+    if shards is not None:
+        return shards, list(log_density_fn)
+    return ShardAxis.one(device), [log_density_fn]
 
 
 def _reset_counts(states: HMCState) -> HMCState:
@@ -315,34 +346,38 @@ def _reset_counts(states: HMCState) -> HMCState:
 def _adapt_and_sample(next_draws: Callable, x0: torch.Tensor, iteration, *, num_warmup: int, num_samples: int,
                       thinning: int, target_accept: float, initial_step_size: float, dense_mass: bool):
     """The run of :func:`warmup_and_sample`, for any ``iteration``
-    (:class:`_FixedLength`, or ChEES's learned length).  Returns (samples
-    [C, num_samples, d], final states, step size, inverse mass, trajectory
-    length)."""
+    (:class:`_FixedLength`, or ChEES's learned length), each shard of
+    ``iteration.shards`` running its block of the chains ``x0`` [C, d] (on
+    the home device).  Returns (samples [C, num_samples, d], final states,
+    step size, inverse mass, trajectory length), all on the home device."""
     c, d = x0.shape
     dtype = x0.dtype
-    states = hmc_init(x0, iteration.log_density_fn)
+    shards = iteration.shards
+    states = [hmc_init(x, fn) for x, fn in zip(shards.split(x0), iteration.log_density_fns)]
     inv_mass = torch.ones((d,), dtype=dtype, device=x0.device)
     da = dual_averaging_init(torch.full((), initial_step_size, dtype=dtype, device=x0.device))
     p1, p2, p3 = _phase_lengths(num_warmup)
     states, da, _ = _warmup_phase(next_draws, states, iteration, da, inv_mass, 0, p1, target_accept, False)
-    states, da, wf = _warmup_phase(next_draws, states, iteration, da, inv_mass, p1, p2, target_accept, True,
-                                   dense=dense_mass)
-    inv_mass = wf.inv_mass()
+    states, da, wfs = _warmup_phase(next_draws, states, iteration, da, inv_mass, p1, p2, target_accept, True,
+                                    dense=dense_mass)
+    inv_mass = _Welford(*shards.welford(wfs)).inv_mass()
     da = dual_averaging_init(torch.exp(da.log_eps_bar))
     states, da, _ = _warmup_phase(next_draws, states, iteration, da, inv_mass, p1 + p2, p3, target_accept, False)
     step_size = torch.exp(da.log_eps_bar)
     traj_len = iteration.freeze(step_size)
     # the reported acceptance covers the sampling phase only
-    states = _reset_counts(states)
-    p_chol = momentum_factor(inv_mass)
-    samples = torch.empty((num_samples, c, d), dtype=dtype, device=x0.device)
+    states = [_reset_counts(st) for st in states]
+    p_chol, masses = shards.send(momentum_factor(inv_mass)), shards.send(inv_mass)
+    samples = [torch.empty((num_samples,) + tuple(st.x.shape), dtype=dtype, device=st.x.device) for st in states]
     i = num_warmup
     for s in range(num_samples):
         for _ in range(thinning):
-            states, _ = iteration.step(next_draws(), states, step_size, inv_mass, p_chol, i, False)
+            states, _ = iteration.step(next_draws(), states, step_size, masses, p_chol, i, False)
             i += 1
-        samples[s] = states.x
-    return samples.transpose(0, 1), states, step_size, inv_mass, traj_len
+        for buf, st in zip(samples, states):
+            buf[s] = st.x
+    states = HMCState(*(shards.gather(list(field)) for field in zip(*states)))
+    return shards.gather([buf.transpose(0, 1) for buf in samples]), states, step_size, inv_mass, traj_len
 
 
 def warmup_and_sample(
@@ -358,6 +393,7 @@ def warmup_and_sample(
     initial_step_size: float = 0.1,
     dense_mass: bool = False,
     draws: Optional[HMCDraws] = None,
+    shards=None,
 ):
     """The whole run: three warmup phases of lengths p1, p2, p3 (step size
     alone with unit mass; the same while the moments accumulate; the mass
@@ -366,12 +402,17 @@ def warmup_and_sample(
     ``thinning`` trajectories at the frozen step size and mass.
 
     ``draws`` (leading axis p1 + p2 + p3 + num_samples * thinning, in run
-    order) replaces the generator's draws.  Returns (samples
-    [C, num_samples, d], final states, step size, inverse mass: the [d]
-    variances or, with ``dense_mass``, the [d, d] covariance)."""
+    order) replaces the generator's draws.  ``shards`` (a
+    :class:`..core.shards.ShardAxis`; ``log_density_fn`` then one
+    density per shard) runs each shard's block of the chains on its device,
+    the acceptance mean and the moments merged across the shards as the
+    JAX function's ``axis_name`` does.  Returns (samples [C, num_samples,
+    d], final states, step size, inverse mass: the [d] variances or, with
+    ``dense_mass``, the [d, d] covariance)."""
     x0 = x0.detach()
-    next_draws = _draw_source(generator, draws, x0.shape[0], x0.shape[1], x0.dtype)
-    out = _adapt_and_sample(next_draws, x0, _FixedLength(log_density_fn, num_leapfrog), num_warmup=num_warmup,
+    shards, fns = _on_shards(shards, log_density_fn, x0.device)
+    next_draws = _draw_source(generator, draws, x0.shape[0], x0.shape[1], x0.dtype, shards)
+    out = _adapt_and_sample(next_draws, x0, _FixedLength(fns, num_leapfrog, shards), num_warmup=num_warmup,
                             num_samples=num_samples, thinning=thinning, target_accept=target_accept,
                             initial_step_size=initial_step_size, dense_mass=dense_mass)
     return out[:4]

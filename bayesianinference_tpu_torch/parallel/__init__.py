@@ -1,9 +1,13 @@
 """The parallel engines (ports of ``bayesianinference_tpu.parallel``).
 
-On one device the JAX package's mesh axis of the run-level engines is the
+Without a mesh the JAX package's mesh axis of the run-level engines is the
 engine's batch, and each collective the plain reduction over it: run-level
 parallel nested sampling and dynamic NS (R runs a stage), SMC ladders, HMC
-with global adaptation, the ensemble's red/black sweep and IBIS.
+with global adaptation, the ensemble's red/black sweep and IBIS.  With
+``mesh=`` the runs of NS, dynamic NS and SMC split by device, and the
+coupled engines (HMC, the ensemble, IBIS) run each shard's block on its
+device with their per-step collectives between the shards
+(:mod:`._mesh`, :class:`.sharding.ShardAxis`).
 
 The multi-card engines run on the port's own mesh (:mod:`.sharding`: one
 process drives every shard, each shard's tensors on its device, a device

@@ -2,26 +2,25 @@
 
 Each JAX engine here is a single-device engine with its mesh axis turned
 into a ``shard_map``: its shards run runs, chains, walkers or particles of
-one batch.  Where the shards share nothing (the runs of nested sampling
-and SMC), the port splits the batch by device: the shards that sit on one
-device run as one batch there, on a copy of the problem
-(:func:`problem_on`).  Where they meet in collectives at every step (HMC's
-global adaptation, the ensemble's half-updates, IBIS's weights, a dynamic-NS
-stage), the port runs the shards of a mesh that all sit on the problem's
-device as that batch, where each collective is the plain reduction over
-it; a mesh over several devices raises there (ROADMAP queue 1 item 9).
-Both forms first make the JAX function's check that the batch divides over
-the mesh axis."""
+one batch.  Where the shards share nothing (the runs of nested sampling,
+SMC and a dynamic-NS stage), the port splits the batch by device: the
+shards that sit on one device run as one batch there, on a copy of the
+problem (:func:`problem_on`).  Where they meet in collectives at every step
+(HMC's global adaptation, the ensemble's half-updates, IBIS's weights),
+each shard runs its block of the batch as its own batch on its device,
+against that device's copy of the problem, and the collectives combine the
+shards in axis order on the problem's device (:func:`shard_axis`,
+:class:`.sharding.ShardAxis`).  Both forms first make the JAX function's
+check that the batch divides over the mesh axis."""
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
-import torch
-
-from ..models.problem import InferenceProblem, _tree_map
-from .sharding import canonical_device, check_mesh
+from ..core.shards import ShardAxis
+from ..models.placement import check_movable, problem_on  # noqa: F401  (re-exported for the parallel engines)
+from ..models.problem import InferenceProblem
+from .sharding import check_mesh
 
 
 def mesh_devices(engine: str, mesh, axis_name: str, count: Optional[int], what: str) -> list:
@@ -35,24 +34,17 @@ def mesh_devices(engine: str, mesh, axis_name: str, count: Optional[int], what: 
     return mesh.axis_devices(axis_name)
 
 
-def mesh_shards(engine: str, mesh, axis_name: str, count: Optional[int], what: str, problem) -> int:
-    """The axis size, for an engine whose shards meet in collectives at
-    every step: every shard must sit on the problem's device."""
+def shard_axis(engine: str, mesh, axis_name: str, count: int, what: str, problem: InferenceProblem):
+    """The shards of ``mesh``'s ``axis_name`` axis for an engine whose
+    shards meet in collectives at every step: the :class:`ShardAxis` (home:
+    the problem's device) and each shard's copy of the problem, one copy
+    per distinct device.  ``mesh`` None is one shard, the problem itself:
+    the one-batch run."""
+    if mesh is None:
+        return ShardAxis.one(problem.device), [problem]
     devices = mesh_devices(engine, mesh, axis_name, count, what)
-    if any(d != problem.device for d in devices):
-        raise NotImplementedError(
-            f"{engine}(mesh=...) over devices other than the problem's ({problem.device}): spreading the engine over "
-            "several cards is ROADMAP queue 1, item 9; a mesh whose shards share the problem's device runs as one "
-            "batch there")
-    return len(devices)
-
-
-def problem_on(problem: InferenceProblem, device) -> InferenceProblem:
-    """``problem`` with its box and data on ``device``.  Its densities then
-    run there as long as they compute on their arguments' device: a
-    likelihood that closes over another device's tensors cannot move."""
-    if problem.device == canonical_device(device):
-        return problem
-    move = lambda t: t.to(device) if isinstance(t, torch.Tensor) else t  # noqa: E731
-    return dataclasses.replace(problem, lower=problem.lower.to(device), upper=problem.upper.to(device),
-                               data=None if problem.data is None else _tree_map(move, problem.data))
+    copies = {}
+    for d in devices:
+        if d not in copies:
+            copies[d] = problem_on(problem, d)
+    return ShardAxis(devices, problem.device), [copies[d] for d in devices]

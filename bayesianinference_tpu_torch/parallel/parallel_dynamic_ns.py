@@ -21,8 +21,16 @@ is the number of runs folded into the batch, the argument ``num_runs``
 
 Not ported: the compiled programs and their cache (``_batch_runs_program``,
 the base run through ``_parallel_runs_program``) and the default mesh.
-With ``mesh=`` (a ``runs`` axis whose shards share the problem's device,
-:mod:`._mesh`) R is the axis size, as in JAX.
+With ``mesh=`` (a ``runs`` axis) R is the axis size, as in JAX, and each
+stage's R runs (the base run's too) are split over the shards' devices as
+:func:`.parallel_ns.parallel_nested_sampling` splits its runs: the shards on
+one device run as one batch there, on that device's copy of the problem,
+from their rows of the stage's seeds; the segments merge on the problem's
+device, and the next stage's interval and seeds come from the merged run.
+A device other than the problem's draws its chains' numbers from a
+generator of its own seeded from ``generator``
+(:func:`.sharding.generator_on`), so four runs on four cards do not
+reproduce four on one card draw for draw.
 """
 
 from __future__ import annotations
@@ -34,7 +42,8 @@ import torch
 from ..engines.dynamic_ns import _dynamic_runs
 from ..engines.evidence import NestedSamplingResult
 from ..models.problem import InferenceProblem
-from ._mesh import mesh_shards
+from ._mesh import mesh_devices
+from .sharding import device_groups
 
 __all__ = ["parallel_dynamic_nested_sampling"]
 
@@ -58,6 +67,8 @@ def parallel_dynamic_nested_sampling(
     base run; the batches run from ``min_iterations=1`` to their level.
     ``generator`` None is one on the problem's device seeded 0; ``mesh``
     sets R to its ``runs`` axis size."""
-    if mesh is not None:
-        num_runs = mesh_shards("parallel_dynamic_nested_sampling", mesh, "runs", None, "", problem)
-    return _dynamic_runs(problem, generator, num_runs, None, **options)
+    if mesh is None:
+        return _dynamic_runs(problem, generator, num_runs, None, **options)
+    devices = mesh_devices("parallel_dynamic_nested_sampling", mesh, "runs", None, "")
+    return _dynamic_runs(problem, generator, len(devices), None,
+                         groups=device_groups(devices, len(devices), problem.device), **options)

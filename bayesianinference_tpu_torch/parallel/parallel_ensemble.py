@@ -1,25 +1,29 @@
 """The affine-invariant ensemble with its red/black sweep over the whole
-ensemble on one card (port of
-``bayesianinference_tpu.parallel.parallel_ensemble``).
+ensemble (port of ``bayesianinference_tpu.parallel.parallel_ensemble``).
 
 The JAX function shards each half of the ensemble over a ``walkers`` mesh
 axis: a shard updates its part of half A against all of half B (one
-``all_gather``), then its part of B against all of the updated A.  On one
-card each half is one batch and the gather is the half itself, so a sweep
-is :func:`..ops.ensemble.ensemble_sweep`: half A (``[:W/2]``) against the
-whole of half B (``[W/2:]``), then B against the updated A.  That is
-:func:`..engines.ensemble.ensemble_sample` for a problem, with its warmup,
-``thinning`` and acceptance of the recorded sweeps; the walkers move in
-the box bijection's z-space.
+``all_gather``), then its part of B against all of the updated A.  Without
+a mesh each half is one batch on the problem's device and the gather is
+the half itself, so a sweep is :func:`..ops.ensemble.ensemble_sweep`: half A
+(``[:W/2]``) against the whole of half B (``[W/2:]``), then B against the
+updated A.  That is :func:`..engines.ensemble.ensemble_sample` for a
+problem, with its warmup, ``thinning`` and acceptance of the recorded
+sweeps; the walkers move in the box bijection's z-space.
+
+With ``mesh=`` (the port's Mesh, a ``walkers`` axis dividing each half)
+shard s holds block s of each half on its device and moves it against the
+whole complementary half, gathered on the problem's device and sent back
+(:func:`..ops.ensemble.shard_sweep`), with its densities on that device's
+copy of the problem (:mod:`._mesh`): a GP problem's kernels then run on
+every card.  The DE move's spread is taken over the whole gathered half.
 
 Not ported: the compiled program and its cache
-(``_parallel_ensemble_program``) and the default mesh.  ``mesh=`` (the
-port's Mesh, a ``walkers`` axis) runs as this batch when its shards share
-the problem's device, after the JAX function's check that each half
-divides over it (:mod:`._mesh`).  The JAX function keys each shard and splits that key
-locally, so it is not ``ensemble_sample`` draw for draw; here random
-numbers are inputs (``draws``: the two halves' ``StretchDraws`` or
-``DEDraws`` with a leading sweep axis, warmup first), from which a run of
+(``_parallel_ensemble_program``) and the default mesh.  The JAX function
+keys each shard and splits that key locally, so it is not
+``ensemble_sample`` draw for draw; here random numbers are inputs
+(``draws``: the two halves' ``StretchDraws`` or ``DEDraws`` with a leading
+sweep axis, warmup first, each shard taking its rows), from which a run of
 the JAX function on a mesh can be replayed.
 """
 
@@ -29,9 +33,9 @@ from typing import Optional
 
 import torch
 
-from ..engines.ensemble import EnsembleResult, ensemble_sample
+from ..engines.ensemble import EnsembleResult, run_options, sample_problem
 from ..models.problem import InferenceProblem
-from ._mesh import mesh_shards
+from ._mesh import shard_axis
 
 __all__ = ["parallel_ensemble"]
 
@@ -52,18 +56,16 @@ def parallel_ensemble(
     draws=None,
 ) -> EnsembleResult:
     """Ensemble sampling of a problem with ``num_walkers`` walkers (even,
-    at least 2d + 2) as two half-batches on the problem's device:
-    :func:`..engines.ensemble.ensemble_sample` for a problem.  Walkers
-    start at prior draws from ``generator`` (None: one on the problem's
-    device seeded 0) or at ``starting_points`` [num_walkers, d].  ``mesh``:
-    see :mod:`._mesh` (a ``walkers`` axis dividing each half)."""
+    at least 2d + 2): as two half-batches on the problem's device without a
+    mesh (the problem path of :func:`..engines.ensemble.ensemble_sample`), else
+    each half split over ``mesh``'s ``walkers`` axis, which must divide it.
+    Walkers start at prior draws from ``generator`` (None: one on the
+    problem's device seeded 0) or at ``starting_points`` [num_walkers, d]."""
     if not isinstance(problem, InferenceProblem):
         raise ValueError("parallel_ensemble takes an InferenceProblem")
-    if mesh is not None:
-        if num_walkers % 2 != 0 or num_walkers < 2 * problem.dim + 2:
-            raise ValueError(f"num_walkers must be even and >= 2d+2={2 * problem.dim + 2}, got {num_walkers}")
-        mesh_shards("parallel_ensemble", mesh, "walkers", num_walkers // 2,
-                    f"half-ensemble size {num_walkers // 2}", problem)
-    return ensemble_sample(problem, generator, num_walkers=num_walkers, num_samples=num_samples,
-                           num_warmup=num_warmup, thinning=thinning, move=move, stretch_scale=stretch_scale,
-                           gamma_jump_prob=gamma_jump_prob, starting_points=starting_points, draws=draws)
+    options = run_options(num_walkers=num_walkers, num_warmup=num_warmup, num_samples=num_samples,
+                          thinning=thinning, move=move, stretch_scale=stretch_scale,
+                          gamma_jump_prob=gamma_jump_prob, draws=draws)
+    shards, problems = shard_axis("parallel_ensemble", mesh, "walkers", num_walkers // 2,
+                                  f"half-ensemble size {num_walkers // 2}", problem)
+    return sample_problem(problem, generator, num_walkers, starting_points, options, shards, problems)

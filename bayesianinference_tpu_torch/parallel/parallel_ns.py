@@ -26,16 +26,10 @@ from typing import Optional, Sequence
 import torch
 
 from ..engines.evidence import NestedSamplingResult, dedup_by_point, evidence_sampling
-from ..engines.nested_sampling import (
-    NSBatchState,
-    _init_batch,
-    generate_starting_points,
-    make_loop_config,
-    run_loop_batched,
-)
+from ..engines.nested_sampling import generate_starting_points, make_loop_config, runs_by_device
 from ..models.problem import InferenceProblem
-from ._mesh import mesh_devices, problem_on
-from .sharding import device_groups, generator_on, in_batch_order
+from ._mesh import mesh_devices
+from .sharding import device_groups
 
 __all__ = ["parallel_nested_sampling", "merge_runs"]
 
@@ -101,22 +95,6 @@ def merge_runs(
     )
 
 
-def _in_batch_order(parts, groups, device) -> NSBatchState:
-    """The device groups' run batches as one, in the runs' order."""
-    order = torch.argsort(torch.cat([idx.cpu() for idx, _ in groups])).tolist()
-    kw = {}
-    for f in dataclasses.fields(NSBatchState):
-        vals = [getattr(p, f.name) for p in parts]
-        if isinstance(vals[0], torch.Tensor):
-            kw[f.name] = in_batch_order(vals, groups, device)
-        elif isinstance(vals[0], list):
-            joined = [v for part in vals for v in part]
-            kw[f.name] = [joined[i] for i in order]
-        else:
-            kw[f.name] = any(vals)
-    return NSBatchState(**kw)
-
-
 def parallel_nested_sampling(
     problem: InferenceProblem,
     generator: Optional[torch.Generator] = None,
@@ -148,12 +126,7 @@ def parallel_nested_sampling(
     if not 1 <= cfg.num_delete < sample_pool_size:
         raise ValueError("need 1 <= num_delete < sample_pool_size")
     starts = torch.stack([generate_starting_points(problem, generator, sample_pool_size) for _ in range(num_runs)])
-    parts = []
-    for idx, dev in groups:
-        p = problem_on(problem, dev)
-        parts.append(run_loop_batched(p, _init_batch(p, starts[idx].to(dev), cfg.capacity),
-                                      generator_on(generator, dev), cfg, n_live=sample_pool_size))
-    runs = _in_batch_order(parts, groups, problem.device)
+    runs = runs_by_device(problem, starts, generator, cfg, groups=groups, n_live=sample_pool_size)
     result = merge_runs(
         runs.dead_points, runs.dead_logl, runs.dead_logp, runs.n_dead,
         runs.live_points, runs.live_logl, runs.live_logp,

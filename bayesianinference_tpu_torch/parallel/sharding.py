@@ -9,6 +9,14 @@ and the tests build an 8-shard mesh on the CPU (``devices=["cpu"] * 8``).
 Copies between cards are ``Tensor.to(device)``: peer to peer where the
 cards are linked, and a no-op between shards of one device.
 
+The coupled run-level engines (HMC, the ensemble, IBIS) run each shard of
+one mesh axis as its own batch and meet at every step in the list forms of
+the collectives on a :class:`ShardAxis` (:mod:`..core.shards`, re-exported
+here): ``cat_to`` (the tiled gather), ``sum_to``, ``mean_to`` (the scalar
+``pmean``), ``logsumexp_to`` (``pmax`` then ``psum``) and ``welford_to``
+(the Chan merge of per-shard moments), each combining the shards' parts in
+axis order on one device.
+
 The collectives (``axis_index``, ``all_gather``, ``psum``, ``pmax``) act on
 per-position values (numpy object arrays of the mesh's shape) and are
 scoped as JAX's are: a collective over one axis combines the positions that
@@ -27,14 +35,19 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "ShardedTensor", "make_mesh", "replicated", "shard_data"]
+from ..core.shards import (  # noqa: F401  (re-exported: the list collectives and the shard axis)
+    ShardAxis,
+    canonical_device,
+    cat_to,
+    generator_on,
+    in_batch_order,
+    logsumexp_to,
+    mean_to,
+    sum_to,
+    welford_to,
+)
 
-
-def canonical_device(device) -> torch.device:
-    """``device`` as a tensor placed there reports it: ``"cuda"`` names the
-    current card."""
-    d = torch.device(device)
-    return torch.device("cuda", torch.cuda.current_device()) if d.type == "cuda" and d.index is None else d
+__all__ = ["Mesh", "ShardAxis", "ShardedTensor", "make_mesh", "replicated", "shard_data"]
 
 
 class Mesh:
@@ -203,22 +216,6 @@ def device_groups(devices, n: int, home) -> list:
     return [(torch.cat(idx), dev) for dev, idx in groups.items()]
 
 
-def generator_on(generator: torch.Generator, device) -> torch.Generator:
-    """``generator`` itself on its own device; elsewhere a generator of
-    that device seeded from it."""
-    if canonical_device(device) == canonical_device(generator.device):
-        return generator
-    seed = int(torch.randint(0, 2**62, (), generator=generator, device=generator.device))
-    return torch.Generator(device=device).manual_seed(seed)
-
-
-def in_batch_order(parts, groups, device):
-    """Tensors of the device groups' results (each [group size, ...]) as one
-    [n, ...] tensor on ``device`` in the batch's order."""
-    order = torch.argsort(torch.cat([idx.to(device) for idx, _ in groups]))
-    return torch.cat([p.to(device) for p in parts])[order]
-
-
 def replicated(x, mesh: Mesh) -> ShardedTensor:
     """A copy of ``x`` on every position's device."""
     x = torch.as_tensor(x)
@@ -232,23 +229,6 @@ def replicated(x, mesh: Mesh) -> ShardedTensor:
 # object-array forms (``values`` of the mesh's shape) apply those to every
 # group and hand each position its copy.
 # ---------------------------------------------------------------------------
-
-
-def cat_to(parts: Sequence[torch.Tensor], device, dim: int = 0) -> torch.Tensor:
-    """The tiled gather of one group's blocks (in axis order) on ``device``."""
-    return torch.cat([p.to(device) for p in parts], dim=dim)
-
-
-def sum_to(parts: Sequence, device):
-    """One group's values summed in axis order on ``device``: the ``psum``
-    whose result the caller keeps once.  Parts that are tuples of tensors
-    (a shard's statistics) sum field by field."""
-    if isinstance(parts[0], tuple):
-        return tuple(sum_to(field, device) for field in zip(*parts))
-    out = parts[0].to(device)
-    for p in parts[1:]:
-        out = out + p.to(device)
-    return out
 
 
 def _reduce(values: np.ndarray, mesh: Mesh, axis_name: str, combine: Callable) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Where the device time goes on the port's two n = 512 paths, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--repo PATH]
+    python3 chip_profile.py [--repo PATH] [--smoke-rows] [--split-rows]
 
 ``--repo`` imports ``bayesianinference_tpu_torch`` from another checkout
 (default: this one), so that two trees can be profiled in one run on one
@@ -487,6 +487,56 @@ def _phase20_units(smi, dev, problem, start):
     cs.log(f"[20 units] {'; '.join(rows)} | {smi}")
 
 
+def _split_units(smi, dev):
+    """Phase 20's coupled engines, one batch and split over its 4-shard
+    mesh (all four on the card, or one a card where there are four), per
+    unit in turns (wall ms, device ms, CUDA kernels, busy share, by
+    difference of runs of 3 units and 1): an HMC trajectory (8 chains, L =
+    5, the 2-D box), an HMC trajectory on the GP slice (8 chains, L = 3,
+    both kernels and their reverse rules), an ensemble sweep on the GP
+    slice (32 walkers) and an IBIS stage with a move (2048 particles, 15
+    steps).  The GP slice is phase 4's problem, its chains and walkers
+    started at prior draws (no NS run).  Dynamic NS's shards on one card
+    are one batch (the one-batch unit); on four cards the row is its stage
+    loop on each card's group of runs, one card after another."""
+    import chip_smoke as cs
+    from bayesianinference_tpu_torch import dists
+    from bayesianinference_tpu_torch.engines.nested_sampling import generate_starting_points
+    from bayesianinference_tpu_torch.interop import problem_data_from_numpy
+    from bayesianinference_tpu_torch.parallel import parallel_ensemble, parallel_hmc, parallel_ibis
+
+    rng = np.random.default_rng(0)
+    x_np = rng.normal(size=(cs.SLICE_N, cs.SLICE_D))
+    y_np = np.sin(x_np[:, 0]) + 0.1 * rng.normal(size=cs.SLICE_N)
+    gp = cs._gp_problem(*problem_data_from_numpy(x_np, y_np, device=dev, dtype=torch.float64))
+    box, _ = cs._gaussian_box_problem(2, dev)
+    normal, yd = cs._normal_mean_problem(dev, cs.PAR_DATA)
+    g = torch.Generator(device=dev).manual_seed(0)
+    box_start, gp_start = generate_starting_points(box, g, 8), generate_starting_points(gp, g, 32)
+    pointwise = lambda th, v: dists.Normal(th[0], 1.0).log_prob(v)  # noqa: E731
+    rows = []
+    for split, tag in ((False, "one batch"), (True, "split")):
+        def mesh(axis):
+            return cs._split_mesh(axis, dev)[0] if split else None
+
+        scale = cs.MESH_SHARDS if split else 1
+        # the bounds: about two thirds of phase 20's one-batch units' CUDA kernels, times the shards
+        rows += _unit_costs((
+            (f"HMC trajectory, {tag} (8 chains, L = 5)",
+             lambda s: parallel_hmc(box, g, num_chains=8, num_warmup=1, num_samples=s, num_leapfrog=5,
+                                    starting_points=box_start, mesh=mesh("chains")), 600 * scale),
+            (f"GP HMC trajectory, {tag} (8 chains, L = 3)",
+             lambda s: parallel_hmc(gp, g, num_chains=8, num_warmup=1, num_samples=s, num_leapfrog=3,
+                                    starting_points=gp_start[:8], mesh=mesh("chains")), 500 * scale),
+            (f"GP ensemble sweep, {tag} (32 walkers)",
+             lambda s: parallel_ensemble(gp, g, num_walkers=32, num_warmup=0, num_samples=s, starting_points=gp_start,
+                                         mesh=mesh("walkers")), 150 * scale),
+            (f"IBIS stage with a move, {tag} (2048 particles, 15 steps)",
+             lambda s: parallel_ibis(normal, pointwise, yd[:5 * s], g, n_particles=2048, batch_size=5, mcmc_steps=15,
+                                     ess_threshold=2.0, mesh=mesh("particles")), 300 * scale)))
+    cs.log(f"[20 split units] the mesh {cs._split_mesh('chains', dev)[2]}: {'; '.join(rows)} | {smi}")
+
+
 def _phase21_times(smi, dev):
     """Phase 21's timing rows: the kernels at the mesh's new shapes against
     their plain versions, bounds and cholesky_ex (device ms in turns: a
@@ -575,14 +625,20 @@ def main():
     ap.add_argument("--repo", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--smoke-rows", action="store_true",
                     help="print the timing rows of chip_smoke.py phases 14-21 instead of the workloads")
+    ap.add_argument("--split-rows", action="store_true",
+                    help="print phase 20's coupled engines' units, one batch and split over its mesh, and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: torch.cuda.is_available() is false; this script needs a CUDA card")
     sys.path.insert(0, os.path.abspath(args.repo))
-    if args.smoke_rows:
+    if args.smoke_rows or args.split_rows:
         from chip_smoke import phase_device
 
-        _smoke_rows(phase_device())
+        smi = phase_device()
+        if args.smoke_rows:
+            _smoke_rows(smi)
+        if args.split_rows:
+            _split_units(smi, torch.device("cuda"))
         return
     from bayesianinference_tpu_torch.engines.laplace import laplace_posterior_fit
     from bayesianinference_tpu_torch.engines.nested_sampling import nested_sampling

@@ -250,7 +250,18 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     parallel dynamic NS on the JAX oracle (8 runs of pool 48, one stage, 40
     steps): |z| < 4 and the posterior mean (a host-bound run with no
     hand-written kernel, in a worker process of 18b's pool from phase 18
-    on).
+    on), its 8 runs on an 8-shard mesh over 20's mesh devices.  Each of
+    (b)-(e) also runs its engine split over a 4-shard mesh (one shard a
+    card where there are four cards, else all four on the one: the layout
+    on a line of its own), each shard its block of the batch on its card
+    against its copy of the problem, held against the one-batch run on the
+    same draws (1e-10; dynamic NS's shards on one card are one batch, bit
+    for bit, and on four cards draw their chains' numbers per card, so
+    logZ within 4 joint sigma); (b) also runs parallel HMC on phase 4's GP
+    slice (8 chains, 6 + 2 trajectories of 3 leapfrog steps) split over
+    the mesh through both kernels and their reverse rules; (b) and (c)
+    fail unless every card of the mesh launched both kernels (the wrappers'
+    counters by device).
 21. the multi-card engines (``parallel/sharding.py`` and the ``sharded_*``
     modules) on a 4-shard mesh, one shard a card where there are four
     cards, else all four on the one (the layout on a line of its own): (a)
@@ -2115,7 +2126,7 @@ class _KernelWatch:
                     watch.errs[key] = ((out - want).abs() / variance.abs()[:, None, None]).max().item()
             return out
 
-        se.launches = self.se_orig.launches
+        se.launches, se.launches_by_device = self.se_orig.launches, self.se_orig.launches_by_device
 
         def launch(k, route, nb):
             out = watch.launch_orig(k, route, nb)
@@ -5122,12 +5133,49 @@ def phase_time_series(smi: str, pmmh=None, dev="cuda", **sizes):
 PAR_HMC_MOMENTS = dict(chains=64, warmup=150, samples=100, leapfrog=5)  # 20b's moment run
 PAR_ENS = dict(walkers=32, warmup=100, samples=600, batches=12)  # 20c's run on the GP slice
 PAR_CARD_CPU_TOL = 1e-12  # 20a, 20b and 20d: the card against CPU tensors on the same draws, f64
+# 20b-e: the 4-shard split run against the one-batch run on the same draws, f64: the reductions that cross
+# shards (HMC's mean acceptance and moments, ChEES's chain means and sums, IBIS's logsumexp) run in another
+# order, and the shards' kernels at another batch size (tests/test_torch_coupled_mesh.py)
+PAR_SPLIT_TOL = 1e-10
+PAR_SPLIT_HMC = dict(warmup=6, samples=3)  # 20b's split runs (60 + 40 for ChEES's card-vs-CPU gate)
+PAR_GP_HMC = dict(chains=8, warmup=6, samples=2, leapfrog=3)  # 20b's GP-slice HMC on the mesh
 PAR_ENS_CARD_CPU_TOL = 1e-10  # 20c: through both kernels, whose sums run in another order than the plain versions'
 
 
 def _card_cpu_err(pairs) -> float:
     """The largest of ``_rel_max`` over (card, CPU) pairs."""
     return max(_rel_max(a, b) for a, b in pairs)
+
+
+def _split_mesh(axis: str, dev, shards: int = 4):
+    """(20's mesh over ``axis``: ``shards`` shards over :func:`_mesh_devices`,
+    its devices, its layout in words)."""
+    from bayesianinference_tpu_torch.parallel import make_mesh
+
+    devices = _mesh_devices(dev) * (shards // MESH_SHARDS)
+    cards = len(set(devices))
+    layout = (f"{shards} shards, {shards // cards} a card on {cards} cards" if cards > 1 else
+              f"all {shards} shards on {devices[0]}")
+    return make_mesh((axis,), devices=devices), devices, layout
+
+
+def _launches_by_card() -> dict:
+    """The kernels' launch counters by device index (a snapshot)."""
+    from bayesianinference_tpu_torch.ops import gp_kernels as gk
+
+    return {"se_covariance": collections.Counter(gk.se_covariance_cuda.launches_by_device),
+            "cholesky": collections.Counter(gk.cholesky_cuda.launches_by_device)}
+
+
+def _cards_since(before: dict, devices) -> tuple:
+    """(every card of ``devices`` launched both kernels since ``before``,
+    the launches since then by card as text)."""
+    after = _launches_by_card()
+    new = {k: after[k] - before[k] for k in after}
+    idx = sorted({torch.device(d).index for d in devices}, key=lambda i: -1 if i is None else i)
+    ok = all(new[k][i] >= 1 for k in new for i in idx)
+    return ok, "; ".join(f"{'cpu' if i is None else f'cuda:{i}'} SE {new['se_covariance'][i]}, Cholesky "
+                         f"{new['cholesky'][i]}" for i in idx)
 
 
 class _SMCStageDraws:
@@ -5221,7 +5269,7 @@ PAR_HMC_LOG_EPS_TOL = 4 * math.sqrt(2) * 0.105
 
 
 def _phase20b_hmc(smi, watch, dev, chains=8, warmup=60, samples=40, leapfrog=5, replay_warmup=3, replay_samples=3,
-                  moments=PAR_HMC_MOMENTS):
+                  moments=PAR_HMC_MOMENTS, split=PAR_SPLIT_HMC):
     """20b: parallel HMC at the JAX smoke configuration (diagonal, dense and
     ChEES), each on the card and on CPU tensors from the same draws, and a
     moment run.
@@ -5240,7 +5288,9 @@ def _phase20b_hmc(smi, watch, dev, chains=8, warmup=60, samples=40, leapfrog=5, 
     configuration by what rounding cannot move: both runs pass the moment
     gate of :func:`_chain_moment_gate`, and their frozen step sizes agree
     within ``PAR_HMC_LOG_EPS_TOL``.  The moment run's gate is the same
-    test at ``moments``' depth."""
+    test at ``moments``' depth.  Each kind also runs split over 20's
+    4-shard mesh at ``split``'s depth against the one-batch card run on the
+    same draws (``PAR_SPLIT_TOL``)."""
     from bayesianinference_tpu_torch.ops.chees import ChEESDraws
     from bayesianinference_tpu_torch.ops.hmc import HMCDraws
     from bayesianinference_tpu_torch.parallel import parallel_hmc
@@ -5250,6 +5300,21 @@ def _phase20b_hmc(smi, watch, dev, chains=8, warmup=60, samples=40, leapfrog=5, 
     lines, launches = [], {"se_covariance": 0, "cholesky": 0}
     fields = ("samples", "step_size", "inv_mass_diag", "trajectory_length")
     start = 4.0 * torch.rand((chains, 2), generator=torch.Generator().manual_seed(2), dtype=torch.float64) - 2.0
+    mesh, _, layout = _split_mesh("chains", dev)
+
+    def split_gap(kw, seed):
+        """The split run against the one-batch run on the card, on one host
+        generator's draws at ``split``'s depth."""
+        auto = kw["num_leapfrog"] == "auto"
+        draws = _par_hmc_draws(torch.Generator().manual_seed(seed), chains, 2, split["warmup"], split["samples"], auto)
+        run = dict(num_chains=chains, num_warmup=split["warmup"], num_samples=split["samples"],
+                   starting_points=start.to(dev), draws=(ChEESDraws if auto else HMCDraws)(*(a.to(dev) for a in draws)),
+                   **kw)
+        before = watch.counts()
+        one, parts = parallel_hmc(problem, None, **run), parallel_hmc(problem, None, mesh=mesh, **run)
+        for k, v in watch.counts().items():
+            launches[k] += v - before[k]
+        return _card_cpu_err([(getattr(parts, f), getattr(one, f)) for f in fields])
 
     def pair(kw, nw, ns, seed, count=False):
         """The run on the card and on CPU tensors from one host generator's draws."""
@@ -5289,7 +5354,10 @@ def _phase20b_hmc(smi, watch, dev, chains=8, warmup=60, samples=40, leapfrog=5, 
                     f"and the CPU: mean {_rounded(gates[0][1])} and {_rounded(gates[1][1])} (4 se "
                     f"{_rounded(gates[0][3])}, {_rounded(gates[1][3])}), variance {_rounded(gates[0][2])} and "
                     f"{_rounded(gates[1][2])} (4 se {_rounded(gates[0][4])}, {_rounded(gates[1][4])})")
-        if not (ok and held):
+        gap = split_gap(kw, 10)
+        line += (f"; split over the mesh against the one-batch run on the same draws {gap:.1e} at {split['warmup']} + "
+                 f"{split['samples']} (gate {PAR_SPLIT_TOL:g})")
+        if not (ok and held and gap <= PAR_SPLIT_TOL):
             raise AssertionError(f"20b parallel HMC {name}: {line}; samples finite and one positive step size {ok}")
         lines.append(f"{name}: step size {float(card.step_size):.4f}, trajectory length "
                      f"{float(card.trajectory_length):.3f}, acceptance {float(card.acceptance_rates.mean()):.3f}; "
@@ -5307,8 +5375,49 @@ def _phase20b_hmc(smi, watch, dev, chains=8, warmup=60, samples=40, leapfrog=5, 
                  f"mean {_rounded(mean)} (4 se {_rounded(se4_mean)}), variance {_rounded(var)} (4 se "
                  f"{_rounded(se4_var)}), {wall:.2f} s")
     log(f"[20b parallel HMC] {chains} chains, {warmup} + {samples} steps, L = {leapfrog} (the JAX smoke "
-        f"configuration), f64: {'; '.join(lines)}; the dense mass's factor through the Cholesky kernel: launches "
-        f"{launches} | {smi}")
+        f"configuration), f64, the mesh {layout}: {'; '.join(lines)}; the dense mass's factor through the Cholesky "
+        f"kernel: launches {launches} | {smi}")
+    return launches
+
+
+def _phase20b_gp_hmc(smi, watch, dev, problem, gp_posterior, chains=PAR_GP_HMC["chains"],
+                     warmup=PAR_GP_HMC["warmup"], samples=PAR_GP_HMC["samples"], leapfrog=PAR_GP_HMC["leapfrog"]):
+    """20b (GP): parallel HMC on phase 4's GP slice, started at draws of its
+    NS posterior, split over 20's 4-shard mesh (each shard's
+    value-and-gradient one SE and one Cholesky launch with their reverse
+    rules, on its card against its copy of the GP problem), against the
+    one-batch run on the same draws (``PAR_SPLIT_TOL``); every card of the
+    mesh must launch both kernels."""
+    from bayesianinference_tpu_torch.ops.hmc import HMCDraws, _phase_lengths
+    from bayesianinference_tpu_torch.parallel import parallel_hmc
+
+    res = gp_posterior[0]
+    mesh, devices, layout = _split_mesh("chains", dev)
+    w = torch.exp(res.crude_log_posterior_weights).cpu()
+    pick = torch.multinomial(w, chains, replacement=True, generator=torch.Generator().manual_seed(8))
+    draws = _par_hmc_draws(torch.Generator().manual_seed(9), chains, problem.dim, warmup, samples, False)
+    run = dict(num_chains=chains, num_warmup=warmup, num_samples=samples, num_leapfrog=leapfrog,
+               starting_points=res.points.cpu()[pick].to(dev), draws=HMCDraws(*(a.to(dev) for a in draws)))
+    before = watch.counts()
+    one = parallel_hmc(problem, None, **run)
+    cards = _launches_by_card()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    parts = parallel_hmc(problem, None, mesh=mesh, **run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    every_card, by_card = _cards_since(cards, devices)
+    launches = {k: v - before[k] for k, v in watch.counts().items()}
+    fields = ("samples", "acceptance_rates", "step_size", "inv_mass_diag")
+    gap = _card_cpu_err([(getattr(parts, f), getattr(one, f)) for f in fields])
+    if not (gap <= PAR_SPLIT_TOL and bool(torch.isfinite(parts.samples).all()) and every_card):
+        raise AssertionError(f"20b GP parallel HMC: split against one batch {gap:.3e}; launches by card {by_card}")
+    trajectories = sum(_phase_lengths(warmup)) + samples
+    log(f"[20b GP parallel HMC] n={SLICE_N} d={SLICE_D} f64, {chains} chains, {trajectories} trajectories of L = "
+        f"{leapfrog} from draws of phase 4's NS posterior, split over the mesh ({layout}): against the one-batch run "
+        f"on the same draws {gap:.1e} (gate {PAR_SPLIT_TOL:g}); step size {float(parts.step_size):.4f}, acceptance "
+        f"{float(parts.acceptance_rates.mean()):.3f}; the split run {wall:.2f} s; its launches by card: {by_card}; "
+        f"both runs' launches {launches} | {smi}")
     return launches
 
 
@@ -5344,6 +5453,12 @@ def _phase20c_ensemble(smi, watch, dev, problem, gp_posterior, walkers=PAR_ENS["
     card = parallel_ensemble(problem, None, starting_points=start.to(dev), draws=on_card, **kw)
     cpu = parallel_ensemble(cpu_problem, None, starting_points=start, draws=draws, **kw)
     err = _card_cpu_err([(card.samples, cpu.samples), (card.acceptance_rates, cpu.acceptance_rates)])
+    mesh, devices, layout = _split_mesh("walkers", dev)
+    before, cards = watch.counts(), _launches_by_card()
+    parts = parallel_ensemble(problem, None, starting_points=start.to(dev), draws=on_card, mesh=mesh, **kw)
+    every_card, by_card = _cards_since(cards, devices)
+    split_launches = {k: v - before[k] for k, v in watch.counts().items()}
+    gap = _card_cpu_err([(parts.samples, card.samples), (parts.acceptance_rates, card.acceptance_rates)])
     watch.zero()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -5362,9 +5477,11 @@ def _phase20c_ensemble(smi, watch, dev, problem, gp_posterior, walkers=PAR_ENS["
     se = torch.sqrt(se_ens**2 + ns_se**2)
     calls = 2 * sweeps + 1  # the starting walkers' call, then two half-updates a sweep
     ok_launches = launches["se_covariance"] == calls and launches["cholesky"] == calls
-    if not (err <= PAR_ENS_CARD_CPU_TOL and bool(((mean - ns_mean).abs() <= 4 * se).all()) and ok_launches):
+    if not (err <= PAR_ENS_CARD_CPU_TOL and bool(((mean - ns_mean).abs() <= 4 * se).all()) and ok_launches
+            and gap <= PAR_SPLIT_TOL and every_card):
         raise AssertionError(f"20c parallel ensemble: card vs CPU {err:.3e}; mean {mean.tolist()} against NS "
-                             f"{ns_mean.tolist()} (4 se {(4 * se).tolist()}); launches {launches} for {calls} calls")
+                             f"{ns_mean.tolist()} (4 se {(4 * se).tolist()}); launches {launches} for {calls} calls; "
+                             f"split against one batch {gap:.3e}, launches by card {by_card}")
     log(f"[20c parallel ensemble, GP slice] n={SLICE_N} d={SLICE_D} f64, {walkers} walkers (B = {walkers // 2} a "
         f"half-update), {warmup} + {samples} stretch sweeps from draws of phase 4's NS posterior: the card against "
         f"CPU tensors on the same draws for {replay_sweeps} sweeps {err:.1e} (gate {PAR_ENS_CARD_CPU_TOL:g}); pooled "
@@ -5372,20 +5489,24 @@ def _phase20c_ensemble(smi, watch, dev, problem, gp_posterior, walkers=PAR_ENS["
         f", standard errors by {batches} batch means {[f'{v:.2e}' for v in se_ens.tolist()]} and of the NS mean "
         f"{[f'{v:.2e}' for v in ns_se.tolist()]} (gate 4 x their root sum of squares); acceptance "
         f"{float(run.acceptance_rates.mean()):.3f}; {sweeps} sweeps in {wall:.2f} s = {wall / sweeps * 1e3:.2f} ms a "
-        f"sweep; launches {launches}, one of each a density call | {smi}")
-    return launches
+        f"sweep; launches {launches}, one of each a density call; the replay split over the mesh ({layout}: B = "
+        f"{walkers // 2 // MESH_SHARDS} a shard's half-update) against the one-batch card run {gap:.1e} (gate "
+        f"{PAR_SPLIT_TOL:g}), its launches by card: {by_card} | {smi}")
+    return {k: launches[k] + split_launches[k] for k in launches}
 
 
 def _normal_mean_problem(dev, data, sigma=1.0, tau=2.0):
-    """tests/test_parallel_dynamic_ibis.py's normal mean model, on ``dev``."""
+    """tests/test_parallel_dynamic_ibis.py's normal mean model, on ``dev``,
+    its observations the problem's data (so the problem can move to
+    another card), and those observations."""
     from bayesianinference_tpu_torch import dists
     from bayesianinference_tpu_torch.models import define_inference_problem
 
     yd = torch.as_tensor(data, dtype=torch.float64, device=dev)
     full = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)  # noqa: E731
     return define_inference_problem(
-        parameters=[("mu", -10.0, 10.0)], log_likelihood=lambda th: dists.Normal(th[0], sigma).log_prob(yd).sum(),
-        prior_distribution=dists.Product((dists.Normal(full(0.0), full(tau)),)), validate=False, device=dev,
+        parameters=[("mu", -10.0, 10.0)], log_likelihood=lambda th, y: dists.Normal(th[0], sigma).log_prob(y).sum(),
+        data=yd, prior_distribution=dists.Product((dists.Normal(full(0.0), full(tau)),)), validate=False, device=dev,
         dtype=torch.float64), yd
 
 
@@ -5434,22 +5555,28 @@ def _phase20d_ibis(smi, dev, particles=2048, batch=5, steps=15):
     card = parallel_ibis(problem, pointwise, yd, None, starting_points=start.to(dev),
                          draws=[type(s)(*(a.to(dev) for a in s)) for s in draws], **kw)
     cpu = parallel_ibis(cpu_problem, pointwise, y_cpu, None, starting_points=start, draws=draws, **kw)
-    err = _card_cpu_err([(getattr(card, f), getattr(cpu, f)) for f in ("particles", "log_evidence", "log_predictives",
-                                                                        "ess_history")])
+    fields = ("particles", "log_evidence", "log_predictives", "ess_history")
+    err = _card_cpu_err([(getattr(card, f), getattr(cpu, f)) for f in fields])
+    mesh, _, layout = _split_mesh("particles", dev)
+    parts = parallel_ibis(problem, pointwise, yd, None, starting_points=start.to(dev), mesh=mesh,
+                          draws=[type(s)(*(a.to(dev) for a in s)) for s in draws], **kw)
+    gap = _card_cpu_err([(getattr(parts, f), getattr(card, f)) for f in fields])
     ok = (abs(float(res.log_evidence) - log_z) < 0.25 and pred_err <= 1e-6
           and abs(mu - post_mean) < 4 * math.sqrt(post_var / 500) and abs(var / post_var - 1.0) < 0.25
           and bool(res.resampled.any()) and acc > 0.1 and err <= PAR_CARD_CPU_TOL
-          and torch.equal(card.resampled.cpu(), cpu.resampled))
+          and torch.equal(card.resampled.cpu(), cpu.resampled) and gap <= PAR_SPLIT_TOL
+          and torch.equal(parts.resampled, card.resampled))
     if not ok:
         raise AssertionError(f"20d parallel IBIS: logZ {float(res.log_evidence)} ({log_z}), predictives {pred_err:.1e},"
                              f" mean {mu} ({post_mean}), var {var} ({post_var}), resampled {res.resampled.tolist()}, "
-                             f"acceptance {acc}, card vs CPU {err:.3e}")
+                             f"acceptance {acc}, card vs CPU {err:.3e}, split against one batch {gap:.3e}")
     log(f"[20d parallel IBIS] {particles} particles, batch {batch}, {steps} AM steps, f64, the normal mean with "
         f"{PAR_DATA.size} observations (the JAX oracle): logZ {float(res.log_evidence):.4f} against quadrature "
         f"{log_z:.4f} (gate 0.25), the predictives' sum {pred_err:.1e} from it (1e-6), mean {mu:.4f} ({post_mean:.4f}"
         f"), variance ratio {var / post_var:.3f}, {int(res.resampled.sum())} of {stages} stages moved, acceptance "
         f"{acc:.3f}, {wall:.2f} s; the card against CPU tensors on the same draws {err:.1e} (gate "
-        f"{PAR_CARD_CPU_TOL:g}) | {smi}")
+        f"{PAR_CARD_CPU_TOL:g}); split over the mesh ({layout}) against the one-batch card run {gap:.1e} (gate "
+        f"{PAR_SPLIT_TOL:g}) | {smi}")
 
 
 PAR_DNS_STEPS = 40  # 20e's chain steps a replacement, the JAX oracle's
@@ -5457,7 +5584,8 @@ PAR_DNS_STEPS = 40  # 20e's chain steps a replacement, the JAX oracle's
 
 def _dns_oracle(dev: str, runs=8, pool=48, batches=8, steps=PAR_DNS_STEPS) -> dict:
     """20e's run: parallel dynamic NS on the JAX oracle (the normal mean,
-    pool 48, ``num_batches=8`` over ``num_runs=8``: one stage).  A
+    pool 48, ``num_batches=8`` over 8 runs: one stage), the runs on an
+    8-shard mesh over 20's mesh devices (``runs`` a multiple of 4).  A
     host-bound loop of batched AM steps that reaches no hand-written kernel,
     so it runs in a worker process of 18b's pool beside phases 18 and 19 (it
     fails if a kernel launched during the run).  Its readings and seconds."""
@@ -5466,25 +5594,58 @@ def _dns_oracle(dev: str, runs=8, pool=48, batches=8, steps=PAR_DNS_STEPS) -> di
 
     dev = torch.device(dev)
     problem, _ = _normal_mean_problem(dev, PAR_DATA)
+    mesh, _, layout = _split_mesh("runs", dev, shards=runs)
     before = (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches)
     t0 = time.perf_counter()
-    res = parallel_dynamic_nested_sampling(problem, torch.Generator(device=dev).manual_seed(5), num_runs=runs,
+    res = parallel_dynamic_nested_sampling(problem, torch.Generator(device=dev).manual_seed(5), mesh=mesh,
                                            sample_pool_size=pool, num_batches=batches, monte_carlo_steps=steps,
                                            post_process_sampling_runs=50)
     w = torch.exp(res.crude_log_posterior_weights)
     out = dict(logz=float(res.log_evidence.mean), se=float(res.log_evidence.standard_error),
                mean=float(w @ res.points[:, 0]), iterations=res.iterations, evals=res.num_likelihood_evals,
-               seconds=time.perf_counter() - t0, sizes=(runs, pool, batches, steps))
+               seconds=time.perf_counter() - t0, sizes=(runs, pool, batches, steps), layout=layout)
     if (gk.se_covariance_cuda.launches, gk.cholesky_cuda.launches) != before:
         raise AssertionError("20e parallel dynamic NS: a hand-written kernel launched")
     return out
 
 
-def _phase20e_dynamic_ns(smi, dev, pending=None, **kw):
+def _dns_split(dev, pool=16, batches=4, steps=5) -> str:
+    """Parallel dynamic NS on the 2-D Gaussian box split over 20's 4-shard
+    mesh against ``num_runs=4`` as one batch, from one generator seed: bit
+    for bit where the shards share one card (one device group is the
+    one-batch call); where they are on four cards each card draws its
+    chains' numbers from a generator of its own, so there the two logZ must
+    agree within 4 joint standard errors.  A line of readings."""
+    from bayesianinference_tpu_torch.parallel import parallel_dynamic_nested_sampling
+
+    problem, _ = _gaussian_box_problem(2, dev)
+    mesh, devices, layout = _split_mesh("runs", dev)
+    kw = dict(sample_pool_size=pool, num_batches=batches, batch_size=pool, monte_carlo_steps=steps,
+              post_process_sampling_runs=20)
+    one = parallel_dynamic_nested_sampling(problem, torch.Generator(device=dev).manual_seed(11), num_runs=4, **kw)
+    parts = parallel_dynamic_nested_sampling(problem, torch.Generator(device=dev).manual_seed(11), mesh=mesh, **kw)
+    a, b = one.log_evidence, parts.log_evidence
+    if len(set(devices)) == 1:
+        ok = torch.equal(one.points, parts.points) and float(a.mean) == float(b.mean)
+        gate = "bit for bit (one device group)"
+    else:
+        ok = abs(float(a.mean) - float(b.mean)) < 4 * math.hypot(float(a.standard_error), float(b.standard_error))
+        gate = "within 4 joint sigma (each card's own generator)"
+    line = (f"split over the mesh ({layout}, 4 runs of pool {pool}, {batches} batches) logZ {float(b.mean):.4f} +- "
+            f"{float(b.standard_error):.4f} against the one-batch run's {float(a.mean):.4f} +- "
+            f"{float(a.standard_error):.4f}, {gate}")
+    if not ok:
+        raise AssertionError(f"20e parallel dynamic NS: {line}")
+    return line
+
+
+def _phase20e_dynamic_ns(smi, dev, pending=None, split=None, **kw):
     """20e's gates on :func:`_dns_oracle`'s readings (``pending``: its
     result from 18b's pool, or None to run it here with ``kw``): |z| < 4
-    against the quadrature logZ, the posterior mean within 4 posterior sd."""
+    against the quadrature logZ, the posterior mean within 4 posterior sd;
+    and :func:`_dns_split` (``split``: its sizes)."""
     post_mean, post_var, log_z = _normal_mean_oracle(PAR_DATA)
+    split_line = _dns_split(dev, **(split or {}))
     t = time.perf_counter()
     r = _dns_oracle(str(dev), **kw) if pending is None else pending.get()
     wait = time.perf_counter() - t
@@ -5495,29 +5656,34 @@ def _phase20e_dynamic_ns(smi, dev, pending=None, **kw):
                              f"mean {r['mean']} ({post_mean})")
     where = ("in this process" if pending is None else
              f"in a worker process of 18b's pool from phase 18 on, waited for {wait:.1f} s here")
-    log(f"[20e parallel dynamic NS] the normal mean (the JAX oracle): {runs} runs of pool {pool}, {batches} batches "
-        f"({-(-batches // runs)} stage), {steps} AM steps a replacement, f64: logZ {r['logz']:.4f} +- {r['se']:.4f} "
-        f"against quadrature {log_z:.4f} (z {z:+.2f}, gate 4), mean {r['mean']:.4f} ({post_mean:.4f}), "
-        f"{r['iterations']} iterations, {r['evals']} evals in {r['seconds']:.1f} s {where} | {smi}")
+    log(f"[20e parallel dynamic NS] the normal mean (the JAX oracle): {runs} runs of pool {pool} on the mesh "
+        f"({r['layout']}), {batches} batches ({-(-batches // runs)} stage), {steps} AM steps a replacement, f64: logZ "
+        f"{r['logz']:.4f} +- {r['se']:.4f} against quadrature {log_z:.4f} (z {z:+.2f}, gate 4), mean {r['mean']:.4f} "
+        f"({post_mean:.4f}), {r['iterations']} iterations, {r['evals']} evals in {r['seconds']:.1f} s {where}; "
+        f"{split_line} | {smi}")
 
 
 def phase_parallel_engines(smi: str, gp_problem, gp_posterior, dev="cuda", dns=None, **sizes):
-    """Phase 20: the single-card parallel engines (module docstring).
-    ``dns`` is the pending result of 20e's run in 18b's pool, or None to
-    run it here.  ``sizes`` shrink 20a-e for a rehearsal (``smc``, ``hmc``,
-    ``ensemble``, ``ibis``, ``dns``: keyword arguments of each sub-phase).
-    Returns the launches of 20b's runs (the dense mass's factor) and 20c's
-    run."""
+    """Phase 20: the parallel engines, one-batch and split over a 4-shard
+    mesh (module docstring).  ``dns`` is the pending result of 20e's run in
+    18b's pool, or None to run it here.  ``sizes`` shrink 20a-e for a
+    rehearsal (``smc``, ``hmc``, ``gp_hmc``, ``ensemble``, ``ibis``,
+    ``dynamic_ns``: keyword arguments of each sub-phase).  Returns the launches of
+    20b's runs (the dense mass's factor, the GP slice's HMC) and 20c's
+    runs."""
     dev = torch.device(dev)
+    log(f"[20 mesh] {_split_mesh('chains', dev)[2]}: {', '.join(str(d) for d in _mesh_devices(dev))}")
     t0 = time.perf_counter()
     seconds, total = [], {"se_covariance": 0, "cholesky": 0}
     with _KernelWatch() as watch:
         for tag, run in (("20a", lambda: _phase20a_smc(smi, dev, **sizes.get("smc", {}))),
                          ("20b", lambda: _phase20b_hmc(smi, watch, dev, **sizes.get("hmc", {}))),
+                         ("20b GP", lambda: _phase20b_gp_hmc(smi, watch, dev, gp_problem, gp_posterior,
+                                                             **sizes.get("gp_hmc", {}))),
                          ("20c", lambda: _phase20c_ensemble(smi, watch, dev, gp_problem, gp_posterior,
                                                             **sizes.get("ensemble", {}))),
                          ("20d", lambda: _phase20d_ibis(smi, dev, **sizes.get("ibis", {}))),
-                         ("20e", lambda: _phase20e_dynamic_ns(smi, dev, dns, **sizes.get("dns", {})))):
+                         ("20e", lambda: _phase20e_dynamic_ns(smi, dev, dns, **sizes.get("dynamic_ns", {})))):
             t = time.perf_counter()
             for k, v in (run() or {}).items():
                 total[k] += v

@@ -44,6 +44,8 @@ SMC, HMC over 3 warmup iterations and IBIS, 1e-12; the parallel ensemble
 on an ARD GP through both kernels, 1e-10, one launch of each a density call.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -377,12 +379,14 @@ def test_hmc_trajectory_on_the_card_makes_no_synchronizing_call(cuda):
     ``torch.cuda.set_sync_debug_mode("error")``: no copy to or from the
     host and no wait, so the host can queue a whole trajectory ahead of the
     card.  Distribution parameters given as Python numbers are filled in on
-    the device."""
+    the device.  The same holds for a warmup iteration split over 4 shards
+    on the card, its collectives included."""
     from bayesianinference_tpu_torch.core.transforms import box_bijection
     from bayesianinference_tpu_torch.dists.scalar import Normal
     from bayesianinference_tpu_torch.engines.hmc import z_space_density
     from bayesianinference_tpu_torch.models.problem import define_inference_problem
     from bayesianinference_tpu_torch.ops import hmc
+    from bayesianinference_tpu_torch.parallel.sharding import ShardAxis
 
     problem = define_inference_problem(
         parameters=[(f"x{i}", -5.0, 5.0) for i in range(4)],
@@ -393,13 +397,25 @@ def test_hmc_trajectory_on_the_card_makes_no_synchronizing_call(cuda):
     state = hmc.hmc_init(torch.randn((64, 4), generator=g, device=cuda), dens)
     draws = hmc.hmc_draws(g, 64, 4, dtype=torch.float32)
     inv_mass = torch.ones((4,), device=cuda)
+    # a warmup iteration split over 4 shards on the card: each shard's trajectory, the mean acceptance across
+    # them, the dual-averaging update and the shards' moments merged, all without a host read
+    shards = ShardAxis([cuda] * 4, cuda)
+    parts = [hmc.hmc_init(x, dens) for x in shards.split(torch.randn((64, 4), generator=g, device=cuda))]
+    iteration = hmc._FixedLength([dens] * 4, 8, shards)
+    split_draws = [type(draws)(*f) for f in zip(*(shards.split(a) for a in hmc.hmc_draws(g, 64, 4)))]
+    masses, factors = shards.send(inv_mass), shards.send(hmc.momentum_factor(inv_mass))
+    da = hmc.dual_averaging_init(torch.full((), 0.3, device=cuda))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         state, prob = hmc.hmc_step(draws, state, dens, 0.3, inv_mass, 8)
+        parts, ap_mean = iteration.step(split_draws, parts, torch.exp(da.log_eps), masses, factors, 0, True)
+        da = hmc.dual_averaging_update(da, ap_mean)
+        merged = shards.welford([hmc._Welford.empty(st.x, False).merge(st.x) for st in parts])
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(state.proposed.sum()) == 64 and float(prob.mean()) > 0.5
+    assert sum(int(st.proposed.sum()) for st in parts) == 64 and merged[2] == 64 and bool(torch.isfinite(da.log_eps))
 
 
 def _class_problem(device, method="laplace", n=64):
@@ -903,15 +919,15 @@ def test_parallel_smc_hmc_and_ibis_on_the_card_match_the_cpu_on_the_same_draws(c
     against CPU tensors on the same draws, 1e-12 of the largest entry):
     parallel SMC (4 runs x 64 particles), parallel HMC over 3 warmup
     iterations (diagonal, dense and ChEES; rounding grows through dual
-    averaging, 2.2e-12 after 6 on one start, tests/test_torch_parallel_smc_hmc.py)
-    and parallel IBIS;
+    averaging, 2.2e-12 after 6 on one start, tests/test_torch_parallel_smc_hmc.py),
+    ChEES also at 60 + 40 (5e-11) and parallel IBIS;
     a problem built without a device lands on the card."""
     from bayesianinference_tpu_torch import dists as td
     from bayesianinference_tpu_torch.engines.ibis import IBISStageDraws, ibis_stage_draws
     from bayesianinference_tpu_torch.engines.smc import SMCStageDraws
     from bayesianinference_tpu_torch.models import define_inference_problem
     from bayesianinference_tpu_torch.ops.chees import ChEESDraws, chees_draws
-    from bayesianinference_tpu_torch.ops.hmc import HMCDraws, hmc_draws
+    from bayesianinference_tpu_torch.ops.hmc import HMCDraws, _phase_lengths, hmc_draws
     from bayesianinference_tpu_torch.parallel import parallel_hmc, parallel_ibis, parallel_smc
 
     card, host = _box2(None), _box2("cpu")
@@ -937,6 +953,15 @@ def test_parallel_smc_hmc_and_ibis_on_the_card_match_the_cpu_on_the_same_draws(c
         b = parallel_hmc(host, None, num_chains=8, num_warmup=3, num_samples=3, starting_points=x0, draws=d, **kw)
         for f in ("samples", "step_size", "inv_mass_diag", "trajectory_length"):
             assert _rel_to(getattr(a, f), getattr(b, f)) <= 1e-12, (kw, f)
+    # ChEES at the JAX smoke configuration, 60 + 40: the card against the CPU at most 5e-11, the spread JAX shows
+    # against itself there over four keys (1e-15 to 5e-11); the card read 2.0e-15 to 3.1e-14 over seeds 0-3
+    # (tests/chees_card_gap_study.py, NVIDIA H100 80GB HBM3, 700.00 W)
+    d = chees_draws(g, 8, 2, num_trajectories=sum(_phase_lengths(60)) + 40, dtype=torch.float64)
+    kw = dict(num_chains=8, num_warmup=60, num_samples=40, num_leapfrog="auto", starting_points=x0)
+    a = parallel_hmc(card, None, draws=ChEESDraws(*(t.to(cuda) for t in d)), **dict(kw, starting_points=x0.to(cuda)))
+    b = parallel_hmc(host, None, draws=d, **kw)
+    for f in ("samples", "step_size", "inv_mass_diag", "trajectory_length"):
+        assert _rel_to(getattr(a, f), getattr(b, f)) <= 5e-11, ("ChEES 60 + 40", f)
 
     y = torch.as_tensor(np.random.default_rng(3).normal(0.8, 1.0, size=40))
     prior = lambda dev: td.Product((td.Normal(torch.tensor(0.0, device=dev), torch.tensor(2.0, device=dev)),))  # noqa: E731
@@ -1116,3 +1141,162 @@ def test_pmmh_chains_split_over_the_cards_are_the_unsharded_chains(cuda):
     one, split = run(None), run(make_mesh(("chains",), devices=devices))
     for f in ("samples", "log_likelihoods", "acceptance_rate", "proposal_scales"):
         assert _rel_to(getattr(split, f), getattr(one, f).cpu()) <= 1e-12, f
+
+
+def _coupled_runs(dev, mesh, problems, draws):
+    """Parallel HMC (diagonal, dense, ChEES), the ensemble (stretch) and
+    IBIS on ``dev``'s problems with ``mesh`` (None: one batch), on the same
+    draws: the results by name."""
+    from bayesianinference_tpu_torch import dists as td
+    from bayesianinference_tpu_torch.engines.ibis import IBISStageDraws
+    from bayesianinference_tpu_torch.ops.chees import ChEESDraws
+    from bayesianinference_tpu_torch.ops.hmc import HMCDraws
+    from bayesianinference_tpu_torch.parallel import make_mesh, parallel_ensemble, parallel_hmc, parallel_ibis
+
+    on = lambda t: t.to(dev)  # noqa: E731
+    box, normal = problems
+    meshes = {a: None if mesh is None else make_mesh((a,), devices=mesh) for a in ("chains", "walkers", "particles")}
+    out = {}
+    for name, kw in (("diagonal", dict(num_leapfrog=4)), ("dense", dict(num_leapfrog=4, dense_mass=True)),
+                     ("auto", dict(num_leapfrog="auto"))):
+        kind = ChEESDraws if name == "auto" else HMCDraws
+        out[name] = parallel_hmc(box, None, num_chains=8, num_warmup=6, num_samples=3, mesh=meshes["chains"],
+                                 starting_points=on(draws["x0"]), draws=kind(*map(on, draws[name])), **kw)
+    ens = tuple(type(h)(*map(on, h)) for h in draws["ensemble"])
+    out["ensemble"] = parallel_ensemble(box, None, num_walkers=16, num_warmup=2, num_samples=3, draws=ens,
+                                        starting_points=on(draws["walkers"]), mesh=meshes["walkers"])
+    out["ibis"] = parallel_ibis(normal, lambda th, v: td.Normal(th[0], 1.0).log_prob(v), on(draws["y"]), None,
+                                n_particles=128, batch_size=5, mcmc_steps=4, starting_points=on(draws["particles"]),
+                                draws=[IBISStageDraws(*map(on, d)) for d in draws["ibis"]], mesh=meshes["particles"])
+    return out
+
+
+def _coupled_problems(dev):
+    from bayesianinference_tpu_torch import dists as td
+    from bayesianinference_tpu_torch.models import define_inference_problem
+
+    y = torch.as_tensor(np.random.default_rng(3).normal(0.8, 1.0, size=40), device=dev)
+    normal = define_inference_problem(
+        parameters=[("mu", -10.0, 10.0)], log_likelihood=lambda th, v: td.Normal(th[0], 1.0).log_prob(v).sum(), data=y,
+        prior_distribution=td.Product((td.Normal(torch.tensor(0.0, device=dev, dtype=torch.float64),
+                                                 torch.tensor(2.0, device=dev, dtype=torch.float64)),)),
+        validate=False, device=dev, dtype=torch.float64)
+    return _box2(dev), normal
+
+
+def _coupled_draws():
+    from bayesianinference_tpu_torch.engines.ibis import ibis_stage_draws
+    from bayesianinference_tpu_torch.ops.chees import chees_draws
+    from bayesianinference_tpu_torch.ops.ensemble import ensemble_draws
+    from bayesianinference_tpu_torch.ops.hmc import _phase_lengths, hmc_draws
+
+    g = torch.Generator().manual_seed(21)
+    f64 = dict(dtype=torch.float64)
+    t = sum(_phase_lengths(6)) + 3
+    rows = [ensemble_draws(g, 16, 2, **f64) for _ in range(5)]
+    halves = tuple(type(rows[0][h])(*(torch.stack(f) for f in zip(*(r[h] for r in rows)))) for h in range(2))
+    return dict(x0=4.0 * torch.rand((8, 2), generator=g, **f64) - 2.0,
+                diagonal=hmc_draws(g, 8, 2, num_trajectories=t, **f64),
+                dense=hmc_draws(g, 8, 2, num_trajectories=t, **f64),
+                auto=chees_draws(g, 8, 2, num_trajectories=t, **f64), ensemble=halves,
+                walkers=2.0 * torch.rand((16, 2), generator=g, **f64) - 1.0,
+                y=torch.as_tensor(np.random.default_rng(3).normal(0.8, 1.0, size=40)),
+                particles=2.0 * torch.randn((128, 1), generator=g, **f64),
+                ibis=[ibis_stage_draws(g, 128, 1, 4, **f64) for _ in range(8)])
+
+
+_COUPLED_FIELDS = {"diagonal": ("samples", "step_size", "inv_mass_diag", "acceptance_rates"),
+                   "dense": ("samples", "step_size", "inv_mass_diag", "acceptance_rates"),
+                   "auto": ("samples", "step_size", "inv_mass_diag", "trajectory_length"),
+                   "ensemble": ("samples", "acceptance_rates"),
+                   "ibis": ("particles", "log_evidence", "log_predictives", "ess_history")}
+
+
+_GP_FIELDS = {"ensemble": ("samples", "acceptance_rates"),
+              "hmc": ("samples", "acceptance_rates", "step_size", "inv_mass_diag")}
+
+
+def _gp_mesh_runs(dev, mesh):
+    """Parallel HMC and the ensemble on an ARD GP's five hyperparameters
+    (n = 64) through both kernels, on ``mesh``'s devices (None: the
+    one-batch run on ``dev``), and the launches by card of each."""
+    from bayesianinference_tpu_torch.ops.ensemble import ensemble_draws
+    from bayesianinference_tpu_torch.ops.hmc import HMCDraws, _phase_lengths, hmc_draws
+    from bayesianinference_tpu_torch.parallel import make_mesh, parallel_ensemble, parallel_hmc
+
+    problem = _ard_problem(dev, d=3)
+    g = torch.Generator().manual_seed(22)
+    start = (2.0 * torch.rand((16, 5), generator=g, dtype=torch.float64) - 1.0).to(dev)
+    rows = [ensemble_draws(g, 16, 5, dtype=torch.float64) for _ in range(3)]
+    ens = tuple(type(rows[0][h])(*(torch.stack(f).to(dev) for f in zip(*(r[h] for r in rows)))) for h in range(2))
+    hmc = HMCDraws(*(t.to(dev) for t in hmc_draws(g, 8, 5, num_trajectories=sum(_phase_lengths(3)) + 2,
+                                                  dtype=torch.float64)))
+    on_mesh = lambda axis: None if mesh is None else make_mesh((axis,), devices=mesh)  # noqa: E731
+    out = {}
+    for name, run in (("ensemble", lambda: parallel_ensemble(problem, None, num_walkers=16, num_warmup=0, num_samples=3,
+                                                             starting_points=start, draws=ens,
+                                                             mesh=on_mesh("walkers"))),
+                      ("hmc", lambda: parallel_hmc(problem, None, num_chains=8, num_warmup=3, num_samples=2,
+                                                   num_leapfrog=2, starting_points=start[:8], draws=hmc,
+                                                   mesh=on_mesh("chains")))):
+        se, chol = (dict(c.launches_by_device) for c in (gk.se_covariance_cuda, gk.cholesky_cuda))
+        res = run()
+        out[name] = (res, {i: (gk.se_covariance_cuda.launches_by_device[i] - se.get(i, 0),
+                               gk.cholesky_cuda.launches_by_device[i] - chol.get(i, 0))
+                           for i in dict.fromkeys(torch.device(d).index for d in mesh or [dev])})
+    return out
+
+
+def test_coupled_engines_split_on_the_card_match_the_one_batch_run(cuda):
+    """chip_smoke.py 20b-d at small sizes: parallel HMC (diagonal, dense,
+    ChEES), the ensemble and IBIS split over 4 shards on the one card
+    against the one-batch run on the same draws (float64, 1e-10: the
+    cross-shard reductions run in another order), and the GP-slice HMC and
+    ensemble through both kernels on the split mesh, against the one-batch
+    runs (1e-10)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    problems, draws = _coupled_problems(dev), _coupled_draws()
+    one, split = _coupled_runs(dev, None, problems, draws), _coupled_runs(dev, [dev] * 4, problems, draws)
+    for name, fields in _COUPLED_FIELDS.items():
+        for f in fields:
+            assert _rel_to(getattr(split[name], f), getattr(one[name], f).cpu()) <= 1e-10, (name, f)
+    gp_one, gp_split = _gp_mesh_runs(dev, None), _gp_mesh_runs(dev, [dev] * 4)
+    for name, (res, cards) in gp_split.items():
+        assert all(se >= 1 and chol >= 1 for se, chol in cards.values()), (name, cards)
+        assert bool(torch.isfinite(res.samples).all()), name
+        for f in _GP_FIELDS[name]:
+            assert _rel_to(getattr(res, f), getattr(gp_one[name][0], f).cpu()) <= 1e-10, (name, f)
+
+
+def test_coupled_engines_one_shard_a_card_match_four_shards_on_one_card(cuda):
+    """Four cards: each coupled engine split one shard a card against the
+    same 4-shard mesh on cuda:0 alone, on the same draws.  Both sum the
+    collectives in axis order on cuda:0 and each shard's work is the same
+    kernels at the same shapes, so HMC, the ensemble and IBIS agree bit for
+    bit; the GP-slice HMC and ensemble launch both kernels on every card
+    and agree bit for bit too.  Dynamic NS is the stated exception: each
+    card's group of runs draws its chains' numbers from a generator of its
+    own, so there its logZ is held within 4 joint standard errors of the
+    one-card run."""
+    from bayesianinference_tpu_torch.parallel import make_mesh, parallel_dynamic_nested_sampling
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    home = cards[0]
+    problems, draws = _coupled_problems(home), _coupled_draws()
+    four, one = _coupled_runs(home, cards, problems, draws), _coupled_runs(home, [home] * 4, problems, draws)
+    for name, fields in _COUPLED_FIELDS.items():
+        for f in fields:
+            assert torch.equal(getattr(four[name], f), getattr(one[name], f)), (name, f)
+    gp_four, gp_one = _gp_mesh_runs(home, cards), _gp_mesh_runs(home, [home] * 4)
+    for name in gp_four:
+        (a, by_card), (b, _) = gp_four[name], gp_one[name]
+        assert sorted(by_card) == [0, 1, 2, 3] and all(se >= 1 and chol >= 1 for se, chol in by_card.values())
+        assert torch.equal(a.samples, b.samples), name
+    box = problems[0]
+    kw = dict(sample_pool_size=16, num_batches=4, batch_size=16, monte_carlo_steps=5, post_process_sampling_runs=20)
+    runs = [parallel_dynamic_nested_sampling(box, torch.Generator(device=home).manual_seed(11),
+                                             mesh=make_mesh(("runs",), devices=m), **kw) for m in (cards, [home] * 4)]
+    a, b = (r.log_evidence for r in runs)
+    assert abs(float(a.mean) - float(b.mean)) < 4 * math.hypot(float(a.standard_error), float(b.standard_error))

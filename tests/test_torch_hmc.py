@@ -30,6 +30,7 @@ from bayesianinference_tpu_torch.engines.hmc import hmc_sample
 from bayesianinference_tpu_torch.models.problem import define_inference_problem
 from bayesianinference_tpu_torch.ops import chees as tchees
 from bayesianinference_tpu_torch.ops import hmc as thmc
+from bayesianinference_tpu_torch.parallel.sharding import ShardAxis
 from bayesianinference_tpu_torch.results import gelman_rubin
 
 torch.set_num_threads(1)
@@ -273,9 +274,11 @@ def test_chees_iteration_matches_jax_on_jax_draws(traj_time, mass, leapfrog_call
     jout, jap, jg = jchees._chees_iteration(key, jst, j_edge, jnp.asarray(eps), jm, jhmc.momentum_factor(jm),
                                             jnp.asarray(traj_time), max_leapfrog)
     tm = T(inv_mass)
-    tout, tap, tg = tchees._chees_iteration(_chees_draws_of(key, chains, d), thmc.hmc_init(T(x0), t_edge), t_edge,
-                                            torch.tensor(eps, dtype=torch.float64), tm, thmc.momentum_factor(tm),
-                                            torch.tensor(traj_time, dtype=torch.float64), max_leapfrog)
+    (tout,), tap, tg = tchees._chees_iteration(ShardAxis.one("cpu"), [_chees_draws_of(key, chains, d)],
+                                               [thmc.hmc_init(T(x0), t_edge)], [t_edge],
+                                               torch.tensor(eps, dtype=torch.float64), [tm],
+                                               [thmc.momentum_factor(tm)], torch.tensor(traj_time, dtype=torch.float64),
+                                               max_leapfrog)
     _state_close(tout, jout)
     close(tap, jap)
     close(tg, jg)

@@ -200,16 +200,15 @@ def test_parallel_ns_splits_its_runs_by_device():
 
 
 @pytest.mark.parametrize("engine", sorted(MESH_CALLS))
-def test_mesh_raises_and_names_the_multi_card_item(engine):
-    """For the engines whose shards meet in collectives at every step, a
-    mesh over devices other than the problem's raises and names the ROADMAP
-    item (here a meta device beside the CPU); a mesh of CPU shards runs as
-    the batch, with the JAX function's multiple-of-shards check; an object
-    that is not the port's Mesh is refused."""
+def test_mesh_over_two_devices_runs_and_checks_its_shape(engine):
+    """Every run-level engine takes a mesh over two devices ("cpu" and
+    "cpu:0" compare unequal, so the problem is carried to a second device):
+    no engine refuses it any longer, the coupled ones splitting their batch
+    per shard and the others by device; a mesh of CPU shards runs, with the
+    JAX function's multiple-of-shards check; an object that is not the
+    port's Mesh is refused."""
     axis = MESH_AXES[engine]
-    if engine not in ("parallel_nested_sampling", "parallel_smc"):  # these split their runs by device
-        with pytest.raises(NotImplementedError, match=f"{engine}\\(mesh=.*queue 1, item 9"):
-            MESH_CALLS[engine](_gauss(), parallel.make_mesh((axis,), devices=["cpu", "meta"]))
+    assert MESH_CALLS[engine](_gauss(), parallel.make_mesh((axis,), devices=["cpu", "cpu:0"])) is not None
     with pytest.raises(TypeError, match="takes the port's parallel.Mesh"):
         MESH_CALLS[engine](_gauss(), axis)
     assert MESH_CALLS[engine](_gauss(), parallel.make_mesh((axis,), devices=["cpu"] * 2)) is not None
