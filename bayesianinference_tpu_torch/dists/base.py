@@ -51,6 +51,19 @@ def param_dtype(*params) -> torch.dtype:
     return torch.get_default_dtype()
 
 
+def draw_device(generator, *params) -> torch.device:
+    """Where a draw is made: the generator's device, or with ``generator``
+    None (the stages of a study mapped by ``torch.func.vmap``, which draw
+    from the default generator) the first tensor parameter's device, else
+    the CPU."""
+    if generator is not None:
+        return generator.device
+    for p in params:
+        if isinstance(p, torch.Tensor):
+            return p.device
+    return torch.device("cpu")
+
+
 def param_shape(*params) -> torch.Size:
     return torch.broadcast_shapes(
         *(p.shape if isinstance(p, torch.Tensor) else () for p in params)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..core.numerics import as_float
-from .base import as_param, dist_dataclass
+from .base import as_param, dist_dataclass, draw_device
 from .multivariate import InverseWishart, MultivariateNormal, MultivariateT, _cholesky
 from .scalar import InverseGamma, Normal, StudentT
 
@@ -45,8 +45,9 @@ class NormalInverseGamma:
 
     def sample(self, generator: torch.Generator, shape=()):
         """(mean, var): the variance first, then the mean given it."""
-        var = self.marginal_variance().sample(generator, shape).to(generator.device)
-        z = torch.randn(var.shape, generator=generator, dtype=var.dtype, device=generator.device)
+        var = self.marginal_variance().sample(generator, shape)
+        var = var.to(draw_device(generator, var))
+        z = torch.randn(var.shape, generator=generator, dtype=var.dtype, device=var.device)
         return as_param(self.mu0, var) + torch.sqrt(var / as_param(self.lam, var)) * z, var
 
 

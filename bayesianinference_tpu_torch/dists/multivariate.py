@@ -15,6 +15,7 @@ for the TPU; the port has one path.)
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -81,14 +82,34 @@ def _param_batch(shape, *specs) -> torch.Size:
     return torch.broadcast_shapes(*shapes)
 
 
-def _standard_gamma(generator: torch.Generator, alpha: torch.Tensor) -> torch.Tensor:
+GAMMA_ROUNDS = 16  # candidates per draw without a generator: all rejected with probability below 0.05 ** 16
+
+
+def _standard_gamma(generator: Optional[torch.Generator], alpha: torch.Tensor) -> torch.Tensor:
     """Gamma(alpha, 1) draws of ``alpha``'s shape (Marsaglia and Tsang,
-    with the alpha < 1 boost), from ``generator``."""
-    dev, dt = generator.device, alpha.dtype
+    with the alpha < 1 boost), from ``generator``.
+
+    With ``generator`` None (a stage of a study mapped by ``torch.func.vmap``,
+    drawing from the default generator) the rejection loop, which ends on the
+    data, cannot run: each element draws ``GAMMA_ROUNDS`` candidates at once
+    and takes its first accepted one, as JAX's vmapped ``while_loop`` does.
+    Each candidate is accepted with probability at least 0.95."""
+    dt = alpha.dtype
+    dev = alpha.device if generator is None else generator.device
     boost = alpha < 1
     a = torch.where(boost, alpha + 1.0, alpha)
     d = a - 1.0 / 3.0
     c = 1.0 / torch.sqrt(9.0 * d)
+    if generator is None:
+        z = torch.randn((GAMMA_ROUNDS, *a.shape), dtype=dt, device=dev)
+        u = torch.rand((GAMMA_ROUNDS, *a.shape), dtype=dt, device=dev)
+        v = (1.0 + c * z) ** 3
+        safe_v = torch.where(v > 0, v, torch.ones_like(v))
+        ok = (v > 0) & (torch.log(u) < 0.5 * z * z + d - d * safe_v + d * torch.log(safe_v))
+        first = ok & (torch.cumsum(ok.to(torch.int64), dim=0) == 1)
+        out = torch.sum(torch.where(first, d * safe_v, torch.zeros_like(safe_v)), dim=0)
+        u = torch.rand(a.shape, dtype=dt, device=dev)
+        return torch.where(boost, out * u ** (1.0 / alpha), out)
     out = torch.zeros_like(a)
     todo = torch.ones_like(a, dtype=torch.bool)
     while bool(todo.any()):

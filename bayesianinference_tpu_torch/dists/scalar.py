@@ -17,7 +17,7 @@ import math
 import torch
 
 from ..core.numerics import LOG2PI, as_float, betainc, log_zero, ndtr, xlogy
-from .base import Distribution, as_param, dist_dataclass, param_dtype, param_shape
+from .base import Distribution, as_param, dist_dataclass, draw_device, param_dtype, param_shape
 
 __all__ = [
     "Normal", "Uniform", "LogUniform", "Exponential", "Gamma", "InverseGamma", "Beta", "StudentT",
@@ -31,10 +31,10 @@ _LOGPI = 1.1447298858494002
 
 def _draw(fn, generator: torch.Generator, shape, *params) -> torch.Tensor:
     """``fn`` (``torch.rand``/``torch.randn``) at the broadcast of ``shape``
-    and the parameter shapes, on the generator's device."""
+    and the parameter shapes, on the generator's device (``draw_device``)."""
     shape = torch.broadcast_shapes(tuple(shape), param_shape(*params))
     return fn(shape, generator=generator, dtype=param_dtype(*params),
-              device=generator.device)
+              device=draw_device(generator, *params))
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -292,11 +292,11 @@ class BernoulliLogits(Distribution):
 
 def _gamma_draw(generator: torch.Generator, shape, alpha, *params) -> torch.Tensor:
     """Gamma(alpha, 1) draws at the broadcast of ``shape`` and the parameter
-    shapes, on the generator's device."""
+    shapes, on the generator's device (``draw_device``)."""
     from .multivariate import _standard_gamma  # multivariate imports this module
 
     full = torch.broadcast_shapes(tuple(shape), param_shape(alpha, *params))
-    a = torch.as_tensor(alpha, dtype=param_dtype(alpha, *params), device=generator.device)
+    a = torch.as_tensor(alpha, dtype=param_dtype(alpha, *params), device=draw_device(generator, alpha, *params))
     return _standard_gamma(generator, a.expand(full).contiguous())
 
 

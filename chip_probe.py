@@ -1,6 +1,6 @@
 """Where the hand-written kernels' time goes, on one NVIDIA GPU.
 
-    python3 chip_probe.py [--only se|cholesky] [--parent PATH]
+    python3 chip_probe.py [--only se|cholesky|logml-scan] [--parent PATH]
 
 The SE covariance (``csrc/se_covariance.cu``), at the main path's shapes
 (B = 10 and B = 1 at n = 512, d = 3, float64 and float32; B = 1, n = 16384,
@@ -34,6 +34,19 @@ The Cholesky:
    solves, the trailing tiles, the cluster barriers; last, all but the
    loads and barriers).  Their factors are wrong; only the time counts.
 
+The logML scan (``--only logml-scan``, not part of the default run): the
+GP log marginal likelihood of ``bench.py::bench_gp``'s problem (x ~ N(0,
+1) of shape [n, 3], y = sin(x_0) + 0.1 N(0, 1), the law of its generator
+drawn by numpy as ``chip_smoke.py`` phase 6 draws it; theta = [0, 0, -2])
+at n = 2048 to 65536, float32, for data seeds 0-2: the relative error
+against plain float64 (K built in float64 from the same float32-rounded
+data, ``torch.linalg.cholesky``) of (i) the port's path through both
+kernels (``gp_log_marginal_likelihood`` of ``covariance_matrix``), (ii) the
+kernel's factor of the same float32 K with a plain triangular solve and
+log-determinant, and (iii) ``torch.linalg.cholesky_ex``'s factor of that K
+with the same solve.  Where float64 K and its factor do not fit on the
+card, the line says so and the scan ends there.
+
 Each line ends with the card's name and power limit.
 """
 
@@ -46,6 +59,7 @@ import ctypes
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from bayesianinference_tpu_torch import csrc
@@ -231,13 +245,16 @@ def probe_se(smi: str, parent):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("se", "cholesky"), default=None)
+    ap.add_argument("--only", choices=("se", "cholesky", "logml-scan"), default=None)
     ap.add_argument("--parent", type=Path, default=None, help="a checkout of an earlier commit, for its SE kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_probe: torch.cuda.is_available() is false; this script needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.only == "logml-scan":
+        probe_logml_scan(smi)
+        return
     if args.only != "cholesky":
         probe_se(smi, args.parent)
     if args.only != "se":
@@ -287,6 +304,68 @@ def probe_cholesky(smi: str):
                      for v, f in fns.items()}
             print(f"[fused stages] {dtype} B={b} n={n}: device ms " + ", ".join(
                 f"{v} {t:.4f}" for v, t in times.items()) + f" | {smi}", flush=True)
+
+
+SCAN_NS = (2048, 4096, 8192, 16384, 32768, 65536)
+SCAN_SEEDS = (0, 1, 2)
+SCAN_THETA = (0.0, 0.0, -2.0)  # bench.py::bench_gp: log variance, log lengthscale, log nugget
+
+
+def _logml_from_factor(factor, y) -> float:
+    """-(n log 2 pi + log|K| + y^T K^-1 y) / 2 from a lower factor, in its dtype."""
+    w = torch.linalg.solve_triangular(factor, y[:, None], upper=False)[:, 0]
+    logdet = 2.0 * torch.log(torch.diagonal(factor)).sum()
+    return float(-0.5 * (y.shape[0] * np.log(2 * np.pi) + logdet + (w * w).sum()))
+
+
+def _se_f64_in_row_blocks(x, variance, lengthscale, nugget, rows=512):
+    """Plain float64 SE covariance with the nugget on the diagonal, built by
+    blocks of rows (differences, not the Gram form)."""
+    n = x.shape[0]
+    xs = x / lengthscale
+    k = torch.empty((n, n), dtype=torch.float64, device=x.device)
+    for i in range(0, n, rows):
+        d2 = ((xs[i:i + rows, None, :] - xs[None, :, :]) ** 2).sum(-1)
+        k[i:i + rows] = variance * torch.exp(-0.5 * d2)
+    k.diagonal().add_(nugget)
+    return k
+
+
+def probe_logml_scan(smi: str):
+    var, scale, nug = (float(np.exp(t)) for t in SCAN_THETA)
+    for n in SCAN_NS:
+        for seed in SCAN_SEEDS:
+            rng = np.random.default_rng(seed)
+            x_np = rng.normal(size=(n, 3)).astype(np.float32)
+            y_np = (np.sin(x_np[:, 0]) + 0.1 * rng.normal(size=n)).astype(np.float32)
+            x = torch.as_tensor(x_np, device="cuda")
+            y = torch.as_tensor(y_np, device="cuda")
+            try:
+                k64 = _se_f64_in_row_blocks(x.double(), var, scale, nug)
+                l64 = torch.linalg.cholesky(k64)
+                del k64
+                ref = _logml_from_factor(l64, y.double())
+                del l64
+            except torch.cuda.OutOfMemoryError:
+                torch.cuda.empty_cache()
+                print(f"[logml scan] n={n}: float64 K and its factor do not fit on the card; the scan ends at the "
+                      f"n before | {smi}", flush=True)
+                return
+            torch.cuda.empty_cache()
+            k = gk.covariance_matrix(gk.se_kernel(var, scale), x, nugget=nug, symmetrize=False)
+            kernel_path = float(gk.gp_log_marginal_likelihood(k, y))
+            factor = gk.cholesky(k)
+            kernel_factor = _logml_from_factor(factor, y)
+            del factor
+            ex_factor, info = torch.linalg.cholesky_ex(k)
+            assert int(info) == 0, f"cholesky_ex failed at n={n}"
+            ex = _logml_from_factor(ex_factor, y)
+            del ex_factor, k
+            torch.cuda.empty_cache()
+            rel = lambda v: abs(v - ref) / abs(ref)  # noqa: E731
+            print(f"[logml scan] n={n} seed={seed} f32: relative error against plain f64 ({ref:.12g}): "
+                  f"kernel path {rel(kernel_path):.3e}, kernel factor + plain solve {rel(kernel_factor):.3e}, "
+                  f"cholesky_ex factor + plain solve {rel(ex):.3e} | {smi}", flush=True)
 
 
 if __name__ == "__main__":

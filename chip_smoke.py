@@ -286,17 +286,38 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
     sigma) and the single-device run (4 combined sigma), and the runs x
     live x data NS at (2, 2, 2) against the quadrature logZ (4 sigma +
     0.1).
+22. 26 of the 31 port examples (``examples_torch/``, the counterparts of
+    the JAX package's ``examples/``; ``EXAMPLE_ORDER``, the longest first)
+    at smoke size on the card, each in a process of its own (``python
+    examples_torch/gates.py NN`` with ``BI_EXAMPLE_SMOKE=1``, one CPU thread,
+    its own time limit), ``EXAMPLE_WORKERS`` at a time, started after phase
+    5's kernel times and running beside phases 6-20, gated after phase 20
+    (before 21): each must exit 0 and pass its checks
+    (``examples_torch/gates.py``: an analytic oracle, the truth inside a
+    credible band, or for the deterministic fits the same example on CPU
+    tensors in the same process); the SE and Cholesky launches each one
+    counts (the wrappers' counters in its process) join the JSON line's
+    launches.  10, 16, 18, 27 and 30 are left out for the 1200 s limit: at
+    smoke size on the card 16 took 714 s and 30 did not end in 1500 s, and
+    with 10, 18 and 27 in the pool (six processes) the script took 959 s
+    against 740 s without them on a like host, its phases 13-15 slowed
+    1.5-2 x by the processes beside them.
 
 The timing-only rows of phases 14-21 (per-unit wall and device ms, CUDA
 kernels and busy shares, and each slice's kernel times in turns) are
 ``chip_profile.py --smoke-rows``'s; this script keeps every gate and launch
 count of those phases, and phase 5's kernel times, which feed the JSON line.
+A line that phases 6-20 print with a time in it while phase 22's examples
+run ends in ``[beside phase 22's examples]``: its wall was taken with those
+processes on the card and the host.
 
 Each of phases 4, 6, 7, 9, 11b, 12, 13c, 13e, 14, 15, 16, 17, 18 and 20 (and 13b the Cholesky's)
 zeroes the kernels' launch counters before it drives its path and fails if
 a kernel of that path was not launched; phase 21 zeroes them before each
 sharded call and reads them after it (its single-device and plain
-references outside that count); the ``launches`` of the JSON line are their
+references outside that count); each example of phase 22 counts from 0 in
+its own process, and phase 22 fails unless the GP examples (03, 09, 17, 19,
+20, 21, 22, 29) launched both kernels; the ``launches`` of the JSON line are their
 sum.  Phase 19 zeroes them too and fails if either kernel
 launched: no hand-written kernel lies on the time-series path, and it adds
 0 to the sum.  Phase 5 fails
@@ -316,8 +337,11 @@ import itertools
 import json
 import math
 import multiprocessing
+import os
 import statistics
 import subprocess
+import sys
+import threading
 import time
 import traceback
 import warnings
@@ -342,7 +366,12 @@ TOL = {
 }
 
 
+_BESIDE_EXAMPLES = []  # non-empty while phase 22's example processes run beside the main phases
+
+
 def log(msg: str) -> None:
+    if _BESIDE_EXAMPLES and (" ms" in msg or "busy share" in msg or "/s" in msg):
+        msg += " [beside phase 22's examples]"
     print(msg, flush=True)
 
 
@@ -6113,6 +6142,93 @@ def phase_multi_card(smi: str, dev="cuda", mesh_ns=None, **sizes):
     return total
 
 
+EXAMPLES = Path(__file__).resolve().parent / "examples_torch"
+EXAMPLE_WORKERS = 4  # phase 22's example processes at once, beside phases 6-20
+EXAMPLE_TIMEOUT = 1100  # seconds for one example at smoke size, its checks included
+# the examples by their card seconds at smoke size, the longest first (PERF.md, phase 22's table); left out for the
+# 1200 s limit (PERF.md, PR 17): 16 (714 s at smoke size on the card), 30 (no end in 1500 s), and 10, 18 and 27
+# (473, 405 and 311 s: with them, six processes at a time, the script took 959 s against 740 s)
+EXAMPLE_ORDER = ("03", "26", "13", "19", "09", "11", "12", "01", "25", "17", "06", "14", "20", "04", "05", "29",
+                 "08", "02", "22", "31", "21", "15", "24", "23", "07", "28")
+GP_EXAMPLES = ("03", "09", "17", "19", "20", "21", "22", "29")  # the examples whose path runs both kernels
+
+
+class _ExamplePool:
+    """Phase 22's example processes: ``python examples_torch/gates.py NN`` at
+    smoke size on the card, one CPU thread each, ``EXAMPLE_WORKERS`` at a
+    time, each with its own time limit; :meth:`reading` waits for one
+    example's JSON line, :meth:`close` kills every process still running."""
+
+    def __init__(self, numbers):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.numbers = tuple(numbers)
+        self._procs, self._lock, self._closed = [], threading.Lock(), False
+        self.started = time.perf_counter()
+        self._executor = ThreadPoolExecutor(EXAMPLE_WORKERS)
+        self._futures = {n: self._executor.submit(self._one, n) for n in numbers}
+
+    def _one(self, number: str) -> dict:
+        env = {k: v for k, v in os.environ.items() if k != "BI_EXAMPLE_DEVICE"}
+        env.update(BI_EXAMPLE_SMOKE="1", OMP_NUM_THREADS="1")
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("phase 22's pool was closed")
+            proc = subprocess.Popen([sys.executable, str(EXAMPLES / "gates.py"), number], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, env=env, cwd=str(EXAMPLES.parent))
+            self._procs.append(proc)
+        t = time.perf_counter()
+        try:
+            out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"22 example {number}: no end within its {EXAMPLE_TIMEOUT} s") from None
+        if proc.returncode != 0:
+            raise AssertionError(f"22 example {number}: exit code {proc.returncode}\n{err[-4000:]}")
+        reading = json.loads(out.strip().splitlines()[-1])
+        reading["wall"] = time.perf_counter() - t
+        reading["done_at"] = time.perf_counter() - self.started
+        return reading
+
+    def reading(self, number: str) -> dict:
+        return self._futures[number].result()
+
+    def close(self):
+        with self._lock:
+            self._closed = True
+            for proc in self._procs:
+                if proc.poll() is None:
+                    proc.kill()
+        self._executor.shutdown(wait=True, cancel_futures=True)
+
+
+def phase_examples(smi: str, pool: _ExamplePool):
+    """Phase 22: every port example's reading from ``pool`` (started after
+    phase 5), its checks passed and its launches counted."""
+    total = {"se_covariance": 0, "cholesky": 0}
+    for number in sorted(pool.numbers):
+        r = pool.reading(number)
+        if r["smoke"] is not True or not r["checks"]:
+            raise AssertionError(f"22 {r['example']}: not a checked smoke run: {r}")
+        launches = r["launches"]
+        if number in GP_EXAMPLES and min(launches.values()) == 0:
+            raise AssertionError(f"22 {r['example']}: a GP example that did not launch both kernels: {launches}")
+        for k in total:
+            total[k] += launches[k]
+        log(f"[22 {r['example']}] {r['wall']:.1f} s in its process ({r['seconds']:.1f} s the example), done "
+            f"{r['done_at']:.0f} s after the pool started; launches SE {launches['se_covariance']} Cholesky "
+            f"{launches['cholesky']}; peak device memory {r['peak_mib'] or 0:.0f} MiB; {len(r['checks'])} checks passed: "
+            + "; ".join(r["checks"]) + f" | {smi}")
+    sys.path.insert(0, str(EXAMPLES))
+    import gates
+
+    log(f"[22 examples] {len(pool.numbers)} examples at smoke size on the card, {EXAMPLE_WORKERS} at a time: all "
+        f"checks passed, launches {total}, the pool's wall {time.perf_counter() - pool.started:.0f} s (left out for "
+        f"the 1200 s limit: {', '.join(n for n in gates.NUMBERS if n not in pool.numbers)}) | {smi}")
+    return total
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -6133,57 +6249,65 @@ def main():
     spine = timed(phase_ns_spine, smi)
     launches, problem, ns_logz, gp_rate, gp_posterior = timed(phase_gp_slice, smi)
     times, big = timed(phase_kernel_times, smi)
-    grad_launches, _ = timed(phase_gp_grad, smi)
-    laplace_launches, _ = timed(phase_laplace, smi, problem, ns_logz)
-    ard_launches = timed(phase_gp_ard, smi)
-    timed(phase_checkpoint_dynamic, smi)
-    t11 = time.perf_counter()
-    par_launches = timed(phase_parallel_ns, smi, spine, gp_rate)
-    conj_launches = timed(phase_conjugate, smi)
-    log(f"[seconds] phases 11 and 12 took {time.perf_counter() - t11:.0f} s")
-    # phase 8's runs and 16a's fits (no hand-written kernel) in two worker processes beside phases 13-17, after
-    # the kernel times of phase 5; phase 8 gated after phase 17
-    highdim = _ns_highdim_start()
+    # phase 22's examples in their own processes beside phases 6-20, after the kernel times of phase 5
+    examples = _ExamplePool(EXAMPLE_ORDER)
+    _BESIDE_EXAMPLES.append(examples)
     try:
-        sampler_launches = timed(phase_samplers, smi, problem, gp_posterior)
-        latent_launches = timed(phase_latent_gp, smi)
-        svgp_launches = timed(phase_svgp_bo, smi)
-        vi_launches = timed(phase_vi_pathfinder, smi, problem, gp_posterior, "cuda", highdim[2])
-        consumption_launches = timed(phase_consumption, smi, problem, gp_posterior)
-        timed(phase_ns_highdim, smi, highdim)
+        grad_launches, _ = timed(phase_gp_grad, smi)
+        laplace_launches, _ = timed(phase_laplace, smi, problem, ns_logz)
+        ard_launches = timed(phase_gp_ard, smi)
+        timed(phase_checkpoint_dynamic, smi)
+        t11 = time.perf_counter()
+        par_launches = timed(phase_parallel_ns, smi, spine, gp_rate)
+        conj_launches = timed(phase_conjugate, smi)
+        log(f"[seconds] phases 11 and 12 took {time.perf_counter() - t11:.0f} s")
+        # phase 8's runs and 16a's fits (no hand-written kernel) in two worker processes beside phases 13-17, after
+        # the kernel times of phase 5; phase 8 gated after phase 17
+        highdim = _ns_highdim_start()
+        try:
+            sampler_launches = timed(phase_samplers, smi, problem, gp_posterior)
+            latent_launches = timed(phase_latent_gp, smi)
+            svgp_launches = timed(phase_svgp_bo, smi)
+            vi_launches = timed(phase_vi_pathfinder, smi, problem, gp_posterior, "cuda", highdim[2])
+            consumption_launches = timed(phase_consumption, smi, problem, gp_posterior)
+            timed(phase_ns_highdim, smi, highdim)
+        finally:
+            highdim[0].terminate()
+            highdim[0].join()
+        flow_launches, pool = timed(phase_flow_bnn, smi, problem, gp_posterior, "cuda", {}, {}, {})
+        try:
+            series_launches = timed(phase_time_series, smi, pool[:2])
+            engines_launches = timed(phase_parallel_engines, smi, problem, gp_posterior, "cuda", pool[2])
+            example_launches = timed(phase_examples, smi, examples)
+            _BESIDE_EXAMPLES.clear()
+            mesh_launches = timed(phase_multi_card, smi, "cuda", pool[3])
+        finally:
+            pool[0].terminate()
+            pool[0].join()
+        total_s = time.perf_counter() - t0
+        log(f"[seconds] all phases {total_s:.0f} s, {_MEASURING['seconds']:.0f} s of them timing and profiling; phase 4 "
+            f"(the host's yardstick) {took['phase_gp_slice']:.1f} s, phase 20 {took['phase_parallel_engines']:.1f} s, "
+            f"phase 21 {took['phase_multi_card']:.1f} s, phase 22 {took['phase_examples']:.1f} s of main-process wall; "
+            f"{1200 - total_s:.0f} s left of the 1200 s limit")
+        launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] + par_launches[k]
+                    + conj_launches[k] + sampler_launches[k] + latent_launches[k] + svgp_launches[k] + vi_launches[k]
+                    + consumption_launches[k] + flow_launches[k] + series_launches[k] + engines_launches[k]
+                    + mesh_launches[k] + example_launches[k] for k in launches}
+        # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
+        # at bench.py's width (B = 1, n = 16384, f32)
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")
+        print(json.dumps({"kernels": [
+            {"name": "se_covariance", "route": "cuda", "source": SE_SOURCE, "replaces": SE_REPLACES,
+             "launches": launches["se_covariance"], "max_abs_err": worst["se_covariance"],
+             **{k: times[("se_covariance", "f64")][k] for k in keys}},
+            {"name": "cholesky", "route": "cuda", "source": CHOL_SOURCE, "replaces": CHOL_REPLACES,
+             "launches": launches["cholesky"], "max_abs_err": worst["cholesky"],
+             **{k: times[("cholesky", "f64")][k] for k in keys}, "at_n16384_f32": big},
+        ]}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                "count": torch.cuda.device_count()}}))
     finally:
-        highdim[0].terminate()
-        highdim[0].join()
-    flow_launches, pool = timed(phase_flow_bnn, smi, problem, gp_posterior, "cuda", {}, {}, {})
-    try:
-        series_launches = timed(phase_time_series, smi, pool[:2])
-        engines_launches = timed(phase_parallel_engines, smi, problem, gp_posterior, "cuda", pool[2])
-        mesh_launches = timed(phase_multi_card, smi, "cuda", pool[3])
-    finally:
-        pool[0].terminate()
-        pool[0].join()
-    total_s = time.perf_counter() - t0
-    log(f"[seconds] all phases {total_s:.0f} s, {_MEASURING['seconds']:.0f} s of them timing and profiling; phase 4 "
-        f"(the host's yardstick) {took['phase_gp_slice']:.1f} s, phase 20 {took['phase_parallel_engines']:.1f} s, "
-        f"phase 21 {took['phase_multi_card']:.1f} s; "
-        f"{1200 - total_s:.0f} s left of the 1200 s limit")
-    launches = {k: launches[k] + grad_launches[k] + laplace_launches[k] + ard_launches[k] + par_launches[k]
-                + conj_launches[k] + sampler_launches[k] + latent_launches[k] + svgp_launches[k] + vi_launches[k]
-                + consumption_launches[k] + flow_launches[k] + series_launches[k] + engines_launches[k]
-                + mesh_launches[k] for k in launches}
-    # times at the slice's shape (B = 10, n = 512, f64); the Cholesky also
-    # at bench.py's width (B = 1, n = 16384, f32)
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")
-    print(json.dumps({"kernels": [
-        {"name": "se_covariance", "route": "cuda", "source": SE_SOURCE, "replaces": SE_REPLACES,
-         "launches": launches["se_covariance"], "max_abs_err": worst["se_covariance"],
-         **{k: times[("se_covariance", "f64")][k] for k in keys}},
-        {"name": "cholesky", "route": "cuda", "source": CHOL_SOURCE, "replaces": CHOL_REPLACES,
-         "launches": launches["cholesky"], "max_abs_err": worst["cholesky"],
-         **{k: times[("cholesky", "f64")][k] for k in keys}, "at_n16384_f32": big},
-    ]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                            "count": torch.cuda.device_count()}}))
+        examples.close()
 
 
 if __name__ == "__main__":

@@ -1300,3 +1300,49 @@ def test_coupled_engines_one_shard_a_card_match_four_shards_on_one_card(cuda):
                                              mesh=make_mesh(("runs",), devices=m), **kw) for m in (cards, [home] * 4)]
     a, b = (r.log_evidence for r in runs)
     assert abs(float(a.mean) - float(b.mean)) < 4 * math.hypot(float(a.standard_error), float(b.standard_error))
+
+
+_REGIME_PARAMS = [("mu0", -6.0, 0.0), ("mu1", 0.0, 6.0), ("l01", -6.0, 6.0), ("l10", -6.0, 6.0)]
+
+
+def _regime_problem_on(dev):
+    """``tests/test_torch_hmm.py::regime_problem``'s parallel-method problem
+    (300 steps of a sticky two-state chain, unit-variance emissions at -2
+    and 2), built on ``dev``."""
+    from bayesianinference_tpu_torch.engines import hmm as teng
+    from bayesianinference_tpu_torch.ops import hmm as th
+
+    rng = np.random.default_rng(3)
+    z = np.zeros(300, int)
+    for s in range(1, 300):
+        z[s] = z[s - 1] if rng.random() < 0.92 else 1 - z[s - 1]
+    y = torch.as_tensor(np.where(z == 0, -2.0, 2.0) + rng.normal(size=300), device=dev)
+
+    def builder(theta):
+        hmm = th.HMM(torch.log(torch.full((2,), 0.5, dtype=theta.dtype, device=theta.device)),
+                     th.row_stochastic(torch.stack([theta[2], theta[3]])[:, None]))
+        mus = torch.stack([theta[0], theta[1]])
+        return hmm, -0.5 * (y[:, None] - mus[None, :]) ** 2 - 0.5 * math.log(2 * math.pi)
+
+    return teng.define_hidden_markov_model(builder, parameters=_REGIME_PARAMS, method="parallel",
+                                           prior_distribution=["location"] * 4, device=dev, dtype=torch.float64,
+                                           generator=torch.Generator(device=dev).manual_seed(0))
+
+
+@pytest.mark.slow
+def test_hmm_ns_evidence_agrees_with_laplace_on_the_card(cuda):
+    """The slow oracle of ``tests/test_torch_hmm.py`` (``tests/test_hmm.py:273``
+    in JAX: nested sampling with 400 live points against the Laplace
+    evidence, within 1.5 nats) on the card, where the CPU run takes more
+    than 3000 s."""
+    from bayesianinference_tpu_torch.engines.laplace import laplace_posterior_fit
+    from bayesianinference_tpu_torch.engines.nested_sampling import nested_sampling
+
+    problem = _regime_problem_on(cuda)
+    fit = laplace_posterior_fit(problem=problem, generator=torch.Generator(device=cuda).manual_seed(0))
+    res = nested_sampling(problem, torch.Generator(device=cuda).manual_seed(1), sample_pool_size=400)
+    ns, lap = float(res.log_evidence.mean), float(fit.log_evidence)
+    print(f"HMM regime problem on the card: NS logZ {ns:.4f} +- {float(res.log_evidence.standard_error):.4f}, "
+          f"Laplace {lap:.4f}, difference {ns - lap:+.4f} (tolerance 1.5); {res.iterations} iterations, "
+          f"{res.num_likelihood_evals} likelihood evaluations")
+    assert abs(ns - lap) < 1.5

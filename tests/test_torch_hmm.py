@@ -297,6 +297,9 @@ def test_ns_evidence_agrees_with_laplace(regime_problem):
     # tests/test_hmm.py passes num_living_points=400 and seed_with_domain_points=False, which neither
     # package's nested_sampling takes (a TypeError there too): 400 live points are sample_pool_size here
     res = nested_sampling(tps["parallel"], torch.Generator().manual_seed(1), sample_pool_size=400)
+    print(f"HMM regime problem on the CPU: NS logZ {float(res.log_evidence.mean):.4f} +- "
+          f"{float(res.log_evidence.standard_error):.4f}, Laplace {float(fit.log_evidence):.4f} (tolerance 1.5); "
+          f"{res.iterations} iterations, {res.num_likelihood_evals} likelihood evaluations")
     assert abs(float(res.log_evidence.mean) - float(fit.log_evidence)) < 1.5
 
 
