@@ -44,9 +44,12 @@ _SE = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _I, _
 _SIGNATURES = {
     "bi_se_covariance_f32": _SE,
     "bi_se_covariance_f64": _SE,
-    # k, l, batch, n, stream: the whole factorization in one launch
-    "bi_cholesky_fused_f32": (_P, _P, _I, _I, _P),
-    "bi_cholesky_fused_f64": (_P, _P, _I, _I, _P),
+    # k, l, batch, n, cluster (CTAs per matrix), stream: the whole factorization in one launch
+    "bi_cholesky_fused_f32": (_P, _P, _I, _I, _I, _P),
+    "bi_cholesky_fused_f64": (_P, _P, _I, _I, _I, _P),
+    # k, l, batch, n, stream: one cooperative launch, every SM on each matrix in turn
+    "bi_cholesky_grid_f32": (_P, _P, _I, _I, _P),
+    "bi_cholesky_grid_f64": (_P, _P, _I, _I, _P),
     # k, l, batch, n, nb, stream: six launches per nb-wide panel
     "bi_cholesky_blocked_f32": (_P, _P, _I, _I, _I, _P),
     "bi_cholesky_blocked_f64": (_P, _P, _I, _I, _I, _P),

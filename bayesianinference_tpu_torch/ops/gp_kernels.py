@@ -15,8 +15,9 @@ Two operations run as hand-written CUDA kernels on the card (sources in
   so :func:`covariance_matrix` of an SE kernel is exactly this one kernel.
 * ``bayesianinference_tpu_torch::cholesky`` (replaces the Pallas
   ``_chol_pallas_kernel``): the lower factor of every matrix of a batch,
-  NaN-propagating on a non-PD input; one launch up to n = 640, 256-wide
-  panels above (:func:`_cholesky_route`).
+  NaN-propagating on a non-PD input; one launch (a cluster per matrix
+  sized to the batch, or the whole card per matrix) up to the route's
+  largest n, 256-wide panels above (:func:`_cholesky_route`).
 
 On a CPU tensor each op runs its plain PyTorch version
 (:func:`se_covariance_plain`, :func:`cholesky_plain`); on a CUDA tensor it
@@ -396,60 +397,75 @@ def cholesky_plain(k: torch.Tensor) -> torch.Tensor:
     return torch.where((info == 0)[..., None, None], factor, torch.full_like(factor, float("nan")))
 
 
-# Largest n that the Cholesky factors in one launch (a thread-block
-# cluster per matrix, 32-wide panels); above it, six launches per 256-wide
-# panel.  640 is the measured crossover (chip_smoke.py phase 5, float64,
-# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): the fused path is the faster
-# one at n = 512 and 640 at both B = 1 and B = 10 (0.398 against 0.412 ms
-# and 0.406 against 0.456 ms at 640), level or slower at 768 (0.563
-# against 0.501 ms at B = 1, 0.576 against 0.574 at B = 10) and slower
-# above, where its one cluster per matrix (8 SMs) is too few.  The
-# slice's n = 512 takes one launch.
-_FUSED_MAX_N = 640
-_FUSED_NB = 32
+# The Cholesky's paths (csrc/cholesky.cu), picked by (B, n, dtype) in
+# _cholesky_route: "fused" (one launch, a cluster of C CTAs per matrix),
+# "grid" (one cooperative launch, every SM on each matrix in turn) and
+# "blocked" (six launches per 256-wide panel, the batch in every launch).
+# The thresholds are the measured crossovers of every path and width over
+# n = 128-8192 and B = 1-1024 (chip_probe.py --only routes, NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md).  At B = 1 the grid leads from n = 384 to
+# 2048 (float64) or 3072 (float32); 8-CTA clusters lead up to n = 640
+# while B x 8 CTAs fit the card's 132 SMs; past that, clusters of 2 and
+# then 1 CTA lead for n <= 256 and the blocked path everywhere else.
 _BLOCKED_NB = 256
+_FUSED_MAX_N = 640  # largest n of the 8-CTA clusters
+_FULL_CLUSTER_MAX_B = 16  # largest B of the 8-CTA clusters: 128 CTAs
+_SMALL_CLUSTER_MAX_N = 256  # largest n of the 2- and 1-CTA clusters above that B
+_PAIR_CLUSTER_MAX_B = 64  # largest B of the 2-CTA clusters: 128 CTAs
+_GRID_MIN_N = 256  # the grid at B = 1 for n above this ...
+_GRID_MAX_N = {torch.float32: 3072, torch.float64: 2048}  # ... up to this
 
 
-def _cholesky_route(n: int) -> tuple[str, int]:
-    """("fused" | "blocked", panel width) of the CUDA Cholesky at size n."""
-    return ("fused", _FUSED_NB) if n <= _FUSED_MAX_N else ("blocked", _BLOCKED_NB)
+def _cholesky_route(b: int, n: int, dtype: torch.dtype) -> tuple[str, int]:
+    """("fused", CTAs per matrix) | ("grid", 0) | ("blocked", panel
+    width): the path of the CUDA Cholesky for a batch of b [n, n] matrices
+    of ``dtype``."""
+    if b == 1 and _GRID_MIN_N < n <= _GRID_MAX_N[dtype]:
+        return ("grid", 0)
+    if b <= _FULL_CLUSTER_MAX_B:
+        return ("fused", 8) if n <= _FUSED_MAX_N else ("blocked", _BLOCKED_NB)
+    if n <= _SMALL_CLUSTER_MAX_N:
+        return ("fused", 2 if b <= _PAIR_CLUSTER_MAX_B else 1)
+    return ("blocked", _BLOCKED_NB)
 
 
-def _cholesky_launch(k: torch.Tensor, route: str, nb: int) -> torch.Tensor:
+def _cholesky_launch(k: torch.Tensor, route: str, width: int) -> torch.Tensor:
     """Factor the contiguous CUDA batch ``k`` [B, n, n] by one path of
-    ``csrc/cholesky.cu`` on the current stream; one count per call."""
+    ``csrc/cholesky.cu`` (``width``: CTAs per matrix of "fused", the panel
+    width of "blocked", unused by "grid") on the current stream; one count
+    per call."""
     b, n, _ = k.shape
     out = torch.empty_like(k)
     if out.numel() == 0:
         return out
     lib = csrc.load_library()
-    f64 = k.dtype == torch.float64
+    suffix = "f64" if k.dtype == torch.float64 else "f32"
+    fn = getattr(lib, f"bi_cholesky_{route}_{suffix}")
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
         cholesky_cuda.launches += 1
         cholesky_cuda.launches_by_device[k.device.index] += 1
-        if route == "fused":
-            fn = lib.bi_cholesky_fused_f64 if f64 else lib.bi_cholesky_fused_f32
+        if route == "grid":
             code = fn(k.data_ptr(), out.data_ptr(), b, n, stream)
         else:
-            fn = lib.bi_cholesky_blocked_f64 if f64 else lib.bi_cholesky_blocked_f32
-            code = fn(k.data_ptr(), out.data_ptr(), b, n, nb, stream)
+            code = fn(k.data_ptr(), out.data_ptr(), b, n, width, stream)
     csrc.check(code, f"cholesky ({route})")
     return out
 
 
 def cholesky_cuda(k: torch.Tensor) -> torch.Tensor:
     """CUDA implementation of the ``cholesky`` op: launches the path of
-    ``csrc/cholesky.cu`` that :func:`_cholesky_route` picks for n, on the
-    current stream.  Counts its calls in ``cholesky_cuda.launches``, and by
-    device index in ``cholesky_cuda.launches_by_device``."""
+    ``csrc/cholesky.cu`` that :func:`_cholesky_route` picks for the
+    batch's size, n and dtype, on the current stream.  Counts its calls in
+    ``cholesky_cuda.launches``, and by device index in
+    ``cholesky_cuda.launches_by_device``."""
     _check_cuda("cholesky", (k,), (3,))
     n, n2 = k.shape[1:]
     if not k.is_contiguous():
         raise ValueError(f"cholesky: expected a contiguous batch, got strides {k.stride()}")
     if n != n2:
         raise ValueError(f"cholesky: matrices must be square, got {tuple(k.shape)}")
-    return _cholesky_launch(k, *_cholesky_route(n))
+    return _cholesky_launch(k, *_cholesky_route(k.shape[0], n, k.dtype))
 
 
 cholesky_cuda.launches = 0

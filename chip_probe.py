@@ -1,6 +1,6 @@
 """Where the hand-written kernels' time goes, on one NVIDIA GPU.
 
-    python3 chip_probe.py [--only se|cholesky|logml-scan] [--parent PATH]
+    python3 chip_probe.py [--only se|cholesky|routes|logml-scan] [--parent PATH]
 
 The SE covariance (``csrc/se_covariance.cu``), at the main path's shapes
 (B = 10 and B = 1 at n = 512, d = 3, float64 and float32; B = 1, n = 16384,
@@ -21,18 +21,28 @@ c. with ``--parent PATH`` (a checkout of a commit whose SE kernel still
    took scaled data and no nugget), that tree's kernel on the same data,
    and its whole assembly (scaled copies, ``diag_embed``, add) beside it.
 
-The Cholesky:
+The Cholesky (``--only cholesky``; ``--only routes``):
 
-1. Both paths of ``csrc/cholesky.cu`` (forced through
-   ``ops.gp_kernels._cholesky_launch``) beside ``torch.linalg.cholesky_ex``
-   at n = 512, 1024, 2048, B = 1 and 10, float64 and float32: device ms
-   per call (CUDA events around calls queued behind a ``torch.cuda._sleep``).
-2. The blocked path at n = 16384, float32, split by kernel with
+1. At every regime of the Cholesky's kernel table (B = 1 float32 at n =
+   256-16384, B = 1 float64 at n = 256, n = 512 float64 at B = 8-1100):
+   the kernel as routed beside ``torch.linalg.cholesky_ex`` and, with
+   ``--parent PATH``, beside that tree's kernel (built from its
+   ``csrc/cholesky.cu`` into ``build/probe``, routed by its own rule: one
+   8-CTA cluster per matrix up to n = 640, blocked above), in turns
+   (parent, kernel, cholesky_ex, cholesky_ex, kernel, parent), device ms per
+   call (CUDA events around calls queued behind a ``torch.cuda._sleep``),
+   with the bound and what bounds it.
+2. The blocked path at n = 4096 and 16384, float32, split by kernel with
    torch.profiler.
 3. The fused kernel's stages: copies of the source built into ``build/``
    with one stage switched off at a time (the tile factor, the row-block
-   solves, the trailing tiles, the cluster barriers; last, all but the
-   loads and barriers).  Their factors are wrong; only the time counts.
+   solves, the trailing tiles, the group barriers; last, all but the
+   loads and barriers), on the path the route picks.  Their factors are
+   wrong; only the time counts.
+4. ``--only routes``: every path and width the route can pick (clusters
+   of 8, 2 and 1 CTAs, the cooperative grid, the blocked path) beside
+   ``cholesky_ex`` over a grid of (dtype, n, B): the measurement behind
+   ``ops.gp_kernels._cholesky_route``'s thresholds.
 
 The logML scan (``--only logml-scan``, not part of the default run): the
 GP log marginal likelihood of ``bench.py::bench_gp``'s problem (x ~ N(0,
@@ -44,8 +54,9 @@ data, ``torch.linalg.cholesky``) of (i) the port's path through both
 kernels (``gp_log_marginal_likelihood`` of ``covariance_matrix``), (ii) the
 kernel's factor of the same float32 K with a plain triangular solve and
 log-determinant, and (iii) ``torch.linalg.cholesky_ex``'s factor of that K
-with the same solve.  Where float64 K and its factor do not fit on the
-card, the line says so and the scan ends there.
+with the same solve; with ``--parent PATH``, also (iv) that tree's
+kernel on the port's path.  Where float64 K and its factor do not fit on
+the card, the line says so and the scan ends there.
 
 Each line ends with the card's name and power limit.
 """
@@ -56,6 +67,7 @@ import argparse
 import collections
 import contextlib
 import ctypes
+import statistics
 import subprocess
 from pathlib import Path
 
@@ -68,13 +80,28 @@ from bayesianinference_tpu_torch.ops import gp_kernels as gk
 SOURCE = Path(csrc.__file__).resolve().parent / "cholesky.cu"
 # (text of the source, the same text inside #ifndef SWITCH ... #endif)
 STAGES = {
-    "factor": "      if (threadIdx.x < kTile) factor_tile_warp(d, ld, dinv);\n",
-    "solve": "        if (threadIdx.x < kTile) solve_row(pa + threadIdx.x * ld, d, ld, dinv);\n",
-    "tiles": "      if (rank < ntiles) fetch(rank);\n      for (int t = rank; t < ntiles; t += kCluster) {\n",
-    "barriers": "      __threadfence();\n      cluster.sync();\n",
+    "factor": "      if (threadIdx.x < kTile) factor_tile_warp(d, kLdT, dinv);\n",
+    "solve": "        if (warp < blocks) solve_row(work + (warp * kTile + lane) * kLdT, d, kLdT, dinv);\n",
+    "tiles": "      if (rank < ntiles) fetch(rank);\n      for (int t = rank; t < ntiles; t += group) {\n",
+    "barriers": "      group_sync<kGrid>();\n",
 }
 VARIANTS = {"full": (), "no factor": ("factor",), "no solve": ("solve",), "no tiles": ("tiles",),
             "no barriers": ("barriers",), "loads and barriers only": ("factor", "solve", "tiles")}
+# H100 SXM peaks at the full 700 W (NVIDIA's data sheet): HBM3; float64 on
+# the tensor cores (DMMA) and float32 outside them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = 67e12
+
+
+def chol_bound(b, n, dtype, route):
+    """(least ms, "bytes" or "operations") of a [b, n, n] Cholesky: the
+    lower triangle read once and the factor written once; n^3 / 3 flops at
+    67 TFLOP/s (float64 on DMMA, float32 by FFMA, on every ``route``)."""
+    size = torch.finfo(dtype).bits // 8
+    peak = PEAK_FLOPS
+    t_bytes = b * (n * (n + 1) // 2 + n * n) * size / HBM_BYTES_PER_S
+    t_ops = b * n**3 / 3 / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def dev_ms(call, reps: int = 10) -> float:
@@ -96,7 +123,8 @@ def spd(b, n, dtype, g):
 
 
 def stage_variants():
-    """{variant: (fused f64 entry, fused f32 entry)} built from SOURCE."""
+    """{variant: library} of SOURCE built with each variant's stages off
+    (beside the SE kernel's library, for the entry points it lacks)."""
     text = SOURCE.read_text()
     for name, code in STAGES.items():
         assert text.count(code) >= 1, f"stage {name} not found in {SOURCE}"
@@ -115,19 +143,13 @@ def stage_variants():
         lib = out / f"stages_{variant.replace(' ', '_')}.so"
         procs[variant] = (lib, subprocess.Popen([csrc.find_nvcc(), *csrc.NVCC_FLAGS, *flags, "-o", str(lib),
                                                  str(out / "cholesky_stages.cu")]))
-    fns = {}
+    se = csrc.build([SE_SOURCE])[0]
+    libs = {}
     for variant, (lib, proc) in procs.items():
         if proc.wait() != 0:
             raise RuntimeError(f"nvcc failed for the variant {variant!r}")
-        handle = ctypes.CDLL(str(lib))
-        pair = []
-        for name in ("bi_cholesky_fused_f64", "bi_cholesky_fused_f32"):
-            fn = getattr(handle, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            pair.append(fn)
-        fns[variant] = pair
-    return fns
+        libs[variant] = csrc._Library([lib, se])
+    return libs
 
 
 SE_SOURCE = Path(csrc.__file__).resolve().parent / "se_covariance.cu"
@@ -135,9 +157,6 @@ SE_VARIANTS = {"full": (), "write-back stores": ("-DSE_WRITE_BACK_STORES",), "no
                "no store": ("-DSE_PROBE_NO_STORE",), "no mirror": ("-DSE_PROBE_NO_MIRROR",),
                "loads and differences only": ("-DSE_PROBE_NO_EXP", "-DSE_PROBE_NO_STORE", "-DSE_PROBE_NO_MIRROR"),
                "bulk async store (tile 32)": ("-DSE_BULK_STORE",), "plain stores (tile 32)": ()}
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-
-
 @contextlib.contextmanager
 def kernels_from(lib):
     """Route the port's launches to the entry points of ``lib``."""
@@ -245,65 +264,169 @@ def probe_se(smi: str, parent):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("se", "cholesky", "logml-scan"), default=None)
-    ap.add_argument("--parent", type=Path, default=None, help="a checkout of an earlier commit, for its SE kernel")
+    ap.add_argument("--only", choices=("se", "cholesky", "routes", "logml-scan"), default=None)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of an earlier commit: for the SE probe one whose SE kernel still took scaled "
+                         "data; for the Cholesky and the scan one whose Cholesky has the two-path C interface")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_probe: torch.cuda.is_available() is false; this script needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     if args.only == "logml-scan":
-        probe_logml_scan(smi)
+        probe_logml_scan(smi, args.parent)
+        return
+    if args.only == "routes":
+        probe_routes(smi)
         return
     if args.only != "cholesky":
         probe_se(smi, args.parent)
     if args.only != "se":
-        probe_cholesky(smi)
+        probe_cholesky(smi, args.parent if args.only == "cholesky" else None)
 
 
-def probe_cholesky(smi: str):
+def parent_cholesky(parent: Path):
+    """An earlier tree's Cholesky as a function of a CUDA batch: its
+    ``csrc/cholesky.cu`` built into ``build/probe`` and routed by its own
+    rule (its fused entry point (k, l, batch, n, stream) up to n = 640, its
+    blocked one (k, l, batch, n, nb, stream) at nb = 256 above)."""
+    out = csrc.BUILD_DIR / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "cholesky_parent.so"
+    subprocess.run([csrc.find_nvcc(), *csrc.NVCC_FLAGS, "-o", str(lib),
+                    str(parent / "bayesianinference_tpu_torch" / "csrc" / "cholesky.cu")], check=True)
+    handle = ctypes.CDLL(str(lib))
+    fns = {}
+    for suffix in ("f32", "f64"):
+        for path, args in (("fused", 5), ("blocked", 6)):
+            fn = getattr(handle, f"bi_cholesky_{path}_{suffix}")
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * (args - 3) + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[path, suffix] = fn
+
+    def run(k):
+        b, n, _ = k.shape
+        out = torch.empty_like(k)
+        suffix = "f64" if k.dtype == torch.float64 else "f32"
+        stream = torch.cuda.current_stream().cuda_stream
+        if n <= 640:
+            code = fns["fused", suffix](k.data_ptr(), out.data_ptr(), b, n, stream)
+        else:
+            code = fns["blocked", suffix](k.data_ptr(), out.data_ptr(), b, n, 256, stream)
+        csrc.check(code, "the parent's cholesky")
+        return out
+
+    return run
+
+
+@contextlib.contextmanager
+def launches_to(run):
+    """Route the port's Cholesky launches to ``run(k)``."""
+    real = gk._cholesky_launch
+    gk._cholesky_launch = lambda k, route, width: run(k)
+    try:
+        yield
+    finally:
+        gk._cholesky_launch = real
+
+
+# The kernel table's regimes: (B, n, dtype)
+REGIMES = ((1, 1024, torch.float32), (1, 2048, torch.float32), (1, 4096, torch.float32), (1, 8192, torch.float32),
+           (1, 16384, torch.float32), (1, 512, torch.float32), (1, 256, torch.float32), (1, 256, torch.float64),
+           (512, 512, torch.float64), (1024, 512, torch.float64), (1100, 512, torch.float64),
+           (1000, 512, torch.float64), (64, 512, torch.float64), (8, 512, torch.float64),
+           (10, 512, torch.float64), (32, 512, torch.float64))
+
+
+def probe_cholesky(smi: str, parent=None):
     g = torch.Generator(device="cuda").manual_seed(0)
-    fused_nb, blocked_nb = gk._cholesky_route(1)[1], gk._cholesky_route(1 << 20)[1]
+    old = parent_cholesky(parent) if parent is not None else None
+    for b, n, dtype in REGIMES:
+        k = spd(b, n, dtype, g)
+        route = gk._cholesky_route(b, n, dtype)
+        reps = 3 if n >= 8192 else 10
+        new = lambda: gk.cholesky(k)  # noqa: E731
+        ex = lambda: torch.linalg.cholesky_ex(k)  # noqa: E731
+        if old is not None:
+            p1, k1, e1, e2, k2, p2 = (dev_ms(f, reps) for f in (lambda: old(k), new, ex, ex, new, lambda: old(k)))
+        else:
+            k1, e1, e2, k2 = (dev_ms(f, reps) for f in (new, ex, ex, new))
+        kern, lib = statistics.median((k1, k2)), statistics.median((e1, e2))
+        bound, by = chol_bound(b, n, dtype, route[0])
+        line = (f"[cholesky] {str(dtype).split('.')[-1]} B={b} n={n} route {route[0]} {route[1]}: device ms kernel "
+                f"{kern:.4f} ({k1:.4f}, {k2:.4f}), cholesky_ex {lib:.4f} ({e1:.4f}, {e2:.4f}; kernel / cholesky_ex "
+                f"{kern / lib:.3f})")
+        if old is not None:
+            par = statistics.median((p1, p2))
+            line += f", parent {par:.4f} ({p1:.4f}, {p2:.4f}; kernel / parent {kern / par:.3f})"
+        print(f"{line}, bound {bound:.4g} by {by} | {smi}", flush=True)
+        del k
+        torch.cuda.empty_cache()
 
-    for dtype in (torch.float64, torch.float32):
-        for n in (512, 1024, 2048):
-            for b in (1, 10):
-                k = spd(b, n, dtype, g)
-                print(f"[paths] {dtype} n={n} B={b}: device ms fused "
-                      f"{dev_ms(lambda: gk._cholesky_launch(k, 'fused', fused_nb)):.4f}, blocked "
-                      f"{dev_ms(lambda: gk._cholesky_launch(k, 'blocked', blocked_nb)):.4f}, cholesky_ex "
-                      f"{dev_ms(lambda: torch.linalg.cholesky_ex(k)):.4f} | {smi}", flush=True)
-
-    n = 16384
-    x = torch.randn((1, n, 3), generator=g, device="cuda")
-    k = gk.se_covariance(x, None, 1.0, None, 0.1353)[0]
-    gk.cholesky(k)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    for n in (4096, 16384):
+        x = torch.randn((1, n, 3), generator=g, device="cuda")
+        k = gk.se_covariance(x, None, 1.0, None, 0.1353)[0]
         gk.cholesky(k)
         torch.cuda.synchronize()
-    per = collections.defaultdict(lambda: [0, 0.0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
-            name = e.name.split("<")[0].split("::")[-1]
-            per[name][0] += 1
-            per[name][1] += e.time_range.elapsed_us() / 1e3
-    print(f"[blocked split] f32 n={n}: " + ", ".join(f"{name} x{c} {ms:.2f} ms" for name, (c, ms) in sorted(
-        per.items(), key=lambda kv: -kv[1][1])) + f"; cholesky_ex {dev_ms(lambda: torch.linalg.cholesky_ex(k), 3):.2f} "
-          f"ms | {smi}", flush=True)
-    del k, x
-    torch.cuda.empty_cache()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            gk.cholesky(k)
+            torch.cuda.synchronize()
+        per = collections.defaultdict(lambda: [0, 0.0])
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
+                name = e.name.split("<")[0].split("::")[-1]
+                per[name][0] += 1
+                per[name][1] += e.time_range.elapsed_us() / 1e3
+        print(f"[cholesky split] f32 B=1 n={n} route {gk._cholesky_route(1, n, torch.float32)[0]}: " + ", ".join(
+            f"{name} x{c} {ms:.3f} ms" for name, (c, ms) in sorted(per.items(), key=lambda kv: -kv[1][1]))
+            + f" | {smi}", flush=True)
+        del k, x
+        torch.cuda.empty_cache()
 
-    fns = stage_variants()
-    stream = torch.cuda.current_stream().cuda_stream
-    for dtype, idx in ((torch.float64, 0), (torch.float32, 1)):
-        for b, n in ((10, 512), (1, 512), (1, 1024)):
+    libs = stage_variants()
+    for dtype in (torch.float64, torch.float32):
+        for b, n in ((10, 512), (1, 512), (1, 1024), (1024, 512)):
             k = spd(b, n, dtype, g)
-            out = torch.empty_like(k)
-            times = {v: dev_ms(lambda fn=f[idx]: fn(k.data_ptr(), out.data_ptr(), b, n, stream), 20)
-                     for v, f in fns.items()}
-            print(f"[fused stages] {dtype} B={b} n={n}: device ms " + ", ".join(
+            times = {}
+            for variant, lib in libs.items():
+                with kernels_from(lib):
+                    times[variant] = dev_ms(lambda: gk.cholesky(k), 5 if b > 100 else 20)
+            print(f"[fused stages] {dtype} B={b} n={n} route {gk._cholesky_route(b, n, dtype)}: device ms " + ", ".join(
                 f"{v} {t:.4f}" for v, t in times.items()) + f" | {smi}", flush=True)
+            del k
+            torch.cuda.empty_cache()
+
+
+def _route_candidates(b, n):
+    cands = [("fused", 8)]
+    if n <= 1024:
+        cands += [("fused", c) for c in (2, 1)]
+    if b <= 10:
+        cands.append(("grid", 0))
+    if n > 256:
+        cands.append(("blocked", 256))
+    return cands
+
+
+def probe_routes(smi: str):
+    """Every path and width beside cholesky_ex over (dtype, n, B)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    grid = [(n, b) for n in (128, 256, 384, 512, 640, 768, 1024)
+            for b in (1, 2, 4, 10, 32, 64, 128, 256, 512, 1024) if b * n * n <= 512 * 1024 * 1024]
+    grid += [(n, b) for n in (1536, 2048, 3072, 4096) for b in (1, 2, 4, 10)] + [(8192, 1)]
+    for dtype in (torch.float64, torch.float32):
+        for n, b in grid:
+            k = spd(b, n, dtype, g)
+            reps = 3 if b * n * n >= 1 << 28 else 10
+            times = {f"{r} {w}": dev_ms(lambda r=r, w=w: gk._cholesky_launch(k, r, w), reps)
+                     for r, w in _route_candidates(b, n)}
+            ex = dev_ms(lambda: torch.linalg.cholesky_ex(k), reps)
+            best = min(times, key=times.get)
+            print(f"[routes] {str(dtype).split('.')[-1]} n={n} B={b}: device ms " + ", ".join(
+                f"{c} {t:.4f}" for c, t in times.items()) + f", cholesky_ex {ex:.4f}; fastest {best}, routed "
+                f"{' '.join(map(str, gk._cholesky_route(b, n, dtype)))} | {smi}", flush=True)
+            del k
+            torch.cuda.empty_cache()
 
 
 SCAN_NS = (2048, 4096, 8192, 16384, 32768, 65536)
@@ -331,8 +454,9 @@ def _se_f64_in_row_blocks(x, variance, lengthscale, nugget, rows=512):
     return k
 
 
-def probe_logml_scan(smi: str):
+def probe_logml_scan(smi: str, parent=None):
     var, scale, nug = (float(np.exp(t)) for t in SCAN_THETA)
+    old = parent_cholesky(parent) if parent is not None else None
     for n in SCAN_NS:
         for seed in SCAN_SEEDS:
             rng = np.random.default_rng(seed)
@@ -360,12 +484,18 @@ def probe_logml_scan(smi: str):
             ex_factor, info = torch.linalg.cholesky_ex(k)
             assert int(info) == 0, f"cholesky_ex failed at n={n}"
             ex = _logml_from_factor(ex_factor, y)
-            del ex_factor, k
-            torch.cuda.empty_cache()
+            del ex_factor
             rel = lambda v: abs(v - ref) / abs(ref)  # noqa: E731
-            print(f"[logml scan] n={n} seed={seed} f32: relative error against plain f64 ({ref:.12g}): "
-                  f"kernel path {rel(kernel_path):.3e}, kernel factor + plain solve {rel(kernel_factor):.3e}, "
-                  f"cholesky_ex factor + plain solve {rel(ex):.3e} | {smi}", flush=True)
+            extra = ""
+            if old is not None:
+                with launches_to(old):
+                    extra = f", the parent's kernel path {rel(float(gk.gp_log_marginal_likelihood(k, y))):.3e}"
+            del k
+            torch.cuda.empty_cache()
+            print(f"[logml scan] n={n} seed={seed} f32 route {gk._cholesky_route(1, n, torch.float32)[0]}: relative "
+                  f"error against plain f64 ({ref:.12g}): kernel path {rel(kernel_path):.3e}, kernel factor + plain "
+                  f"solve {rel(kernel_factor):.3e}, cholesky_ex factor + plain solve {rel(ex):.3e}{extra} | {smi}",
+                  flush=True)
 
 
 if __name__ == "__main__":

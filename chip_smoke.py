@@ -488,23 +488,38 @@ def phase_kernel_parity():
             expect[0, :, 3] = True
             if not torch.equal(bad, expect):
                 raise AssertionError(f"se_covariance {dtype}: NaN in x did not give exactly row and column 3 NaN")
-        # 3: a Laplace posterior's factor; 512: the slice; above 640: blocked
+        def chol_case(b, n, dtype, path=None):
+            a = torch.randn((b, n, n), generator=g, device=dev, dtype=dtype)
+            k = a @ a.mT + n * torch.eye(n, device=dev, dtype=dtype)
+            got = gk.cholesky(k) if path is None else gk._cholesky_launch(k, *path)
+            want = gk.cholesky_plain(k)
+            torch.cuda.synchronize()
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            what = f"cholesky {dtype} B={b} n={n} {path or gk._cholesky_route(b, n, dtype)}"
+            if not err <= TOL["chol"][dtype] * scale:
+                raise AssertionError(f"{what}: err {err:.3e} (max|L| {scale:.3e})")
+            if torch.count_nonzero(torch.triu(got, 1)).item() != 0:
+                raise AssertionError(f"{what}: upper triangle not zero")
+            if path is not None and not torch.equal(got, gk._cholesky_launch(k, *path)):
+                raise AssertionError(f"{what}: a second call gave other bits")
+            worst["cholesky"] = max(worst["cholesky"], err)
+
+        # 3: a Laplace posterior's factor; 512: the slice; B = 1 and 2 above
+        # 640: the grid, then blocked
         for n in (3, 50, 128, 512, 640, 641, 1000, 2047, 2048, 2049, 4096):
             for b in ((1, 10) if n <= 1024 else (1, 2)):
-                a = torch.randn((b, n, n), generator=g, device=dev, dtype=dtype)
-                k = a @ a.mT + n * torch.eye(n, device=dev, dtype=dtype)
-                got = gk.cholesky(k)
-                want = gk.cholesky_plain(k)
-                torch.cuda.synchronize()
-                scale = want.abs().max().item()
-                err = (got - want).abs().max().item()
-                if not err <= TOL["chol"][dtype] * scale:
-                    raise AssertionError(f"cholesky {dtype} B={b} n={n}: err {err:.3e} (max|L| {scale:.3e})")
-                if torch.count_nonzero(torch.triu(got, 1)).item() != 0:
-                    raise AssertionError(f"cholesky {dtype} B={b} n={n}: upper triangle not zero")
-                worst["cholesky"] = max(worst["cholesky"], err)
+                chol_case(b, n, dtype)
+        # large batches as routed (2- and 1-CTA clusters at n = 256, the
+        # blocked path at 512); then every path and width forced at one
+        # ragged shape, twice (bit for bit)
+        for b, n in ((64, 256), (512, 256), (512, 512)):
+            chol_case(b, n, dtype)
+        for route, width in CHOL_PATHS:
+            chol_case(3, 700, dtype, (route, width))
         # non-PD: all-identical points, unit variance, no nugget -> all-ones
-        # K; n = 50 takes the fused path, n = 1500 the blocked one
+        # K; n = 50 takes the fused path, n = 1500 the blocked one; then
+        # every path forced at n = 300
         for n in (50, 1500):
             x = torch.zeros((2, n, 3), device=dev, dtype=dtype)
             k = gk.se_covariance(x, None, torch.ones(2, device=dev, dtype=dtype))
@@ -512,12 +527,19 @@ def phase_kernel_parity():
                 diag_ok = torch.isfinite(torch.diagonal(fac, dim1=-2, dim2=-1)).all(dim=-1)
                 if bool(diag_ok.any()):
                     raise AssertionError(f"cholesky {name} {dtype} n={n}: non-PD input gave a finite diagonal")
+        x = torch.zeros((2, 300, 3), device=dev, dtype=dtype)
+        k = gk.se_covariance(x, None, torch.ones(2, device=dev, dtype=dtype))
+        for route, width in CHOL_PATHS:
+            diag = torch.diagonal(gk._cholesky_launch(k, route, width), dim1=-2, dim2=-1)
+            if not bool(torch.isnan(diag[:, 2:]).all()):
+                raise AssertionError(f"cholesky {route} {width} {dtype}: a non-PD input did not give NaN past the "
+                                     f"failed pivot")
     torch.cuda.synchronize()
     log(f"[2 kernel parity] se_covariance max abs err {worst['se_covariance']:.3e} over {len(cases)} cases "
         f"(d 1-40, n 1-1000, B 1-16, cross, nugget, ARD, shared data, both tile edges; bitwise symmetric and "
         f"equal to the two-input call; NaN propagates), "
-        f"cholesky max abs err {worst['cholesky']:.3e} (n up to 4096, both paths); symmetric, upper zero, "
-        f"non-PD -> NaN on both paths (f32, f64)")
+        f"cholesky max abs err {worst['cholesky']:.3e} (n up to 4096; B up to 512; every path: clusters of 8, 2 and 1 "
+        f"CTAs, the grid, blocked; bit for bit twice); upper zero, non-PD -> NaN on every path (f32, f64)")
     return worst
 
 
@@ -526,6 +548,8 @@ def phase_kernel_parity():
 # them (DMMA)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 67e12
+# every Cholesky path and width the route can pick
+CHOL_PATHS = (("fused", 8), ("fused", 2), ("fused", 1), ("grid", 0), ("blocked", 256))
 
 
 def _bound(nbytes: float, flops: float):
@@ -553,7 +577,9 @@ def _se_bound(x1, x2, variance, lengthscale, nugget):
 
 def _chol_bound(b, n, itemsize):
     """The lower triangle read once and the factor written once; n^3 / 3
-    multiply-adds counted as flops, as the Cholesky is usually counted."""
+    multiply-adds counted as flops, as the Cholesky is usually counted, at
+    the paths' own peak: float64 on DMMA and float32 by FFMA, both 67
+    TFLOP/s."""
     return _bound(b * (n * (n + 1) // 2 + n * n) * itemsize, b * n**3 / 3)
 
 
@@ -785,16 +811,26 @@ def phase_kernel_times(smi: str):
         f"{100 * bound_ms / kd:.1f} %, library at {100 * bound_ms / pd:.1f} %); CUDA kernels per call "
         f"{big['launches_per_call']:g} | {smi}")
 
-    # the two paths around the route threshold (device ms, float64)
+    # the routed kernel against cholesky_ex in turns where the route picks
+    # the grid and the blocked path
+    extra = [_chol_turns(n, dt, dev, b=b) for b, n, dt in ((1, 1024, torch.float32), (1, 4096, torch.float32),
+                                                           (1024, SLICE_N, torch.float64))]
+    log(f"[5 kernel times] cholesky, device ms per call in turns with cholesky_ex: {'; '.join(extra)} | {smi}")
+
+    # every path and width at the shapes around the route's thresholds (device ms)
     routes = []
-    for b, n in ((1, 512), (10, 512), (1, 640), (10, 640), (1, 768), (10, 768), (1, 896), (10, 896), (1, 1024),
-                 (10, 1024)):
-        a = torch.randn((b, n, n), generator=g, device=dev, dtype=torch.float64)
-        k = a @ a.mT + n * torch.eye(n, device=dev, dtype=torch.float64)
-        fused = _time_ms(lambda: gk._cholesky_launch(k, "fused", 32), reps=1)[0]
-        blocked = _time_ms(lambda: gk._cholesky_launch(k, "blocked", 256), reps=1)[0]
-        routes.append(f"B={b} n={n} fused {fused:.4f} blocked {blocked:.4f}")
-    log(f"[5 kernel times] cholesky f64 paths, device ms per call: {'; '.join(routes)} | {smi}")
+    for b, n, dt in ((1, 512, torch.float64), (10, 512, torch.float64), (64, 512, torch.float64),
+                     (256, 512, torch.float64), (1, 1024, torch.float32), (2, 2048, torch.float32)):
+        a = torch.randn((b, n, n), generator=g, device=dev, dtype=dt)
+        k = a @ a.mT + n * torch.eye(n, device=dev, dtype=dt)
+        del a
+        paths = [p for p in CHOL_PATHS if (p[0] != "grid" or b <= 16) and (p[0] != "fused" or n <= 1024)]
+        t = ", ".join(f"{r} {w} {_time_ms(lambda: gk._cholesky_launch(k, r, w), reps=1, groups=2, per_group=5)[0]:.4f}"
+                      for r, w in paths)
+        routes.append(f"{str(dt).split('.')[-1]} B={b} n={n} (routed {' '.join(map(str, gk._cholesky_route(b, n, dt)))})"
+                      f": {t}")
+        del k
+    log(f"[5 kernel times] cholesky paths, device ms per call: {'; '.join(routes)} | {smi}")
     return times, big
 
 
@@ -2037,7 +2073,7 @@ def _sampler_smc_gp(smi, dev, problem, cpu_problem, grid_logz, particles=500, ru
         raise AssertionError(f"13e GP SMC: logZ {logz} +- {sem} against the grid's {grid_logz:.4f}; logML vs plain "
                              f"{rel:.3e}, {int((~ok).sum())} sentinels; {in_loop} syncs in the loop of {stages} "
                              f"stages ({dict(syncs.sites)})")
-    # the fused Cholesky at the SMC's batch, timed against its plain version (cholesky_ex) and its bound
+    # the Cholesky at the SMC's batch (as routed), timed against its plain version (cholesky_ex) and its bound
     g = torch.Generator(device=dev).manual_seed(9)
     a = torch.randn((runs * particles, SLICE_N, 64), generator=g, device=dev, dtype=torch.float64)
     k = a @ a.mT + SLICE_N * torch.eye(SLICE_N, device=dev, dtype=torch.float64)
@@ -2270,7 +2306,7 @@ def _chol_turns(n: int, dtype, dev, b: int = 1) -> str:
     kw = dict(reps=3, groups=3, per_group=3) if n >= 4096 else dict(reps=3, groups=3, per_group=5)
     ms, lib_ms, _, _ = _in_turns(lambda: gk.cholesky(k), lambda: torch.linalg.cholesky_ex(k), **kw)
     bound, by = _chol_bound(b, n, k.element_size())
-    return (f"B={b} n={n} {str(dtype).split('.')[-1]} {gk._cholesky_route(n)[0]}: {ms:.3f} ms (cholesky_ex "
+    return (f"B={b} n={n} {str(dtype).split('.')[-1]} {gk._cholesky_route(b, n, dtype)[0]}: {ms:.3f} ms (cholesky_ex "
             f"{lib_ms:.3f}, bound {bound:.3g} by {by})")
 
 
@@ -2524,7 +2560,7 @@ def _phase14_bridges(smi, watch, dev, sizes, seeds=BRIDGE_SEEDS, times=False):
                          f" (kernel path), logML {got[0]:.6f} (f64 {ref[0]:.6f}), normalized error over {seeds} "
                          f"seeds kernel {ek:.2e} plain f32 {ep:.2e} ({'within' if ok else 'ABOVE'} 2x + 1e-6; "
                          f"the bench's data alone {errs_k[0].norm():.2e} and {errs_p[0].norm():.2e})")
-        lines[-1] += f", B's Cholesky route {gk._cholesky_route(n)[0]}"
+        lines[-1] += f", B's Cholesky route {gk._cholesky_route(1, n, torch.float32)[0]}"
     check = watch.check("14b")
     chol = ("; the Cholesky of B, device ms in turns: " + "; ".join(_chol_turns(n, torch.float32, dev) for n in sizes)
             if times else "")
@@ -6082,26 +6118,28 @@ def _phase21h_ns(smi, dev, pending=None, **kw):
 
 
 def _phase21_repair_check(smi, dev, n=1024):
-    """The blocked Cholesky on the last card (its shared-memory limits set
-    per device): one n = 1024 factor against the plain version where there
-    are four cards; on one card it says the repair is untested."""
+    """The Cholesky on the last card (its shared-memory limits set per
+    device): one n = 1024 factor as routed (the grid) and on the blocked
+    path against the plain version where there are four cards; on one card
+    it says the repair is untested."""
     from bayesianinference_tpu_torch.ops import gp_kernels as gk
 
     count = torch.cuda.device_count() if dev.type == "cuda" else 0
     if count < MESH_SHARDS:
-        log(f"[21 blocked Cholesky on another card] {max(count, 1)} device(s): the per-device shared-memory "
-            f"limits of csrc/cholesky.cu's blocked path are untested here (they need a second card) | {smi}")
+        log(f"[21 Cholesky on another card] {max(count, 1)} device(s): the per-device shared-memory "
+            f"limits of csrc/cholesky.cu are untested here (they need a second card) | {smi}")
         return
     last = torch.device("cuda", count - 1)
     x, _ = _mesh_gp_data(n, last, torch.float64, seed=4)
     with torch.no_grad():
         k = gk.covariance_matrix(gk.se_kernel(1.0, 1.0), x, nugget=0.1, symmetrize=False)
-        got, want = gk.cholesky(k), gk.cholesky_plain(k)
-        err = ((got - want).abs().max() / want.abs().max()).item()
+        want = gk.cholesky_plain(k)
+        err = max(((got - want).abs().max() / want.abs().max()).item()
+                  for got in (gk.cholesky(k), gk._cholesky_launch(k[None], "blocked", gk._BLOCKED_NB)[0]))
     if not err <= TOL["chol"][torch.float64]:
-        raise AssertionError(f"21: blocked Cholesky on {last}: rel err {err}")
-    log(f"[21 blocked Cholesky on another card] n={n} f64 on {last} (the blocked path): against the plain version "
-        f"rel err {err:.2e} (gate 1e-10) | {smi}")
+        raise AssertionError(f"21: the Cholesky on {last}: rel err {err}")
+    log(f"[21 Cholesky on another card] n={n} f64 on {last} (routed: {gk._cholesky_route(1, n, torch.float64)[0]}; "
+        f"and the blocked path): against the plain version rel err {err:.2e} (gate 1e-10) | {smi}")
 
 
 def phase_multi_card(smi: str, dev="cuda", mesh_ns=None, **sizes):

@@ -150,29 +150,86 @@ def test_se_covariance_kernel_propagates_nan(cuda):
         assert torch.equal(bad, expect)
 
 
-# both sides of the route threshold and of the 32- and 128-wide panel edges
+# both sides of the route thresholds and of the 32- and 128-wide panel edges
 CHOL_SIZES = [1, 3, 31, 32, 33, 127, 128, 129, 255, 257, 512, 639, 640, 641, 1000, 1023, 1024, 1025, 2048, 4096]
+# the main path's larger batches at n = 512 and its largest float32
+# matrices at B = 1 (all on the blocked path)
+CHOL_BATCHES = [(64, 512, torch.float64), (512, 512, torch.float64), (1024, 512, torch.float64),
+                (1, 8192, torch.float32), (1, 16384, torch.float32)]
+CHOL_TOL = {torch.float64: 1e-10, torch.float32: 5e-4}
+
+
+def _spd(cuda, batch, n, dtype, seed=1):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.randn((batch, n, n), generator=g, device=cuda, dtype=dtype)
+    return a @ a.mT + n * torch.eye(n, device=cuda, dtype=dtype)
+
+
+def _check_factor(k, got, tol):
+    want = gk.cholesky_plain(k)
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+    assert torch.count_nonzero(torch.triu(got, 1)).item() == 0
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 5e-4)])
 @pytest.mark.parametrize("n", CHOL_SIZES)
 @pytest.mark.parametrize("batch", [1, 10])
 def test_cholesky_kernel_matches_plain(cuda, dtype, tol, n, batch):
-    """Either path against cholesky_ex: error, an exactly zero upper
+    """The routed path against cholesky_ex: error, an exactly zero upper
     triangle, one count per call."""
-    g = torch.Generator(device=cuda).manual_seed(1)
-    a = torch.randn((batch, n, n), generator=g, device=cuda, dtype=dtype)
-    k = a @ a.mT + n * torch.eye(n, device=cuda, dtype=dtype)
+    k = _spd(cuda, batch, n, dtype)
     before = gk.cholesky_cuda.launches
     got = gk.cholesky(k)
     assert gk.cholesky_cuda.launches == before + 1
-    want = gk.cholesky_plain(k)
-    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
-    assert torch.count_nonzero(torch.triu(got, 1)).item() == 0
+    _check_factor(k, got, tol)
+
+
+@pytest.mark.parametrize("batch,n,dtype", CHOL_BATCHES, ids=lambda v: str(v).split(".")[-1])
+def test_cholesky_kernel_matches_plain_at_the_main_paths_batches(cuda, batch, n, dtype):
+    """The routed path at the main path's large batches and large float32
+    matrices, under the same tolerances."""
+    k = _spd(cuda, batch, n, dtype)
+    before = gk.cholesky_cuda.launches
+    got = gk.cholesky(k)
+    assert gk.cholesky_cuda.launches == before + 1
+    _check_factor(k, got, CHOL_TOL[dtype])
+
+
+# every path and width the route can pick, forced
+CHOL_PATHS = [("fused", 8), ("fused", 2), ("fused", 1), ("grid", 0), ("blocked", 256)]
+
+
+@pytest.mark.parametrize("route,width", CHOL_PATHS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("batch,n", [(1, 33), (3, 129), (2, 513), (1, 640), (3, 1000)])
+def test_every_cholesky_path_matches_plain(cuda, route, width, dtype, batch, n):
+    """Each path forced at ragged and panel-edge sizes: error and an exactly
+    zero upper triangle."""
+    k = _spd(cuda, batch, n, dtype)
+    _check_factor(k, gk._cholesky_launch(k, route, width), CHOL_TOL[dtype])
+
+
+@pytest.mark.parametrize("route,width", CHOL_PATHS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_every_cholesky_path_repeats_bit_for_bit(cuda, route, width, dtype):
+    """No atomics: two calls on the same input give the same bits."""
+    k = _spd(cuda, 4, 700, dtype)
+    assert torch.equal(gk._cholesky_launch(k, route, width), gk._cholesky_launch(k, route, width))
+
+
+@pytest.mark.parametrize("route,width", CHOL_PATHS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_every_cholesky_path_propagates_nan(cuda, route, width, dtype):
+    """All-identical points, no nugget: every diagonal entry after the first
+    failed pivot is NaN, in each matrix of the batch, on each path."""
+    x = torch.zeros((2, 300, 2), device=cuda, dtype=dtype)
+    k = gk.se_covariance(x, x, torch.ones(2, device=cuda, dtype=dtype))
+    diag = torch.diagonal(gk._cholesky_launch(k, route, width), dim1=-2, dim2=-1)
+    assert torch.isnan(diag[:, 2:]).all().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n", [40, 1500])  # the fused and the blocked path (route threshold 640)
+@pytest.mark.parametrize("n", [40, 1500])  # the fused and the blocked path at B = 2
 def test_cholesky_kernel_non_pd_propagates_nan(cuda, dtype, n):
     """All-identical points, no nugget: every diagonal entry after the
     first failed pivot is NaN, in each matrix of the batch."""
@@ -180,6 +237,37 @@ def test_cholesky_kernel_non_pd_propagates_nan(cuda, dtype, n):
     k = gk.se_covariance(x, x, torch.ones(2, device=cuda, dtype=dtype))
     diag = torch.diagonal(gk.cholesky(k), dim1=-2, dim2=-1)
     assert torch.isnan(diag[:, 2:]).all().item()
+
+
+# The float32 GP logML's relative error against float64 at n = 4096 (the
+# problem below, data seed 0) on the parent tree's kernel path, whose
+# Cholesky ran FFMA throughout: chip_probe.py --only logml-scan --parent
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
+PARENT_F32_LOGML_ERR_4096 = 8.590e-06
+
+
+def test_f32_logml_against_f64_within_twice_the_parent_kernels_error(cuda):
+    """bench.py::bench_gp's problem at n = 4096 (x ~ N(0, 1) [n, 3],
+    y = sin(x_0) + 0.1 N(0, 1), theta = [0, 0, -2]): the float32 logML
+    through both kernels (the Cholesky on the blocked path) against the same logML in float64 (K built by differences, the
+    factor by cholesky_ex), within twice the parent kernel's error."""
+    n = 4096
+    rng = np.random.default_rng(0)
+    x_np = rng.normal(size=(n, 3)).astype(np.float32)
+    y_np = (np.sin(x_np[:, 0]) + 0.1 * rng.normal(size=n)).astype(np.float32)
+    x, y = torch.as_tensor(x_np, device=cuda), torch.as_tensor(y_np, device=cuda)
+    var, scale, nug = 1.0, 1.0, math.exp(-2.0)
+    assert gk._cholesky_route(1, n, torch.float32)[0] == "blocked"
+    x64 = x.double() / scale
+    k64 = var * torch.exp(-0.5 * ((x64[:, None, :] - x64[None, :, :]) ** 2).sum(-1))
+    k64.diagonal().add_(nug)
+    factor, info = torch.linalg.cholesky_ex(k64)
+    assert int(info) == 0
+    w = torch.linalg.solve_triangular(factor, y.double()[:, None], upper=False)[:, 0]
+    ref = float(-0.5 * (n * math.log(2 * math.pi) + 2.0 * torch.log(torch.diagonal(factor)).sum() + (w * w).sum()))
+    k = gk.covariance_matrix(gk.se_kernel(var, scale), x, nugget=nug, symmetrize=False)
+    got = float(gk.gp_log_marginal_likelihood(k, y))
+    assert abs(got - ref) / abs(ref) <= 2.0 * PARENT_F32_LOGML_ERR_4096
 
 
 def _logml(th, x, y):
@@ -337,12 +425,13 @@ def test_parallel_runs_on_the_card_batch_their_chains(cuda):
 
 
 def test_fused_cholesky_at_the_smc_batch_matches_plain(cuda):
-    """The fused path at B = 1000, n = 512 float64 (the GP SMC's batch:
-    many waves of 8-CTA clusters) against cholesky_ex."""
+    """The Cholesky at B = 1000, n = 512 float64 (the GP SMC's batch, now
+    routed to the blocked path: the batch in every launch) against
+    cholesky_ex."""
     g = torch.Generator(device=cuda).manual_seed(4)
     a = torch.randn((1000, 512, 64), generator=g, device=cuda, dtype=torch.float64)
     k = a @ a.mT + 512 * torch.eye(512, device=cuda, dtype=torch.float64)
-    assert gk._cholesky_route(512)[0] == "fused"
+    assert gk._cholesky_route(1000, 512, torch.float64)[0] == "blocked"
     got, want = gk.cholesky(k), gk.cholesky_plain(k)
     assert (got - want).abs().max().item() <= 1e-10 * want.abs().max().item()
 

@@ -340,15 +340,33 @@ def test_cuda_implementations_refuse_cpu_tensors():
     assert tgk.se_covariance_cuda.launches == 0 and tgk.cholesky_cuda.launches == 0
 
 
-@pytest.mark.parametrize("n,route", [
-    (1, ("fused", 32)), (512, ("fused", 32)), (640, ("fused", 32)), (641, ("blocked", 256)),
-    (768, ("blocked", 256)), (1000, ("blocked", 256)), (1024, ("blocked", 256)),
-    (1025, ("blocked", 256)), (2048, ("blocked", 256)), (16384, ("blocked", 256)),
+F32, F64 = torch.float32, torch.float64
+
+
+@pytest.mark.parametrize("b,n,dtype,route", [
+    # the slice's batch at the earlier thresholds' sizes: 8-CTA clusters up
+    # to n = 640, the blocked path above
+    (10, 1, F64, ("fused", 8)), (10, 512, F64, ("fused", 8)), (10, 640, F64, ("fused", 8)),
+    (10, 641, F64, ("blocked", 256)), (10, 768, F64, ("blocked", 256)), (10, 1000, F64, ("blocked", 256)),
+    (10, 1024, F64, ("blocked", 256)), (10, 1025, F64, ("blocked", 256)), (10, 2048, F64, ("blocked", 256)),
+    (10, 16384, F64, ("blocked", 256)),
+    # B = 1: 8-CTA clusters to n = 256, the grid above to 2048 (float64) or 3072 (float32)
+    (1, 256, F64, ("fused", 8)), (1, 257, F64, ("grid", 0)), (1, 2048, F64, ("grid", 0)),
+    (1, 2049, F64, ("blocked", 256)), (1, 256, F32, ("fused", 8)), (1, 257, F32, ("grid", 0)),
+    (1, 3072, F32, ("grid", 0)), (1, 3073, F32, ("blocked", 256)), (1, 16384, F32, ("blocked", 256)),
+    (2, 257, F32, ("fused", 8)), (2, 1024, F32, ("blocked", 256)),
+    # 8-CTA clusters while B x 8 <= 128 CTAs
+    (16, 640, F64, ("fused", 8)), (17, 640, F64, ("blocked", 256)), (16, 641, F64, ("blocked", 256)),
+    # past that: 2-CTA clusters to B = 64 and 1 CTA a matrix above for n <= 256, blocked for larger n
+    (17, 256, F64, ("fused", 2)), (64, 256, F32, ("fused", 2)), (65, 256, F64, ("fused", 1)),
+    (1024, 128, F64, ("fused", 1)), (17, 257, F64, ("blocked", 256)), (1024, 512, F64, ("blocked", 256)),
 ])
-def test_cholesky_route(n, route):
-    """One launch per call up to n = 640, the measured crossover (the
-    slice's n = 512 included), 256-wide panels above."""
-    assert tgk._cholesky_route(n) == route
+def test_cholesky_route(b, n, dtype, route):
+    """The measured crossovers (chip_probe.py --only routes): the grid
+    takes one mid-size matrix, 8-CTA clusters small ones while the batch
+    leaves the card room, smaller clusters the smallest matrices of large
+    batches, the blocked path the rest."""
+    assert tgk._cholesky_route(b, n, dtype) == route
 
 
 def test_ctypes_table_matches_the_sources():
